@@ -1,0 +1,202 @@
+// K3 apply_affine (f32 and f64): the matrix-free element apply of the
+// Krylov matvec on TET4, with the corner gather fused into its prologue.
+//
+// Replaces rdcfes_tpu/fem/pallas_apply.py:qp_apply_affine_fused (:150, body
+// _apply_affine_kernel :105-147) and the Beneš corner gathers in front of
+// it, pallas_perm.py:gather_corners (:244) for the f32 inner matvec and
+// gather_corners_f64 (:274) for the f64 outer matvec (whose apply ran in
+// XLA on the TPU).  One template serves both precisions.  It is the
+// counterpart of interpolate_ue_affine(x[:, conn_T]) + qp_apply_affine.
+//
+// Per element e and species v (live blocks only):
+//   x_qp[w, q] = sum_k phi[q, k] x[w, conn_T[k, e]]
+//   gx[w, d]   = sum_k dphi0[k, d, e] x[w, conn_T[k, e]]
+//   a[q]       = sum_w C[v,w][q] x_qp[w, q]
+//   f[d]       = sum_w sum_q JxW[q] D[v,w][q, d] x_qp[w, q]
+//              + sum_w Epre[v,w] gx[w, d]
+//   Ye[v, k]   = sum_q (JxW[q] phi[q, k]) a[q] + sum_d dphi0[k, d] f[d]
+//
+// Bound: device-memory bandwidth (~0.5 flop per byte).  The live
+// coefficient planes dominate: each C plane is Q*E*sizeof(T) bytes, each D
+// plane 3*Q*E*sizeof(T).  At bench shapes (PIHNA deck: 20 C, 4 D, 1 Epre
+// plane, E=131,712) one f32 call streams C 52.7 MB + D 31.6 MB + JxW
+// 2.6 MB + dphi0 6.3 MB + conn_T 2.1 MB + Epre 0.5 MB and writes Ye
+// 10.5 MB: ~106 MB, ~32 us at 3.35 TB/s; f64 moves twice the float bytes,
+// ~210 MB, ~63 us.
+// Design: one thread per element, V a template parameter so x_qp and gx
+// stay in registers; each coefficient plane is read exactly once, coalesced
+// along e; the (v, w) -> plane slot tables ride in the kernel parameters
+// (warp-uniform branches), so absent blocks cost nothing; x (V, N) is read
+// through L2, where it stays resident.
+#include "common.cuh"
+
+namespace {
+
+struct ApplySlots {
+  int c[rdc::kMaxV * rdc::kMaxV];
+  int d[rdc::kMaxV * rdc::kMaxV];
+  int e[rdc::kMaxV * rdc::kMaxV];
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(rdc::kThreads) apply_affine_kernel(
+    const T* __restrict__ x, const int* __restrict__ conn_T,
+    const T* __restrict__ JxW, const T* __restrict__ dphi0,
+    const T* __restrict__ C, const T* __restrict__ D,
+    const T* __restrict__ Ep, T* __restrict__ Ye, ApplySlots s,
+    rdc::PhiTable phi, int N, int E) {
+  constexpr int K = rdc::kK;
+  constexpr int Q = rdc::kQ;
+  constexpr int M = rdc::kMaxV;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t sE = static_cast<size_t>(E);
+
+  T ph[Q][K];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int k = 0; k < K; ++k) ph[q][k] = static_cast<T>(phi.v[q * K + k]);
+  T jxw[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) jxw[q] = JxW[q * sE + e];
+  T g[K][3];
+  int node[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    node[k] = conn_T[k * sE + e];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) g[k][d] = dphi0[(k * 3 + d) * sE + e];
+  }
+
+  // prologue: corner gather + interpolation of every species
+  T xq[V][Q];
+  T gw[V][3];
+#pragma unroll
+  for (int w = 0; w < V; ++w) {
+    T ue[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ue[k] = __ldg(x + static_cast<size_t>(w) * N + node[k]);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      T acc = ph[q][0] * ue[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc += ph[q][k] * ue[k];
+      xq[w][q] = acc;
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      T acc = g[0][d] * ue[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc += g[k][d] * ue[k];
+      gw[w][d] = acc;
+    }
+  }
+
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    T a[Q];
+    T f[3];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) a[q] = T(0);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) f[d] = T(0);
+#pragma unroll
+    for (int w = 0; w < V; ++w) {
+      const int sc = s.c[v * M + w];
+      if (sc >= 0) {
+        const T* Cp = C + static_cast<size_t>(sc) * Q * sE + e;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) a[q] += Cp[q * sE] * xq[w][q];
+      }
+      const int sd = s.d[v * M + w];
+      if (sd >= 0) {
+        const T* Dp = D + static_cast<size_t>(sd) * Q * 3 * sE + e;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          T acc = (jxw[0] * Dp[d * sE]) * xq[w][0];
+#pragma unroll
+          for (int q = 1; q < Q; ++q)
+            acc += (jxw[q] * Dp[(q * 3 + d) * sE]) * xq[w][q];
+          f[d] += acc;
+        }
+      }
+      const int se = s.e[v * M + w];
+      if (se >= 0) {
+        const T ep = Ep[static_cast<size_t>(se) * sE + e];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) f[d] += ep * gw[w][d];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T acc = T(0);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc += (jxw[q] * ph[q][k]) * a[q];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc += g[k][d] * f[d];
+      Ye[(static_cast<size_t>(v) * K + k) * sE + e] = acc;
+    }
+  }
+}
+
+template <typename T>
+int launch_apply(const T* x, const int* conn_T, const double* phi_host,
+                 const T* JxW, const T* dphi0, const T* C, const T* D,
+                 const T* Ep, const int* slots_host, T* Ye, int V, int N,
+                 int K, int Q, int E, void* stream) {
+  if (K != rdc::kK || Q != rdc::kQ) return cudaErrorInvalidValue;
+  if (E == 0) return cudaSuccess;
+  constexpr int MM = rdc::kMaxV * rdc::kMaxV;
+  ApplySlots s;
+  for (int i = 0; i < MM; ++i) {
+    s.c[i] = slots_host[i];
+    s.d[i] = slots_host[MM + i];
+    s.e[i] = slots_host[2 * MM + i];
+  }
+  const rdc::PhiTable ph = rdc::phi_table(phi_host);
+  const unsigned grid = rdc::blocks_for(E);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RDC_APPLY_CASE(NV)                                               \
+  case NV:                                                               \
+    apply_affine_kernel<T, NV><<<grid, rdc::kThreads, 0, st>>>(          \
+        x, conn_T, JxW, dphi0, C, D, Ep, Ye, s, ph, N, E);                \
+    break;
+  switch (V) {
+    RDC_APPLY_CASE(1)
+    RDC_APPLY_CASE(2)
+    RDC_APPLY_CASE(3)
+    RDC_APPLY_CASE(4)
+    RDC_APPLY_CASE(5)
+    RDC_APPLY_CASE(6)
+    RDC_APPLY_CASE(7)
+    RDC_APPLY_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RDC_APPLY_CASE
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// slots_host: int32[3 * kMaxV * kMaxV] on the host, the C, D and E tables
+// in turn, each row-major (v, w) -> plane index or -1.
+extern "C" int rdc_apply_affine_f32(
+    const float* x, const int* conn_T, const double* phi_host,
+    const float* JxW, const float* dphi0, const float* C, const float* D,
+    const float* Ep, const int* slots_host, float* Ye, int V, int N, int K,
+    int Q, int E, void* stream) {
+  return launch_apply<float>(x, conn_T, phi_host, JxW, dphi0, C, D, Ep,
+                             slots_host, Ye, V, N, K, Q, E, stream);
+}
+
+extern "C" int rdc_apply_affine_f64(
+    const double* x, const int* conn_T, const double* phi_host,
+    const double* JxW, const double* dphi0, const double* C,
+    const double* D, const double* Ep, const int* slots_host, double* Ye,
+    int V, int N, int K, int Q, int E, void* stream) {
+  return launch_apply<double>(x, conn_T, phi_host, JxW, dphi0, C, D, Ep,
+                              slots_host, Ye, V, N, K, Q, E, stream);
+}

@@ -1,0 +1,98 @@
+// K2 rhs_affine (f64): element right-hand side of an affine element.
+//
+// Replaces rdcfes_tpu/fem/pallas_df64.py:rhs_affine_df64 (:240, body
+// _rhs_affine_kernel :167-237), which computed the same sums in paired f32
+// because the TPU has no f64 units; here they run in native f64.  It is the
+// counterpart of fem/weakform.block_rhs_affine.
+//
+//   Fe[v, k, e] = sum_q (JxW[q, e] phi[q, k]) A[v][q, e]
+//               + sum_d dphi0[k, d, e] (sum_q JxW[q, e] B[v][q, d, e])
+//
+// A (nA, Q, E) and B (nB, Q, 3, E) stack the live blocks; slot tables map a
+// species to its plane (-1 = structurally absent, contributes nothing; a
+// species with neither block gets zeros).
+//
+// Bound: device-memory bandwidth (~0.3 flop per byte).  Bytes per call at
+// bench shapes (PIHNA deck: nA=5, nB=1, E=131,712): A 26.3 MB, B 15.8 MB,
+// JxW 5.3 MB, dphi0 12.6 MB read, Fe 21.1 MB written: ~81 MB, ~24 us at
+// 3.35 TB/s.
+// Design: one thread per element; JxW and the gradient table are loaded
+// once into registers and shared by all species, every plane access is
+// coalesced along e, and absent blocks cost neither bytes nor flops.
+#include "common.cuh"
+
+namespace {
+
+struct RhsSlots {
+  int a[rdc::kMaxV];
+  int b[rdc::kMaxV];
+};
+
+__global__ void __launch_bounds__(rdc::kThreads) rhs_affine_kernel(
+    const double* __restrict__ A, const double* __restrict__ B,
+    const double* __restrict__ JxW, const double* __restrict__ dphi0,
+    double* __restrict__ Fe, RhsSlots s, rdc::PhiTable phi, int V, int E) {
+  constexpr int K = rdc::kK;
+  constexpr int Q = rdc::kQ;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t sE = static_cast<size_t>(E);
+  double jxw[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) jxw[q] = JxW[q * sE + e];
+  double g[K][3];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) g[k][d] = dphi0[(k * 3 + d) * sE + e];
+
+  for (int v = 0; v < V; ++v) {
+    const int sa = s.a[v];
+    const int sb = s.b[v];
+    double a[Q];
+    double bsum[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      a[q] = sa >= 0 ? A[(static_cast<size_t>(sa) * Q + q) * sE + e] : 0.0;
+    if (sb >= 0) {
+      const double* Bp = B + static_cast<size_t>(sb) * Q * 3 * sE + e;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        double acc = jxw[0] * Bp[d * sE];
+#pragma unroll
+        for (int q = 1; q < Q; ++q) acc += jxw[q] * Bp[(q * 3 + d) * sE];
+        bsum[d] = acc;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      double acc = 0.0;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc += (jxw[q] * phi.v[q * K + k]) * a[q];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc += g[k][d] * bsum[d];
+      Fe[(static_cast<size_t>(v) * K + k) * sE + e] = acc;
+    }
+  }
+}
+
+}  // namespace
+
+// slots_host: int32[2 * kMaxV] on the host, rows a then b.
+extern "C" int rdc_rhs_affine_f64(
+    const double* A, const double* B, const int* slots_host,
+    const double* JxW, const double* phi_host, const double* dphi0,
+    double* Fe, int V, int K, int Q, int E, void* stream) {
+  if (K != rdc::kK || Q != rdc::kQ || V < 1 || V > rdc::kMaxV)
+    return cudaErrorInvalidValue;
+  if (E == 0) return cudaSuccess;
+  RhsSlots s;
+  for (int i = 0; i < rdc::kMaxV; ++i) {
+    s.a[i] = slots_host[i];
+    s.b[i] = slots_host[rdc::kMaxV + i];
+  }
+  rhs_affine_kernel<<<rdc::blocks_for(E), rdc::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      A, B, JxW, dphi0, Fe, s, rdc::phi_table(phi_host), V, E);
+  return cudaGetLastError();
+}
