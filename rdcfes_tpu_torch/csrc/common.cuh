@@ -1,4 +1,5 @@
-// Shared definitions of the transient qp-path kernels (TET4, sm_90a).
+// Shared definitions of the kernels of csrc/ (sm_90a): the transient
+// qp-path kernels (TET4) and the solid path's block-ELL SpMV.
 //
 // Every kernel here is built by fem/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of `csrc/` (Hopper, sm_90a).
 
-The sources are compiled at first use with nvcc into one shared library
-with a plain C interface, loaded with ctypes:
+The sources are compiled at first use with nvcc, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<name>.cu   # each
+    nvcc -shared -o <lib> <objs>
 
 The library goes to `build/rdcfes_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds and
@@ -28,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rdcfes_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,8 @@ SIGNATURES = {
     "rdc_apply_affine_f64": [_P] * 10 + [_I] * 5 + [_P],
     "rdc_restrict_f32": [_P] * 3 + [_I] * 4 + [_P],
     "rdc_restrict_f64": [_P] * 3 + [_I] * 4 + [_P],
+    "rdc_ell_matvec_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "rdc_ell_matvec_f64": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -76,16 +80,37 @@ def build() -> BuildResult:
     if lib.is_file():
         return BuildResult(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: exit {proc.returncode}")
+    objs = [obj for obj, _ in jobs]
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    if not failed:
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: exit {proc.returncode}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log}")
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log)
 

@@ -1,15 +1,17 @@
-"""Host sparsity/gather tables (NumPy) and the element <-> node transfers of
-the qp path (torch).
+"""Host sparsity/gather tables (NumPy) and the element <-> node transfers
+(torch).
 
 Host side (NumPy copies of rdcfes_tpu.fem.assembly, bit-identical output):
-the node-pair sparsity, and its inversion into padded gather tables so the
-restriction element corners -> nodes is a deterministic gather-sum.
+the node-pair sparsity, its ELLPACK view, and its inversion into padded
+gather tables so every element -> node (or node-pair) sum is a
+deterministic gather-sum.
 
 Device side (torch, channel-first): `interpolate_ue_affine` (corner values
--> quadrature values and the q-independent gradient of an affine element)
-and `restrict` (the node-parallel gather-sum through `node_gather`).  The
-CUDA kernels of fem/kernels.py compute the same functions; these are their
-plain versions.
+-> quadrature values and the q-independent gradient of an affine element),
+`restrict` (the gather-sum through a padded table), and the solid path's
+`assemble_matrix_gather` / `assemble_vector_gather`, which are `restrict`
+on the flattened element matrices / vectors.  The CUDA kernels of
+fem/kernels.py compute the same functions; these are their plain versions.
 """
 
 from __future__ import annotations
@@ -69,6 +71,23 @@ def build_sparsity(connectivity: np.ndarray, n_nodes: int) -> NodePairSparsity:
         slots=inv.reshape(E, K, K).astype(np.int32), row_ptr=row_ptr,
         diag_slots=diag_slots,
     )
+
+
+def ell_structure(sp: NodePairSparsity) -> Tuple[np.ndarray, np.ndarray]:
+    """ELLPACK view of the block-CSR sparsity: per-row padded column/slot
+    tables in channel-first layout, (ell_cols [L, N], ell_slot [L, N])
+    int32 with L the largest row degree; padding entries carry column 0
+    and slot == nnz (callers append one zero block at index nnz)."""
+    N = sp.n_nodes
+    deg = np.diff(sp.row_ptr)
+    L = int(deg.max())
+    ar = np.arange(sp.nnz, dtype=np.int64)
+    pos = ar - sp.row_ptr[sp.rows]
+    ell_cols = np.zeros((L, N), dtype=np.int32)
+    ell_slot = np.full((L, N), sp.nnz, dtype=np.int32)
+    ell_cols[pos, sp.rows] = sp.cols
+    ell_slot[pos, sp.rows] = ar.astype(np.int32)
+    return ell_cols, ell_slot
 
 
 def gather_tables(sp: NodePairSparsity, connectivity: np.ndarray
@@ -140,3 +159,19 @@ def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
     for c in range(1, node_gather.shape[0]):
         acc = acc + f[..., node_gather[c]]
     return acc
+
+
+def assemble_matrix_gather(Ke: torch.Tensor, slot_gather: torch.Tensor,
+                           restrict_op=restrict) -> torch.Tensor:
+    """Block values (V, W, nnz) from element matrices Ke (V, W, K, K, E)
+    through slot_gather (C, nnz) (pad K*K*E): the restriction of the flat
+    (V*W, K*K*E) buffer.  restrict_op is `restrict` or the kernel K4."""
+    V, W = Ke.shape[:2]
+    return restrict_op(Ke.reshape(V * W, -1), slot_gather).reshape(V, W, -1)
+
+
+def assemble_vector_gather(Fe: torch.Tensor, node_gather: torch.Tensor,
+                           restrict_op=restrict) -> torch.Tensor:
+    """Nodal vector (V, N) from element vectors Fe (V, K, E) through
+    node_gather (C, N) (pad K*E)."""
+    return restrict_op(Fe.reshape(Fe.shape[0], -1), node_gather)

@@ -1,17 +1,22 @@
-"""The four hand-written Hopper kernels of the transient qp path, their
-wrappers, their plain PyTorch versions and their launch counts.
+"""The hand-written Hopper kernels, their wrappers, their plain PyTorch
+versions and their launch counts.
 
-  K1 gather_interp_affine  csrc/gather_interp_affine.cu   f64
-  K2 rhs_affine            csrc/rhs_affine.cu             f64
-  K3 apply_affine          csrc/apply_affine.cu           f32, f64
-  K4 restrict              csrc/restrict.cu               f32, f64
+  K1 gather_interp_affine  csrc/gather_interp_affine.cu   f64        transient
+  K2 rhs_affine            csrc/rhs_affine.cu             f64        transient
+  K3 apply_affine          csrc/apply_affine.cu           f32, f64   transient
+  K4 restrict              csrc/restrict.cu               f32, f64   both
+  K5 ell_matvec            csrc/ell_matvec.cu             f32, f64   solid
+
+K4 is every element -> node (or node-pair) gather-sum: the transient
+restriction and the solid path's vector and matrix assembly
+(fem.assembly.assemble_*_gather).
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the outputs, launches the kernel on the current stream without
 synchronising, raises if the launch reports an error, and adds one to the
 variant's launch count.  The plain versions call the module functions the
-kernels stand for (fem.assembly, fem.weakform), on any device.
+kernels stand for (fem.assembly, fem.bcsr, fem.weakform), on any device.
 
 Coefficient blocks reach K2 and K3 as stacks of their live planes plus
 small int32 (species) or (v, w) index lists, the counterpart of the
@@ -28,14 +33,18 @@ import torch
 
 from .assembly import interpolate_ue_affine
 from .assembly import restrict as restrict_plain
+from .bcsr import ell_matvec as ell_matvec_plain
 from .weakform import (WeakFormBlocks, _is_zero, block_rhs_affine,
                        qp_apply_affine)
 
 MAX_V = 8  # csrc/common.cuh kMaxV
 
-KERNEL_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
-                   "apply_affine_f32", "apply_affine_f64",
-                   "restrict_f32", "restrict_f64")
+TRANSIENT_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
+                      "apply_affine_f32", "apply_affine_f64",
+                      "restrict_f32", "restrict_f64")
+SOLID_VARIANTS = ("restrict_f32", "restrict_f64", "ell_matvec_f32",
+                  "ell_matvec_f64")
+KERNEL_VARIANTS = TRANSIENT_VARIANTS + ("ell_matvec_f32", "ell_matvec_f64")
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS}
 
@@ -314,15 +323,41 @@ def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def ell_matvec(values_ell: torch.Tensor, ell_cols: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """K5: values_ell (V, W, L, N) f32 or f64, ell_cols (L, N) int32, x
+    (W, N) in values' dtype -> y (V, N)."""
+    if _on_cpu(values_ell):
+        return ell_matvec_plain(values_ell, ell_cols, x)
+    V, W, L, N = values_ell.shape
+    dev, dt = values_ell.device, values_ell.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"ell_matvec: no kernel for {dt}")
+    if not 1 <= W <= MAX_V:
+        raise ValueError(f"ell_matvec: {W} columns per block, kernel takes "
+                         f"1..{MAX_V}")
+    _check("values_ell", values_ell, dev, dt, (V, W, L, N))
+    _check("ell_cols", ell_cols, dev, torch.int32, (L, N))
+    _check("x", x, dev, dt, (W, N))
+    y = torch.empty((V, N), dtype=dt, device=dev)
+    variant = "ell_matvec_f32" if dt == torch.float32 else "ell_matvec_f64"
+    with torch.cuda.device(dev):
+        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(values_ell),
+                _ptr(ell_cols), _ptr(x), _ptr(y), V, W, L, N, _stream(dev))
+    return y
+
+
 class Ops(NamedTuple):
-    """The four operations of the qp path, as kernels or as plain torch."""
+    """The operations the kernels carry, as kernels or as plain torch."""
 
     gather_interp_affine: Callable
     rhs_affine: Callable
     apply_affine: Callable
     restrict: Callable
+    ell_matvec: Callable
 
 
-KERNEL_OPS = Ops(gather_interp_affine, rhs_affine, apply_affine, restrict)
+KERNEL_OPS = Ops(gather_interp_affine, rhs_affine, apply_affine, restrict,
+                 ell_matvec)
 PLAIN_OPS = Ops(gather_interp_affine_plain, rhs_affine_plain,
-                apply_affine_plain, restrict_plain)
+                apply_affine_plain, restrict_plain, ell_matvec_plain)

@@ -2,7 +2,8 @@
 
 The mesh lives on the host as plain NumPy struct-of-arrays; the device only
 sees the tables built from it (coordinates, connectivity, gather tables).
-Only the single-type volume meshes of the transient path are carried here.
+Only single-type volume meshes are carried here (mixed meshes: ROADMAP
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ ELEMENT_FACES: Dict[str, Tuple[Tuple[int, ...], ...]] = {
 }
 
 NODES_PER_ELEM = {"TET4": 4, "HEX8": 8, "TET10": 10, "TRI3": 3, "QUAD4": 4}
+# boundary-face element type of each volume type
+FACE_TYPE = {"TET4": "TRI3", "HEX8": "QUAD4", "TET10": "TRI6",
+             "TRI3": "EDGE2", "QUAD4": "EDGE2"}
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
-"""Synthetic structured TET4 box meshes (NumPy copy of
-rdcfes_tpu.mesh.generators.box_tet_mesh, bit-identical output).
+"""Synthetic structured box meshes (NumPy copies of
+rdcfes_tpu.mesh.generators.box_tet_mesh and box_hex_mesh, bit-identical
+output).
 
 Boundary ids by cube face follow the vendored cube.msh side sets:
 0..5 = z-min, y-min, x-max, y-max, x-min, z-max.
@@ -28,6 +29,30 @@ def _grid(nx: int, ny: int, nz: int, bounds) -> Tuple[np.ndarray, object]:
         return (k * (ny + 1) + j) * (nx + 1) + i
 
     return coords, nid
+
+
+def box_hex_mesh(nx: int, ny: int, nz: int,
+                 bounds=((0.0, 1.0), (0.0, 1.0), (0.0, 1.0))) -> Mesh:
+    """Structured HEX8 box mesh with cube-convention boundary ids."""
+    coords, nid = _grid(nx, ny, nz, bounds)
+    conn = []
+    for k in range(nz):
+        for j in range(ny):
+            for i in range(nx):
+                conn.append([
+                    nid(i, j, k), nid(i + 1, j, k),
+                    nid(i + 1, j + 1, k), nid(i, j + 1, k),
+                    nid(i, j, k + 1), nid(i + 1, j, k + 1),
+                    nid(i + 1, j + 1, k + 1), nid(i, j + 1, k + 1),
+                ])
+    mesh = Mesh(
+        coords=coords,
+        connectivity=np.asarray(conn, dtype=np.int32),
+        elem_type="HEX8",
+        subdomain_id=np.zeros(len(conn), dtype=np.int32),
+    )
+    _assign_box_boundary_ids(mesh, bounds)
+    return mesh
 
 
 def box_tet_mesh(nx: int, ny: int, nz: int,

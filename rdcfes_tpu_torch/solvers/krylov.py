@@ -1,5 +1,5 @@
 """Krylov solver and block-Jacobi preconditioner in torch (transcription of
-rdcfes_tpu.solvers.krylov for the transient path).
+rdcfes_tpu.solvers.krylov for the transient and solid paths).
 
 The reference runs the iteration inside one `lax.while_loop`; here it is a
 Python loop over eager tensor ops whose scalars stay on the device, with one
@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from ..fem.bcsr import extract_diagonal_blocks
+
 DEFAULT_RTOL = 1e-12
 DEFAULT_MAXITER = 5000
 
@@ -24,18 +26,31 @@ class SolveResult(NamedTuple):
     residual: torch.Tensor   # final |r| / |b|, 0-d
 
 
-def small_block_inverse(D: torch.Tensor) -> torch.Tensor:
+def small_block_inverse(D: torch.Tensor, pivot: bool = True) -> torch.Tensor:
     """Batched inverse of small channel-first blocks D (V, V, N) by
-    Gauss-Jordan elimination WITHOUT pivoting (the reference's pivot=False:
-    the transient CN diagonal blocks are lumped mass plus O(dt) coupling,
-    strongly diagonally dominant)."""
+    Gauss-Jordan elimination.
+
+    pivot=True (the reference's default): partial pivoting, the largest
+    |A[r, k, n]| among rows r >= k swapped into row k; the solid tangent's
+    diagonal blocks need it (penalty rows ~1e6 x the material rows).
+    pivot=False skips it; the transient CN diagonal blocks are lumped mass
+    plus O(dt) coupling, strongly diagonally dominant."""
     V, _, N = D.shape
     if V == 1:
         return 1.0 / D
     A = D
     Inv = torch.eye(V, dtype=D.dtype, device=D.device)[:, :, None].repeat(
         1, 1, N)
+    row_ids = torch.arange(V, device=D.device)[:, None]  # (V, 1)
     for k in range(V):
+        if pivot:
+            col = torch.where(row_ids >= k, A[:, k, :].abs(), -torch.inf)
+            p = torch.argmax(col, dim=0)  # (N,), first maximum
+            perm = torch.where(row_ids == k, p[None, :],
+                               torch.where(row_ids == p[None, :], k,
+                                           row_ids))[:, None, :]
+            A = torch.take_along_dim(A, perm, dim=0)
+            Inv = torch.take_along_dim(Inv, perm, dim=0)
         pivot_val = A[k, k, :]
         Ak = A[k] / pivot_val[None, :]
         Ik = Inv[k] / pivot_val[None, :]
@@ -45,6 +60,13 @@ def small_block_inverse(D: torch.Tensor) -> torch.Tensor:
         A[k] = Ak                                        # leave D intact
         Inv[k] = Ik
     return Inv
+
+
+def block_jacobi_inverse(values: torch.Tensor, diag_slots: torch.Tensor,
+                         pivot: bool = True) -> torch.Tensor:
+    """Invert the (V, V, N) diagonal blocks of block values (V, V, nnz)."""
+    return small_block_inverse(extract_diagonal_blocks(values, diag_slots),
+                               pivot=pivot)
 
 
 def apply_block_jacobi(Dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

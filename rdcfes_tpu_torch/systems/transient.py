@@ -36,6 +36,7 @@ from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
                               apply_block_jacobi, bicgstab,
                               small_block_inverse)
 from ..utils.convert import state_from_numpy, state_to_numpy
+from ..utils.device import cuda_device
 
 # where the unported options land (ROADMAP.md, queue 1)
 _GENERIC = ("ROADMAP queue 1 item 8 (generic path, rest of the transient "
@@ -111,7 +112,9 @@ class TransientRDCSystem:
                       the f64 rescue's iteration cap
     precision       : "mixed" (the only precision of this slice)
     precond_refresh : recompute the block-Jacobi inverse every k steps
-    device          : where the tables and the state live
+    device          : where the tables and the state live; None (the
+                      default) is the CUDA card (utils.device.cuda_device,
+                      which raises without one: never the CPU)
     ops             : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS, the
                       plain torch versions of the same four operations
     """
@@ -122,7 +125,7 @@ class TransientRDCSystem:
                  maxiter: int = DEFAULT_MAXITER, precision: str = "mixed",
                  precond_refresh: int = 1,
                  constraints: Optional[np.ndarray] = None,
-                 moving_mesh: bool = False, device="cpu",
+                 moving_mesh: bool = False, device=None,
                  ops: Ops = KERNEL_OPS):
         if mesh.elem_type != "TET4":
             raise NotImplementedError(
@@ -141,7 +144,7 @@ class TransientRDCSystem:
         self.maxiter = maxiter
         self.precision = precision
         self.precond_refresh = int(precond_refresh)
-        self.device = torch.device(device)
+        self.device = cuda_device() if device is None else torch.device(device)
         self.ops = ops
         self._dinv_cache = None
         self._steps_since_precond = 0
@@ -201,7 +204,7 @@ class TransientRDCSystem:
         if Dinv is None:
             diag_e = block_diag_affine(wfb, self.phi, self.JxW, self.dphi)
             D = ops.restrict(diag_e.reshape(V * V, -1), self.node_gather)
-            Dinv = small_block_inverse(D.reshape(V, V, N))
+            Dinv = small_block_inverse(D.reshape(V, V, N), pivot=False)
         # once-per-step diffusion q-sum, reused by every matvec
         st64 = stack_apply(wfb, diffusion_presum(wfb, self.JxW))
         pre_matvec = lambda x: apply_block_jacobi(

@@ -82,7 +82,7 @@ def test_geometry_factors_match(case):
     assert rel(dphi, case["dphi"]) < TOL
     with pytest.raises(NotImplementedError):
         geometry.geometry_factors(_t(m.coords), torch.as_tensor(
-            m.connectivity), "HEX8")
+            m.connectivity), "PRISM6")
 
 
 def test_interpolate_ue_affine_matches(case):

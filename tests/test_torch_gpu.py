@@ -1,8 +1,8 @@
 """The CUDA kernels of rdcfes_tpu_torch on the card: each against its plain
 version on seeded NumPy inputs (f64 within 1e-13, f32 within 1e-5,
 relative to the largest plain value: summation order and fused
-multiply-adds only), and a short transient run through the kernels against
-the same run through the plain versions.
+multiply-adds only), and a short transient run and a solid load step
+through the kernels against the same runs through the plain versions.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from rdcfes_tpu_torch.fem import assembly, kernels, weakform
+from rdcfes_tpu_torch.fem import assembly, bcsr, kernels, weakform
 from rdcfes_tpu_torch.fem.geometry import geometry_factors
-from rdcfes_tpu_torch.mesh import box_tet_mesh
+from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
+from rdcfes_tpu_torch.solvers.newton import NewtonOptions
 from rdcfes_tpu_torch.systems import TransientRDCSystem
+from rdcfes_tpu_torch.systems.solid import SolidSystem
 from rdcfes_tpu_torch.utils.convert import blocks_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -139,6 +141,63 @@ def test_transient_kernel_path_matches_plain_path(cuda):
         runs.append((st["u"].cpu().numpy(), kernels.launch_counts()))
         assert float(ress.max()) <= 3e-11
     (uk, nk), (up, npl) = runs
-    assert all(n > 0 for n in nk.values())
+    assert all(nk[n] > 0 for n in kernels.TRANSIENT_VARIANTS)
     assert not any(npl.values())
     assert np.linalg.norm(uk - up) / np.linalg.norm(up) < 1e-10
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_ell_matvec_matches_plain(cuda, dtype, tol):
+    """K5 on the ELL layout of a hex mesh's node-pair sparsity, with
+    random block values (pad slots zero, as to_ell leaves them)."""
+    mesh = box_hex_mesh(5, 4, 3)
+    sp = assembly.build_sparsity(mesh.connectivity, mesh.n_nodes)
+    cols, slot = assembly.ell_structure(sp)
+    rng = np.random.default_rng(21)
+    values = torch.as_tensor(rng.standard_normal((3, 3, sp.nnz)),
+                             dtype=dtype, device=cuda)
+    vell = bcsr.to_ell(values, torch.as_tensor(slot, device=cuda))
+    c = torch.as_tensor(cols, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((3, mesh.n_nodes)), dtype=dtype,
+                        device=cuda)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    before = kernels.launch_counts()[f"ell_matvec_{tag}"]
+    y = kernels.ell_matvec(vell, c, x)
+    ref = bcsr.ell_matvec(vell, c, x)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and rel(y, ref) < tol
+    assert kernels.launch_counts()[f"ell_matvec_{tag}"] == before + 1
+    with pytest.raises(TypeError):
+        kernels.ell_matvec(vell, c.long(), x)
+
+
+def test_solid_kernel_path_matches_plain_path(cuda):
+    """One load step on box_hex_mesh(4,4,4) with exact-f64 options through
+    K4/K5 and through the plain versions, and the bench's f32-tangent
+    options through the kernels, which launch every solid variant."""
+    kw = dict(materials={0: {"young": 1.0e3, "poisson": 0.3}},
+              bcs={0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05)},
+              penalty=1.0e6)
+    exact = NewtonOptions(max_nonlinear_iterations=20,
+                          relative_residual_tolerance=1e-10,
+                          relative_step_tolerance=1e-10,
+                          absolute_residual_tolerance=1e-10)
+    xs = []
+    for ops in (kernels.KERNEL_OPS, kernels.PLAIN_OPS):
+        s = SolidSystem(box_hex_mesh(4, 4, 4), newton=exact, device=cuda,
+                        ops=ops, **kw)
+        r = s.run_solver(s.initial_positions(), 0.5)
+        assert r.converged
+        xs.append(r.x.cpu().numpy())
+    assert np.linalg.norm(xs[0] - xs[1]) / np.linalg.norm(xs[1]) < 1e-10
+    bench = NewtonOptions(max_nonlinear_iterations=20,
+                          relative_residual_tolerance=1e-6,
+                          relative_step_tolerance=1e-6, reuse_tangent=True,
+                          linear_precision="mixed")
+    s = SolidSystem(box_hex_mesh(4, 4, 4), newton=bench, device=cuda,
+                    tangent_precision="f32", **kw)
+    kernels.reset_launch_counts()
+    r = s.run_solver(s.initial_positions(), 0.5)
+    n = kernels.launch_counts()
+    assert r.converged and all(n[v] > 0 for v in kernels.SOLID_VARIANTS)

@@ -43,7 +43,7 @@ def test_tet4_tabulate_bit_equal():
     for x, y in zip(elements.tabulate("TET4"), jel.tabulate("TET4")):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     with pytest.raises(ValueError):
-        elements.tabulate("HEX8")
+        elements.tabulate("PRISM6")
 
 
 @pytest.mark.parametrize("n", [2, 3])

@@ -15,9 +15,10 @@ from rdcfes_tpu.models.pihna import pihna_blocks as jax_pihna_blocks
 from rdcfes_tpu.models.pihna import pihna_physics
 from rdcfes_tpu.systems import TransientRDCSystem as JaxSystem
 
-from rdcfes_tpu_torch.mesh import box_tet_mesh
+from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
 from rdcfes_tpu_torch.systems import TransientRDCSystem
+from rdcfes_tpu_torch.systems.solid import SolidSystem
 from rdcfes_tpu_torch.utils.convert import mesh_from_arrays, state_from_numpy
 from rdcfes_tpu_torch.utils.device import cuda_device
 
@@ -70,7 +71,7 @@ def _rel(a, b):
 def test_run_steps_matches_reference_per_step(reference):
     mesh, p, u0, states = reference
     s = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=RTOL,
-                           precision="mixed")
+                           precision="mixed", device="cpu")
     st = s.initial_state(u0)
     for ref in states:
         st, its, ress = s.run_steps(st, 1, params=p)
@@ -85,7 +86,7 @@ def test_run_steps_matches_reference_per_step(reference):
 def test_run_steps_three_at_once_matches_reference(reference):
     mesh, p, u0, states = reference
     s = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=RTOL,
-                           precision="mixed")
+                           precision="mixed", device="cpu")
     st, its, ress = s.run_steps(s.initial_state(u0), STEPS, params=p)
     assert its.shape == (STEPS,) and ress.shape == (STEPS,)
     assert float(ress.max()) <= RTOL
@@ -97,8 +98,8 @@ def test_step_continues_from_reference_state(reference):
     state_from_numpy, steps to the reference's step-2 state."""
     mesh, p, _, states = reference
     s = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=RTOL,
-                           precision="mixed")
-    st, _, res = s.step(state_from_numpy(states[0], "cpu"), params=p)
+                           precision="mixed", device="cpu")
+    st, _, res = s.step(state_from_numpy(states[0], s.device), params=p)
     assert float(res) <= RTOL
     assert _rel(st["u"].numpy(), states[1]["u"]) < 1e-10
 
@@ -108,14 +109,16 @@ def test_precond_refresh_step_and_run_steps_agree():
     rebuild it on the same steps, so both give the same trajectory."""
     mesh, p, u0 = _case()
     a = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=RTOL,
-                           precision="mixed", precond_refresh=2)
+                           precision="mixed", precond_refresh=2,
+                           device="cpu")
     st = a.initial_state(u0)
     its = []
     for _ in range(STEPS):
         st, it, _ = a.step(st, params=p)
         its.append(it)
     b = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=RTOL,
-                           precision="mixed", precond_refresh=2)
+                           precision="mixed", precond_refresh=2,
+                           device="cpu")
     sb, its_b, _ = b.run_steps(b.initial_state(u0), STEPS, params=p)
     assert its == its_b.tolist()
     assert torch.equal(st["u"], sb["u"])
@@ -126,12 +129,14 @@ def test_unported_paths_raise():
     hexm = jax_box_hex_mesh(1, 1, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransientRDCSystem(mesh_from_arrays(hexm.coords, hexm.connectivity,
-                                            "HEX8"), 5, pihna_blocks)
+                                            "HEX8"), 5, pihna_blocks,
+                           device="cpu")
     for kw in ({"constraints": np.array([[0, 1, 2]])},
                {"moving_mesh": True}, {"precision": "f64"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransientRDCSystem(mesh, 5, pihna_blocks, **kw)
-    s = TransientRDCSystem(mesh, 5, pihna_blocks, precision="mixed")
+            TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu", **kw)
+    s = TransientRDCSystem(mesh, 5, pihna_blocks, precision="mixed",
+                           device="cpu")
     st = s.initial_state(u0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.run_steps(st, 1, params=p, subcycle=2)
@@ -147,3 +152,19 @@ def test_cuda_device_never_falls_back_to_cpu():
     else:
         with pytest.raises(RuntimeError):
             cuda_device()
+
+
+def test_entry_points_default_to_the_card():
+    """Built without a device, TransientRDCSystem and SolidSystem go to
+    the CUDA card; on a machine without one they raise rather than run on
+    the CPU."""
+    mesh, _, _ = _case()
+    hexm = box_hex_mesh(1, 1, 1)
+    build = (lambda: TransientRDCSystem(mesh, 5, pihna_blocks),
+             lambda: SolidSystem(hexm, {0: {}}, {0: (0.0, 0.0, 0.0)}))
+    for make in build:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
