@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (rdcfes_tpu_torch) on one NVIDIA GPU, and
-check it: the PIHNA transient step (phases 2-5) and the hyperelastic solid
-load step (phases 6-8).
+check it: the PIHNA transient step on TET4 (phases 2-5), the hyperelastic
+solid load step (phases 6-8), and the generic (HEX8) transient path with
+PIHNA and ADPM plus the launch-cost calibration (phases 9-12).
 
-    python3 chip_smoke.py                       # every phase
-    python3 chip_smoke.py --phases 0,1,2        # device, build, kernels
-    python3 chip_smoke.py --phases 0,1,6,7,8    # the solid slice
+    python3 chip_smoke.py                          # every phase
+    python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
+    python3 chip_smoke.py --phases 0,1,6,7,8       # the solid slice
+    python3 chip_smoke.py --phases 0,1,9,10,11,12  # HEX8, ADPM, calibration
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -41,6 +43,37 @@ Phases, one output line each (any failure raises, exit code != 0):
             by stage and one under torch.profiler for the device's busy
             share
 
+  9 generic kernels  K6 (f32, f64) on box_hex_mesh(48,48,48) (110,592
+            HEX8) with the PIHNA bench deck's live blocks and again with
+            ADPM's taxis-active blocks (live D planes), and K7 at the
+            calibration's shapes (table (192,128), indices (4608,128)),
+            each against its plain version (f64 within 1e-13, f32 within
+            1e-5; K7 exact), timed as in phase 2; torch.gather beside K7
+  10 calibration  time = a + b n fitted from n = 8 and n = 40 back-to-back
+            eager bodies with one synchronize at the end (the counterpart
+            of scripts/microbench_calib.py): a scalar sqrt chain, a 67 MB
+            and a 2.3 MB stream, a 2.3 MB transpose + sqrt, the
+            restriction gather at the TET4 bench's shapes through K4, and
+            K7; a is the fixed cost, b the cost per body
+  11 generic paths  kernels vs plain versions, per-step relative L2 within
+            1e-10: 3 mixed-precision PIHNA steps (both solved to rtol
+            1e-12) and 3 ADPM taxis-active steps (rtol 1e-11, each from a
+            common state) on box_hex_mesh(6,6,6); then 3 ADPM steps on
+            box_tet_mesh(4,4,4) against oracle/adpm_numpy.py, each step
+            from the oracle's state (local parity), within 1e-8
+  12 generic slice  PIHNA, 5 species, the bench deck and initial state on
+            box_hex_mesh(48,48,48) with brain bounds: 5 warm-up steps,
+            then 40 timed steps of run_steps (precision="mixed",
+            precond_refresh=20, rtol=3e-11), launch counts reset just
+            before; residuals <= rtol, state finite and non-negative; one
+            run of 10 steps under torch.profiler for the device's busy
+            share.  Then the ADPM legs on the affine path: bench.py:158-192
+            (TET4 28^3, taxis amplitude 50, rtol 1e-9, precond_refresh=10),
+            50 timed steps; and bench.py:241-276's deck regime (amplitude
+            1e3, subcycle=16), 2 outer steps with every residual <= 1e-8.
+            The compiled-C++ denominators (BASELINE_MEASURED.json) are
+            printed beside the results, not asserted
+
 Then one JSON line {"kernels": [...]}, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -58,10 +91,11 @@ import torch
 
 from rdcfes_tpu_torch.fem import _build
 from rdcfes_tpu_torch.fem import kernels as K
-from rdcfes_tpu_torch.fem.assembly import ell_structure
+from rdcfes_tpu_torch.fem.assembly import ell_structure, interpolate_ue
 from rdcfes_tpu_torch.fem.bcsr import to_ell
 from rdcfes_tpu_torch.fem.weakform import diffusion_presum
 from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
+from rdcfes_tpu_torch.models import adpm
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions
 from rdcfes_tpu_torch.systems import TransientRDCSystem
@@ -88,12 +122,25 @@ KERNELS = {
                        "rdcfes_tpu/fem/bcsr.py:60"),
     "ell_matvec_f64": (CSRC + "ell_matvec.cu",
                        "rdcfes_tpu/fem/bcsr.py:60"),
+    "apply_generic_f32": (CSRC + "apply_generic.cu",
+                          "rdcfes_tpu/fem/pallas_apply.py:263"),
+    "apply_generic_f64": (CSRC + "apply_generic.cu",
+                          "rdcfes_tpu/fem/pallas_apply.py:263"),
+    "take_along_f32": (CSRC + "take_along.cu",
+                       "scripts/microbench_calib.py:84"),
 }
 BENCH_STEPS = 120
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense f32 and f64 rates outside
 # the tensor cores (the kernels here use the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {F32: 67e12, F64: 34e12}
+HEX_N = 48        # the generic slice: 48^3 = 110,592 HEX8, 117,649 nodes
+HEX_WARMUP, HEX_STEPS = 5, 40
+BRAIN = ((0, 150.0), (0, 180.0), (0, 150.0))
+ADPM_STEPS = 50
+# compiled-C++ denominators (BASELINE_MEASURED.json, 8 ideal MPI ranks)
+ADPM_BASELINE_STEPS_PER_S = 83.11
+ADPM_DECK_BASELINE_OUTER_STEPS_PER_S = 3.516
 SOLID_N = 48  # bench.py:313: 48^3 = 110,592 HEX8, 117,649 nodes
 SOLID_PT = 0.5
 SOLID_BCS = {0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05)}
@@ -123,10 +170,11 @@ def say(phase: str, **kv) -> None:
 # ----------------------------------------------------------------------
 # workloads
 # ----------------------------------------------------------------------
-def bench_case():
-    """The headline bench leg's mesh, deck and initial state."""
-    n = 28
-    mesh = box_tet_mesh(n, n, n, bounds=((0, 150.0), (0, 180.0), (0, 150.0)))
+def bench_case(mesh=None):
+    """The headline bench leg's mesh (or `mesh`), deck and initial
+    state."""
+    if mesh is None:
+        mesh = box_tet_mesh(28, 28, 28, bounds=BRAIN)
     Kk = 2.39e5
     params = default_params()
     params.update(
@@ -174,8 +222,73 @@ def oracle_case():
     return mesh, p, u0
 
 
-def make_system(mesh, dev, ops=K.KERNEL_OPS, precond_refresh=20):
-    return TransientRDCSystem(mesh, 5, pihna_blocks, rtol=3e-11,
+def adpm_case(mesh, amplitude):
+    """The ADPM bench legs' deck and state on `mesh` (bench.py:158-181,
+    :241-261): taxis amplitude 50 (taxis-active leg) or 1e3 (deck regime).
+    Returns (params, u0 (N, 3), tracts (E, 3))."""
+    p = adpm.default_params()
+    p.update(
+        dt=0.05,
+        decay_PrP=1.0e-4, decay_PrP_pulse0=0.01, decay_PrP_pulse1=10.0,
+        taxis1_A_b=amplitude, taxis1_A_b_pulse0=-1.0,
+        taxis1_A_b_pulse1=0.01,
+        taxis1_Tau=amplitude, taxis1_Tau_pulse0=-1.0,
+        taxis1_Tau_pulse1=0.01,
+        decay_Tau=1.0e1, decay_Tau_pulse0=0.0005, decay_Tau_pulse1=1.0e20,
+        diffuse_A_b=2e-4, diffuse_A_b_pulse0=-1.0, diffuse_A_b_pulse1=1e20,
+    )
+    p = {k: float(v) for k, v in p.items()}
+    rng = np.random.default_rng(0)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    u0 = np.zeros((mesh.n_nodes, 3))
+    u0[:, 0] = 1.0
+    u0[:, 1] = 1e-3 * np.exp(-r2 / (2 * 20.0**2))
+    u0[:, 2] = 1e-4 * np.exp(-r2 / (2 * 15.0**2))
+    tracts = rng.standard_normal((mesh.n_elems, 3))
+    tracts /= np.linalg.norm(tracts, axis=1, keepdims=True)
+    return p, u0, tracts
+
+
+def adpm_oracle_case():
+    """The ADPM oracle parity case (tests/test_parity_oracle.py:128-146):
+    response functions, tract-gated taxis and diffusion all active."""
+    mesh = box_tet_mesh(4, 4, 4, bounds=((0, 20.0), (0, 20.0), (0, 20.0)))
+    p = adpm.default_params()
+    p.update(dt=0.05,
+             decay_PrP=1e-4, decay_PrP_pulse0=0.01, decay_PrP_pulse1=10.0,
+             diffuse_A_b=0.05, taxis1_A_b=0.5, taxis2_A_b=0.2,
+             produce_A_b=0.3, produce_A_b_s0=0.2, produce_A_b_s1=0.8,
+             transform_A_b=0.1, transform_A_b_t0=0.01, transform_A_b_t1=0.1,
+             transform_A_b_t2=0.5, transform_A_b_t3=0.9,
+             decay_A_b=0.05,
+             diffuse_Tau=0.02, taxis1_Tau=0.3, decay_Tau=1.0)
+    p = {k: float(v) for k, v in p.items()}
+    rng = np.random.default_rng(5)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(1)
+    u0 = np.zeros((mesh.n_nodes, 3))
+    u0[:, 0] = 1.0
+    u0[:, 1] = 0.3 * np.exp(-r2 / 30.0)
+    u0[:, 2] = 0.1 * np.exp(-r2 / 20.0)
+    tracts = rng.standard_normal((mesh.n_elems, 3))
+    tracts /= np.linalg.norm(tracts, axis=1, keepdims=True)
+    return mesh, p, u0, tracts
+
+
+def make_adpm(mesh, dev, rtol, ops=K.KERNEL_OPS, precond_refresh=10):
+    return TransientRDCSystem(mesh, 3, adpm.adpm_blocks, rtol=rtol,
+                              precision="mixed",
+                              precond_refresh=precond_refresh, device=dev,
+                              ops=ops)
+
+
+def adpm_fields(tracts, dev):
+    return {"tracts": torch.as_tensor(tracts, dtype=F64, device=dev),
+            "time": 1.0}
+
+
+def make_system(mesh, dev, ops=K.KERNEL_OPS, precond_refresh=20,
+                rtol=3e-11):
+    return TransientRDCSystem(mesh, 5, pihna_blocks, rtol=rtol,
                               precision="mixed",
                               precond_refresh=precond_refresh, device=dev,
                               ops=ops)
@@ -212,15 +325,50 @@ def phase_device():
     return dev
 
 
+def _ptxas_table(log: str):
+    """(kernel, registers, spill stores, spill loads) per entry function
+    of nvcc's -Xptxas -v output."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append((_demangle(name), int(m.group(1))) + spill)
+            name = None
+    return rows
+
+
+def _demangle(sym: str) -> str:
+    """'...20apply_generic_kernelIdLi5ELi8ELi8EE...' ->
+    'apply_generic_kernel<d,5,8,8>' (kernels are named after their
+    source: csrc/<stem>.cu holds <stem>_kernel)."""
+    import re
+
+    stems = "|".join(p.stem for p in _build.CSRC.glob("*.cu"))
+    m = re.search(rf"((?:{stems})_kernel)(?:I([fd])((?:Li\d+E)*))?", sym)
+    if not m:
+        return sym
+    args = [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if m.group(2) else "")
+
+
 def phase_build():
     res = _build.build()
     _build.library()
-    regs = [ln.strip() for ln in res.log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    rows = _ptxas_table(res.log)
     say("1 build", seconds=f"{res.seconds:.3f}", lib=res.path.name,
-        ptxas_lines=len(regs))
-    for ln in regs:
-        print("    ptxas: " + ln, flush=True)
+        kernels=len(rows))
+    for name, regs, st, ld in rows:
+        print(f"    ptxas: {name} registers={regs} spill_stores={st} "
+              f"spill_loads={ld}", flush=True)
 
 
 def cuda_ms(fn, runs: int = 20) -> float:
@@ -623,9 +771,316 @@ def phase_solid_slice(dev, S):
     return counts
 
 
+def _generic_cases(tag, s, wfb, x64, dev):
+    """K6 f32/f64 cases on system `s` with the blocks `wfb`."""
+    V, E = s.n_vars, s.mesh.n_elems
+    Kc, Q = s.conn_T.shape[0], s.JxW.shape[0]
+    st64 = K.stack_apply_generic(wfb)
+    st32 = K.stack_apply_generic(wfb.cast(F32))
+    x32 = x64.to(F32)
+    nC, nD, nE = len(st64.idxC), len(st64.idxD), len(st64.idxE)
+    # interpolation, the (v, w) responses, the projection back
+    flops = 2.0 * E * Q * (4 * Kc * V + nC + 3 * nD + 3 * nE
+                           + V * (4 + 4 * Kc))
+    cases = {}
+    for name, x, JxW, dphi, st, tol, dt in (
+            ("apply_generic_f32", x32, s.JxW32, s.dphi32, st32, 1e-5, F32),
+            ("apply_generic_f64", x64, s.JxW, s.dphi, st64, 1e-13, F64)):
+        out_bytes = V * Kc * E * x.element_size()
+        cases[name] = dict(
+            kern=lambda x=x, JxW=JxW, dphi=dphi, st=st: K.apply_generic(
+                x, s.conn_T, s.phi, JxW, dphi, st),
+            plain=lambda x=x, JxW=JxW, dphi=dphi, st=st:
+                K.apply_generic_plain(x, s.conn_T, s.phi, JxW, dphi, st),
+            tol=tol, flops=flops, dtype=dt,
+            n_bytes=nbytes(x, s.conn_T, JxW, dphi, st.C, st.D, st.E)
+            + out_bytes)
+    say("9 blocks", deck=tag, V=V, live=f"C:{nC} D:{nD} E:{nE}",
+        f32_bytes=cases["apply_generic_f32"]["n_bytes"],
+        f64_bytes=cases["apply_generic_f64"]["n_bytes"])
+    return cases
+
+
+def phase_generic_kernels(dev, S):
+    """K6 at the HEX8 slice's shapes with PIHNA's and with ADPM's live
+    blocks, K7 at the calibration's shapes."""
+    mesh = S.mesh
+    _, params, u0 = bench_case(mesh)
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    u_qp, grad_qp = interpolate_ue(u[:, S.conn_T], S.phi, S.dphi)
+    wfb = pihna_blocks(u_qp, grad_qp, {}, params)
+    del u_qp, grad_qp
+    results = {name: measure("9 generic kernel", name, **c)
+               for name, c in _generic_cases("pihna", S, wfb, u, dev).items()}
+    del wfb
+    # ADPM's taxis-active blocks on the same mesh: V = 3, live D planes
+    pa, ua0, tracts = adpm_case(mesh, 50.0)
+    A = make_adpm(mesh, dev, 1e-9)
+    ua = torch.as_tensor(np.ascontiguousarray(ua0.T), dtype=F64, device=dev)
+    u_qp, grad_qp = interpolate_ue(ua[:, A.conn_T], A.phi, A.dphi)
+    wfa = adpm.adpm_blocks(u_qp, grad_qp, adpm_fields(tracts, dev), pa)
+    del u_qp, grad_qp
+    for name, c in _generic_cases("adpm", A, wfa, ua, dev).items():
+        results[name]["adpm_blocks"] = measure("9 generic kernel",
+                                               name + " (adpm)", **c)
+    del wfa, A
+    rng = np.random.default_rng(0)
+    Sx, M = 192, 4608
+    tbl = torch.as_tensor(rng.standard_normal((Sx, 128)), dtype=F32,
+                          device=dev)
+    idx = torch.as_tensor(rng.integers(0, Sx, (M, 128)), dtype=torch.int32,
+                          device=dev)
+    idx64 = idx.long()
+    results["take_along_f32"] = measure(
+        "9 generic kernel", "take_along_f32",
+        kern=lambda: K.take_along(tbl, idx),
+        plain=lambda: K.take_along_plain(tbl, idx), tol=0.0,
+        library=lambda: torch.gather(tbl, 0, idx64),
+        n_bytes=nbytes(tbl, idx) + M * 128 * 4, flops=0.0, dtype=F32)
+    say("9 generic kernels", shapes=f"K=8 Q=8 E={mesh.n_elems} "
+        f"N={mesh.n_nodes} C={S.node_gather.shape[0]}; take_along "
+        f"S={Sx} M={M} L=128")
+    return results
+
+
+def _fit(label, body, ns=(8, 40)):
+    """time = a + b n of n back-to-back eager bodies closed by one
+    synchronize: median host time of 3 runs for each n."""
+    def loop_ms(n):
+        for _ in range(3):
+            body()
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                body()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(ts))
+    t1, t2 = loop_ms(ns[0]), loop_ms(ns[1])
+    b = (t2 - t1) / (ns[1] - ns[0])
+    a = t1 - b * ns[0]
+    say("10 fit", body=repr(label), per_body_ms=f"{b:.5f}",
+        fixed_ms=f"{a:.5f}", n8_ms=f"{t1:.5f}", n40_ms=f"{t2:.5f}")
+    return {"per_body_ms": b, "fixed_ms": a}
+
+
+def phase_calibration(dev):
+    """Per-launch host cost against real work, for unfoldable bodies of
+    known device cost (scripts/microbench_calib.py:41-109)."""
+    rng = np.random.default_rng(0)
+    box = {}
+
+    def chain(name, x0, fn):
+        box[name] = x0
+
+        def body():
+            box[name] = fn(box[name])
+        return body
+
+    scalar = torch.tensor(1.5, dtype=F64, device=dev)
+    big = torch.as_tensor(rng.standard_normal(16_777_216), dtype=F32,
+                          device=dev)
+    sm = torch.as_tensor(rng.standard_normal((4_608, 128)), dtype=F32,
+                         device=dev)
+    V, N, C, KE = 5, 24_389, 24, 4 * 131_712
+    ng = torch.as_tensor(rng.integers(0, KE + 1, (C, N)), dtype=torch.int32,
+                         device=dev)
+    buf = torch.as_tensor(rng.standard_normal((V, KE)), dtype=F32,
+                          device=dev)
+    Sx, M = 192, 4_608
+    tbl = torch.as_tensor(rng.standard_normal((Sx, 128)), dtype=F32,
+                          device=dev)
+    idx = torch.as_tensor(rng.integers(0, Sx, (M, 128)), dtype=torch.int32,
+                          device=dev)
+    K.reset_launch_counts()
+    fits = {
+        "scalar sqrt chain": _fit("scalar sqrt chain", chain(
+            "s", scalar, lambda c: torch.sqrt(c * c + 1.0))),
+        "stream sqrt 67MB": _fit("stream sqrt 67MB", chain(
+            "b", big, lambda c: torch.sqrt(c * c + 1e-9))),
+        "stream sqrt 2.3MB": _fit("stream sqrt 2.3MB", chain(
+            "m", sm, lambda c: torch.sqrt(c * c + 1e-9))),
+        "transpose 2.3MB + sqrt": _fit("transpose 2.3MB + sqrt", chain(
+            "t", sm, lambda c: torch.sqrt(
+                c.T.reshape(4_608, 128) ** 2 + 1e-9))),
+        "restrict K4 f32": _fit("restrict K4 f32",
+                                lambda: K.restrict(buf, ng)),
+        "take_along K7": _fit("take_along K7",
+                              lambda: K.take_along(tbl, idx)),
+    }
+    counts = K.launch_counts()
+    say("10 launches", take_along_f32=counts["take_along_f32"],
+        restrict_f32=counts["restrict_f32"])
+    require(counts["take_along_f32"] > 0 and counts["restrict_f32"] > 0,
+            "the calibration launched no K7 or no K4")
+    return fits, counts
+
+
+def phase_generic_paths(dev):
+    """Kernels vs plain versions on small HEX8 meshes, and ADPM on TET4
+    against the independent NumPy/SuperLU oracle."""
+    from oracle.adpm_numpy import AdpmOracle
+
+    hexm = box_hex_mesh(6, 6, 6, bounds=((0, 20.0), (0, 20.0), (0, 20.0)))
+    _, params, _ = bench_case(hexm)
+    r2 = ((hexm.coords - hexm.coords.mean(0)) ** 2).sum(axis=1)
+    rng = np.random.default_rng(0)
+    u0 = np.zeros((hexm.n_nodes, 5))
+    u0[:, 1] = 2000.0 * np.exp(-r2 / 30.0)
+    u0[:, 2] = 500.0 * np.exp(-r2 / 25.0)
+    u0[:, 3] = 7200.0 * (1.0 + 0.1 * rng.random(hexm.n_nodes))
+    u0[:, 4] = 1e-10
+    # both solves converge to rtol 1e-12, so that what is left between
+    # them is the kernels' arithmetic and not two solver exits at 3e-11
+    a = make_system(hexm, dev, rtol=1e-12)
+    b = make_system(hexm, dev, ops=K.PLAIN_OPS, rtol=1e-12)
+    sa, sb = a.initial_state(u0), b.initial_state(u0)
+    worst = 0.0
+    for _ in range(3):
+        sa, ia, ra = a.step(sa, params=params)
+        sb, ib, rb = b.step(sb, params=params)
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+        require(max(float(ra), float(rb)) <= 1e-12,
+                f"HEX8 PIHNA residuals {float(ra):.3e}, {float(rb):.3e}")
+    say("11 paths", model="pihna", mesh="hex 6^3", steps=3, rtol=1e-12,
+        worst_rel_l2=f"{worst:.3e}", bar=1e-10)
+    require(worst < 1e-10, f"HEX8 PIHNA kernel vs plain path: {worst:.3e}")
+
+    # ADPM taxis-active: every step from a common state (the kernel
+    # path's), since taxis amplifies differences along a trajectory
+    pa, ua0, tracts = adpm_case(hexm, 50.0)
+    ua0[:, 1] = 1e-3 * np.exp(-r2 / 30.0)
+    ua0[:, 2] = 1e-4 * np.exp(-r2 / 20.0)
+    f = adpm_fields(tracts, dev)
+    a = make_adpm(hexm, dev, 1e-11, precond_refresh=1)
+    b = make_adpm(hexm, dev, 1e-11, ops=K.PLAIN_OPS, precond_refresh=1)
+    sa = a.initial_state(ua0)
+    worst = 0.0
+    for _ in range(3):
+        sb, _, _ = b.step(sa, fields=f, params=pa)
+        sa, _, _ = a.step(sa, fields=f, params=pa)
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+    say("11 paths", model="adpm taxis-active", mesh="hex 6^3", steps=3,
+        worst_rel_l2=f"{worst:.3e}", bar=1e-10)
+    require(worst < 1e-10, f"HEX8 ADPM kernel vs plain path: {worst:.3e}")
+
+    mesh, po, uo, tr = adpm_oracle_case()
+    orc = AdpmOracle(mesh.coords, mesh.connectivity, tr, po)
+    s = make_adpm(mesh, dev, 3e-11, precond_refresh=1)
+    f = adpm_fields(tr, dev)
+    worst = 0.0
+    for _ in range(3):
+        st, _, _ = s.step(s.initial_state(uo), fields=f, params=po)
+        uo, _ = orc.step(uo, time=1.0)
+        worst = max(worst, rel_l2(st["u"], uo))
+    say("11 oracle", model="adpm", mesh="tet 4^3", steps=3,
+        worst_local_rel_l2=f"{worst:.3e}", bar=1e-8)
+    require(np.isfinite(uo).all() and worst < 1e-8,
+            f"ADPM oracle parity violated: worst rel L2 {worst:.3e}")
+
+
+def _timed_run(s, state, n, **kw):
+    """run_steps with the launch counts reset just before and read just
+    after; the state is fetched to the host inside the clock."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, its, ress = s.run_steps(state, n, **kw)
+    u = st["u"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    return u, its, ress, wall, K.launch_counts()
+
+
+def _require_launched(counts, variants, what):
+    missing = [k for k in variants if counts[k] == 0]
+    require(not missing, f"kernels never launched on {what}: {missing}")
+
+
+def phase_generic_slice(dev, S):
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh = S.mesh
+    _, params, u0 = bench_case(mesh)
+    S.run_steps(S.initial_state(u0), HEX_WARMUP, params=params)
+    u, its, ress, wall, counts = _timed_run(S, S.initial_state(u0),
+                                            HEX_STEPS, params=params)
+    say("12 hex8 pihna", steps=HEX_STEPS, seconds=f"{wall:.4f}",
+        steps_per_s=f"{HEX_STEPS / wall:.4f}",
+        inner_iters_total=int(its.sum()),
+        final_residual=f"{float(ress[-1]):.3e}",
+        max_residual=f"{float(ress.max()):.3e}", n_nodes=mesh.n_nodes,
+        n_elems=mesh.n_elems)
+    say("12 hex8 launches", **{k: v for k, v in counts.items() if v})
+    require(np.isfinite(u).all(), "non-finite state")
+    require((u >= 0).all(), "negative state after the clamp")
+    require(float(ress.max()) <= 3e-11,
+            f"residual {float(ress.max()):.3e} > 3e-11")
+    _require_launched(counts, K.GENERIC_VARIANTS, "the HEX8 path")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        S.run_steps(S.initial_state(u0), 10, params=params)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    busy = _device_busy_s(prof)
+    say("12 hex8 profile", steps=10, seconds=f"{traced:.4f}",
+        device_busy_s=f"{busy:.4f}", busy_share=f"{busy / traced:.4f}")
+    top = sorted(prof.key_averages(), key=lambda e: -getattr(
+        e, "self_device_time_total", 0.0))[:8]
+    for e in top:
+        print(f"    device: {e.key[:60]} "
+              f"{getattr(e, 'self_device_time_total', 0.0) / 1e3:.3f} ms "
+              f"x{e.count}", flush=True)
+    paths = {"hex8_pihna": counts}
+
+    # the ADPM legs on the affine path
+    tet = box_tet_mesh(28, 28, 28, bounds=BRAIN)
+    pa, ua0, tracts = adpm_case(tet, 50.0)
+    A = make_adpm(tet, dev, 1e-9)
+    f = adpm_fields(tracts, dev)
+    A.run_steps(A.initial_state(ua0), 10, fields=f, params=pa)
+    u, its, ress, wall, counts = _timed_run(A, A.initial_state(ua0),
+                                            ADPM_STEPS, fields=f, params=pa)
+    say("12 adpm taxis-active", steps=ADPM_STEPS, seconds=f"{wall:.4f}",
+        steps_per_s=f"{ADPM_STEPS / wall:.4f}",
+        inner_iters_total=int(its.sum()),
+        final_residual=f"{float(ress[-1]):.3e}",
+        max_residual=f"{float(ress.max()):.3e}", n_nodes=tet.n_nodes,
+        n_elems=tet.n_elems,
+        baseline_steps_per_s=ADPM_BASELINE_STEPS_PER_S)
+    say("12 adpm launches", **{k: v for k, v in counts.items() if v})
+    require(np.isfinite(u).all(), "ADPM: non-finite state")
+    require(float(ress.max()) <= 1e-9,
+            f"ADPM: residual {float(ress.max()):.3e} > 1e-9")
+    _require_launched(counts, K.TRANSIENT_VARIANTS, "the ADPM path")
+    paths["adpm"] = counts
+
+    pd, ud0, tracts = adpm_case(tet, 1e3)
+    D = make_adpm(tet, dev, 3e-11)
+    D.run_steps(D.initial_state(ud0), 1, fields=f, params=pd, subcycle=16)
+    u, its, ress, wall, counts = _timed_run(D, D.initial_state(ud0), 2,
+                                            fields=f, params=pd, subcycle=16)
+    say("12 adpm deck regime", outer_steps=2, subcycle=16,
+        seconds=f"{wall:.4f}", outer_steps_per_s=f"{2 / wall:.4f}",
+        inner_iters_total=int(its.sum()),
+        max_residual=f"{float(ress.max()):.3e}",
+        baseline_outer_steps_per_s=ADPM_DECK_BASELINE_OUTER_STEPS_PER_S)
+    require(np.isfinite(u).all(), "ADPM deck regime: non-finite state")
+    require(tuple(its.shape) == (2,) and tuple(ress.shape) == (2,),
+            "subcycled run_steps must report per outer step")
+    require(float(ress.max()) <= 1e-8,
+            f"ADPM deck regime: residual {float(ress.max()):.3e} > 1e-8")
+    _require_launched(counts, K.TRANSIENT_VARIANTS, "the ADPM deck regime")
+    paths["adpm_deck"] = counts
+    return paths
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -645,17 +1100,30 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_solid_paths(dev)
     paths["solid"] = phase_solid_slice(dev, S) if 8 in phases else {}
+    del S
+    H = (make_system(box_hex_mesh(HEX_N, HEX_N, HEX_N, bounds=BRAIN), dev)
+         if phases & {9, 12} else None)
+    gen_kern = phase_generic_kernels(dev, H) if 9 in phases else {}
+    if 10 in phases:
+        fits, paths["calibration"] = phase_calibration(dev)
+    if 11 in phases:
+        phase_generic_paths(dev)
+    if 12 in phases:
+        paths.update(phase_generic_slice(dev, H))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
     for name, (src, replaces) in KERNELS.items():
-        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": sum(by_path.values()) if by_path else None,
                "launches_by_path": by_path}
-        first = kern.get(name) or solid_kern.get(name) or {}
+        first = (kern.get(name) or solid_kern.get(name)
+                 or gen_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
+        if "adpm_blocks" in first:
+            row["adpm_blocks"] = {k: first["adpm_blocks"][k] for k in keys}
         if name in kern and name in solid_kern:
             row["solid_assembly_shapes"] = {
                 k: solid_kern[name][k] for k in keys}

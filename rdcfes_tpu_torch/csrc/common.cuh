@@ -1,5 +1,8 @@
 // Shared definitions of the kernels of csrc/ (sm_90a): the transient
-// qp-path kernels (TET4) and the solid path's block-ELL SpMV.
+// qp-path kernels (TET4 affine, and the generic apply for HEX8), the solid
+// path's block-ELL SpMV and the calibration lookup.  kK, kQ and PhiTable
+// are TET4's and serve K1-K3 only; apply_generic.cu carries its own K, Q
+// and phi table as template parameters.
 //
 // Every kernel here is built by fem/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC

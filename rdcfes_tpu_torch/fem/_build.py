@@ -45,6 +45,9 @@ SIGNATURES = {
     "rdc_restrict_f64": [_P] * 3 + [_I] * 4 + [_P],
     "rdc_ell_matvec_f32": [_P] * 4 + [_I] * 4 + [_P],
     "rdc_ell_matvec_f64": [_P] * 4 + [_I] * 4 + [_P],
+    "rdc_apply_generic_f32": [_P] * 10 + [_I] * 5 + [_P],
+    "rdc_apply_generic_f64": [_P] * 10 + [_I] * 5 + [_P],
+    "rdc_take_along_f32": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

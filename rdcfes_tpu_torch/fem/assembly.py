@@ -6,9 +6,10 @@ the node-pair sparsity, its ELLPACK view, and its inversion into padded
 gather tables so every element -> node (or node-pair) sum is a
 deterministic gather-sum.
 
-Device side (torch, channel-first): `interpolate_ue_affine` (corner values
--> quadrature values and the q-independent gradient of an affine element),
-`restrict` (the gather-sum through a padded table), and the solid path's
+Device side (torch, channel-first): `interpolate_ue` (corner values ->
+quadrature values and per-q gradients of any element),
+`interpolate_ue_affine` (the same with the q-independent gradient of an
+affine element), `restrict` (the gather-sum through a padded table), and the solid path's
 `assemble_matrix_gather` / `assemble_vector_gather`, which are `restrict`
 on the flattened element matrices / vectors.  The CUDA kernels of
 fem/kernels.py compute the same functions; these are their plain versions.
@@ -120,6 +121,26 @@ def invert_scatter(targets: np.ndarray, n_bins: int) -> np.ndarray:
     pos = np.arange(len(targets)) - starts[sorted_t]
     table[pos, sorted_t] = order
     return table.astype(np.int32)
+
+
+def interpolate_ue(ue: torch.Tensor, phi: np.ndarray, dphi: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Corner values ue (V, K, E) -> (x_qp (V, Q, E), gx_qp (V, Q, 3, E))
+    with per-q shape gradients dphi (Q, K, 3, E): the generic
+    (non-affine) interpolation.
+
+    The corner sum runs k = 0..K-1 in order, as the reference's; each term
+    is one broadcast product over the (V, Q) or (V, Q, 3) axes, so the op
+    count is 4 K whatever the element.  phi (Q, K) is a host table, cast
+    to ue's dtype."""
+    K = phi.shape[1]
+    ph = torch.as_tensor(np.asarray(phi), dtype=ue.dtype, device=ue.device)
+    x_qp = ph[None, :, 0, None] * ue[:, None, 0, :]
+    gx_qp = dphi[None, :, 0] * ue[:, None, None, 0, :]
+    for k in range(1, K):
+        x_qp = x_qp + ph[None, :, k, None] * ue[:, None, k, :]
+        gx_qp = gx_qp + dphi[None, :, k] * ue[:, None, None, k, :]
+    return x_qp, gx_qp
 
 
 def interpolate_ue_affine(ue: torch.Tensor, phi: np.ndarray,

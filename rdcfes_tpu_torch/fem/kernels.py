@@ -6,8 +6,12 @@ versions and their launch counts.
   K3 apply_affine          csrc/apply_affine.cu           f32, f64   transient
   K4 restrict              csrc/restrict.cu               f32, f64   both
   K5 ell_matvec            csrc/ell_matvec.cu             f32, f64   solid
+  K6 apply_generic         csrc/apply_generic.cu          f32, f64   transient
+  K7 take_along            csrc/take_along.cu             f32        calibration
 
-K4 is every element -> node (or node-pair) gather-sum: the transient
+K1-K3 serve affine elements (TET4); K6 is K3's counterpart for elements
+whose shape gradients differ per quadrature point (HEX8).  K7 is the
+`take_along_axis(axis=0)` lookup of the launch-cost calibration.  K4 is every element -> node (or node-pair) gather-sum: the transient
 restriction and the solid path's vector and matrix assembly
 (fem.assembly.assemble_*_gather).
 
@@ -18,9 +22,10 @@ synchronising, raises if the launch reports an error, and adds one to the
 variant's launch count.  The plain versions call the module functions the
 kernels stand for (fem.assembly, fem.bcsr, fem.weakform), on any device.
 
-Coefficient blocks reach K2 and K3 as stacks of their live planes plus
+Coefficient blocks reach K2, K3 and K6 as stacks of their live planes plus
 small int32 (species) or (v, w) index lists, the counterpart of the
-reference's stack_blocks_affine (rdcfes_tpu/fem/pallas_apply.py:69-102).
+reference's stack_blocks and stack_blocks_affine
+(rdcfes_tpu/fem/pallas_apply.py:33-102), without their element padding.
 """
 
 from __future__ import annotations
@@ -31,10 +36,10 @@ from typing import Callable, Dict, NamedTuple
 import numpy as np
 import torch
 
-from .assembly import interpolate_ue_affine
+from .assembly import interpolate_ue, interpolate_ue_affine
 from .assembly import restrict as restrict_plain
 from .bcsr import ell_matvec as ell_matvec_plain
-from .weakform import (WeakFormBlocks, _is_zero, block_rhs_affine,
+from .weakform import (WeakFormBlocks, _is_zero, block_rhs_affine, qp_apply,
                        qp_apply_affine)
 
 MAX_V = 8  # csrc/common.cuh kMaxV
@@ -44,7 +49,12 @@ TRANSIENT_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
                       "restrict_f32", "restrict_f64")
 SOLID_VARIANTS = ("restrict_f32", "restrict_f64", "ell_matvec_f32",
                   "ell_matvec_f64")
-KERNEL_VARIANTS = TRANSIENT_VARIANTS + ("ell_matvec_f32", "ell_matvec_f64")
+GENERIC_VARIANTS = ("apply_generic_f32", "apply_generic_f64",
+                    "restrict_f32", "restrict_f64")
+KERNEL_VARIANTS = (TRANSIENT_VARIANTS
+                   + ("ell_matvec_f32", "ell_matvec_f64",
+                      "apply_generic_f32", "apply_generic_f64",
+                      "take_along_f32"))
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS}
 
@@ -86,6 +96,20 @@ class ApplyStacks(NamedTuple):
     n_vars: int
 
 
+class GenericApplyStacks(NamedTuple):
+    """Live jacobian blocks for per-q gradients: C (nC, Q, E), D
+    (nD, Q, 3, E), E (nE, Q, E) (the diffusion planes stay per-q);
+    idxC/idxD/idxE int32 (n, 2) rows (v, w)."""
+
+    C: torch.Tensor
+    idxC: np.ndarray
+    D: torch.Tensor
+    idxD: np.ndarray
+    E: torch.Tensor
+    idxE: np.ndarray
+    n_vars: int
+
+
 def _stack(planes, like: torch.Tensor, tail) -> torch.Tensor:
     if planes:
         return torch.stack(planes)
@@ -109,20 +133,34 @@ def stack_rhs(wfb: WeakFormBlocks) -> RhsStacks:
         idxB=np.asarray(ib, np.int32), n_vars=wfb.n_vars)
 
 
+def _stack_live(blocks, V: int, like: torch.Tensor, tail):
+    """(stacked live planes of a [V][V] block table, their (v, w) rows)."""
+    live = [(v, w) for v in range(V) for w in range(V)
+            if not _is_zero(blocks[v][w])]
+    return (_stack([blocks[v][w] for v, w in live], like, tail),
+            np.asarray(live, np.int32).reshape(-1, 2))
+
+
 def stack_apply(wfb: WeakFormBlocks, Epre) -> ApplyStacks:
     ref = _first_live(wfb)
     Q, E = ref.shape
     V = wfb.n_vars
-    live = lambda blocks: [(v, w) for v in range(V) for w in range(V)
-                           if not _is_zero(blocks[v][w])]
-    ic, id_, ie = live(wfb.C), live(wfb.D), live(Epre)
-    idx = lambda pairs: np.asarray(pairs, np.int32).reshape(-1, 2)
-    return ApplyStacks(
-        C=_stack([wfb.C[v][w] for v, w in ic], ref, (Q, E)), idxC=idx(ic),
-        D=_stack([wfb.D[v][w] for v, w in id_], ref, (Q, 3, E)),
-        idxD=idx(id_),
-        Epre=_stack([Epre[v][w] for v, w in ie], ref, (E,)), idxE=idx(ie),
-        n_vars=V)
+    C, ic = _stack_live(wfb.C, V, ref, (Q, E))
+    D, id_ = _stack_live(wfb.D, V, ref, (Q, 3, E))
+    Ep, ie = _stack_live(Epre, V, ref, (E,))
+    return ApplyStacks(C=C, idxC=ic, D=D, idxD=id_, Epre=Ep, idxE=ie,
+                       n_vars=V)
+
+
+def stack_apply_generic(wfb: WeakFormBlocks) -> GenericApplyStacks:
+    ref = _first_live(wfb)
+    Q, E = ref.shape
+    V = wfb.n_vars
+    C, ic = _stack_live(wfb.C, V, ref, (Q, E))
+    D, id_ = _stack_live(wfb.D, V, ref, (Q, 3, E))
+    Es, ie = _stack_live(wfb.E, V, ref, (Q, E))
+    return GenericApplyStacks(C=C, idxC=ic, D=D, idxD=id_, E=Es, idxE=ie,
+                              n_vars=V)
 
 
 # ----------------------------------------------------------------------
@@ -145,19 +183,42 @@ def rhs_affine_plain(st: RhsStacks, JxW, phi, dphi0):
     return block_rhs_affine(wfb, phi, JxW, dphi0[None])
 
 
+def _unstack(V: int, planes, idx):
+    """The [V][V] block table of stacked live planes (absent = 0.0)."""
+    blocks = [[0.0] * V for _ in range(V)]
+    for i, (v, w) in enumerate(idx):
+        blocks[v][w] = planes[i]
+    return blocks
+
+
 def apply_affine_plain(x, conn_T, phi, JxW, dphi0, st: ApplyStacks):
     """Ye (V, K, E) = qp_apply_affine of the stacked blocks applied to the
     corner-gathered, interpolated x (V, N)."""
     V = st.n_vars
-    blocks = lambda: [[0.0] * V for _ in range(V)]
-    C, D, Ep = blocks(), blocks(), blocks()
-    for dst, planes, idx in ((C, st.C, st.idxC), (D, st.D, st.idxD),
-                             (Ep, st.Epre, st.idxE)):
-        for i, (v, w) in enumerate(idx):
-            dst[v][w] = planes[i]
-    wfb = WeakFormBlocks(A=(0.0,) * V, B=(0.0,) * V, C=C, D=D, E=())
+    wfb = WeakFormBlocks(A=(0.0,) * V, B=(0.0,) * V,
+                         C=_unstack(V, st.C, st.idxC),
+                         D=_unstack(V, st.D, st.idxD), E=())
     x_qp, gx = interpolate_ue_affine(x[:, conn_T], phi, dphi0)
-    return qp_apply_affine(wfb, Ep, phi, JxW, dphi0[None], x_qp, gx)
+    return qp_apply_affine(wfb, _unstack(V, st.Epre, st.idxE), phi, JxW,
+                           dphi0[None], x_qp, gx)
+
+
+def apply_generic_plain(x, conn_T, phi, JxW, dphi, st: GenericApplyStacks):
+    """Ye (V, K, E) = qp_apply of the stacked blocks applied to the
+    corner-gathered x (V, N), interpolated with per-q gradients dphi
+    (Q, K, 3, E)."""
+    V = st.n_vars
+    wfb = WeakFormBlocks(A=(0.0,) * V, B=(0.0,) * V,
+                         C=_unstack(V, st.C, st.idxC),
+                         D=_unstack(V, st.D, st.idxD),
+                         E=_unstack(V, st.E, st.idxE))
+    x_qp, gx_qp = interpolate_ue(x[:, conn_T], phi, dphi)
+    return qp_apply(wfb, phi, JxW, dphi, x_qp, gx_qp)
+
+
+def take_along_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[m, l] = tbl[idx[m, l], l] (numpy's take_along_axis, axis 0)."""
+    return torch.gather(tbl, 0, idx.long())
 
 
 # ----------------------------------------------------------------------
@@ -213,6 +274,15 @@ def _lib():
     from ._build import library
 
     return library()
+
+
+def _apply_slots(st) -> np.ndarray:
+    """(3, MAX_V, MAX_V) int32: (v, w) -> plane index in the C, D and E
+    stacks of K3/K6, or -1 where the block is absent."""
+    slots = np.full((3, MAX_V, MAX_V), -1, np.int32)
+    for t, idx in enumerate((st.idxC, st.idxD, st.idxE)):
+        slots[t, idx[:, 0], idx[:, 1]] = np.arange(len(idx))
+    return slots
 
 
 def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
@@ -289,9 +359,7 @@ def apply_affine(x: torch.Tensor, conn_T: torch.Tensor, phi,
     _check("C", st.C, dev, dt, (len(st.idxC), Q, E))
     _check("D", st.D, dev, dt, (len(st.idxD), Q, 3, E))
     _check("Epre", st.Epre, dev, dt, (len(st.idxE), E))
-    slots = np.full((3, MAX_V, MAX_V), -1, np.int32)
-    for t, idx in enumerate((st.idxC, st.idxD, st.idxE)):
-        slots[t, idx[:, 0], idx[:, 1]] = np.arange(len(idx))
+    slots = _apply_slots(st)
     ph = _phi_host(phi, Q, K)
     Ye = torch.empty((V, K, E), dtype=dt, device=dev)
     variant = "apply_affine_f32" if dt == torch.float32 else "apply_affine_f64"
@@ -301,6 +369,66 @@ def apply_affine(x: torch.Tensor, conn_T: torch.Tensor, phi,
                 _ptr(st.D), _ptr(st.Epre), _host(slots), _ptr(Ye), V, N, K, Q,
                 E, _stream(dev))
     return Ye
+
+
+GENERIC_KQ = ((8, 8),)  # (K, Q) pairs csrc/apply_generic.cu instantiates
+
+
+def apply_generic(x: torch.Tensor, conn_T: torch.Tensor, phi,
+                  JxW: torch.Tensor, dphi: torch.Tensor,
+                  st: GenericApplyStacks):
+    """K6: x (V, N) f32 or f64, conn_T (K, E) int32, phi (Q, K) host
+    table, JxW (Q, E), dphi (Q, K, 3, E) and the stacked blocks, all in x's
+    dtype -> Ye (V, K, E)."""
+    if _on_cpu(x):
+        return apply_generic_plain(x, conn_T, phi, JxW, dphi, st)
+    V, N = x.shape
+    K, E = conn_T.shape
+    Q = JxW.shape[0]
+    dev, dt = x.device, x.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"apply_generic: no kernel for {dt}")
+    if V != st.n_vars or not 1 <= V <= MAX_V:
+        raise ValueError(f"apply_generic: {V} species, stacks carry "
+                         f"{st.n_vars}, kernel takes 1..{MAX_V}")
+    if (K, Q) not in GENERIC_KQ:
+        raise ValueError(f"apply_generic: no kernel for K={K}, Q={Q} "
+                         f"(built for {GENERIC_KQ})")
+    _check("x", x, dev, dt, (V, N))
+    _check("conn_T", conn_T, dev, torch.int32, (K, E))
+    _check("JxW", JxW, dev, dt, (Q, E))
+    _check("dphi", dphi, dev, dt, (Q, K, 3, E))
+    _check("C", st.C, dev, dt, (len(st.idxC), Q, E))
+    _check("D", st.D, dev, dt, (len(st.idxD), Q, 3, E))
+    _check("E", st.E, dev, dt, (len(st.idxE), Q, E))
+    slots = _apply_slots(st)
+    ph = _phi_host(phi, Q, K)
+    Ye = torch.empty((V, K, E), dtype=dt, device=dev)
+    variant = ("apply_generic_f32" if dt == torch.float32
+               else "apply_generic_f64")
+    with torch.cuda.device(dev):
+        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(x),
+                _ptr(conn_T), _host(ph), _ptr(JxW), _ptr(dphi), _ptr(st.C),
+                _ptr(st.D), _ptr(st.E), _host(slots), _ptr(Ye), V, N, K, Q,
+                E, _stream(dev))
+    return Ye
+
+
+def take_along(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K7: tbl (S, L) f32, idx (M, L) int32 with entries in [0, S) ->
+    out (M, L) f32, out[m, l] = tbl[idx[m, l], l]."""
+    if _on_cpu(tbl):
+        return take_along_plain(tbl, idx)
+    S, L = tbl.shape
+    M = idx.shape[0]
+    dev = tbl.device
+    _check("tbl", tbl, dev, torch.float32, (S, L))
+    _check("idx", idx, dev, torch.int32, (M, L))
+    out = torch.empty((M, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("take_along_f32", _lib().rdc_take_along_f32, _ptr(tbl),
+                _ptr(idx), _ptr(out), S, M, L, _stream(dev))
+    return out
 
 
 def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
@@ -355,9 +483,12 @@ class Ops(NamedTuple):
     apply_affine: Callable
     restrict: Callable
     ell_matvec: Callable
+    apply_generic: Callable
+    take_along: Callable
 
 
 KERNEL_OPS = Ops(gather_interp_affine, rhs_affine, apply_affine, restrict,
-                 ell_matvec)
+                 ell_matvec, apply_generic, take_along)
 PLAIN_OPS = Ops(gather_interp_affine_plain, rhs_affine_plain,
-                apply_affine_plain, restrict_plain, ell_matvec_plain)
+                apply_affine_plain, restrict_plain, ell_matvec_plain,
+                apply_generic_plain, take_along_plain)

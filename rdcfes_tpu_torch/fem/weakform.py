@@ -1,5 +1,6 @@
-"""Block-sparse weak form and the matrix-free affine (TET4) element
-functions, in torch (transcriptions of rdcfes_tpu.fem.weakform).
+"""Block-sparse weak form and the matrix-free element functions, generic
+(per-q gradients, e.g. HEX8) and affine (TET4), in torch (counterparts of
+rdcfes_tpu.fem.weakform).
 
 Per quadrature point, every RDC model contributes
 
@@ -16,12 +17,18 @@ The Krylov matvec applies the blocks straight from the coefficients:
 
 Layout: element axis last.  phi is the host (Q, K) table; JxW (Q, E);
 dphi (Q, K, 3, E).
+
+The generic functions (block_rhs, qp_apply, block_diag) are broadcast
+multiply-reduces over the q, k and d axes, a few whole-plane ops per live
+block; the reference unrolls the same sums term by term, so the two agree
+to f64 reassociation.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -72,6 +79,93 @@ def _accum(terms):
 
 def _zeros_e(JxW: torch.Tensor) -> torch.Tensor:
     return torch.zeros(JxW.shape[-1], dtype=JxW.dtype, device=JxW.device)
+
+
+def _phi_tensor(phi, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(phi), dtype=like.dtype,
+                           device=like.device)
+
+
+def _project(ph, JxW, dphi, a, b):
+    """(K, E) = sum_q JxW[q] (phi[q, k] a[q] + sum_d dphi[q, k, d] b[q, d])
+    for a (Q, E) or None and b (Q, 3, E) or None (not both None)."""
+    out = None
+    if a is not None:
+        out = (ph[:, :, None] * (JxW * a)[:, None, :]).sum(dim=0)
+    if b is not None:
+        flux = (dphi * (JxW[:, None, :] * b)[:, None]).sum(dim=(0, 2))
+        out = flux if out is None else out + flux
+    return out
+
+
+def _stack_rows(rows, K: int, JxW: torch.Tensor) -> torch.Tensor:
+    """Stack per-species (K, E) rows; None = a species with no live block."""
+    zero = torch.zeros((K, JxW.shape[-1]), dtype=JxW.dtype, device=JxW.device)
+    return torch.stack([zero if r is None else r for r in rows], dim=0)
+
+
+def block_rhs(wfb: WeakFormBlocks, phi, JxW, dphi) -> torch.Tensor:
+    """Fe (V, K, E) from the A/B blocks with per-q gradients dphi
+    (Q, K, 3, E); a species without live blocks contributes zeros."""
+    ph = _phi_tensor(phi, JxW)
+    rows = []
+    for v in range(wfb.n_vars):
+        a = None if _is_zero(wfb.A[v]) else wfb.A[v]
+        b = None if _is_zero(wfb.B[v]) else wfb.B[v]
+        rows.append(None if a is None and b is None
+                    else _project(ph, JxW, dphi, a, b))
+    return _stack_rows(rows, ph.shape[1], JxW)
+
+
+def qp_apply(wfb: WeakFormBlocks, phi, JxW, dphi, x_qp, gx_qp
+             ) -> torch.Tensor:
+    """Element contributions Ye (V, K, E) of the LHS operator applied to a
+    vector interpolated at quadrature points, the matrix-free matvec core
+    for per-q gradients.  x_qp (V, Q, E); gx_qp (V, Q, 3, E)
+    (fem.assembly.interpolate_ue)."""
+    V = wfb.n_vars
+    ph = _phi_tensor(phi, JxW)
+    rows = []
+    for v in range(V):
+        # mass response a (Q, E), flux response b (Q, 3, E)
+        a = _accum([wfb.C[v][w] * x_qp[w] for w in range(V)
+                    if not _is_zero(wfb.C[v][w])])
+        b = _accum([wfb.D[v][w] * x_qp[w][:, None, :] for w in range(V)
+                    if not _is_zero(wfb.D[v][w])]
+                   + [wfb.E[v][w][:, None, :] * gx_qp[w] for w in range(V)
+                      if not _is_zero(wfb.E[v][w])])
+        rows.append(None if a is None and b is None
+                    else _project(ph, JxW, dphi, a, b))
+    return _stack_rows(rows, ph.shape[1], JxW)
+
+
+def block_diag(wfb: WeakFormBlocks, phi, JxW, dphi) -> torch.Tensor:
+    """diag_e (V, V, K, E): the per-element (i, i) entries of each (v, w)
+    block for the block-Jacobi preconditioner, straight from the
+    coefficients, with per-q gradients."""
+    V = wfb.n_vars
+    ph = _phi_tensor(phi, JxW)
+    K = ph.shape[1]
+    ph2 = ph * ph
+    gg = (dphi * dphi).sum(dim=2)  # (Q, K, E)
+    out_rows = []
+    for v in range(V):
+        row = []
+        for w in range(V):
+            terms = []
+            if not _is_zero(wfb.C[v][w]):
+                terms.append((ph2[:, :, None]
+                              * (JxW * wfb.C[v][w])[:, None, :]).sum(dim=0))
+            if not _is_zero(wfb.D[v][w]):
+                dd = (dphi * (JxW[:, None, :] * wfb.D[v][w])[:, None]
+                      ).sum(dim=2)  # (Q, K, E)
+                terms.append((ph[:, :, None] * dd).sum(dim=0))
+            if not _is_zero(wfb.E[v][w]):
+                terms.append((gg * (JxW * wfb.E[v][w])[:, None, :]
+                              ).sum(dim=0))
+            row.append(_accum(terms))
+        out_rows.append(_stack_rows(row, K, JxW))
+    return torch.stack(out_rows, dim=0)
 
 
 def block_rhs_affine(wfb: WeakFormBlocks, phi, JxW, dphi) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Krylov solver and block-Jacobi preconditioner in torch (transcription of
-rdcfes_tpu.solvers.krylov for the transient and solid paths).
+"""Krylov solvers (BiCGStab, CG, restarted GMRES) and the block-Jacobi
+preconditioner in torch (counterparts of rdcfes_tpu.solvers.krylov for
+the transient and solid paths).
 
-The reference runs the iteration inside one `lax.while_loop`; here it is a
+The reference runs each iteration inside one `lax.while_loop`; here it is a
 Python loop over eager tensor ops whose scalars stay on the device, with one
-host read per iteration for the stopping test.  Defaults mirror the implicit
+host read per iteration for the stopping test (GMRES reads its new
+Hessenberg column instead and keeps the small least-squares problem on the
+host).  Defaults mirror the implicit
 libMesh/PETSc settings of the reference app: relative tolerance 1e-12 and
 5000 iterations.
 """
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from ..fem.bcsr import extract_diagonal_blocks
@@ -134,3 +138,119 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
         go = flags[1] and k < maxiter
     res = torch.sqrt(_dot(r, r)) / safe_bnorm
     return SolveResult(x=x, iters=k, residual=res)
+
+
+def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       M: Callable = _identity,
+       rtol: Union[float, torch.Tensor] = DEFAULT_RTOL,
+       maxiter: int = DEFAULT_MAXITER) -> SolveResult:
+    """Preconditioned conjugate gradients for symmetric positive definite
+    systems (e.g. pure mass solves).  Stops when |r|^2 <= (rtol |b|)^2 or
+    after maxiter iterations; no breakdown guards, as the reference."""
+    dt = b.dtype
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnorm = torch.sqrt(_dot(b, b))
+    safe_bnorm = torch.where(bnorm == 0.0, 1.0, bnorm)
+    atol2 = (torch.as_tensor(rtol, device=b.device).to(dt) * safe_bnorm) ** 2
+    r = b - matvec(x)
+    z = M(r)
+    p = z
+    rz = _dot(r, z)
+    k = 0
+    go = bool(_dot(r, r) > atol2) and maxiter > 0
+    while go:
+        Ap = matvec(p)
+        alpha = rz / _dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        k += 1
+        go = bool(_dot(r, r) > atol2) and k < maxiter
+    res = torch.sqrt(_dot(r, r)) / safe_bnorm
+    return SolveResult(x=x, iters=k, residual=res)
+
+
+def gmres(matvec: Callable, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None, M: Callable = _identity,
+          rtol: Union[float, torch.Tensor] = DEFAULT_RTOL,
+          maxiter: int = DEFAULT_MAXITER, restart: int = 30) -> SolveResult:
+    """GMRES(restart) with right preconditioning, the fallback for stiff
+    nonsymmetric systems.
+
+    As the reference: classical Gram-Schmidt with one reorthogonalization
+    pass (CGS2) against the whole basis, two matrix-vector products with
+    the basis per pass; convergence inside a cycle is tracked through the
+    Givens-updated residual estimate |g[j+1]| <= rtol |b|, and a cycle
+    that meets it stops extending the basis; the true residual is
+    recomputed after each cycle.  Every cycle counts `restart` iterations,
+    whether it ended early or not, so `iters` is a multiple of `restart`.
+    A zero Hessenberg pivot leaves that component of the update at zero.
+
+    The basis and the vectors stay on b's device; each Arnoldi step reads
+    one Hessenberg column back, and the rotations and the triangular solve
+    run on the host in b's precision."""
+    dt = b.dtype
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    m = int(restart)
+    n = b.numel()
+    x = torch.zeros_like(b) if x0 is None else x0
+    bnorm = float(torch.sqrt(_dot(b, b)))
+    safe_bnorm = 1.0 if bnorm == 0.0 else bnorm
+    atol = float(rtol) * safe_bnorm
+    r = b - matvec(x)
+    res = float(torch.sqrt(_dot(r, r)))
+    total = 0
+    while res > atol and total < maxiter:
+        beta = res
+        basis = torch.zeros((m + 1, n), dtype=dt, device=b.device)
+        if beta > 0:
+            basis[0] = r.reshape(-1) / beta
+        H = np.zeros((m + 1, m), npdt)
+        cs = np.zeros(m, npdt)
+        sn = np.zeros(m, npdt)
+        g = np.zeros(m + 1, npdt)
+        g[0] = beta
+        for j in range(m):
+            w = matvec(M(basis[j].reshape(b.shape))).reshape(-1)
+            Vj = basis[:j + 1]
+            h1 = Vj @ w
+            w = w - Vj.T @ h1
+            h2 = Vj @ w
+            w = w - Vj.T @ h2
+            hnext = torch.sqrt(_dot(w, w))
+            col = torch.cat([h1 + h2, hnext[None]]).cpu().numpy()
+            hn = col[j + 1]
+            if hn > 0:
+                basis[j + 1] = w / hnext
+            # the earlier Givens rotations on the new column, then its own
+            for i in range(j):
+                t = cs[i] * col[i] + sn[i] * col[i + 1]
+                col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
+                col[i] = t
+            denom = np.sqrt(col[j] ** 2 + col[j + 1] ** 2)
+            c_new, s_new = ((1.0, 0.0) if denom == 0
+                            else (col[j] / denom, col[j + 1] / denom))
+            col[j] = c_new * col[j] + s_new * col[j + 1]
+            col[j + 1] = 0.0
+            cs[j], sn[j] = c_new, s_new
+            g[j + 1] = -s_new * g[j]
+            g[j] = c_new * g[j]
+            H[:j + 2, j] = col
+            if abs(g[j + 1]) <= atol:
+                break
+        # back substitution; columns the cycle never reached are zero
+        y = np.zeros(m, npdt)
+        for i in range(m - 1, -1, -1):
+            if H[i, i] != 0:
+                y[i] = (g[i] - H[i, :] @ y) / H[i, i]
+        dx = M((basis[:m].T @ torch.as_tensor(y, device=b.device)
+                ).reshape(b.shape))
+        x = x + dx
+        r = b - matvec(x)
+        res = float(torch.sqrt(_dot(r, r)))
+        total += m
+    residual = torch.as_tensor(res / safe_bnorm, dtype=dt, device=b.device)
+    return SolveResult(x=x, iters=total, residual=residual)

@@ -10,11 +10,13 @@ residual norm, the linear residual and a finiteness flag back after every
 stage.  Each linear stage re-lays the assembled block values into ELLPACK
 once and runs a left block-Jacobi-preconditioned BiCGStab on the ELL SpMV
 (kernel K5 through `ops.ell_matvec`): in f64, or ("mixed") as f32 sweeps
-with an f64 residual carry and f64 rescue (systems.transient.refine_mixed).
+with an f64 residual carry and f64 rescue (systems.transient.refine_mixed);
+`linear_method="gmres"` runs restarted GMRES in f64 on the same
+preconditioned operator instead.
 
 Not ported: the TPU's Beneš-routed SpMV (`fast_gather`,
-RDCFES_SOLID_FAST), GMRES and the hanging-node constrained operator; the
-last two raise NotImplementedError naming their ROADMAP item.
+RDCFES_SOLID_FAST) and the hanging-node constrained operator, which
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ from ..fem.assembly import NodePairSparsity, ell_structure
 from ..fem.bcsr import to_ell
 from ..fem.kernels import KERNEL_OPS, Ops
 from ..utils.device import cuda_device
-from .krylov import apply_block_jacobi, bicgstab, block_jacobi_inverse
+from .krylov import (apply_block_jacobi, bicgstab, block_jacobi_inverse,
+                     gmres)
 
-_GMRES = "ROADMAP queue 1 item 8 (gmres and cg)"
+_LINEAR = {"bicgstab": bicgstab, "gmres": gmres}
 _CONSTRAINTS = "ROADMAP queue 1 item 13 (hanging-node constraints)"
 
 
@@ -85,9 +88,7 @@ class NewtonSolver:
                  ops: Ops = KERNEL_OPS):
         if constraints is not None and len(constraints):
             raise NotImplementedError(f"constrained Newton: {_CONSTRAINTS}")
-        if opts.linear_method == "gmres":
-            raise NotImplementedError(f"linear_method='gmres': {_GMRES}")
-        if opts.linear_method != "bicgstab":
+        if opts.linear_method not in _LINEAR:
             raise ValueError(f"unknown linear_method {opts.linear_method!r}")
         if opts.linear_precision not in ("f64", "mixed"):
             raise ValueError(
@@ -116,7 +117,8 @@ class NewtonSolver:
         pre_matvec = lambda y: apply_block_jacobi(
             Dinv, ops.ell_matvec(v64, cols, y))
         pre_b = apply_block_jacobi(Dinv, rhs)
-        if opts.linear_precision == "mixed":
+        if (opts.linear_precision == "mixed"
+                and opts.linear_method == "bicgstab"):
             # imported here: systems/ imports this module
             from ..systems.transient import refine_mixed
 
@@ -126,8 +128,8 @@ class NewtonSolver:
             return refine_mixed(mv32, pre_matvec, pre_b,
                                 torch.zeros_like(pre_b), rtol,
                                 opts.max_linear_iterations)
-        res = bicgstab(pre_matvec, pre_b, rtol=rtol,
-                       maxiter=opts.max_linear_iterations)
+        res = _LINEAR[opts.linear_method](
+            pre_matvec, pre_b, rtol=rtol, maxiter=opts.max_linear_iterations)
         return res.x, res.iters, res.residual
 
     @staticmethod

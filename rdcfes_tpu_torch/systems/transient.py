@@ -1,17 +1,22 @@
 """Transient linearized-Crank-Nicolson RDC system, matrix-free qp path
-(port of rdcfes_tpu.systems.transient for affine TET4 meshes).
+(port of rdcfes_tpu.systems.transient for single-type TET4 and HEX8
+meshes).
 
 Per time step, as in the reference app's TransientLinearImplicitSystem
 use (src/pihna.C:66-93):
   1. rotate history (older <- old <- current);
-  2. gather u to element corners and interpolate to quadrature points
-     (K1), evaluate the coefficient blocks, build the element right-hand
-     side (K2) and restrict it to the nodal b (K4);
+  2. gather u to element corners and interpolate to quadrature points,
+     evaluate the coefficient blocks, build the element right-hand side
+     and restrict it to the nodal b (K4).  TET4 is affine (one gradient
+     per element): K1 interpolates, K2 builds the right-hand side.  HEX8
+     has per-q gradients: fem.assembly.interpolate_ue and
+     fem.weakform.block_rhs, plain tensor code, once per step;
   3. every `precond_refresh` steps, restrict the per-element (i, i)
      blocks to the block-Jacobi diagonal (K4) and invert it;
-  4. solve with mixed-precision iterative refinement: f32 BiCGStab passes
-     with f64 residual correction and an f64 rescue; every matvec is K3
-     (gather + affine element apply) followed by K4;
+  4. solve: mixed-precision iterative refinement (f32 BiCGStab passes with
+     f64 residual correction and an f64 rescue) or, with precision="f64",
+     BiCGStab or GMRES in f64.  Every matvec is the gather + element
+     apply, K3 on TET4 and K6 on HEX8, followed by K4;
   5. clamp at zero (`check_solution`, src/pihna.C:760-803).
 
 Layouts are channel-first inside (u is (V, N)); the public state keeps the
@@ -27,22 +32,24 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..fem.assembly import build_sparsity, gather_tables
+from ..fem.assembly import build_sparsity, gather_tables, interpolate_ue
 from ..fem.geometry import geometry_factors
-from ..fem.kernels import KERNEL_OPS, Ops, stack_apply, stack_rhs
-from ..fem.weakform import block_diag_affine, diffusion_presum
+from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
+                           stack_rhs)
+from ..fem.weakform import (block_diag, block_diag_affine, block_rhs,
+                            diffusion_presum)
 from ..mesh.core import Mesh
 from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
-                              apply_block_jacobi, bicgstab,
+                              apply_block_jacobi, bicgstab, gmres,
                               small_block_inverse)
 from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.device import cuda_device
 
 # where the unported options land (ROADMAP.md, queue 1)
-_GENERIC = ("ROADMAP queue 1 item 8 (generic path, rest of the transient "
-            "system)")
 _MOVING = "ROADMAP queue 1 item 12 (coupled HCC, moving mesh)"
 _AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
+_ELEMENT_TYPES = ("TET4", "HEX8")  # TET4 affine, HEX8 generic
+_METHODS = {"bicgstab": bicgstab, "gmres": gmres}
 
 
 def clamp_nonnegative(u: torch.Tensor) -> torch.Tensor:
@@ -100,23 +107,31 @@ def refine_mixed(mv32: Callable, pre_matvec64: Callable,
 
 
 class TransientRDCSystem:
-    """A transient multi-species RDC system on a fixed TET4 mesh, stepped
-    on the matrix-free qp path in mixed precision.
+    """A transient multi-species RDC system on a fixed single-type TET4 or
+    HEX8 mesh, stepped on the matrix-free qp path.
 
-    mesh            : host Mesh (TET4)
+    mesh            : host Mesh (TET4: the affine path; HEX8: the generic
+                      path with per-q shape gradients)
     n_vars          : number of coupled nodal variables V
     physics_blocks  : callable(u_qp (V,Q,E), grad_qp (V,Q,3,E), fields,
-                      params) -> WeakFormBlocks (e.g. models.pihna)
+                      params) -> WeakFormBlocks (e.g. models.pihna,
+                      models.adpm)
     clamp           : callable(u (V,N)) -> (V,N), applied after each solve
     rtol, maxiter   : linear tolerance on the preconditioned residual, and
-                      the f64 rescue's iteration cap
-    precision       : "mixed" (the only precision of this slice)
+                      the iteration cap of the f64 solve or rescue
+    precision       : "mixed" (f32 BiCGStab passes, f64 refinement) or
+                      "f64" (one f64 Krylov solve with `method`)
+    method          : "bicgstab" or "gmres", the f64 solver of
+                      precision="f64"
     precond_refresh : recompute the block-Jacobi inverse every k steps
     device          : where the tables and the state live; None (the
                       default) is the CUDA card (utils.device.cuda_device,
                       which raises without one: never the CPU)
     ops             : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS, the
-                      plain torch versions of the same four operations
+                      plain torch versions of the same operations
+
+    `fields` of step/run_steps: tensors on the system's device (ADPM's
+    "tracts" (E, 3)) and Python floats ("time").
     """
 
     def __init__(self, mesh: Mesh, n_vars: int, physics_blocks: Callable,
@@ -126,17 +141,22 @@ class TransientRDCSystem:
                  precond_refresh: int = 1,
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
-                 ops: Ops = KERNEL_OPS):
-        if mesh.elem_type != "TET4":
+                 ops: Ops = KERNEL_OPS, method: str = "bicgstab"):
+        if mesh.elem_type not in _ELEMENT_TYPES:
             raise NotImplementedError(
-                f"{mesh.elem_type} meshes (non-affine qp path): {_GENERIC}")
+                f"{mesh.elem_type} meshes (element tables beyond TET4 and "
+                f"HEX8): {_AMR}")
         if constraints is not None and len(constraints):
             raise NotImplementedError(f"hanging-node constraints: {_AMR}")
         if moving_mesh:
             raise NotImplementedError(f"moving mesh: {_MOVING}")
-        if precision != "mixed":
-            raise NotImplementedError(f"precision={precision!r}: {_GENERIC}")
+        if precision not in ("f64", "mixed"):
+            raise ValueError(f"unknown precision {precision!r}")
+        if method not in _METHODS:
+            raise ValueError(f"unknown method {method!r}")
         self.mesh = mesh
+        self.affine = mesh.elem_type == "TET4"
+        self.method = method
         self.n_vars = n_vars
         self.physics_blocks = physics_blocks
         self.clamp = clamp
@@ -159,10 +179,14 @@ class TransientRDCSystem:
         coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=dev)
         self.phi, self.JxW, self.dphi = geometry_factors(
             coords, torch.as_tensor(conn, device=dev), mesh.elem_type)
-        self.dphi0 = self.dphi[0]  # (K, 3, E): q-invariant on TET4
-        # f32 geometry of the inner matvec
+        # f32 geometry of the inner matvec.  The affine path keeps one
+        # gradient per element, dphi[0] (K, 3, E): q-invariant on TET4.
         self.JxW32 = self.JxW.to(torch.float32)
-        self.dphi0_32 = self.dphi0.to(torch.float32)
+        if self.affine:
+            self.dphi0 = self.dphi[0]
+            self.dphi0_32 = self.dphi0.to(torch.float32)
+        else:
+            self.dphi32 = self.dphi.to(torch.float32)
 
     # ------------------------------------------------------------------
     def initial_state(self, u0) -> Dict[str, torch.Tensor]:
@@ -180,47 +204,77 @@ class TransientRDCSystem:
         return state_from_numpy(gstate, self.device)
 
     # ------------------------------------------------------------------
-    def _matvec(self, x, stacks, JxW, dphi0):
-        """Matrix-free operator: K3 (gather + element apply) then K4."""
-        Ye = self.ops.apply_affine(x, self.conn_T, self.phi, JxW, dphi0,
-                                   stacks)
+    def _matvec(self, x, stacks, JxW, dphi):
+        """Matrix-free operator: the gather + element apply (K3 with the
+        element's one gradient table on TET4, K6 with the per-q tables on
+        HEX8), then K4."""
+        apply = (self.ops.apply_affine if self.affine
+                 else self.ops.apply_generic)
+        Ye = apply(x, self.conn_T, self.phi, JxW, dphi, stacks)
         return self.ops.restrict(Ye.reshape(self.n_vars, -1),
                                  self.node_gather)
 
     def _step_body(self, state, fields, params, Dinv):
-        """One qp step (the reference's _qp_raw_body step_fn on the
-        affine path).  Dinv None = build a fresh block-Jacobi inverse.
-        Returns (new_state, inner iterations, residual, Dinv)."""
+        """One qp step (the reference's _qp_raw_body step_fn).  Dinv None =
+        build a fresh block-Jacobi inverse.  Returns (new_state, inner
+        iterations, residual, Dinv)."""
         V, N = self.n_vars, self.mesh.n_nodes
         ops = self.ops
+        f32 = torch.float32
         u_T = state["u"].T.contiguous()
-        u_qp, gx1 = ops.gather_interp_affine(u_T, self.conn_T, self.phi,
-                                             self.dphi0)
-        # TET4: one gradient per element, broadcast over q for the physics
-        grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
+        if self.affine:
+            u_qp, gx1 = ops.gather_interp_affine(u_T, self.conn_T, self.phi,
+                                                 self.dphi0)
+            # one gradient per element, broadcast over q for the physics
+            grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
+        else:
+            u_qp, grad_qp = interpolate_ue(u_T[:, self.conn_T], self.phi,
+                                           self.dphi)
         wfb = self.physics_blocks(u_qp, grad_qp, fields, params)
-        Fe = ops.rhs_affine(stack_rhs(wfb), self.JxW, self.phi, self.dphi0)
+        if self.affine:
+            Fe = ops.rhs_affine(stack_rhs(wfb), self.JxW, self.phi,
+                                self.dphi0)
+        else:
+            Fe = block_rhs(wfb, self.phi, self.JxW, self.dphi)
         b = ops.restrict(Fe.reshape(V, -1), self.node_gather)
         if Dinv is None:
-            diag_e = block_diag_affine(wfb, self.phi, self.JxW, self.dphi)
+            diag_fn = block_diag_affine if self.affine else block_diag
+            diag_e = diag_fn(wfb, self.phi, self.JxW, self.dphi)
             D = ops.restrict(diag_e.reshape(V * V, -1), self.node_gather)
             Dinv = small_block_inverse(D.reshape(V, V, N), pivot=False)
-        # once-per-step diffusion q-sum, reused by every matvec
-        st64 = stack_apply(wfb, diffusion_presum(wfb, self.JxW))
+        # the operator's stacked live blocks, f64; on the affine path with
+        # the once-per-step diffusion q-sum that every matvec reuses
+        if self.affine:
+            st64 = stack_apply(wfb, diffusion_presum(wfb, self.JxW))
+            dphi64 = self.dphi0
+        else:
+            st64 = stack_apply_generic(wfb)
+            dphi64 = self.dphi
         pre_matvec = lambda x: apply_block_jacobi(
-            Dinv, self._matvec(x, st64, self.JxW, self.dphi0))
+            Dinv, self._matvec(x, st64, self.JxW, dphi64))
         pre_b = apply_block_jacobi(Dinv, b)
         # linear extrapolation warm start
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
-        # the f32 operator is built from f32 casts of the f64 blocks, its
-        # diffusion q-sum taken in f32 (as the reference's wfb.cast path)
-        wfb32 = wfb.cast(torch.float32)
-        st32 = stack_apply(wfb32, diffusion_presum(wfb32, self.JxW32))
-        Dinv32 = Dinv.to(torch.float32)
-        mv32 = lambda x: apply_block_jacobi(
-            Dinv32, self._matvec(x, st32, self.JxW32, self.dphi0_32))
-        u_raw, iters, resid = refine_mixed(mv32, pre_matvec, pre_b, x0,
-                                           self.rtol, self.maxiter)
+        if self.precision == "mixed":
+            # the f32 operator is built from f32 casts of the f64 blocks,
+            # its diffusion q-sum taken in f32 (the reference's wfb.cast)
+            wfb32 = wfb.cast(f32)
+            if self.affine:
+                st32 = stack_apply(wfb32,
+                                   diffusion_presum(wfb32, self.JxW32))
+                dphi32 = self.dphi0_32
+            else:
+                st32 = stack_apply_generic(wfb32)
+                dphi32 = self.dphi32
+            Dinv32 = Dinv.to(f32)
+            mv32 = lambda x: apply_block_jacobi(
+                Dinv32, self._matvec(x, st32, self.JxW32, dphi32))
+            u_raw, iters, resid = refine_mixed(mv32, pre_matvec, pre_b, x0,
+                                               self.rtol, self.maxiter)
+        else:
+            r = _METHODS[self.method](pre_matvec, pre_b, x0=x0,
+                                      rtol=self.rtol, maxiter=self.maxiter)
+            u_raw, iters, resid = r.x, r.iters, r.residual
         u_new = self.clamp(u_raw)
         new_state = {"u": u_new.T, "u_old": state["u"],
                      "u_older": state["u_old"], "u_raw": u_raw.T}
@@ -255,28 +309,108 @@ class TransientRDCSystem:
         self._steps_since_precond = 1
         return new_state, iters, res
 
+    def choose_subcycle(self, state: Dict, fields: Optional[Dict] = None,
+                        params: Optional[Dict] = None,
+                        scalars: Optional[Dict] = None, coords=None,
+                        scalar_traj: Optional[Dict] = None, kmax: int = 32,
+                        stall_factor: float = 100.0, k0: int = 1) -> int:
+        """Adaptive subcycle factor: probe ONE step at dt/k0, dt/2k0, ...
+        from `state` (the probes' results are discarded) and return the
+        first k whose linear solve converges (residual <= stall_factor *
+        rtol), or the first k >= kmax.  A set-up call: run it once per
+        (mesh, params) regime, outside any timed loop, and pass the result
+        as run_steps(subcycle=k), or let run_steps(subcycle="auto") call
+        it.  `k0` starts the ladder above 1 when lower k are known to
+        fail.  The probe sees the first-step values of `scalar_traj`."""
+        f = dict(fields or {})
+        if scalar_traj:
+            f.update({k: float(np.asarray(v)[0])
+                      for k, v in scalar_traj.items()})
+        k = max(1, int(k0))
+        while True:
+            p = dict(params)
+            p["dt"] = float(params["dt"]) / k
+            _, _, res = self.step(state, fields=f, params=p, coords=coords,
+                                  scalars=scalars)
+            if float(res) <= stall_factor * self.rtol or k >= kmax:
+                return k
+            k *= 2
+
     def run_steps(self, state: Dict, n: int, fields: Optional[Dict] = None,
                   params: Optional[Dict] = None,
                   scalars: Optional[Dict] = None, coords=None,
-                  subcycle=None):
+                  subcycle=None, scalar_traj: Optional[Dict] = None,
+                  field_update: Optional[Callable] = None, field_aux=None,
+                  field_args=()):
         """Advance n steps.  Returns (state, iters_per_step (n,) int64 on
-        the CPU, residual_per_step (n,) on the state's device).  Step i
+        the CPU, residual_per_step (n,) on the state's device), plus the
+        final `field_update` carry when `field_update` is given.  Step i
         rebuilds the block-Jacobi inverse when i % precond_refresh == 0,
-        as the reference's scan does."""
-        if subcycle not in (None, 1):
-            raise NotImplementedError(f"subcycling: {_GENERIC}")
+        as the reference's scan does.
+
+        `subcycle=k` (int > 1) advances each requested step as k substeps
+        at dt/k; `subcycle="auto"` probes for the smallest power-of-two k
+        whose linear solve converges (choose_subcycle).  It is the answer
+        to advection-dominated regimes (taxis CFL of a few and more) where
+        the linearized-CN operator of the full dt turns indefinite and no
+        Krylov/preconditioner pair converges.  Iterations and residuals
+        come back per OUTER step (iterations summed, the residual of the
+        last substep); `scalar_traj` values are held over an outer step's
+        substeps; the returned history (u_old, u_older, u_raw) is at
+        SUBSTEP spacing.
+
+        `scalar_traj` maps a scalar-field name to its per-step values,
+        shape (n,): step j sees value [j] as a Python float (ADPM's
+        advancing `time`); `scalars` entries are constant over all steps.
+
+        `field_update(state, aux, tr, *field_args) -> (fields, new_aux)`
+        runs BEFORE each step, for fields derived from the carried
+        solution (RIPF's time-derivative fields); `tr` holds that step's
+        scalar_traj values, `field_aux` is the first carry."""
         if coords is not None:
             raise NotImplementedError(f"moving mesh: {_MOVING}")
+        n = int(n)
+        if subcycle not in (None, 1):
+            k = (self.choose_subcycle(state, fields=fields, params=params,
+                                      scalars=scalars,
+                                      scalar_traj=scalar_traj)
+                 if subcycle == "auto" else int(subcycle))
+            if k > 1:
+                p_sub = dict(params)
+                p_sub["dt"] = float(params["dt"]) / k
+                traj_sub = {kk: np.repeat(np.asarray(v), k)
+                            for kk, v in (scalar_traj or {}).items()}
+                out = self.run_steps(
+                    state, n * k, fields=fields, params=p_sub,
+                    scalars=scalars, scalar_traj=traj_sub or None,
+                    field_update=field_update, field_aux=field_aux,
+                    field_args=field_args)
+                its = out[1].reshape(n, k).sum(dim=1)
+                ress = out[2].reshape(n, k)[:, -1]
+                return (out[0], its, ress) + out[3:]
         fields = {**(fields or {}), **(scalars or {})}
+        traj = {k: np.asarray(v, dtype=np.float64)
+                for k, v in (scalar_traj or {}).items()}
+        for k, v in traj.items():
+            if v.shape != (n,):
+                raise ValueError(f"scalar_traj[{k!r}] must have shape "
+                                 f"({n},), got {v.shape}")
         p = self._plain_params(params)
         refresh = max(1, self.precond_refresh)
         Dinv = None
+        aux = field_aux
         its, ress = [], []
-        for i in range(int(n)):
+        for i in range(n):
+            tr = {k: float(v[i]) for k, v in traj.items()}
+            f = {**fields, **tr}
+            if field_update is not None:
+                fu, aux = field_update(state, aux, tr, *field_args)
+                f = {**f, **fu}
             state, it, res, Dinv = self._step_body(
-                state, fields, p, None if i % refresh == 0 else Dinv)
+                state, f, p, None if i % refresh == 0 else Dinv)
             its.append(it)
             ress.append(res)
         ress = (torch.stack(ress) if ress
                 else torch.empty(0, dtype=torch.float64, device=self.device))
-        return state, torch.tensor(its, dtype=torch.int64), ress
+        out = (state, torch.tensor(its, dtype=torch.int64), ress)
+        return out + ((aux,) if field_update is not None else ())

@@ -1,5 +1,5 @@
-"""Move meshes, coefficient blocks, material tables, positions and solver
-state between NumPy and the port, so both packages can be fed identical
+"""Move meshes, coefficient blocks, material tables, positions, step fields
+and solver state between NumPy and the port, so both packages can be fed identical
 data.
 
 The state dict is the one rdcfes_tpu's TransientRDCSystem.gather_state
@@ -23,6 +23,20 @@ def state_from_numpy(gstate: Dict[str, np.ndarray], device,
                      ) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in gstate.items()}
+
+
+def fields_from_numpy(fields: Dict, device,
+                      dtype: torch.dtype = torch.float64) -> Dict:
+    """The `fields` of a transient step moved across: arrays (e.g. ADPM's
+    tracts (E, 3)) become tensors on `device`, scalars (e.g. "time")
+    become Python floats."""
+    out = {}
+    for k, v in fields.items():
+        a = np.asarray(v)
+        out[k] = (float(a) if a.ndim == 0
+                  else torch.as_tensor(np.array(a), dtype=dtype,
+                                       device=device))
+    return out
 
 
 def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

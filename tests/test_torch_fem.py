@@ -20,8 +20,18 @@ from rdcfes_tpu.mesh import box_tet_mesh as jax_box_tet_mesh
 from rdcfes_tpu_torch.fem import assembly, geometry, kernels, weakform
 from rdcfes_tpu_torch.utils.convert import blocks_from_numpy
 
+from tests.torch_helpers import quick_compile
+
 V = 5
 TOL = 1e-13
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cheap_reference_compiles():
+    """The reference's jit compiles, which dominate this file's time,
+    without XLA's expensive passes (tests/torch_helpers.quick_compile)."""
+    with quick_compile():
+        yield
 
 
 def rel(a, b):

@@ -2,7 +2,9 @@
 version on seeded NumPy inputs (f64 within 1e-13, f32 within 1e-5,
 relative to the largest plain value: summation order and fused
 multiply-adds only), and a short transient run and a solid load step
-through the kernels against the same runs through the plain versions.
+through the kernels against the same runs through the plain versions; K6
+(the generic element apply, HEX8) and K7 (the calibration lookup) the same
+way, and a short HEX8 PIHNA run and ADPM steps through K6.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -17,6 +19,7 @@ import torch
 from rdcfes_tpu_torch.fem import assembly, bcsr, kernels, weakform
 from rdcfes_tpu_torch.fem.geometry import geometry_factors
 from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
+from rdcfes_tpu_torch.models import adpm
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions
 from rdcfes_tpu_torch.systems import TransientRDCSystem
@@ -201,3 +204,102 @@ def test_solid_kernel_path_matches_plain_path(cuda):
     r = s.run_solver(s.initial_positions(), 0.5)
     n = kernels.launch_counts()
     assert r.converged and all(n[v] > 0 for v in kernels.SOLID_VARIANTS)
+
+
+def _hex_case(dev, live):
+    """Seeded blocks on a jittered hex box: per-q gradients."""
+    mesh = box_hex_mesh(4, 3, 3, bounds=((0, 2.0), (0, 3.0), (0, 2.5)))
+    rng = np.random.default_rng(31)
+    coords = mesh.coords + 0.04 * rng.standard_normal(mesh.coords.shape)
+    phi, JxW, dphi = geometry_factors(
+        torch.as_tensor(coords, device=dev),
+        torch.as_tensor(mesh.connectivity, device=dev), "HEX8")
+    Q, E = JxW.shape
+    on = lambda v, w: live == "all" or (v + 2 * w) % 3 == 0
+    blk = lambda tail, s: [[rng.standard_normal(tail) if on(v, w + s)
+                            else 0.0 for w in range(V)] for v in range(V)]
+    blocks = ([rng.standard_normal((Q, E)) for _ in range(V)], [0.0] * V,
+              blk((Q, E), 0), blk((Q, 3, E), 1), blk((Q, E), 2))
+    conn_T = np.ascontiguousarray(mesh.connectivity.T)
+    return dict(phi=phi, JxW=JxW, dphi=dphi.contiguous(), blocks=blocks,
+                conn_T=torch.as_tensor(conn_T, device=dev),
+                x=torch.as_tensor(rng.standard_normal((V, mesh.n_nodes)),
+                                  device=dev))
+
+
+@pytest.mark.parametrize("live", ["all", "some"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_apply_generic_matches_plain(cuda, live, dtype, tol):
+    c = _hex_case(cuda, live)
+    wfb = blocks_from_numpy(*c["blocks"], cuda, dtype=dtype)
+    JxW, dphi, x = c["JxW"].to(dtype), c["dphi"].to(dtype), c["x"].to(dtype)
+    st = kernels.stack_apply_generic(wfb)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    before = kernels.launch_counts()[f"apply_generic_{tag}"]
+    Ye = kernels.apply_generic(x, c["conn_T"], c["phi"], JxW, dphi, st)
+    ref = kernels.apply_generic_plain(x, c["conn_T"], c["phi"], JxW, dphi,
+                                      st)
+    torch.cuda.synchronize()
+    assert Ye.dtype == dtype and rel(Ye, ref) < tol
+    assert kernels.launch_counts()[f"apply_generic_{tag}"] == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.apply_generic(x, c["conn_T"], c["phi"], JxW,
+                              dphi.transpose(0, 1), st)
+    with pytest.raises(ValueError, match="K="):  # TET4 is K3's, not K6's
+        kernels.apply_generic(x, c["conn_T"][:4], c["phi"][:5, :4], JxW[:5],
+                              dphi[:5, :4].contiguous(), st)
+
+
+def test_take_along_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    tbl = torch.as_tensor(rng.standard_normal((192, 128)),
+                          dtype=torch.float32, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 192, (4608, 128)),
+                          dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()["take_along_f32"]
+    out = kernels.take_along(tbl, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.take_along_plain(tbl, idx))
+    assert kernels.launch_counts()["take_along_f32"] == before + 1
+    with pytest.raises(TypeError):
+        kernels.take_along(tbl, idx.long())
+
+
+def test_hex8_kernel_path_matches_plain_path(cuda):
+    """3 ADPM steps (live D planes, fields) on box_hex_mesh(4,4,4), each
+    from a common state, through K6/K4 and through the plain versions,
+    in mixed precision and in f64 with GMRES."""
+    mesh = box_hex_mesh(4, 4, 4, bounds=((0, 20.0),) * 3)
+    p = adpm.default_params()
+    p.update(dt=0.05, decay_PrP=1e-4, decay_PrP_pulse0=0.01,
+             decay_PrP_pulse1=10.0, diffuse_A_b=0.05, taxis1_A_b=0.5,
+             taxis2_A_b=0.2, decay_A_b=0.05, diffuse_Tau=0.02,
+             taxis1_Tau=0.3, decay_Tau=1.0)
+    p = {k: float(v) for k, v in p.items()}
+    rng = np.random.default_rng(5)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(1)
+    u0 = np.zeros((mesh.n_nodes, 3))
+    u0[:, 0] = 1.0
+    u0[:, 1] = 0.3 * np.exp(-r2 / 30.0)
+    u0[:, 2] = 0.1 * np.exp(-r2 / 20.0)
+    tr = rng.standard_normal((mesh.n_elems, 3))
+    tr /= np.linalg.norm(tr, axis=1, keepdims=True)
+    f = {"tracts": torch.as_tensor(tr, device=cuda), "time": 1.0}
+    for kw in ({"precision": "mixed"},
+               {"precision": "f64", "method": "gmres"}):
+        a = TransientRDCSystem(mesh, 3, adpm.adpm_blocks, rtol=1e-11,
+                               device=cuda, **kw)
+        b = TransientRDCSystem(mesh, 3, adpm.adpm_blocks, rtol=1e-11,
+                               device=cuda, ops=kernels.PLAIN_OPS, **kw)
+        kernels.reset_launch_counts()
+        sa = a.initial_state(u0)
+        for _ in range(3):
+            sb, _, _ = b.step(sa, fields=f, params=p)
+            sa, _, res = a.step(sa, fields=f, params=p)
+            assert float(res) <= 1e-11
+            ua, ub = sa["u"].cpu().numpy(), sb["u"].cpu().numpy()
+            assert np.linalg.norm(ua - ub) / np.linalg.norm(ub) < 1e-10
+        n = kernels.launch_counts()
+        assert n["apply_generic_f64"] > 0 and n["restrict_f64"] > 0
+        assert (n["apply_generic_f32"] > 0) == (kw["precision"] == "mixed")

@@ -8,8 +8,9 @@ against rdcfes_tpu on box_hex_mesh(3,3,3), loaded at pseudo-time 0.5:
   Krylov, rel. residual and step 1e-6): both converge in the same number
   of Newton iterations and drift apart by at most 1e-5 of the
   displacement scale (the bar of tests/test_solid.py's f32+reuse case);
-* the f64 tangent under modified Newton and under "mixed" Krylov, and
-  the unported options, which raise naming their ROADMAP item."""
+* the f64 tangent under modified Newton, under "mixed" Krylov and under
+  GMRES, and the unported options, which raise naming their ROADMAP
+  item."""
 
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from rdcfes_tpu_torch.mesh import box_hex_mesh
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions, NewtonSolver
 from rdcfes_tpu_torch.systems.solid import SolidSystem
 
+from tests.torch_helpers import quick_compile
+
 PT = 0.5
 KW = dict(materials={0: {"young": 1.0e3, "poisson": 0.3}},
           bcs={0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05)},
@@ -35,6 +38,14 @@ BENCH = dict(max_nonlinear_iterations=20, relative_residual_tolerance=1e-6,
              relative_step_tolerance=1e-6, reuse_tangent=True,
              linear_precision="mixed")
 CASES = {"exact": (EXACT, "f64"), "bench": (BENCH, "f32")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cheap_reference_compiles():
+    """The reference's jit compiles, which dominate this file's time,
+    without XLA's expensive passes (tests/torch_helpers.quick_compile)."""
+    with quick_compile():
+        yield
 
 
 def _port(opts, tp, ops=kernels.KERNEL_OPS):
@@ -95,10 +106,12 @@ def test_kernel_ops_and_plain_ops_agree_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [
-    {"reuse_tangent": True}, {"linear_precision": "mixed"}])
+    {"reuse_tangent": True}, {"linear_precision": "mixed"},
+    {"linear_method": "gmres"}])
 def test_f64_tangent_variants_converge_to_exact(reference, extra):
-    """Modified Newton and mixed-precision Krylov on the f64 tangent land
-    on the exact-f64 equilibrium within the solver tolerances."""
+    """Modified Newton, mixed-precision Krylov and restarted GMRES on the
+    f64 tangent land on the exact-f64 equilibrium within the solver
+    tolerances."""
     xr = reference["exact"][0]
     _, r = _port({**EXACT, **extra}, "f64")
     assert r.converged
@@ -107,8 +120,8 @@ def test_f64_tangent_variants_converge_to_exact(reference, extra):
 
 def test_unported_newton_options_raise():
     s = SolidSystem(box_hex_mesh(1, 1, 1), device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NewtonSolver(s.sp, NewtonOptions(linear_method="gmres"))
+    with pytest.raises(ValueError, match="linear_method"):
+        NewtonSolver(s.sp, NewtonOptions(linear_method="cg"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NewtonSolver(s.sp, NewtonOptions(), constraints=np.array([[0, 1, 2]]))
     with pytest.raises(ValueError):

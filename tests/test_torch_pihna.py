@@ -14,8 +14,18 @@ from rdcfes_tpu.models import pihna as jpihna
 from rdcfes_tpu_torch.models import pihna
 from rdcfes_tpu_torch.utils import scalars
 
+from tests.torch_helpers import quick_compile
+
 TOL = 1e-13
 KK = 2.39e5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cheap_reference_compiles():
+    """The reference's jit compiles, which dominate this file's time,
+    without XLA's expensive passes (tests/torch_helpers.quick_compile)."""
+    with quick_compile():
+        yield
 
 
 def _deck(taxis: bool):

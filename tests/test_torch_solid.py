@@ -38,10 +38,20 @@ from rdcfes_tpu_torch.utils.convert import (material_tables,
                                             positions_from_numpy,
                                             positions_to_numpy)
 
+from tests.torch_helpers import quick_compile
+
 F32, F64 = torch.float32, torch.float64
 TOL64 = 1e-13
 BCS = {0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05),
        2: (0.01, np.nan, np.nan)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cheap_reference_compiles():
+    """The reference's jit compiles, which dominate this file's time,
+    without XLA's expensive passes (tests/torch_helpers.quick_compile)."""
+    with quick_compile():
+        yield
 
 
 def rel(a, b):
