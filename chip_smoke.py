@@ -16,9 +16,10 @@ Phases, one output line each (any failure raises, exit code != 0):
             seconds taken
   2 kernels each transient kernel against its plain PyTorch version on
             the bench mesh and initial state (f64 within 1e-13, f32 within
-            1e-5, relative to the largest plain value); median CUDA-event
-            time of 20 calls for the kernel, the plain version and, where
-            one exists, one library call computing the same function
+            1e-5, relative to the largest plain value), K4 also at the
+            block-Jacobi diagonal's width; median CUDA-event time of 20
+            calls for the kernel, the plain version and, where one exists,
+            one library call computing the same function
   3 oracle  3 mixed-precision steps on box_tet_mesh(4,4,4) against the
             independent NumPy/SuperLU transcription oracle/pihna_numpy.py,
             per-step relative L2 within 1e-8 (the BASELINE.json contract)
@@ -43,12 +44,16 @@ Phases, one output line each (any failure raises, exit code != 0):
             by stage and one under torch.profiler for the device's busy
             share
 
-  9 generic kernels  K6 (f32, f64) on box_hex_mesh(48,48,48) (110,592
-            HEX8) with the PIHNA bench deck's live blocks and again with
-            ADPM's taxis-active blocks (live D planes), and K7 at the
-            calibration's shapes (table (192,128), indices (4608,128)),
+  9 generic kernels  every launch of the HEX8 and ADPM steps at its own
+            shapes: K8, K6 (f32, f64) and K4 (f32 and f64 at W = V, f64 at
+            W = V V) on box_hex_mesh(48,48,48) (110,592 HEX8) with the
+            PIHNA bench deck's live blocks and again with ADPM's
+            taxis-active blocks (V = 3, live D planes); K1-K4 on the ADPM
+            legs' TET4 28^3 mesh with ADPM's blocks; and K7 at the
+            calibration's shapes (table (192,128), indices (4608,128));
             each against its plain version (f64 within 1e-13, f32 within
-            1e-5; K7 exact), timed as in phase 2; torch.gather beside K7
+            1e-5; K7 exact), timed as in phase 2; index_add_ beside K4,
+            torch.gather beside K7
   10 calibration  time = a + b n fitted from n = 8 and n = 40 back-to-back
             eager bodies with one synchronize at the end (the counterpart
             of scripts/microbench_calib.py): a scalar sqrt chain, a 67 MB
@@ -74,7 +79,10 @@ Phases, one output line each (any failure raises, exit code != 0):
             The compiled-C++ denominators (BASELINE_MEASURED.json) are
             printed beside the results, not asserted
 
-Then one JSON line {"kernels": [...]}, and as the last line
+Then one JSON line {"kernels": [...]}: one row per kernel variant with
+the numbers of its first shapes, the launches of every path that ran
+(zeros included) and, under "also", its rows at the other shapes; and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
 """
@@ -91,9 +99,10 @@ import torch
 
 from rdcfes_tpu_torch.fem import _build
 from rdcfes_tpu_torch.fem import kernels as K
-from rdcfes_tpu_torch.fem.assembly import ell_structure, interpolate_ue
+from rdcfes_tpu_torch.fem.assembly import ell_structure
 from rdcfes_tpu_torch.fem.bcsr import to_ell
-from rdcfes_tpu_torch.fem.weakform import diffusion_presum
+from rdcfes_tpu_torch.fem.weakform import (block_diag, block_diag_affine,
+                                           block_rhs, diffusion_presum)
 from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
 from rdcfes_tpu_torch.models import adpm
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
@@ -128,6 +137,8 @@ KERNELS = {
                           "rdcfes_tpu/fem/pallas_apply.py:263"),
     "take_along_f32": (CSRC + "take_along.cu",
                        "scripts/microbench_calib.py:84"),
+    "gather_interp_generic_f64": (CSRC + "gather_interp_generic.cu",
+                                  "rdcfes_tpu/fem/pallas_perm.py:274"),
 }
 BENCH_STEPS = 120
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense f32 and f64 rates outside
@@ -433,14 +444,47 @@ def _err(out, ref):
     return abs_err, abs_err / scale
 
 
-def phase_kernels(dev):
-    mesh, params, u0 = bench_case()
-    s = make_system(mesh, dev)
-    V = 5
-    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+def run_cases(phase, cases, main, also, label=""):
+    """measure() every case.  A key is a variant name, or 'variant@what'
+    for a second shape of the same variant.  Rows of plain keys without a
+    label go to main[variant], the others to also[variant][label what]."""
+    for key, c in cases.items():
+        variant, _, sub = key.partition("@")
+        tag = " ".join(x for x in (label, sub) if x)
+        row = measure(phase, f"{variant} ({tag})" if tag else variant, **c)
+        if tag:
+            also.setdefault(variant, {})[tag] = row
+        else:
+            main[variant] = row
+
+
+def restrict_case(flat, s):
+    """K4 on system `s`: flat (W, K E) -> (W, N) through s.node_gather,
+    beside index_add_ over the flattened connectivity."""
+    W, dt, ng = flat.shape[0], flat.dtype, s.node_gather
+    N = s.mesh.n_nodes
+    conn_flat = s.conn_T.reshape(-1).long()
+    live = int((ng < flat.shape[1]).sum())
+    return dict(
+        kern=lambda: K.restrict(flat, ng),
+        plain=lambda: K.restrict_plain(flat, ng),
+        tol=1e-5 if dt == F32 else 1e-13,
+        library=lambda: torch.zeros((W, N), dtype=dt, device=flat.device
+                                    ).index_add_(1, conn_flat, flat),
+        n_bytes=nbytes(flat, ng) + W * N * flat.element_size(),
+        flops=float(W * live), dtype=dt)
+
+
+def affine_cases(phase, s, u, blocks_of):
+    """K1-K4 cases on the affine (TET4) system `s` at the state u (V, N)
+    f64, with the coefficient blocks blocks_of(u_qp, grad_qp) builds
+    there: every launch a step makes, at the step's shapes (K4 for the
+    right-hand side and both matvecs, W = V, and for the block-Jacobi
+    diagonal, W = V V)."""
+    V, mesh = s.n_vars, s.mesh
     u_qp, gx1 = K.gather_interp_affine_plain(u, s.conn_T, s.phi, s.dphi0)
     grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
-    wfb = pihna_blocks(u_qp, grad_qp, {}, params)
+    wfb = blocks_of(u_qp, grad_qp)
     rhs = K.stack_rhs(wfb)
     st64 = K.stack_apply(wfb, diffusion_presum(wfb, s.JxW))
     wfb32 = wfb.cast(F32)
@@ -449,13 +493,12 @@ def phase_kernels(dev):
     flat64 = K.rhs_affine_plain(rhs, s.JxW, s.phi, s.dphi0).reshape(V, -1)
     flat32 = K.apply_affine_plain(u32, s.conn_T, s.phi, s.JxW32, s.dphi0_32,
                                   st32).reshape(V, -1)
-    N, E = mesh.n_nodes, mesh.n_elems
+    diag64 = block_diag_affine(wfb, s.phi, s.JxW, s.dphi).reshape(V * V, -1)
+    E = mesh.n_elems
     Kc, Q = s.conn_T.shape[0], s.JxW.shape[0]
     fe = flat64.reshape(V, Kc, E)
     nC, nD, nE = len(st64.idxC), len(st64.idxD), len(st64.idxE)
     apply_flops = 2.0 * E * Kc * (V * (Q + 3) + nC * Q + 3 * nD * Q + 3 * nE)
-    conn_flat = s.conn_T.reshape(-1).long()
-    live = int((s.node_gather < Kc * E).sum())
     cases = {
         "gather_interp_affine_f64": dict(
             kern=lambda: K.gather_interp_affine(u, s.conn_T, s.phi, s.dphi0),
@@ -483,27 +526,24 @@ def phase_kernels(dev):
                                                s.dphi0, st64), tol=1e-13,
             n_bytes=nbytes(u, s.conn_T, s.JxW, s.dphi0, st64.C, st64.D,
                            st64.Epre, fe), flops=apply_flops),
-        "restrict_f32": dict(
-            kern=lambda: K.restrict(flat32, s.node_gather),
-            plain=lambda: K.restrict_plain(flat32, s.node_gather), tol=1e-5,
-            library=lambda: torch.zeros((V, N), dtype=F32, device=dev
-                                        ).index_add_(1, conn_flat, flat32),
-            n_bytes=nbytes(flat32, s.node_gather) + V * N * 4,
-            flops=float(V * live), dtype=F32),
-        "restrict_f64": dict(
-            kern=lambda: K.restrict(flat64, s.node_gather),
-            plain=lambda: K.restrict_plain(flat64, s.node_gather), tol=1e-13,
-            library=lambda: torch.zeros((V, N), dtype=F64, device=dev
-                                        ).index_add_(1, conn_flat, flat64),
-            n_bytes=nbytes(flat64, s.node_gather) + V * N * 8,
-            flops=float(V * live)),
+        "restrict_f32": restrict_case(flat32, s),
+        "restrict_f64": restrict_case(flat64, s),
+        "restrict_f64@diagonal": restrict_case(diag64, s),
     }
-    results = {name: measure("2 kernel", name, **c)
-               for name, c in cases.items()}
-    say("2 kernels", shapes=f"V=5 K=4 Q=5 E={mesh.n_elems} N={mesh.n_nodes} "
-        f"C={s.node_gather.shape[0]}", live=f"C:{len(st64.idxC)} "
-        f"D:{len(st64.idxD)} E:{len(st64.idxE)} A:{len(rhs.idxA)} "
-        f"B:{len(rhs.idxB)}")
+    say(phase + " shapes", V=V, K=Kc, Q=Q, E=E, N=mesh.n_nodes,
+        C=s.node_gather.shape[0], live=f"C:{nC} D:{nD} E:{nE} "
+        f"A:{len(rhs.idxA)} B:{len(rhs.idxB)}")
+    return cases
+
+
+def phase_kernels(dev, also):
+    mesh, params, u0 = bench_case()
+    s = make_system(mesh, dev)
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    results = {}
+    run_cases("2 kernel", affine_cases(
+        "2 kernels", s, u, lambda uq, gq: pihna_blocks(uq, gq, {}, params)),
+        results, also)
     return results
 
 
@@ -771,10 +811,17 @@ def phase_solid_slice(dev, S):
     return counts
 
 
-def _generic_cases(tag, s, wfb, x64, dev):
-    """K6 f32/f64 cases on system `s` with the blocks `wfb`."""
+def generic_cases(tag, s, x64, blocks_of):
+    """K8, K6 and K4 cases on the generic (HEX8) system `s` at the state
+    x64 (V, N), with the coefficient blocks blocks_of(u_qp, grad_qp)
+    builds there: every launch a step makes, at the step's shapes."""
     V, E = s.n_vars, s.mesh.n_elems
     Kc, Q = s.conn_T.shape[0], s.JxW.shape[0]
+    u_qp, grad_qp = K.gather_interp_generic_plain(x64, s.conn_T, s.phi,
+                                                  s.dphi)
+    wfb = blocks_of(u_qp, grad_qp)
+    interp_bytes = nbytes(x64, s.conn_T, s.dphi, u_qp, grad_qp)
+    del u_qp, grad_qp
     st64 = K.stack_apply_generic(wfb)
     st32 = K.stack_apply_generic(wfb.cast(F32))
     x32 = x64.to(F32)
@@ -782,7 +829,11 @@ def _generic_cases(tag, s, wfb, x64, dev):
     # interpolation, the (v, w) responses, the projection back
     flops = 2.0 * E * Q * (4 * Kc * V + nC + 3 * nD + 3 * nE
                            + V * (4 + 4 * Kc))
-    cases = {}
+    cases = {"gather_interp_generic_f64": dict(
+        kern=lambda: K.gather_interp_generic(x64, s.conn_T, s.phi, s.dphi),
+        plain=lambda: K.gather_interp_generic_plain(x64, s.conn_T, s.phi,
+                                                    s.dphi),
+        tol=1e-13, n_bytes=interp_bytes, flops=2.0 * 4 * V * Q * Kc * E)}
     for name, x, JxW, dphi, st, tol, dt in (
             ("apply_generic_f32", x32, s.JxW32, s.dphi32, st32, 1e-5, F32),
             ("apply_generic_f64", x64, s.JxW, s.dphi, st64, 1e-13, F64)):
@@ -795,35 +846,51 @@ def _generic_cases(tag, s, wfb, x64, dev):
             tol=tol, flops=flops, dtype=dt,
             n_bytes=nbytes(x, s.conn_T, JxW, dphi, st.C, st.D, st.E)
             + out_bytes)
+    # K4 at this mesh's node_gather: the matvecs' and the right-hand
+    # side's restriction (W = V) and the block-Jacobi diagonal's (W = V V)
+    flat32 = K.apply_generic_plain(x32, s.conn_T, s.phi, s.JxW32, s.dphi32,
+                                   st32).reshape(V, -1)
+    flat64 = block_rhs(wfb, s.phi, s.JxW, s.dphi).reshape(V, -1)
+    diag64 = block_diag(wfb, s.phi, s.JxW, s.dphi).reshape(V * V, -1)
+    cases["restrict_f32@hex8"] = restrict_case(flat32, s)
+    cases["restrict_f64@hex8"] = restrict_case(flat64, s)
+    cases["restrict_f64@hex8 diagonal"] = restrict_case(diag64, s)
     say("9 blocks", deck=tag, V=V, live=f"C:{nC} D:{nD} E:{nE}",
         f32_bytes=cases["apply_generic_f32"]["n_bytes"],
         f64_bytes=cases["apply_generic_f64"]["n_bytes"])
     return cases
 
 
-def phase_generic_kernels(dev, S):
-    """K6 at the HEX8 slice's shapes with PIHNA's and with ADPM's live
-    blocks, K7 at the calibration's shapes."""
+def phase_generic_kernels(dev, S, also):
+    """K8, K6 and K4 at the HEX8 slice's shapes with PIHNA's and with
+    ADPM's live blocks; K1-K4 at the ADPM bench legs' shapes; K7 at the
+    calibration's shapes."""
     mesh = S.mesh
     _, params, u0 = bench_case(mesh)
     u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
-    u_qp, grad_qp = interpolate_ue(u[:, S.conn_T], S.phi, S.dphi)
-    wfb = pihna_blocks(u_qp, grad_qp, {}, params)
-    del u_qp, grad_qp
-    results = {name: measure("9 generic kernel", name, **c)
-               for name, c in _generic_cases("pihna", S, wfb, u, dev).items()}
-    del wfb
+    results = {}
+    run_cases("9 generic kernel", generic_cases(
+        "pihna", S, u, lambda uq, gq: pihna_blocks(uq, gq, {}, params)),
+        results, also)
     # ADPM's taxis-active blocks on the same mesh: V = 3, live D planes
     pa, ua0, tracts = adpm_case(mesh, 50.0)
     A = make_adpm(mesh, dev, 1e-9)
     ua = torch.as_tensor(np.ascontiguousarray(ua0.T), dtype=F64, device=dev)
-    u_qp, grad_qp = interpolate_ue(ua[:, A.conn_T], A.phi, A.dphi)
-    wfa = adpm.adpm_blocks(u_qp, grad_qp, adpm_fields(tracts, dev), pa)
-    del u_qp, grad_qp
-    for name, c in _generic_cases("adpm", A, wfa, ua, dev).items():
-        results[name]["adpm_blocks"] = measure("9 generic kernel",
-                                               name + " (adpm)", **c)
-    del wfa, A
+    f = adpm_fields(tracts, dev)
+    run_cases("9 generic kernel", generic_cases(
+        "adpm", A, ua, lambda uq, gq: adpm.adpm_blocks(uq, gq, f, pa)),
+        results, also, label="adpm")
+    del A, f
+    # the ADPM bench legs' own mesh and blocks (TET4 28^3, V = 3)
+    tet = box_tet_mesh(28, 28, 28, bounds=BRAIN)
+    pa, ua0, tracts = adpm_case(tet, 50.0)
+    A = make_adpm(tet, dev, 1e-9)
+    ua = torch.as_tensor(np.ascontiguousarray(ua0.T), dtype=F64, device=dev)
+    f = adpm_fields(tracts, dev)
+    run_cases("9 affine kernel", affine_cases(
+        "9 adpm tet4", A, ua, lambda uq, gq: adpm.adpm_blocks(uq, gq, f, pa)),
+        results, also, label="adpm tet4")
+    del A, f
     rng = np.random.default_rng(0)
     Sx, M = 192, 4608
     tbl = torch.as_tensor(rng.standard_normal((Sx, 128)), dtype=F32,
@@ -838,8 +905,8 @@ def phase_generic_kernels(dev, S):
         library=lambda: torch.gather(tbl, 0, idx64),
         n_bytes=nbytes(tbl, idx) + M * 128 * 4, flops=0.0, dtype=F32)
     say("9 generic kernels", shapes=f"K=8 Q=8 E={mesh.n_elems} "
-        f"N={mesh.n_nodes} C={S.node_gather.shape[0]}; take_along "
-        f"S={Sx} M={M} L=128")
+        f"N={mesh.n_nodes} C={S.node_gather.shape[0]}; adpm tet4 "
+        f"E={tet.n_elems} N={tet.n_nodes}; take_along S={Sx} M={M} L=128")
     return results
 
 
@@ -1012,7 +1079,7 @@ def phase_generic_slice(dev, S):
         final_residual=f"{float(ress[-1]):.3e}",
         max_residual=f"{float(ress.max()):.3e}", n_nodes=mesh.n_nodes,
         n_elems=mesh.n_elems)
-    say("12 hex8 launches", **{k: v for k, v in counts.items() if v})
+    say("12 hex8 launches", **{k: counts[k] for k in K.GENERIC_VARIANTS})
     require(np.isfinite(u).all(), "non-finite state")
     require((u >= 0).all(), "negative state after the clamp")
     require(float(ress.max()) <= 3e-11,
@@ -1050,7 +1117,7 @@ def phase_generic_slice(dev, S):
         max_residual=f"{float(ress.max()):.3e}", n_nodes=tet.n_nodes,
         n_elems=tet.n_elems,
         baseline_steps_per_s=ADPM_BASELINE_STEPS_PER_S)
-    say("12 adpm launches", **{k: v for k, v in counts.items() if v})
+    say("12 adpm launches", **{k: counts[k] for k in K.TRANSIENT_VARIANTS})
     require(np.isfinite(u).all(), "ADPM: non-finite state")
     require(float(ress.max()) <= 1e-9,
             f"ADPM: residual {float(ress.max()):.3e} > 1e-9")
@@ -1088,7 +1155,8 @@ def main(argv=None) -> int:
     dev = phase_device()
     if 1 in phases:
         phase_build()
-    kern = phase_kernels(dev) if 2 in phases else {}
+    also = {}  # variant -> {shape label: row}, beside its first row
+    kern = phase_kernels(dev, also) if 2 in phases else {}
     if 3 in phases:
         phase_oracle(dev)
     if 4 in phases:
@@ -1103,7 +1171,7 @@ def main(argv=None) -> int:
     del S
     H = (make_system(box_hex_mesh(HEX_N, HEX_N, HEX_N, bounds=BRAIN), dev)
          if phases & {9, 12} else None)
-    gen_kern = phase_generic_kernels(dev, H) if 9 in phases else {}
+    gen_kern = phase_generic_kernels(dev, H, also) if 9 in phases else {}
     if 10 in phases:
         fits, paths["calibration"] = phase_calibration(dev)
     if 11 in phases:
@@ -1114,7 +1182,8 @@ def main(argv=None) -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
     for name, (src, replaces) in KERNELS.items():
-        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
+        # every path that ran, with its zeros
+        by_path = {p: c.get(name, 0) for p, c in paths.items() if c}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,
                "launches": sum(by_path.values()) if by_path else None,
@@ -1122,11 +1191,11 @@ def main(argv=None) -> int:
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
-        if "adpm_blocks" in first:
-            row["adpm_blocks"] = {k: first["adpm_blocks"][k] for k in keys}
         if name in kern and name in solid_kern:
-            row["solid_assembly_shapes"] = {
-                k: solid_kern[name][k] for k in keys}
+            also.setdefault(name, {})["solid assembly"] = solid_kern[name]
+        if name in also:
+            row["also"] = {tag: {k: r[k] for k in keys}
+                           for tag, r in also[name].items()}
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,104 @@
+// K8 gather_interp_generic (f64): corner gather + interpolation with
+// per-q shape gradients, K1's counterpart for non-affine elements (HEX8).
+//
+// Replaces the corner gather in front of the generic coefficient build,
+// rdcfes_tpu/fem/pallas_perm.py:gather_corners_f64 (:274) as
+// systems/transient.py:805-811 (gather_ue_fast) uses it, together with the
+// interpolate_ue (fem/assembly.py:303) that follows it there.  On the TPU
+// the gather was a Beneš permutation of hi/lo f32 planes and the
+// interpolation was left to XLA; Hopper loads u[v, conn_T[k, e]] directly
+// and interpolates in the same pass, in native f64.
+//
+// Per element e, species v and quadrature point q:
+//   u_qp[v, q, e]  = sum_k phi[q, k]         u[v, conn_T[k, e]]
+//   gx[v, q, d, e] = sum_k dphi[q, k, d, e]  u[v, conn_T[k, e]]
+//
+// Bound: device-memory bandwidth.  On 110,592 HEX8 with 5 species a call
+// reads dphi 169.9 MB and conn_T 3.5 MB, writes u_qp 35.4 MB and gx
+// 106.2 MB, and reads u 4.7 MB through L2: ~320 MB, ~95 us at 3.35 TB/s.
+// Design: one thread per element, <K, Q> template parameters.  The q loop
+// is outermost and stays rolled: one iteration holds dphi[q] (3 K values)
+// in registers and serves every species from it, so dphi is read exactly
+// once; the element's node ids stay in registers and the corner values
+// are re-read per q through L1/L2 (u is small and stays resident).  Every
+// plane access is coalesced along e; phi rides in the kernel parameters.
+#include "common.cuh"
+
+namespace {
+
+template <int K, int Q>
+struct PhiKQ {
+  double v[Q * K];
+};
+
+template <int K, int Q>
+__global__ void __launch_bounds__(rdc::kThreads) gather_interp_generic_kernel(
+    const double* __restrict__ u, const int* __restrict__ conn_T,
+    const double* __restrict__ dphi, double* __restrict__ u_qp,
+    double* __restrict__ gx, PhiKQ<K, Q> phi, int V, int N, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t sE = static_cast<size_t>(E);
+  int node[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) node[k] = conn_T[k * sE + e];
+
+#pragma unroll 1
+  for (int q = 0; q < Q; ++q) {
+    double g[K][3];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        g[k][d] = dphi[((static_cast<size_t>(q) * K + k) * 3 + d) * sE + e];
+#pragma unroll 1
+    for (int v = 0; v < V; ++v) {
+      const double* uv = u + static_cast<size_t>(v) * N;
+      double c = __ldg(uv + node[0]);
+      double ax = phi.v[q * K] * c;
+      double a0 = g[0][0] * c, a1 = g[0][1] * c, a2 = g[0][2] * c;
+#pragma unroll
+      for (int k = 1; k < K; ++k) {
+        c = __ldg(uv + node[k]);
+        ax += phi.v[q * K + k] * c;
+        a0 += g[k][0] * c;
+        a1 += g[k][1] * c;
+        a2 += g[k][2] * c;
+      }
+      const size_t vq = static_cast<size_t>(v) * Q + q;
+      u_qp[vq * sE + e] = ax;
+      gx[(vq * 3 + 0) * sE + e] = a0;
+      gx[(vq * 3 + 1) * sE + e] = a1;
+      gx[(vq * 3 + 2) * sE + e] = a2;
+    }
+  }
+}
+
+template <int K, int Q>
+cudaError_t launch_kq(const double* u, const int* conn_T,
+                      const double* phi_host, const double* dphi,
+                      double* u_qp, double* gx, int V, int N, int E,
+                      cudaStream_t st) {
+  PhiKQ<K, Q> ph;
+  for (int i = 0; i < Q * K; ++i) ph.v[i] = phi_host[i];
+  gather_interp_generic_kernel<K, Q>
+      <<<rdc::blocks_for(E), rdc::kThreads, 0, st>>>(u, conn_T, dphi, u_qp,
+                                                     gx, ph, V, N, E);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// phi_host: double[Q * K] on the host, row-major.
+extern "C" int rdc_gather_interp_generic_f64(
+    const double* u, const int* conn_T, const double* phi_host,
+    const double* dphi, double* u_qp, double* gx, int V, int N, int K,
+    int Q, int E, void* stream) {
+  if (V < 1) return cudaErrorInvalidValue;
+  if (E == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one line per element type, as csrc/apply_generic.cu: HEX8 (8, 8)
+  if (K == 8 && Q == 8)
+    return launch_kq<8, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
+  return cudaErrorInvalidValue;
+}

@@ -48,6 +48,7 @@ SIGNATURES = {
     "rdc_apply_generic_f32": [_P] * 10 + [_I] * 5 + [_P],
     "rdc_apply_generic_f64": [_P] * 10 + [_I] * 5 + [_P],
     "rdc_take_along_f32": [_P] * 3 + [_I] * 3 + [_P],
+    "rdc_gather_interp_generic_f64": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 

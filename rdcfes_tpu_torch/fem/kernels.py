@@ -8,12 +8,14 @@ versions and their launch counts.
   K5 ell_matvec            csrc/ell_matvec.cu             f32, f64   solid
   K6 apply_generic         csrc/apply_generic.cu          f32, f64   transient
   K7 take_along            csrc/take_along.cu             f32        calibration
+  K8 gather_interp_generic csrc/gather_interp_generic.cu  f64        transient
 
-K1-K3 serve affine elements (TET4); K6 is K3's counterpart for elements
-whose shape gradients differ per quadrature point (HEX8).  K7 is the
-`take_along_axis(axis=0)` lookup of the launch-cost calibration.  K4 is every element -> node (or node-pair) gather-sum: the transient
-restriction and the solid path's vector and matrix assembly
-(fem.assembly.assemble_*_gather).
+K1-K3 serve affine elements (TET4); K8 and K6 are K1's and K3's
+counterparts for elements whose shape gradients differ per quadrature
+point (HEX8).  K7 is the `take_along_axis(axis=0)` lookup of the
+launch-cost calibration.  K4 is every element -> node (or node-pair)
+gather-sum: the transient restriction and the solid path's vector and
+matrix assembly (fem.assembly.assemble_*_gather).
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -49,12 +51,12 @@ TRANSIENT_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
                       "restrict_f32", "restrict_f64")
 SOLID_VARIANTS = ("restrict_f32", "restrict_f64", "ell_matvec_f32",
                   "ell_matvec_f64")
-GENERIC_VARIANTS = ("apply_generic_f32", "apply_generic_f64",
-                    "restrict_f32", "restrict_f64")
+GENERIC_VARIANTS = ("gather_interp_generic_f64", "apply_generic_f32",
+                    "apply_generic_f64", "restrict_f32", "restrict_f64")
 KERNEL_VARIANTS = (TRANSIENT_VARIANTS
                    + ("ell_matvec_f32", "ell_matvec_f64",
                       "apply_generic_f32", "apply_generic_f64",
-                      "take_along_f32"))
+                      "take_along_f32", "gather_interp_generic_f64"))
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS}
 
@@ -169,6 +171,12 @@ def stack_apply_generic(wfb: WeakFormBlocks) -> GenericApplyStacks:
 def gather_interp_affine_plain(u, conn_T, phi, dphi0):
     """u (V, N), conn_T (K, E) -> (u_qp (V, Q, E), gx (V, 3, E))."""
     return interpolate_ue_affine(u[:, conn_T], phi, dphi0)
+
+
+def gather_interp_generic_plain(u, conn_T, phi, dphi):
+    """u (V, N), conn_T (K, E), dphi (Q, K, 3, E) -> (u_qp (V, Q, E),
+    gx (V, Q, 3, E))."""
+    return interpolate_ue(u[:, conn_T], phi, dphi)
 
 
 def rhs_affine_plain(st: RhsStacks, JxW, phi, dphi0):
@@ -309,6 +317,40 @@ def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
     return u_qp, gx
 
 
+GENERIC_KQ = ((8, 8),)  # (K, Q) pairs K6 and K8 are instantiated for
+
+
+def _check_kq(name: str, K: int, Q: int) -> None:
+    if (K, Q) not in GENERIC_KQ:
+        raise ValueError(f"{name}: no kernel for K={K}, Q={Q} "
+                         f"(built for {GENERIC_KQ})")
+
+
+def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
+                          dphi: torch.Tensor):
+    """K8: u (V, N) f64, conn_T (K, E) int32, phi (Q, K) host table,
+    dphi (Q, K, 3, E) f64 -> (u_qp (V, Q, E), gx (V, Q, 3, E))."""
+    if _on_cpu(u):
+        return gather_interp_generic_plain(u, conn_T, phi, dphi)
+    V, N = u.shape
+    K, E = conn_T.shape
+    Q = np.shape(phi)[0]
+    dev, f64 = u.device, torch.float64
+    _check_kq("gather_interp_generic", K, Q)
+    _check("u", u, dev, f64, (V, N))
+    _check("conn_T", conn_T, dev, torch.int32, (K, E))
+    _check("dphi", dphi, dev, f64, (Q, K, 3, E))
+    ph = _phi_host(phi, Q, K)
+    u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
+    gx = torch.empty((V, Q, 3, E), dtype=f64, device=dev)
+    with torch.cuda.device(dev):
+        _launch("gather_interp_generic_f64",
+                _lib().rdc_gather_interp_generic_f64, _ptr(u), _ptr(conn_T),
+                _host(ph), _ptr(dphi), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
+                _stream(dev))
+    return u_qp, gx
+
+
 def rhs_affine(st: RhsStacks, JxW: torch.Tensor, phi, dphi0: torch.Tensor):
     """K2: stacked A/B blocks, JxW (Q, E) f64, phi (Q, K) host table,
     dphi0 (K, 3, E) f64 -> Fe (V, K, E) f64."""
@@ -371,9 +413,6 @@ def apply_affine(x: torch.Tensor, conn_T: torch.Tensor, phi,
     return Ye
 
 
-GENERIC_KQ = ((8, 8),)  # (K, Q) pairs csrc/apply_generic.cu instantiates
-
-
 def apply_generic(x: torch.Tensor, conn_T: torch.Tensor, phi,
                   JxW: torch.Tensor, dphi: torch.Tensor,
                   st: GenericApplyStacks):
@@ -391,9 +430,7 @@ def apply_generic(x: torch.Tensor, conn_T: torch.Tensor, phi,
     if V != st.n_vars or not 1 <= V <= MAX_V:
         raise ValueError(f"apply_generic: {V} species, stacks carry "
                          f"{st.n_vars}, kernel takes 1..{MAX_V}")
-    if (K, Q) not in GENERIC_KQ:
-        raise ValueError(f"apply_generic: no kernel for K={K}, Q={Q} "
-                         f"(built for {GENERIC_KQ})")
+    _check_kq("apply_generic", K, Q)
     _check("x", x, dev, dt, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
     _check("JxW", JxW, dev, dt, (Q, E))
@@ -485,10 +522,13 @@ class Ops(NamedTuple):
     ell_matvec: Callable
     apply_generic: Callable
     take_along: Callable
+    gather_interp_generic: Callable
 
 
 KERNEL_OPS = Ops(gather_interp_affine, rhs_affine, apply_affine, restrict,
-                 ell_matvec, apply_generic, take_along)
+                 ell_matvec, apply_generic, take_along,
+                 gather_interp_generic)
 PLAIN_OPS = Ops(gather_interp_affine_plain, rhs_affine_plain,
                 apply_affine_plain, restrict_plain, ell_matvec_plain,
-                apply_generic_plain, take_along_plain)
+                apply_generic_plain, take_along_plain,
+                gather_interp_generic_plain)

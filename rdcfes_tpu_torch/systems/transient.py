@@ -8,9 +8,10 @@ use (src/pihna.C:66-93):
   2. gather u to element corners and interpolate to quadrature points,
      evaluate the coefficient blocks, build the element right-hand side
      and restrict it to the nodal b (K4).  TET4 is affine (one gradient
-     per element): K1 interpolates, K2 builds the right-hand side.  HEX8
-     has per-q gradients: fem.assembly.interpolate_ue and
-     fem.weakform.block_rhs, plain tensor code, once per step;
+     per element): K1 gathers and interpolates, K2 builds the
+     right-hand side.  HEX8 has per-q gradients: K8 gathers and
+     interpolates, and fem.weakform.block_rhs, plain tensor code as in
+     the reference, builds the right-hand side, once per step;
   3. every `precond_refresh` steps, restrict the per-element (i, i)
      blocks to the block-Jacobi diagonal (K4) and invert it;
   4. solve: mixed-precision iterative refinement (f32 BiCGStab passes with
@@ -32,7 +33,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..fem.assembly import build_sparsity, gather_tables, interpolate_ue
+from ..fem.assembly import build_sparsity, gather_tables
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
                            stack_rhs)
@@ -228,8 +229,8 @@ class TransientRDCSystem:
             # one gradient per element, broadcast over q for the physics
             grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
         else:
-            u_qp, grad_qp = interpolate_ue(u_T[:, self.conn_T], self.phi,
-                                           self.dphi)
+            u_qp, grad_qp = ops.gather_interp_generic(u_T, self.conn_T,
+                                                      self.phi, self.dphi)
         wfb = self.physics_blocks(u_qp, grad_qp, fields, params)
         if self.affine:
             Fe = ops.rhs_affine(stack_rhs(wfb), self.JxW, self.phi,

@@ -10,14 +10,16 @@ both sides.
   structural zeros; the test fields stay away from the gate's thresholds
   (d = +-omega), which flip on round-off;
 * ADPM on box_tet_mesh(3,3,3), every term and the time-weighted decay
-  active, through the reference's CPU path (fast_gather="off", f64
-  BiCGStab, its per-step program): 4 steps at dt/2 whose `time` advances
-  every second step, within 1e-10 relative L2; and the same run asked of
-  the port as 2 outer steps with subcycle=2 and a scalar_traj, under the
-  reference's aggregation contract (rdcfes_tpu/systems/transient.py:
-  1104-1123: iterations summed per outer step, the last substep's
-  residual, scalar_traj values held over the substeps);
-* choose_subcycle's probe ladder and the field_update hook.
+  active, against the reference's CPU path (fast_gather="off", f64
+  BiCGStab): its run_steps(2, subcycle=2, scalar_traj=, field_update=)
+  and the port's, state and history within 1e-10 relative L2, with the
+  reference's aggregation (rdcfes_tpu/systems/transient.py:1104-1123:
+  iterations summed per outer step, the last substep's residual,
+  scalar_traj values held over the substeps); the same 4 substeps asked
+  of the port as plain steps at dt/2; one step() against the reference's
+  step(); choose_subcycle against the reference's from k0=2;
+* the port's probe ladder from k0=1, subcycle="auto" and another
+  field_update hook, on box_tet_mesh(2,2,2), against its own runs.
 
 The HEX8 steps of ADPM are in tests/test_torch_generic.py.
 """
@@ -153,11 +155,19 @@ def _cheap_reference_compiles():
         yield
 
 
+def _time_hook(state, aux, tr):
+    """field_update hook of both sides (jittable): `time` comes from the
+    step's scalar_traj value, the carry counts the calls."""
+    return {"time": tr["t"]}, aux + 1
+
+
 @pytest.fixture(scope="module")
 def tet_reference():
-    """The reference's 4 steps at dt/2 on box_tet_mesh(3,3,3), `time`
-    1.0, 1.0, 1.5, 1.5 (one compiled per-step program): states as NumPy,
-    iterations and residuals per step."""
+    """The reference on box_tet_mesh(3,3,3), f64 BiCGStab, its CPU path:
+    run_steps of 2 outer steps with subcycle=2, a scalar_traj and a
+    field_update hook (one scan program of 4 substeps at dt/2, `time`
+    1.0, 1.0, 1.5, 1.5); choose_subcycle from k0=2 (its probe compiles the
+    per-step program at dt/2, which the one `step` after it reuses)."""
     bounds = ((0, 20.0),) * 3
     mesh = box_tet_mesh(3, 3, 3, bounds=bounds)
     p = adpm_params("all")
@@ -167,16 +177,22 @@ def tet_reference():
                      clamp=NO_CLAMP, precision="f64", fast_gather="off",
                      rtol=RTOL)
     half = {**p, "dt": p["dt"] / 2}
-    st = jsys.initial_state(u0)
-    its, ress = [], []
-    for t in np.repeat(TIMES, 2):
-        st, it, res = jsys.step(
-            st, fields={"tracts": jnp.asarray(tracts), "time": float(t)},
-            params=half)
-        its.append(int(it))
-        ress.append(float(res))
-    return (mesh, p, half, u0, tracts, jsys.gather_state(st),
-            np.array(its), np.array(ress))
+    jf = {"tracts": jnp.asarray(tracts)}
+    st0 = jsys.initial_state(u0)
+    st, its, ress, aux = jsys.run_steps(
+        st0, 2, fields=jf, params=p, scalar_traj={"t": TIMES}, subcycle=2,
+        field_update=_time_hook, field_aux=0)
+    traj = {"time": TIMES}
+    ks = (jsys.choose_subcycle(st0, fields=jf, params=p, scalar_traj=traj,
+                               k0=2),
+          jsys.choose_subcycle(st0, fields=jf, params=p, scalar_traj=traj,
+                               k0=2, stall_factor=0.0, kmax=2))
+    one, it1, _ = jsys.step(st0, fields={**jf, "time": TIMES[0]},
+                            params=half)
+    return dict(mesh=mesh, p=p, half=half, u0=u0, tracts=tracts,
+                final=jsys.gather_state(st), its=np.asarray(its),
+                ress=np.asarray(ress), aux=int(aux), ks=ks,
+                one=jsys.gather_state(one), it1=int(it1))
 
 
 def _tet_system(mesh):
@@ -185,46 +201,78 @@ def _tet_system(mesh):
 
 
 def test_adpm_tet4_steps_match_reference(tet_reference):
-    mesh, _, half, u0, tracts, ref, its_r, ress_r = tet_reference
-    s = _tet_system(mesh)
-    f = fields_from_numpy({"tracts": tracts}, s.device)
-    st, its, ress = s.run_steps(s.initial_state(u0), 4, fields=f,
-                                params=half,
-                                scalar_traj={"time": np.repeat(TIMES, 2)})
-    assert its.shape == (4,) and ress.shape == (4,)
-    assert float(ress.max()) <= RTOL and ress_r.max() <= RTOL
-    assert np.abs(its.numpy() - its_r).max() <= 2  # round-off at the exit
+    r = tet_reference
+    s = _tet_system(r["mesh"])
+    f = fields_from_numpy({"tracts": r["tracts"]}, s.device)
+    st0 = s.initial_state(r["u0"])
+    # one step() against the reference's step()
+    st, it, res = s.step(st0, fields={**f, "time": 1.0}, params=r["half"])
+    assert float(res) <= RTOL and abs(it - r["it1"]) <= 2
     got = s.gather_state(st)
     for key in ("u", "u_old", "u_older", "u_raw"):
-        assert rel_l2(got[key], ref[key]) < 1e-10, key
+        assert rel_l2(got[key], r["one"][key]) < 1e-10, key
+    # 4 steps at dt/2 against the reference's 4 substeps; the history it
+    # returns is at substep spacing, so u_old and u_older are steps 3 and 2
+    st, its, ress = s.run_steps(st0, 4, fields=f, params=r["half"],
+                                scalar_traj={"time": np.repeat(TIMES, 2)})
+    assert its.shape == (4,) and ress.shape == (4,)
+    assert float(ress.max()) <= RTOL and r["ress"].max() <= RTOL
+    # round-off at the solver's exit moves an iteration count by one or two
+    assert np.abs(its.numpy().reshape(2, 2).sum(axis=1)
+                  - r["its"]).max() <= 4
+    got = s.gather_state(st)
+    for key in ("u", "u_old", "u_older", "u_raw"):
+        assert rel_l2(got[key], r["final"][key]) < 1e-10, key
 
 
 def test_subcycle_and_scalar_traj_follow_reference_aggregation(
         tet_reference):
-    mesh, p, half, u0, tracts, ref, its_r, ress_r = tet_reference
+    r = tet_reference
+    mesh, p, half, u0 = r["mesh"], r["p"], r["half"], r["u0"]
     s = _tet_system(mesh)
-    f = fields_from_numpy({"tracts": tracts}, s.device)
-    st, its, ress = s.run_steps(s.initial_state(u0), 2, fields=f, params=p,
-                                scalar_traj={"time": TIMES}, subcycle=2)
+    f = fields_from_numpy({"tracts": r["tracts"]}, s.device)
+    # the reference's own call: subcycle, scalar_traj and the hook at once
+    st, its, ress, aux = s.run_steps(
+        s.initial_state(u0), 2, fields=f, params=p, scalar_traj={"t": TIMES},
+        subcycle=2, field_update=_time_hook, field_aux=0)
+    assert its.shape == r["its"].shape == (2,)
+    assert ress.shape == r["ress"].shape == (2,)
+    assert np.abs(its.numpy() - r["its"]).max() <= 4
+    assert float(ress.max()) <= RTOL and r["ress"].max() <= RTOL
+    assert aux == r["aux"] == 4  # the hook ran once per substep
+    got = s.gather_state(st)
+    for key in ("u", "u_old", "u_older", "u_raw"):
+        assert rel_l2(got[key], r["final"][key]) < 1e-10, key
+    # iterations summed per outer step, the residual of the last substep
+    st2, its2, ress2 = s.run_steps(s.initial_state(u0), 2, fields=f,
+                                   params=p, scalar_traj={"time": TIMES},
+                                   subcycle=2)
     _, its4, ress4 = s.run_steps(s.initial_state(u0), 4, fields=f,
                                  params=half,
                                  scalar_traj={"time": np.repeat(TIMES, 2)})
-    # iterations summed per outer step, the residual of the last substep
-    assert its.shape == (2,) and ress.shape == (2,)
-    assert torch.equal(its, its4.reshape(2, 2).sum(dim=1))
-    assert torch.equal(ress, ress4.reshape(2, 2)[:, -1])
-    assert np.abs(its.numpy() - its_r.reshape(2, 2).sum(axis=1)).max() <= 4
-    assert float(ress.max()) <= RTOL
-    # the state is the reference's after its 4 substeps, time held over
-    # each outer step's two
-    assert rel_l2(s.gather_state(st)["u"], ref["u"]) < 1e-10
+    assert torch.equal(st2["u"], st["u"])
+    assert torch.equal(its2, its4.reshape(2, 2).sum(dim=1))
+    assert torch.equal(ress2, ress4.reshape(2, 2)[:, -1])
     # a constant `time` in scalars instead of the trajectory differs
     st_c, _, _ = s.run_steps(s.initial_state(u0), 2, fields=f, params=p,
                              scalars={"time": 1.0}, subcycle=2)
-    assert rel_l2(st_c["u"].numpy(), ref["u"]) > 1e-9
+    assert rel_l2(st_c["u"].numpy(), r["final"]["u"]) > 1e-9
     with pytest.raises(ValueError, match="scalar_traj"):
         s.run_steps(s.initial_state(u0), 2, fields=f, params=p,
                     scalar_traj={"time": np.ones(3)})
+
+
+def test_choose_subcycle_matches_reference(tet_reference):
+    """The probe ladder from k0=2 stops where the reference's does: at the
+    first converging k, and at kmax when nothing meets the stall factor."""
+    r = tet_reference
+    s = _tet_system(r["mesh"])
+    f = fields_from_numpy({"tracts": r["tracts"]}, s.device)
+    st0 = s.initial_state(r["u0"])
+    kw = dict(fields=f, params=r["p"], scalar_traj={"time": TIMES}, k0=2)
+    assert (s.choose_subcycle(st0, **kw),
+            s.choose_subcycle(st0, stall_factor=0.0, kmax=2, **kw)
+            ) == r["ks"] == (2, 2)
 
 
 def test_choose_subcycle_and_field_update():

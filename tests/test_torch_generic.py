@@ -6,6 +6,8 @@ counterpart.
   the largest reference value (the port reduces over q, k, d with
   broadcast sums, the reference term by term: reassociation only), with
   every block live and with some absent;
+* gather_interp_generic_plain (kernel K8's plain version) within 1e-13 of
+  the reference's interpolate_ue of the gathered corners;
 * apply_generic_plain (the plain version of kernel K6) equals
   interpolate_ue + qp_apply, within 1e-13 of the reference's, and within
   1e-5 (f32 reassociation) of the Pallas kernel qp_apply_fused itself, run
@@ -126,6 +128,24 @@ def test_interpolate_ue_matches(case):
     assert out[1].shape == (V, 8, 3, case["mesh"].n_elems)
     for o, r in zip(out, ref):
         assert rel(o, r) < TOL
+
+
+def test_gather_interp_generic_plain_matches(case):
+    """K8's plain version (corner gather + interpolate_ue from the nodal
+    x) against the reference's interpolate_ue of the gathered corners; on
+    CPU tensors the wrapper is its plain version and launches nothing."""
+    conn_T = torch.as_tensor(
+        np.ascontiguousarray(case["mesh"].connectivity.T))
+    ref = jasm.interpolate_ue(jnp.asarray(case["ue"]), case["phi"],
+                              jnp.asarray(case["dphi"]))
+    args = (_t(case["x"]), conn_T, case["phi"], _t(case["dphi"]))
+    out = kernels.gather_interp_generic_plain(*args)
+    for o, r in zip(out, ref):
+        assert rel(o, r) < TOL
+    before = kernels.launch_counts()
+    for o, w in zip(out, kernels.gather_interp_generic(*args)):
+        assert torch.equal(o, w)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("kind", ["all", "some"])

@@ -3,8 +3,9 @@ version on seeded NumPy inputs (f64 within 1e-13, f32 within 1e-5,
 relative to the largest plain value: summation order and fused
 multiply-adds only), and a short transient run and a solid load step
 through the kernels against the same runs through the plain versions; K6
-(the generic element apply, HEX8) and K7 (the calibration lookup) the same
-way, and a short HEX8 PIHNA run and ADPM steps through K6.
+(the generic element apply, HEX8), K7 (the calibration lookup) and K8 (the
+generic gather + interpolation) the same way, and ADPM steps on HEX8
+through K8, K6 and K4.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -251,6 +252,30 @@ def test_apply_generic_matches_plain(cuda, live, dtype, tol):
                               dphi[:5, :4].contiguous(), st)
 
 
+@pytest.mark.parametrize("n_vars", [1, 3, V])
+def test_gather_interp_generic_matches_plain(cuda, n_vars):
+    """K8 on a jittered hex box, 1, 3 and 5 species, within 1e-13 of its
+    plain version (gather + interpolate_ue)."""
+    c = _hex_case(cuda, "all")
+    x = c["x"][:n_vars].contiguous()
+    before = kernels.launch_counts()["gather_interp_generic_f64"]
+    out = kernels.gather_interp_generic(x, c["conn_T"], c["phi"], c["dphi"])
+    ref = kernels.gather_interp_generic_plain(x, c["conn_T"], c["phi"],
+                                              c["dphi"])
+    torch.cuda.synchronize()
+    E = c["conn_T"].shape[1]
+    assert out[0].shape == (n_vars, 8, E) and out[1].shape == (n_vars, 8, 3, E)
+    assert all(rel(o, r) < 1e-13 for o, r in zip(out, ref))
+    assert (kernels.launch_counts()["gather_interp_generic_f64"]
+            == before + 1)
+    with pytest.raises(TypeError):
+        kernels.gather_interp_generic(x.float(), c["conn_T"], c["phi"],
+                                      c["dphi"])
+    with pytest.raises(ValueError, match="K="):  # TET4 is K1's, not K8's
+        kernels.gather_interp_generic(x, c["conn_T"][:4], c["phi"][:5, :4],
+                                      c["dphi"][:5, :4].contiguous())
+
+
 def test_take_along_matches_plain(cuda):
     rng = np.random.default_rng(0)
     tbl = torch.as_tensor(rng.standard_normal((192, 128)),
@@ -268,7 +293,7 @@ def test_take_along_matches_plain(cuda):
 
 def test_hex8_kernel_path_matches_plain_path(cuda):
     """3 ADPM steps (live D planes, fields) on box_hex_mesh(4,4,4), each
-    from a common state, through K6/K4 and through the plain versions,
+    from a common state, through K8/K6/K4 and through the plain versions,
     in mixed precision and in f64 with GMRES."""
     mesh = box_hex_mesh(4, 4, 4, bounds=((0, 20.0),) * 3)
     p = adpm.default_params()
@@ -302,4 +327,5 @@ def test_hex8_kernel_path_matches_plain_path(cuda):
             assert np.linalg.norm(ua - ub) / np.linalg.norm(ub) < 1e-10
         n = kernels.launch_counts()
         assert n["apply_generic_f64"] > 0 and n["restrict_f64"] > 0
+        assert n["gather_interp_generic_f64"] == 3
         assert (n["apply_generic_f32"] > 0) == (kw["precision"] == "mixed")
