@@ -51,15 +51,22 @@ Phases, one output line each (any failure raises, exit code != 0):
             taxis-active blocks (V = 3, live D planes); K1-K4 on the ADPM
             legs' TET4 28^3 mesh with ADPM's blocks; and K7 at the
             calibration's shapes (table (192,128), indices (4608,128));
-            each against its plain version (f64 within 1e-13, f32 within
-            1e-5; K7 exact), timed as in phase 2; index_add_ beside K4,
-            torch.gather beside K7
+            K6 again on box_hex_mesh(5,5,5) (E = 125: odd, a ragged last
+            tile); each against its plain version (f64 within 1e-13, f32
+            within 1e-5; K7 exact), timed as in phase 2; index_add_ beside
+            K4, torch.gather beside K7
   10 calibration  time = a + b n fitted from n = 8 and n = 40 back-to-back
             eager bodies with one synchronize at the end (the counterpart
             of scripts/microbench_calib.py): a scalar sqrt chain, a 67 MB
             and a 2.3 MB stream, a 2.3 MB transpose + sqrt, the
-            restriction gather at the TET4 bench's shapes through K4, and
-            K7; a is the fixed cost, b the cost per body
+            restriction gather at the TET4 bench's shapes through K4, K7,
+            and K6 f32 and K3 f32 with the PIHNA blocks on
+            box_hex_mesh(12,12,12) and box_tet_mesh(12,12,12); a is the
+            fixed cost, b the cost per body, beside the host's cost of
+            issuing a body (the loop before the synchronize) and its
+            CUDA-event time; then the host time of each piece of a launch
+            (allocation, stream, ctypes call, a torch op, a whole K4
+            wrapper call on a tiny table)
   11 generic paths  kernels vs plain versions, per-step relative L2 within
             1e-10: 3 mixed-precision PIHNA steps (both solved to rtol
             1e-12) and 3 ADPM taxis-active steps (rtol 1e-11, each from a
@@ -881,6 +888,17 @@ def phase_generic_kernels(dev, S, also):
         "adpm", A, ua, lambda uq, gq: adpm.adpm_blocks(uq, gq, f, pa)),
         results, also, label="adpm")
     del A, f
+    # K6 where E is odd and not a multiple of the tile (125 HEX8): rows
+    # that are not 16-byte aligned and a ragged last tile
+    odd = make_system(box_hex_mesh(5, 5, 5, bounds=BRAIN), dev)
+    _, _, uo0 = bench_case(odd.mesh)
+    uo = torch.as_tensor(np.ascontiguousarray(uo0.T), dtype=F64, device=dev)
+    run_cases("9 generic kernel", {
+        k: c for k, c in generic_cases(
+            "pihna odd E", odd, uo,
+            lambda uq, gq: pihna_blocks(uq, gq, {}, params)).items()
+        if k.startswith("apply_generic")}, results, also, label="odd E")
+    del odd
     # the ADPM bench legs' own mesh and blocks (TET4 28^3, V = 3)
     tet = box_tet_mesh(28, 28, 28, bounds=BRAIN)
     pa, ua0, tracts = adpm_case(tet, 50.0)
@@ -912,25 +930,50 @@ def phase_generic_kernels(dev, S, also):
 
 def _fit(label, body, ns=(8, 40)):
     """time = a + b n of n back-to-back eager bodies closed by one
-    synchronize: median host time of 3 runs for each n."""
+    synchronize: median host time of 3 runs for each n.  Beside it the
+    same fit of the loop alone, before the synchronize (the host's cost
+    of issuing a body, its launches included), and the CUDA-event time of
+    one body on the device: b is the larger of the two where either
+    bounds it."""
     def loop_ms(n):
         for _ in range(3):
             body()
-        ts = []
+        ts, issue = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(n):
                 body()
+            issue.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
-        return 1e3 * float(np.median(ts))
-    t1, t2 = loop_ms(ns[0]), loop_ms(ns[1])
+        return 1e3 * float(np.median(ts)), 1e3 * float(np.median(issue))
+    (t1, h1), (t2, h2) = loop_ms(ns[0]), loop_ms(ns[1])
     b = (t2 - t1) / (ns[1] - ns[0])
     a = t1 - b * ns[0]
+    host_b = (h2 - h1) / (ns[1] - ns[0])
+    dev_ms = cuda_ms(body)
     say("10 fit", body=repr(label), per_body_ms=f"{b:.5f}",
-        fixed_ms=f"{a:.5f}", n8_ms=f"{t1:.5f}", n40_ms=f"{t2:.5f}")
-    return {"per_body_ms": b, "fixed_ms": a}
+        fixed_ms=f"{a:.5f}", n8_ms=f"{t1:.5f}", n40_ms=f"{t2:.5f}",
+        host_per_body_ms=f"{host_b:.5f}", device_ms=f"{dev_ms:.5f}")
+    return {"per_body_ms": b, "fixed_ms": a, "host_per_body_ms": host_b,
+            "device_ms": dev_ms}
+
+
+def _host_us(label, fn, n=200):
+    """Mean host time of one call of fn over n calls issued back to back
+    (the queue drained before; n stays far below the launch queue's
+    depth)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    say("10 host", piece=repr(label), us_per_call=f"{us:.3f}")
+    return us
 
 
 def phase_calibration(dev):
@@ -961,6 +1004,32 @@ def phase_calibration(dev):
                           device=dev)
     idx = torch.as_tensor(rng.integers(0, Sx, (M, 128)), dtype=torch.int32,
                           device=dev)
+    # K6 f32 and K3 f32 at host-bound sizes, on the PIHNA blocks at the
+    # bench state: the launch path's host cost per matvec apply
+    hex_s = make_system(box_hex_mesh(12, 12, 12, bounds=BRAIN), dev)
+    tet_s = make_system(box_tet_mesh(12, 12, 12, bounds=BRAIN), dev)
+    _, params, _ = bench_case(hex_s.mesh)
+    applies = {}
+    for name, s in (("apply_generic K6 f32", hex_s),
+                    ("apply_affine K3 f32", tet_s)):
+        _, _, u0 = bench_case(s.mesh)
+        u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64,
+                            device=dev)
+        if s is hex_s:
+            uq, gq = K.gather_interp_generic_plain(u, s.conn_T, s.phi,
+                                                   s.dphi)
+            st = K.stack_apply_generic(
+                pihna_blocks(uq, gq, {}, params).cast(F32))
+            args = (s.conn_T, s.phi, s.JxW32, s.dphi32, st)
+            applies[name] = (K.apply_generic, u.to(F32), args)
+        else:
+            uq, g1 = K.gather_interp_affine_plain(u, s.conn_T, s.phi,
+                                                  s.dphi0)
+            gq = g1[:, None].expand(5, uq.shape[1], 3, g1.shape[-1])
+            wfb = pihna_blocks(uq, gq, {}, params).cast(F32)
+            st = K.stack_apply(wfb, diffusion_presum(wfb, s.JxW32))
+            args = (s.conn_T, s.phi, s.JxW32, s.dphi0_32, st)
+            applies[name] = (K.apply_affine, u.to(F32), args)
     K.reset_launch_counts()
     fits = {
         "scalar sqrt chain": _fit("scalar sqrt chain", chain(
@@ -977,11 +1046,38 @@ def phase_calibration(dev):
         "take_along K7": _fit("take_along K7",
                               lambda: K.take_along(tbl, idx)),
     }
+    for name, (fn, x, args) in applies.items():
+        fits[name] = _fit(name, lambda fn=fn, x=x, args=args: fn(x, *args))
+    # the pieces of one launch through a wrapper, host time each
+    tiny_ng = torch.as_tensor(rng.integers(0, 1025, (4, 256)),
+                              dtype=torch.int32, device=dev)
+    tiny = torch.as_tensor(rng.standard_normal((5, 1024)), dtype=F32,
+                           device=dev)
+    # the floor of a CUDA-event time: one tiny elementwise kernel
+    fits["neg (5, 1024) f32"] = _fit("neg (5, 1024) f32",
+                                     lambda: torch.neg(tiny))
+    empty_plan = K._plan("restrict_plan", 0, 0, 0, dev.index)
+    kf = K._fn("restrict_f32")
+    raw = torch._C._cuda_getCurrentRawStream
+    for label, fn in (
+            ("torch.empty (5, 1024) f32", lambda: torch.empty(
+                (5, 1024), dtype=F32, device=dev)),
+            ("new_empty (5, 1024)", lambda: tiny.new_empty((5, 1024))),
+            ("raw current stream", lambda: raw(dev.index)),
+            ("torch.cuda.current_device", torch.cuda.current_device),
+            ("ctypes call, no launch (K4, N = 0)",
+             lambda: kf(empty_plan[1], 0, 0, 1, 0, 0)),
+            ("torch.neg (5, 1024) f32", lambda: torch.neg(tiny)),
+            ("K4 wrapper, (5, 1024) -> 256 nodes",
+             lambda: K.restrict(tiny, tiny_ng))):
+        fits["host: " + label] = {"us_per_call": _host_us(label, fn)}
     counts = K.launch_counts()
-    say("10 launches", take_along_f32=counts["take_along_f32"],
-        restrict_f32=counts["restrict_f32"])
-    require(counts["take_along_f32"] > 0 and counts["restrict_f32"] > 0,
-            "the calibration launched no K7 or no K4")
+    say("10 launches", **{k: counts[k] for k in (
+        "take_along_f32", "restrict_f32", "apply_generic_f32",
+        "apply_affine_f32")})
+    require(all(counts[k] > 0 for k in (
+        "take_along_f32", "restrict_f32", "apply_generic_f32",
+        "apply_affine_f32")), "the calibration missed a kernel")
     return fits, counts
 
 

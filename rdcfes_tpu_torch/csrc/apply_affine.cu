@@ -27,7 +27,8 @@
 // stay in registers; each coefficient plane is read exactly once, coalesced
 // along e; the (v, w) -> plane slot tables ride in the kernel parameters
 // (warp-uniform branches), so absent blocks cost nothing; x (V, N) is read
-// through L2, where it stays resident.
+// through L2, where it stays resident.  The launch comes from a plan
+// (common.cuh) written once per set of stacks.
 #include "common.cuh"
 
 namespace {
@@ -141,29 +142,37 @@ __global__ void __launch_bounds__(rdc::kThreads) apply_affine_kernel(
   }
 }
 
+struct AffinePlan {
+  const int* conn_T;
+  const void* JxW;
+  const void* dphi0;
+  const void* C;
+  const void* D;
+  const void* Ep;
+  ApplySlots slots;
+  rdc::PhiTable phi;
+  int V, N, E, elem_bytes, device;
+};
+
 template <typename T>
-int launch_apply(const T* x, const int* conn_T, const double* phi_host,
-                 const T* JxW, const T* dphi0, const T* C, const T* D,
-                 const T* Ep, const int* slots_host, T* Ye, int V, int N,
-                 int K, int Q, int E, void* stream) {
-  if (K != rdc::kK || Q != rdc::kQ) return cudaErrorInvalidValue;
-  if (E == 0) return cudaSuccess;
-  constexpr int MM = rdc::kMaxV * rdc::kMaxV;
-  ApplySlots s;
-  for (int i = 0; i < MM; ++i) {
-    s.c[i] = slots_host[i];
-    s.d[i] = slots_host[MM + i];
-    s.e[i] = slots_host[2 * MM + i];
-  }
-  const rdc::PhiTable ph = rdc::phi_table(phi_host);
-  const unsigned grid = rdc::blocks_for(E);
+int launch_apply(const void* plan, const T* x, T* Ye, void* stream) {
+  const AffinePlan& p = *static_cast<const AffinePlan*>(plan);
+  if (p.elem_bytes != static_cast<int>(sizeof(T))) return cudaErrorInvalidValue;
+  if (p.E == 0) return cudaSuccess;
+  const T* JxW = static_cast<const T*>(p.JxW);
+  const T* dphi0 = static_cast<const T*>(p.dphi0);
+  const T* C = static_cast<const T*>(p.C);
+  const T* D = static_cast<const T*>(p.D);
+  const T* Ep = static_cast<const T*>(p.Ep);
+  const unsigned grid = rdc::blocks_for(p.E);
+  const rdc::DeviceGuard guard(p.device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RDC_APPLY_CASE(NV)                                               \
   case NV:                                                               \
     apply_affine_kernel<T, NV><<<grid, rdc::kThreads, 0, st>>>(          \
-        x, conn_T, JxW, dphi0, C, D, Ep, Ye, s, ph, N, E);                \
+        x, p.conn_T, JxW, dphi0, C, D, Ep, Ye, p.slots, p.phi, p.N, p.E); \
     break;
-  switch (V) {
+  switch (p.V) {
     RDC_APPLY_CASE(1)
     RDC_APPLY_CASE(2)
     RDC_APPLY_CASE(3)
@@ -181,22 +190,50 @@ int launch_apply(const T* x, const int* conn_T, const double* phi_host,
 
 }  // namespace
 
+// The launch plan of one set of stacks (C (nC, Q, E), D (nD, Q, 3, E), Ep
+// (nE, E)) with the element tables conn_T (K, E), JxW (Q, E) and dphi0
+// (K, 3, E) on `device`, for x (V, N), in elements of elem_bytes (4 or 8).
 // slots_host: int32[3 * kMaxV * kMaxV] on the host, the C, D and E tables
-// in turn, each row-major (v, w) -> plane index or -1.
-extern "C" int rdc_apply_affine_f32(
-    const float* x, const int* conn_T, const double* phi_host,
-    const float* JxW, const float* dphi0, const float* C, const float* D,
-    const float* Ep, const int* slots_host, float* Ye, int V, int N, int K,
-    int Q, int E, void* stream) {
-  return launch_apply<float>(x, conn_T, phi_host, JxW, dphi0, C, D, Ep,
-                             slots_host, Ye, V, N, K, Q, E, stream);
+// in turn, each row-major (v, w) -> plane index or -1.  phi_host: double
+// [Q * K] on the host, row-major.
+extern "C" int rdc_apply_affine_plan(
+    void* plan, int plan_bytes, const int* conn_T, const void* JxW,
+    const void* dphi0, const void* C, const void* D, const void* Ep,
+    const int* slots_host, const double* phi_host, int V, int N, int K,
+    int Q, int E, int elem_bytes, int device) {
+  AffinePlan* p = rdc::plan_cast<AffinePlan>(plan, plan_bytes);
+  if (p == nullptr || K != rdc::kK || Q != rdc::kQ || V < 1 ||
+      V > rdc::kMaxV || N < 0 || E < 0 || (elem_bytes != 4 && elem_bytes != 8))
+    return cudaErrorInvalidValue;
+  constexpr int MM = rdc::kMaxV * rdc::kMaxV;
+  *p = AffinePlan{};
+  for (int i = 0; i < MM; ++i) {
+    p->slots.c[i] = slots_host[i];
+    p->slots.d[i] = slots_host[MM + i];
+    p->slots.e[i] = slots_host[2 * MM + i];
+  }
+  p->phi = rdc::phi_table(phi_host);
+  p->conn_T = conn_T;
+  p->JxW = JxW;
+  p->dphi0 = dphi0;
+  p->C = C;
+  p->D = D;
+  p->Ep = Ep;
+  p->V = V;
+  p->N = N;
+  p->E = E;
+  p->elem_bytes = elem_bytes;
+  p->device = device;
+  return cudaSuccess;
 }
 
-extern "C" int rdc_apply_affine_f64(
-    const double* x, const int* conn_T, const double* phi_host,
-    const double* JxW, const double* dphi0, const double* C,
-    const double* D, const double* Ep, const int* slots_host, double* Ye,
-    int V, int N, int K, int Q, int E, void* stream) {
-  return launch_apply<double>(x, conn_T, phi_host, JxW, dphi0, C, D, Ep,
-                              slots_host, Ye, V, N, K, Q, E, stream);
+// x (V, N) -> Ye (V, K, E) with the plan's tables and stacks.
+extern "C" int rdc_apply_affine_f32(const void* plan, const float* x,
+                                    float* Ye, void* stream) {
+  return launch_apply<float>(plan, x, Ye, stream);
+}
+
+extern "C" int rdc_apply_affine_f64(const void* plan, const double* x,
+                                    double* Ye, void* stream) {
+  return launch_apply<double>(plan, x, Ye, stream);
 }

@@ -23,232 +23,446 @@
 // f32 call streams dphi 84.9 MB + C 70.8 MB + D 42.5 MB + E 3.5 MB + JxW
 // 3.5 MB + conn_T 3.5 MB and writes Ye 17.7 MB: ~226 MB, ~68 us at
 // 3.35 TB/s; f64 moves twice the float bytes.
-// Design: one thread per element, <T, V, K, Q> template parameters.  The
-// q loop is outermost and stays rolled: one iteration holds dphi[q] (3 K
-// values), x_qp[., q] and gx[., q, .] (4 V) in registers and accumulates
-// into Ye[V][K], so nothing of size V*Q*3 is ever live.  The gathered
-// corner values ue[V][K] live in shared memory, one column per thread
-// (stride blockDim.x, conflict-free), which leaves the registers to the
-// accumulators; every coefficient plane is read exactly once, coalesced
-// along e; the (v, w) -> plane slot tables and the phi table ride in the
-// kernel parameters (warp-uniform branches), so absent blocks cost
-// nothing; x (V, N) is read through L2.
+//
+// Design.  A block takes a tile of TE elements (32, or 16 when the planes
+// are many) with one thread per (species v, element): thread (v, e)
+// gathers species v at the corners of e, interpolates species v at each q,
+// and owns the K accumulators of Ye[v, :, e], so no thread holds anything
+// of size V*K.  The q loop is outermost.  Every row a q-slice of the tile
+// needs (dphi's K*3 rows, JxW, the live C, D and E rows: all contiguous
+// along e) is staged into shared memory with cp.async, 2 or 3 q-slices
+// deep, so the bytes in flight do not depend on how many warps the
+// registers allow; 16-byte copies where every row is 16-byte aligned, one
+// element per copy otherwise (E odd in f32), zero-filled past E; a block
+// first writes each row's source and q-stride into shared memory, so a
+// copy costs a few instructions.  Per q: wait for the slice, start the
+// copy of slice q + stages - 1, interpolate species v into a small
+// exchange buffer, barrier, then the responses of v from every species'
+// interpolated values and the projection back into the accumulators.
+// Warps share v when TE >= 32, so the (v, w) slot branches are warp-
+// uniform; the slot and phi tables ride in the kernel parameters.
 #include "common.cuh"
 
 namespace {
 
+constexpr int M = rdc::kMaxV;
+constexpr int kMaxQK = 8 * 8;  // phi entries of the largest element built
+constexpr int kSmemTwoBlocks = 113 * 1024;  // leaves room for 2 blocks/SM
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kRowBytes = 16;  // shared memory of a row's source and stride
+
 struct GenericSlots {
-  int c[rdc::kMaxV * rdc::kMaxV];
-  int d[rdc::kMaxV * rdc::kMaxV];
-  int e[rdc::kMaxV * rdc::kMaxV];
+  int c[M * M];
+  int d[M * M];
+  int e[M * M];
+};
+
+struct GenericPlan {
+  const int* conn_T;
+  const void* JxW;
+  const void* dphi;
+  const void* C;
+  const void* D;
+  const void* Es;
+  GenericSlots slots;
+  double phi[kMaxQK];
+  int V, N, K, Q, E, nC, nD, nE;
+  int elem_bytes, device;
+  int te, stages, vec, smem;
 };
 
 // phi[q][k] in the kernel's own type, sized by the element's K and Q
-// (rdc::PhiTable is TET4's).
 template <typename T, int K, int Q>
 struct PhiKQ {
   T v[Q * K];
 };
 
-template <typename T, int V, int K, int Q>
-__global__ void __launch_bounds__(rdc::kThreads) apply_generic_kernel(
-    const T* __restrict__ x, const int* __restrict__ conn_T,
-    const T* __restrict__ JxW, const T* __restrict__ dphi,
-    const T* __restrict__ C, const T* __restrict__ D,
-    const T* __restrict__ Es, T* __restrict__ Ye, GenericSlots s,
-    PhiKQ<T, K, Q> phi, int N, int E) {
-  constexpr int M = rdc::kMaxV;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ue = reinterpret_cast<T*>(smem_raw);  // [V * K][blockDim.x]
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int e = blockIdx.x * nt + tid;
-  if (e >= E) return;
-  const size_t sE = static_cast<size_t>(E);
+template <typename T, int K, int Q>
+struct GenericArgs {
+  const T* x;
+  const int* conn_T;
+  const T* JxW;
+  const T* dphi;
+  const T* C;
+  const T* D;
+  const T* Es;
+  T* Ye;
+  GenericSlots s;
+  PhiKQ<T, K, Q> phi;
+  int N, E, nC, nD, nE, te, stages, vec;
+};
 
-  // prologue: corner gather of every species
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int node = conn_T[k * sE + e];
-#pragma unroll
-    for (int w = 0; w < V; ++w)
-      ue[(w * K + k) * nt + tid] =
-          __ldg(x + static_cast<size_t>(w) * N + node);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, of which src_bytes are read and the rest zero-filled
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+template <int B>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src,
+                                              int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(B), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Row r of q-slice q: dphi (k, d) at r = 3k + d, then JxW, the C planes,
+// the D planes (s, d) at 3s + d and the E planes; each is E values long.
+template <typename T, int K, int Q>
+__device__ __forceinline__ const T* row_src(const GenericArgs<T, K, Q>& a,
+                                            int r, int q) {
+  const size_t sE = static_cast<size_t>(a.E);
+  if (r < 3 * K) return a.dphi + (static_cast<size_t>(q) * 3 * K + r) * sE;
+  r -= 3 * K;
+  if (r == 0) return a.JxW + q * sE;
+  r -= 1;
+  if (r < a.nC) return a.C + (static_cast<size_t>(r) * Q + q) * sE;
+  r -= a.nC;
+  if (r < 3 * a.nD) {
+    const int s = r / 3;
+    return a.D + ((static_cast<size_t>(s) * Q + q) * 3 + (r - 3 * s)) * sE;
+  }
+  r -= 3 * a.nD;
+  return a.Es + (static_cast<size_t>(r) * Q + q) * sE;
+}
+
+// Start the copy of q-slice q of the tile at e0 into stage[R][te]; row r
+// of slice q starts at rows[r] + q * qstride[r].
+template <typename T, int K, int Q>
+__device__ __forceinline__ void stage_copy(const GenericArgs<T, K, Q>& a,
+                                           T* stage, const T* const* rows,
+                                           const long long* qstride, int R,
+                                           int q, int e0) {
+  const int te = a.te;
+  if (a.vec) {
+    constexpr int epc = 16 / sizeof(T);  // elements per 16-byte copy
+    const int lg = 31 - __clz(te / epc);  // chunks per row, a power of 2
+    for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
+      const int r = i >> lg;
+      const int e = e0 + (i - (r << lg)) * epc;
+      const int valid = min(max(a.E - e, 0), epc);
+      const T* row = rows[r] + q * qstride[r];
+      cp_async_16(stage + r * te + (e - e0), valid > 0 ? row + e : row,
+                  valid * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    const int lg = 31 - __clz(te);
+    for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
+      const int r = i >> lg;
+      const int e = e0 + (i - (r << lg));
+      const T* row = rows[r] + q * qstride[r];
+      const bool in = e < a.E;
+      cp_async_elem<sizeof(T)>(stage + i, in ? row + e : row,
+                               in ? static_cast<int>(sizeof(T)) : 0);
+    }
+  }
+}
+
+template <typename T, int V, int K, int Q>
+__global__ void __launch_bounds__(32 * M) apply_generic_kernel(
+    const __grid_constant__ GenericArgs<T, K, Q> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int te = a.te;
+  const int S = a.stages;
+  const int R = 3 * K + 1 + a.nC + 3 * a.nD + a.nE;
+  // [R] row sources and q-strides, [S][R][te] stages, [V][4][te] exchange
+  const T** rows = reinterpret_cast<const T**>(smem_raw);
+  long long* qstride = reinterpret_cast<long long*>(rows + R);
+  T* stages = reinterpret_cast<T*>(qstride + R);
+  T* xqb = stages + S * R * te;
+  const int v = threadIdx.x / te;
+  const int el = threadIdx.x - v * te;
+  const int e0 = blockIdx.x * te;
+  const int e = e0 + el;
+  const size_t sE = static_cast<size_t>(a.E);
+
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    rows[r] = row_src(a, r, 0);
+    qstride[r] = row_src(a, r, 1) - rows[r];
+  }
+  __syncthreads();
+  for (int s = 0; s + 1 < S; ++s) {
+    if (s < Q) stage_copy(a, stages + s * R * te, rows, qstride, R, s, e0);
+    cp_async_commit();
   }
 
-  T acc[V][K];
+  // corner gather of species v, while the first slices are in flight
+  T ue[K];
 #pragma unroll
-  for (int v = 0; v < V; ++v)
+  for (int k = 0; k < K; ++k) ue[k] = T(0);
+  if (e < a.E) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[v][k] = T(0);
+    for (int k = 0; k < K; ++k)
+      ue[k] = __ldg(a.x + static_cast<size_t>(v) * a.N +
+                    __ldg(a.conn_T + k * sE + e));
+  }
+  bool live = false;
+#pragma unroll
+  for (int w = 0; w < V; ++w)
+    live = live || a.s.c[v * M + w] >= 0 || a.s.d[v * M + w] >= 0 ||
+           a.s.e[v * M + w] >= 0;
+  const int rJ = 3 * K, rC = rJ + 1, rD = rC + a.nC, rE = rD + 3 * a.nD;
+
+  T acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = T(0);
 
 #pragma unroll 1
   for (int q = 0; q < Q; ++q) {
-    const T jw = JxW[q * sE + e];
+    // slice q has landed (the S - 2 later ones may still fly) and every
+    // thread is done with slice q - 1 and with the exchange buffer
+    if (S == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int qn = q + S - 1;
+    if (qn < Q)
+      stage_copy(a, stages + (qn % S) * R * te, rows, qstride, R, qn, e0);
+    cp_async_commit();
+
+    const T* sg = stages + (q % S) * R * te + el;  // row r at sg[r * te]
     T g[K][3];
 #pragma unroll
     for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int d = 0; d < 3; ++d)
-        g[k][d] = dphi[((static_cast<size_t>(q) * K + k) * 3 + d) * sE + e];
+      for (int d = 0; d < 3; ++d) g[k][d] = sg[(3 * k + d) * te];
     T ph[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) ph[k] = phi.v[q * K + k];
+    for (int k = 0; k < K; ++k) ph[k] = a.phi.v[q * K + k];
 
-    // interpolation of every species at this q
-    T xq[V];
-    T gx[V][3];
+    // interpolation of species v at q, for every thread of the element
+    T xv = ph[0] * ue[0];
+    T g0 = g[0][0] * ue[0], g1 = g[0][1] * ue[0], g2 = g[0][2] * ue[0];
 #pragma unroll
-    for (int w = 0; w < V; ++w) {
-      T u = ue[(w * K) * nt + tid];
-      T ax = ph[0] * u;
-      T a0 = g[0][0] * u, a1 = g[0][1] * u, a2 = g[0][2] * u;
-#pragma unroll
-      for (int k = 1; k < K; ++k) {
-        u = ue[(w * K + k) * nt + tid];
-        ax += ph[k] * u;
-        a0 += g[k][0] * u;
-        a1 += g[k][1] * u;
-        a2 += g[k][2] * u;
-      }
-      xq[w] = ax;
-      gx[w][0] = a0;
-      gx[w][1] = a1;
-      gx[w][2] = a2;
+    for (int k = 1; k < K; ++k) {
+      xv += ph[k] * ue[k];
+      g0 += g[k][0] * ue[k];
+      g1 += g[k][1] * ue[k];
+      g2 += g[k][2] * ue[k];
     }
+    T* xo = xqb + v * 4 * te + el;
+    xo[0] = xv;
+    xo[te] = g0;
+    xo[2 * te] = g1;
+    xo[3 * te] = g2;
+    __syncthreads();
 
-    // responses of every species, projected back at once
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      T a = T(0);
-      T b[3] = {T(0), T(0), T(0)};
-      bool live = false;
+    // the response of species v, projected back
+    if (live) {
+      T av = T(0);
+      T b0 = T(0), b1 = T(0), b2 = T(0);
 #pragma unroll
       for (int w = 0; w < V; ++w) {
-        const int sc = s.c[v * M + w];
-        if (sc >= 0) {
-          a += C[(static_cast<size_t>(sc) * Q + q) * sE + e] * xq[w];
-          live = true;
-        }
-        const int sd = s.d[v * M + w];
+        const T* xw = xqb + w * 4 * te + el;
+        const int sc = a.s.c[v * M + w];
+        if (sc >= 0) av += sg[(rC + sc) * te] * xw[0];
+        const int sd = a.s.d[v * M + w];
         if (sd >= 0) {
-          const T* Dp = D + (static_cast<size_t>(sd) * Q + q) * 3 * sE + e;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) b[d] += Dp[d * sE] * xq[w];
-          live = true;
+          const T* Dp = sg + (rD + 3 * sd) * te;
+          const T xq = xw[0];
+          b0 += Dp[0] * xq;
+          b1 += Dp[te] * xq;
+          b2 += Dp[2 * te] * xq;
         }
-        const int se = s.e[v * M + w];
+        const int se = a.s.e[v * M + w];
         if (se >= 0) {
-          const T ev = Es[(static_cast<size_t>(se) * Q + q) * sE + e];
-#pragma unroll
-          for (int d = 0; d < 3; ++d) b[d] += ev * gx[w][d];
-          live = true;
+          const T ev = sg[(rE + se) * te];
+          b0 += ev * xw[te];
+          b1 += ev * xw[2 * te];
+          b2 += ev * xw[3 * te];
         }
       }
-      if (live) {
-        a *= jw;
+      const T jw = sg[rJ * te];
+      av *= jw;
+      b0 *= jw;
+      b1 *= jw;
+      b2 *= jw;
 #pragma unroll
-        for (int d = 0; d < 3; ++d) b[d] *= jw;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          acc[v][k] +=
-              ph[k] * a + (g[k][0] * b[0] + g[k][1] * b[1] + g[k][2] * b[2]);
-      }
+      for (int k = 0; k < K; ++k)
+        acc[k] += ph[k] * av + (g[k][0] * b0 + g[k][1] * b1 + g[k][2] * b2);
     }
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int v = 0; v < V; ++v)
+  if (e < a.E) {
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      Ye[(static_cast<size_t>(v) * K + k) * sE + e] = acc[v][k];
-}
-
-template <typename T, int V, int K, int Q>
-cudaError_t launch_vkq(const T* x, const int* conn_T, const double* phi_host,
-                       const T* JxW, const T* dphi, const T* C, const T* D,
-                       const T* Es, const GenericSlots& s, T* Ye, int N,
-                       int E, cudaStream_t st) {
-  PhiKQ<T, K, Q> ph;
-  for (int i = 0; i < Q * K; ++i) ph.v[i] = static_cast<T>(phi_host[i]);
-  auto kern = apply_generic_kernel<T, V, K, Q>;
-  const size_t smem = sizeof(T) * V * K * rdc::kThreads;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return rc;
+      a.Ye[(static_cast<size_t>(v) * K + k) * sE + e] = acc[k];
   }
-  kern<<<rdc::blocks_for(E), rdc::kThreads, smem, st>>>(
-      x, conn_T, JxW, dphi, C, D, Es, Ye, s, ph, N, E);
-  return cudaGetLastError();
 }
 
 template <typename T, int K, int Q>
-cudaError_t launch_kq(const T* x, const int* conn_T, const double* phi_host,
-                      const T* JxW, const T* dphi, const T* C, const T* D,
-                      const T* Es, const GenericSlots& s, T* Ye, int V,
-                      int N, int E, cudaStream_t st) {
-#define RDC_GENERIC_CASE(NV)                                              \
-  case NV:                                                                \
-    return launch_vkq<T, NV, K, Q>(x, conn_T, phi_host, JxW, dphi, C, D,  \
-                                   Es, s, Ye, N, E, st);
+using GenericKernel = void (*)(const GenericArgs<T, K, Q>);
+
+template <typename T, int K, int Q>
+GenericKernel<T, K, Q> kernel_for(int V) {
   switch (V) {
-    RDC_GENERIC_CASE(1)
-    RDC_GENERIC_CASE(2)
-    RDC_GENERIC_CASE(3)
-    RDC_GENERIC_CASE(4)
-    RDC_GENERIC_CASE(5)
-    RDC_GENERIC_CASE(6)
-    RDC_GENERIC_CASE(7)
-    RDC_GENERIC_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return apply_generic_kernel<T, 1, K, Q>;
+    case 2: return apply_generic_kernel<T, 2, K, Q>;
+    case 3: return apply_generic_kernel<T, 3, K, Q>;
+    case 4: return apply_generic_kernel<T, 4, K, Q>;
+    case 5: return apply_generic_kernel<T, 5, K, Q>;
+    case 6: return apply_generic_kernel<T, 6, K, Q>;
+    case 7: return apply_generic_kernel<T, 7, K, Q>;
+    case 8: return apply_generic_kernel<T, 8, K, Q>;
+    default: return nullptr;
   }
-#undef RDC_GENERIC_CASE
+}
+
+// one line per element type: (K, Q) = HEX8 (8, 8); PRISM6 (6, 8),
+// PYRAMID5 (5, 8) and TET10 (10, 14) go here with their element tables
+template <typename T>
+const void* kernel_ptr(int V, int K, int Q) {
+  if (K == 8 && Q == 8)
+    return reinterpret_cast<const void*>(kernel_for<T, 8, 8>(V));
+  return nullptr;
+}
+
+template <typename T, int K, int Q>
+int launch_kq(const GenericPlan& p, const T* x, T* Ye, cudaStream_t st) {
+  GenericArgs<T, K, Q> a;
+  a.x = x;
+  a.conn_T = p.conn_T;
+  a.JxW = static_cast<const T*>(p.JxW);
+  a.dphi = static_cast<const T*>(p.dphi);
+  a.C = static_cast<const T*>(p.C);
+  a.D = static_cast<const T*>(p.D);
+  a.Es = static_cast<const T*>(p.Es);
+  a.Ye = Ye;
+  a.s = p.slots;
+  for (int i = 0; i < Q * K; ++i) a.phi.v[i] = static_cast<T>(p.phi[i]);
+  a.N = p.N;
+  a.E = p.E;
+  a.nC = p.nC;
+  a.nD = p.nD;
+  a.nE = p.nE;
+  a.te = p.te;
+  a.stages = p.stages;
+  a.vec = p.vec;
+  const unsigned grid = static_cast<unsigned>((p.E + p.te - 1) / p.te);
+  kernel_for<T, K, Q>(p.V)<<<grid, p.te * p.V, p.smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int launch_generic(const T* x, const int* conn_T, const double* phi_host,
-                   const T* JxW, const T* dphi, const T* C, const T* D,
-                   const T* Es, const int* slots_host, T* Ye, int V, int N,
-                   int K, int Q, int E, void* stream) {
-  if (E == 0) return cudaSuccess;
-  constexpr int MM = rdc::kMaxV * rdc::kMaxV;
-  GenericSlots s;
-  for (int i = 0; i < MM; ++i) {
-    s.c[i] = slots_host[i];
-    s.d[i] = slots_host[MM + i];
-    s.e[i] = slots_host[2 * MM + i];
-  }
+int launch_generic(const void* plan, const T* x, T* Ye, void* stream) {
+  const GenericPlan& p = *static_cast<const GenericPlan*>(plan);
+  if (p.elem_bytes != static_cast<int>(sizeof(T))) return cudaErrorInvalidValue;
+  if (p.E == 0) return cudaSuccess;
+  const rdc::DeviceGuard guard(p.device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // one line per element type: (K, Q) = HEX8 (8, 8); PRISM6 (6, 8),
-  // PYRAMID5 (5, 8) and TET10 (10, 14) go here with their element tables
-  if (K == 8 && Q == 8)
-    return launch_kq<T, 8, 8>(x, conn_T, phi_host, JxW, dphi, C, D, Es, s,
-                              Ye, V, N, E, st);
+  if (p.K == 8 && p.Q == 8) return launch_kq<T, 8, 8>(p, x, Ye, st);
   return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<size_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
 
-// slots_host: int32[3 * kMaxV * kMaxV] on the host, the C, D and E tables
-// in turn, each row-major (v, w) -> plane index or -1.  phi_host: double
-// [Q * K] on the host, row-major.
-extern "C" int rdc_apply_generic_f32(
-    const float* x, const int* conn_T, const double* phi_host,
-    const float* JxW, const float* dphi, const float* C, const float* D,
-    const float* Es, const int* slots_host, float* Ye, int V, int N, int K,
-    int Q, int E, void* stream) {
-  return launch_generic<float>(x, conn_T, phi_host, JxW, dphi, C, D, Es,
-                               slots_host, Ye, V, N, K, Q, E, stream);
+// The launch plan of one set of stacks (C (nC, Q, E), D (nD, Q, 3, E), Es
+// (nE, Q, E)) with the element tables conn_T (K, E), JxW (Q, E) and dphi
+// (Q, K, 3, E) on `device`, for x (V, N), in elements of elem_bytes (4 or
+// 8).  slots_host: int32[3 * kMaxV * kMaxV] on the host, the C, D and E
+// tables in turn, each row-major (v, w) -> plane index or -1.  phi_host:
+// double[Q * K] on the host, row-major.  Chooses the tile and the stage
+// depth, and raises the kernel's shared-memory limit where it needs to.
+extern "C" int rdc_apply_generic_plan(
+    void* plan, int plan_bytes, const int* conn_T, const void* JxW,
+    const void* dphi, const void* C, const void* D, const void* Es,
+    const int* slots_host, const double* phi_host, int V, int N, int K,
+    int Q, int E, int nC, int nD, int nE, int elem_bytes, int device) {
+  GenericPlan* p = rdc::plan_cast<GenericPlan>(plan, plan_bytes);
+  if (p == nullptr || V < 1 || V > M || N < 0 || E < 0 || nC < 0 ||
+      nD < 0 || nE < 0 || (elem_bytes != 4 && elem_bytes != 8) ||
+      K * Q > kMaxQK)
+    return cudaErrorInvalidValue;
+  const void* kern = elem_bytes == 4 ? kernel_ptr<float>(V, K, Q)
+                                     : kernel_ptr<double>(V, K, Q);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  *p = GenericPlan{};
+  p->conn_T = conn_T;
+  p->JxW = JxW;
+  p->dphi = dphi;
+  p->C = C;
+  p->D = D;
+  p->Es = Es;
+  constexpr int MM = M * M;
+  for (int i = 0; i < MM; ++i) {
+    p->slots.c[i] = slots_host[i];
+    p->slots.d[i] = slots_host[MM + i];
+    p->slots.e[i] = slots_host[2 * MM + i];
+  }
+  for (int i = 0; i < Q * K; ++i) p->phi[i] = phi_host[i];
+  p->V = V;
+  p->N = N;
+  p->K = K;
+  p->Q = Q;
+  p->E = E;
+  p->nC = nC;
+  p->nD = nD;
+  p->nE = nE;
+  p->elem_bytes = elem_bytes;
+  p->device = device;
+  // the deepest staging of the widest tile that leaves room for two
+  // blocks an SM, else for one
+  const int R = 3 * K + 1 + nC + 3 * nD + nE;
+  const int configs[4][2] = {{32, 3}, {32, 2}, {16, 3}, {16, 2}};
+  const int limits[2] = {kSmemTwoBlocks, kSmemMax};
+  p->te = 0;
+  for (int limit : limits) {
+    for (const auto& c : configs) {
+      const long long smem =
+          static_cast<long long>(c[1] * R + 4 * V) * c[0] * elem_bytes +
+          R * kRowBytes;
+      if (smem <= limit) {
+        p->te = c[0];
+        p->stages = c[1];
+        p->smem = static_cast<int>(smem);
+        break;
+      }
+    }
+    if (p->te) break;
+  }
+  if (p->te == 0) return cudaErrorInvalidValue;
+  p->vec = (static_cast<long long>(E) * elem_bytes) % 16 == 0 &&
+           aligned16(JxW) && aligned16(dphi) && (nC == 0 || aligned16(C)) &&
+           (nD == 0 || aligned16(D)) && (nE == 0 || aligned16(Es));
+  if (p->smem > 48 * 1024) {
+    const rdc::DeviceGuard guard(device);
+    return cudaFuncSetAttribute(kern,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                p->smem);
+  }
+  return cudaSuccess;
 }
 
-extern "C" int rdc_apply_generic_f64(
-    const double* x, const int* conn_T, const double* phi_host,
-    const double* JxW, const double* dphi, const double* C, const double* D,
-    const double* Es, const int* slots_host, double* Ye, int V, int N,
-    int K, int Q, int E, void* stream) {
-  return launch_generic<double>(x, conn_T, phi_host, JxW, dphi, C, D, Es,
-                                slots_host, Ye, V, N, K, Q, E, stream);
+// x (V, N) -> Ye (V, K, E) with the plan's tables and stacks.
+extern "C" int rdc_apply_generic_f32(const void* plan, const float* x,
+                                     float* Ye, void* stream) {
+  return launch_generic<float>(plan, x, Ye, stream);
+}
+
+extern "C" int rdc_apply_generic_f64(const void* plan, const double* x,
+                                     double* Ye, void* stream) {
+  return launch_generic<double>(plan, x, Ye, stream);
 }

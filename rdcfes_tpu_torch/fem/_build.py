@@ -34,19 +34,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/*.cu: pointers (device, host tables, stream) as
-# c_void_p so 64-bit addresses are never cut; each returns a cudaError_t.
+# C signatures of csrc/*.cu: pointers (device, host tables, plans, stream)
+# as c_void_p so 64-bit addresses are never cut; each returns a
+# cudaError_t.  K3, K4 and K6 launch from a plan (csrc/common.cuh) that
+# their *_plan entry point writes once.
 SIGNATURES = {
     "rdc_gather_interp_affine_f64": [_P] * 6 + [_I] * 5 + [_P],
     "rdc_rhs_affine_f64": [_P] * 7 + [_I] * 4 + [_P],
-    "rdc_apply_affine_f32": [_P] * 10 + [_I] * 5 + [_P],
-    "rdc_apply_affine_f64": [_P] * 10 + [_I] * 5 + [_P],
-    "rdc_restrict_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "rdc_restrict_f64": [_P] * 3 + [_I] * 4 + [_P],
+    "rdc_apply_affine_plan": [_P, _I] + [_P] * 8 + [_I] * 7,
+    "rdc_apply_affine_f32": [_P] * 4,
+    "rdc_apply_affine_f64": [_P] * 4,
+    "rdc_restrict_plan": [_P, _I, _P] + [_I] * 3,
+    "rdc_restrict_f32": [_P] * 3 + [_I] * 2 + [_P],
+    "rdc_restrict_f64": [_P] * 3 + [_I] * 2 + [_P],
     "rdc_ell_matvec_f32": [_P] * 4 + [_I] * 4 + [_P],
     "rdc_ell_matvec_f64": [_P] * 4 + [_I] * 4 + [_P],
-    "rdc_apply_generic_f32": [_P] * 10 + [_I] * 5 + [_P],
-    "rdc_apply_generic_f64": [_P] * 10 + [_I] * 5 + [_P],
+    "rdc_apply_generic_plan": [_P, _I] + [_P] * 8 + [_I] * 10,
+    "rdc_apply_generic_f32": [_P] * 4,
+    "rdc_apply_generic_f64": [_P] * 4,
     "rdc_take_along_f32": [_P] * 3 + [_I] * 3 + [_P],
     "rdc_gather_interp_generic_f64": [_P] * 6 + [_I] * 5 + [_P],
 }

@@ -24,6 +24,18 @@ synchronising, raises if the launch reports an error, and adds one to the
 variant's launch count.  The plain versions call the module functions the
 kernels stand for (fem.assembly, fem.bcsr, fem.weakform), on any device.
 
+K3, K4 and K6, the kernels of every Krylov iteration, launch from plans
+(csrc/common.cuh): what stays fixed for a step (the stacks with the
+element tables: `apply_launch_data`) or for a system's life (a gather
+table: `restrict_table`) is checked once, when its plan is made, and
+written into a C struct; a launch then checks only the tensor that
+changes per call (x, flat) and passes the plan, that tensor, the output
+and the current stream.  An apply plan lives in its stacks' `plans`
+dict, keyed by the identity of the element tables it holds; a table
+plan in a module dict keyed by the identity of its table, dropped when
+the table is freed.  Tables and stacks are read-only once made: a plan
+does not see a tensor resized in place.
+
 Coefficient blocks reach K2, K3 and K6 as stacks of their live planes plus
 small int32 (species) or (v, w) index lists, the counterpart of the
 reference's stack_blocks and stack_blocks_affine
@@ -32,8 +44,10 @@ reference's stack_blocks and stack_blocks_affine
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Callable, Dict, NamedTuple
+import weakref
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +59,7 @@ from .weakform import (WeakFormBlocks, _is_zero, block_rhs_affine, qp_apply,
                        qp_apply_affine)
 
 MAX_V = 8  # csrc/common.cuh kMaxV
+PLAN_BYTES = 2048  # csrc/common.cuh kPlanBytes: room for any launch plan
 
 TRANSIENT_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
                       "apply_affine_f32", "apply_affine_f64",
@@ -87,7 +102,8 @@ class RhsStacks(NamedTuple):
 
 class ApplyStacks(NamedTuple):
     """Live jacobian blocks: C (nC, Q, E), D (nD, Q, 3, E), Epre (nE, E)
-    (diffusion_presum); idxC/idxD/idxE int32 (n, 2) rows (v, w)."""
+    (diffusion_presum); idxC/idxD/idxE int32 (n, 2) rows (v, w); plans:
+    K3's launch plans of these stacks (None: none are kept)."""
 
     C: torch.Tensor
     idxC: np.ndarray
@@ -96,12 +112,14 @@ class ApplyStacks(NamedTuple):
     Epre: torch.Tensor
     idxE: np.ndarray
     n_vars: int
+    plans: Optional[dict] = None
 
 
 class GenericApplyStacks(NamedTuple):
     """Live jacobian blocks for per-q gradients: C (nC, Q, E), D
     (nD, Q, 3, E), E (nE, Q, E) (the diffusion planes stay per-q);
-    idxC/idxD/idxE int32 (n, 2) rows (v, w)."""
+    idxC/idxD/idxE int32 (n, 2) rows (v, w); plans: K6's launch plans of
+    these stacks (None: none are kept)."""
 
     C: torch.Tensor
     idxC: np.ndarray
@@ -110,6 +128,7 @@ class GenericApplyStacks(NamedTuple):
     E: torch.Tensor
     idxE: np.ndarray
     n_vars: int
+    plans: Optional[dict] = None
 
 
 def _stack(planes, like: torch.Tensor, tail) -> torch.Tensor:
@@ -151,7 +170,7 @@ def stack_apply(wfb: WeakFormBlocks, Epre) -> ApplyStacks:
     D, id_ = _stack_live(wfb.D, V, ref, (Q, 3, E))
     Ep, ie = _stack_live(Epre, V, ref, (E,))
     return ApplyStacks(C=C, idxC=ic, D=D, idxD=id_, Epre=Ep, idxE=ie,
-                       n_vars=V)
+                       n_vars=V, plans={})
 
 
 def stack_apply_generic(wfb: WeakFormBlocks) -> GenericApplyStacks:
@@ -162,7 +181,7 @@ def stack_apply_generic(wfb: WeakFormBlocks) -> GenericApplyStacks:
     D, id_ = _stack_live(wfb.D, V, ref, (Q, 3, E))
     Es, ie = _stack_live(wfb.E, V, ref, (Q, E))
     return GenericApplyStacks(C=C, idxC=ic, D=D, idxD=id_, E=Es, idxE=ie,
-                              n_vars=V)
+                              n_vars=V, plans={})
 
 
 # ----------------------------------------------------------------------
@@ -252,12 +271,19 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr() if t.numel() else 0)
+def _check_fast(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    """_check for a launch's per-call tensor: one test when it passes."""
+    if (t.dtype is not dtype or t.shape != shape or t.device != device
+            or not t.is_contiguous()):
+        _check(name, t, device, dtype, shape)
 
 
-def _host(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.c_void_p)
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr() if t.numel() else 0
+
+
+def _host(a: np.ndarray) -> int:
+    return a.ctypes.data
 
 
 def _phi_host(phi, Q: int, K: int) -> np.ndarray:
@@ -274,14 +300,40 @@ def _launch(variant: str, fn: Callable, *args) -> None:
     _launches[variant] += 1
 
 
-def _stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device: torch.device) -> int:
+    """The current stream of `device` as a raw cudaStream_t."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def _lib():
-    from ._build import library
+def _on_device(device: torch.device):
+    """torch.cuda.device(device) where it is not the current device."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
-    return library()
+
+_fns: Dict[str, Callable] = {}
+
+
+def _fn(variant: str) -> Callable:
+    """The C entry point rdc_<variant> of the kernel library (built and
+    bound on first use, looked up once)."""
+    f = _fns.get(variant)
+    if f is None:
+        from ._build import library
+
+        f = _fns[variant] = getattr(library(), "rdc_" + variant)
+    return f
+
+
+def _plan(init: str, *args):
+    """A launch plan: a buffer of PLAN_BYTES that the C entry point
+    rdc_<init> fills from args; returns (buffer, its address)."""
+    buf = ctypes.create_string_buffer(PLAN_BYTES)
+    rc = _fn(init)(ctypes.addressof(buf), PLAN_BYTES, *args)
+    if rc != 0:
+        raise RuntimeError(f"{init}: no plan for these shapes, cudaError {rc}")
+    return buf, ctypes.addressof(buf)
 
 
 def _apply_slots(st) -> np.ndarray:
@@ -309,9 +361,9 @@ def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
     ph = _phi_host(phi, Q, K)
     u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
     gx = torch.empty((V, 3, E), dtype=f64, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         _launch("gather_interp_affine_f64",
-                _lib().rdc_gather_interp_affine_f64, _ptr(u), _ptr(conn_T),
+                _fn("gather_interp_affine_f64"), _ptr(u), _ptr(conn_T),
                 _host(ph), _ptr(dphi0), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
                 _stream(dev))
     return u_qp, gx
@@ -343,9 +395,9 @@ def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
     ph = _phi_host(phi, Q, K)
     u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
     gx = torch.empty((V, Q, 3, E), dtype=f64, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         _launch("gather_interp_generic_f64",
-                _lib().rdc_gather_interp_generic_f64, _ptr(u), _ptr(conn_T),
+                _fn("gather_interp_generic_f64"), _ptr(u), _ptr(conn_T),
                 _host(ph), _ptr(dphi), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
                 _stream(dev))
     return u_qp, gx
@@ -371,11 +423,110 @@ def rhs_affine(st: RhsStacks, JxW: torch.Tensor, phi, dphi0: torch.Tensor):
     slots[1, st.idxB] = np.arange(len(st.idxB))
     ph = _phi_host(phi, Q, K)
     Fe = torch.empty((V, K, E), dtype=f64, device=dev)
-    with torch.cuda.device(dev):
-        _launch("rhs_affine_f64", _lib().rdc_rhs_affine_f64, _ptr(st.A),
+    with _on_device(dev):
+        _launch("rhs_affine_f64", _fn("rhs_affine_f64"), _ptr(st.A),
                 _ptr(st.B), _host(slots), _ptr(JxW), _host(ph), _ptr(dphi0),
                 _ptr(Fe), V, K, Q, E, _stream(dev))
     return Fe
+
+
+class ApplyLaunchData(NamedTuple):
+    """What a K3 ("affine") or K6 ("generic") launch takes besides x, for
+    one set of stacks with the element tables: the checked shapes, the
+    (3, MAX_V, MAX_V) int32 slot table and the (Q, K) f64 phi table."""
+
+    V: int
+    N: int
+    K: int
+    Q: int
+    E: int
+    dtype: torch.dtype
+    device: torch.device
+    slots: np.ndarray
+    phi: np.ndarray
+
+
+def apply_launch_data(kind: str, conn_T: torch.Tensor, phi,
+                      JxW: torch.Tensor, dphi: torch.Tensor, st,
+                      N: int) -> ApplyLaunchData:
+    """Check the tensors a K3 or K6 launch keeps for a step, on any device:
+    conn_T (K, E) int32; JxW (Q, E) f32 or f64, and in its dtype and on its
+    device dphi (K, 3, E) (affine) or (Q, K, 3, E) (generic) and the
+    stacks (ApplyStacks or GenericApplyStacks); phi (Q, K); x will be
+    (V, N).  Raises TypeError on a wrong dtype, ValueError on a wrong
+    device, shape or contiguity."""
+    generic = kind == "generic"
+    name = "apply_generic" if generic else "apply_affine"
+    V, dev, dt = st.n_vars, JxW.device, JxW.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: no kernel for {dt}")
+    if not 1 <= V <= MAX_V:
+        raise ValueError(f"{name}: {V} species, kernel takes 1..{MAX_V}")
+    if conn_T.dim() != 2 or JxW.dim() != 2:
+        raise ValueError(f"{name}: conn_T {tuple(conn_T.shape)} and JxW "
+                         f"{tuple(JxW.shape)} must be (K, E) and (Q, E)")
+    K, E = conn_T.shape
+    Q = JxW.shape[0]
+    if generic:
+        _check_kq(name, K, Q)
+    _check("conn_T", conn_T, dev, torch.int32, (K, E))
+    _check("JxW", JxW, dev, dt, (Q, E))
+    _check("dphi", dphi, dev, dt, (Q, K, 3, E) if generic else (K, 3, E))
+    _check("C", st.C, dev, dt, (len(st.idxC), Q, E))
+    _check("D", st.D, dev, dt, (len(st.idxD), Q, 3, E))
+    if generic:
+        _check("E", st.E, dev, dt, (len(st.idxE), Q, E))
+    else:
+        _check("Epre", st.Epre, dev, dt, (len(st.idxE), E))
+    return ApplyLaunchData(V, N, K, Q, E, dt, dev, _apply_slots(st),
+                           _phi_host(phi, Q, K))
+
+
+class _ApplyPlan(NamedTuple):
+    variant: str
+    fn: Callable
+    ptr: int
+    buf: ctypes.Array
+    device: torch.device
+    dtype: torch.dtype
+    x_shape: tuple
+    out_shape: tuple
+    tables: tuple  # the element tables the plan points into, kept alive
+
+
+def _apply_plan(kind: str, x: torch.Tensor, conn_T, phi, JxW, dphi,
+                st) -> _ApplyPlan:
+    """The K3/K6 plan of stacks `st` with these element tables: from
+    st.plans, else checked, made and kept there."""
+    plans = st.plans if st.plans is not None else {}
+    key = (id(conn_T), id(phi), id(JxW), id(dphi))
+    p = plans.get(key)
+    if p is not None:
+        return p
+    d = apply_launch_data(kind, conn_T, phi, JxW, dphi, st, x.shape[-1])
+    tag = "f32" if d.dtype == torch.float32 else "f64"
+    extra = ((len(st.idxC), len(st.idxD), len(st.idxE))
+             if kind == "generic" else ())
+    Ep = st.E if kind == "generic" else st.Epre
+    buf, ptr = _plan(f"apply_{kind}_plan", _ptr(conn_T), _ptr(JxW),
+                     _ptr(dphi), _ptr(st.C), _ptr(st.D), _ptr(Ep),
+                     _host(d.slots), _host(d.phi), d.V, d.N, d.K, d.Q, d.E,
+                     *extra, JxW.element_size(), d.device.index)
+    variant = f"apply_{kind}_{tag}"
+    p = _ApplyPlan(variant, _fn(variant), ptr, buf,
+                   d.device, d.dtype, (d.V, d.N), (d.V, d.K, d.E),
+                   (conn_T, phi, JxW, dphi))
+    plans[key] = p
+    return p
+
+
+def _apply(kind: str, x, conn_T, phi, JxW, dphi, st) -> torch.Tensor:
+    p = _apply_plan(kind, x, conn_T, phi, JxW, dphi, st)
+    _check_fast("x", x, p.device, p.dtype, p.x_shape)
+    Ye = x.new_empty(p.out_shape)
+    _launch(p.variant, p.fn, p.ptr, x.data_ptr(), Ye.data_ptr(),
+            _stream(p.device))
+    return Ye
 
 
 def apply_affine(x: torch.Tensor, conn_T: torch.Tensor, phi,
@@ -385,32 +536,7 @@ def apply_affine(x: torch.Tensor, conn_T: torch.Tensor, phi,
     dtype -> Ye (V, K, E)."""
     if _on_cpu(x):
         return apply_affine_plain(x, conn_T, phi, JxW, dphi0, st)
-    V, N = x.shape
-    K, E = conn_T.shape
-    Q = JxW.shape[0]
-    dev, dt = x.device, x.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"apply_affine: no kernel for {dt}")
-    if V != st.n_vars or not 1 <= V <= MAX_V:
-        raise ValueError(f"apply_affine: {V} species, stacks carry "
-                         f"{st.n_vars}, kernel takes 1..{MAX_V}")
-    _check("x", x, dev, dt, (V, N))
-    _check("conn_T", conn_T, dev, torch.int32, (K, E))
-    _check("JxW", JxW, dev, dt, (Q, E))
-    _check("dphi0", dphi0, dev, dt, (K, 3, E))
-    _check("C", st.C, dev, dt, (len(st.idxC), Q, E))
-    _check("D", st.D, dev, dt, (len(st.idxD), Q, 3, E))
-    _check("Epre", st.Epre, dev, dt, (len(st.idxE), E))
-    slots = _apply_slots(st)
-    ph = _phi_host(phi, Q, K)
-    Ye = torch.empty((V, K, E), dtype=dt, device=dev)
-    variant = "apply_affine_f32" if dt == torch.float32 else "apply_affine_f64"
-    with torch.cuda.device(dev):
-        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(x),
-                _ptr(conn_T), _host(ph), _ptr(JxW), _ptr(dphi0), _ptr(st.C),
-                _ptr(st.D), _ptr(st.Epre), _host(slots), _ptr(Ye), V, N, K, Q,
-                E, _stream(dev))
-    return Ye
+    return _apply("affine", x, conn_T, phi, JxW, dphi0, st)
 
 
 def apply_generic(x: torch.Tensor, conn_T: torch.Tensor, phi,
@@ -421,34 +547,7 @@ def apply_generic(x: torch.Tensor, conn_T: torch.Tensor, phi,
     dtype -> Ye (V, K, E)."""
     if _on_cpu(x):
         return apply_generic_plain(x, conn_T, phi, JxW, dphi, st)
-    V, N = x.shape
-    K, E = conn_T.shape
-    Q = JxW.shape[0]
-    dev, dt = x.device, x.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"apply_generic: no kernel for {dt}")
-    if V != st.n_vars or not 1 <= V <= MAX_V:
-        raise ValueError(f"apply_generic: {V} species, stacks carry "
-                         f"{st.n_vars}, kernel takes 1..{MAX_V}")
-    _check_kq("apply_generic", K, Q)
-    _check("x", x, dev, dt, (V, N))
-    _check("conn_T", conn_T, dev, torch.int32, (K, E))
-    _check("JxW", JxW, dev, dt, (Q, E))
-    _check("dphi", dphi, dev, dt, (Q, K, 3, E))
-    _check("C", st.C, dev, dt, (len(st.idxC), Q, E))
-    _check("D", st.D, dev, dt, (len(st.idxD), Q, 3, E))
-    _check("E", st.E, dev, dt, (len(st.idxE), Q, E))
-    slots = _apply_slots(st)
-    ph = _phi_host(phi, Q, K)
-    Ye = torch.empty((V, K, E), dtype=dt, device=dev)
-    variant = ("apply_generic_f32" if dt == torch.float32
-               else "apply_generic_f64")
-    with torch.cuda.device(dev):
-        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(x),
-                _ptr(conn_T), _host(ph), _ptr(JxW), _ptr(dphi), _ptr(st.C),
-                _ptr(st.D), _ptr(st.E), _host(slots), _ptr(Ye), V, N, K, Q,
-                E, _stream(dev))
-    return Ye
+    return _apply("generic", x, conn_T, phi, JxW, dphi, st)
 
 
 def take_along(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -462,10 +561,58 @@ def take_along(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check("tbl", tbl, dev, torch.float32, (S, L))
     _check("idx", idx, dev, torch.int32, (M, L))
     out = torch.empty((M, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("take_along_f32", _lib().rdc_take_along_f32, _ptr(tbl),
+    with _on_device(dev):
+        _launch("take_along_f32", _fn("take_along_f32"), _ptr(tbl),
                 _ptr(idx), _ptr(out), S, M, L, _stream(dev))
     return out
+
+
+def restrict_table(node_gather: torch.Tensor):
+    """Check a K4 gather table on any device: (C, N) int32, contiguous.
+    Returns (C, N); raises TypeError on a wrong dtype, ValueError on a
+    wrong shape or contiguity."""
+    if node_gather.dtype != torch.int32:
+        raise TypeError(f"node_gather: dtype {node_gather.dtype}, expected "
+                        f"torch.int32")
+    if node_gather.dim() != 2:
+        raise ValueError(f"node_gather: shape {tuple(node_gather.shape)}, "
+                         f"expected (C, N)")
+    if not node_gather.is_contiguous():
+        raise ValueError("node_gather: not contiguous")
+    C, N = node_gather.shape
+    return C, N
+
+
+class _TablePlan(NamedTuple):
+    ptr: int
+    buf: ctypes.Array
+    table: weakref.ref
+    N: int
+    device: torch.device
+
+
+_RESTRICT = {torch.float32: "restrict_f32", torch.float64: "restrict_f64"}
+_table_plans: Dict[int, _TablePlan] = {}
+
+
+def _table_plan(node_gather: torch.Tensor) -> _TablePlan:
+    """K4's plan of a gather table: kept by the table's identity while the
+    table lives, made (and the table checked) on its first launch."""
+    p = _table_plans.get(id(node_gather))
+    if p is not None and p.table() is node_gather:
+        return p
+    C, N = restrict_table(node_gather)
+    if node_gather.device.type != "cuda":
+        raise ValueError(f"node_gather: on {node_gather.device}, expected "
+                         f"a CUDA device")
+    buf, ptr = _plan("restrict_plan", _ptr(node_gather), C, N,
+                     node_gather.device.index)
+    key = id(node_gather)
+    ref = weakref.ref(node_gather, lambda _, key=key: _table_plans.pop(key,
+                                                                      None))
+    p = _TablePlan(ptr, buf, ref, N, node_gather.device)
+    _table_plans[key] = p
+    return p
 
 
 def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
@@ -473,18 +620,18 @@ def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
     -> y (W, N)."""
     if _on_cpu(flat):
         return restrict_plain(flat, node_gather)
+    variant = _RESTRICT.get(flat.dtype)
+    if variant is None:
+        raise TypeError(f"restrict: no kernel for {flat.dtype}")
+    if flat.dim() != 2:
+        raise ValueError(f"flat: shape {tuple(flat.shape)}, expected "
+                         f"(W, K*E)")
+    p = _table_plan(node_gather)
+    _check_fast("flat", flat, p.device, flat.dtype, flat.shape)
     W, KE = flat.shape
-    C, N = node_gather.shape
-    dev, dt = flat.device, flat.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"restrict: no kernel for {dt}")
-    _check("flat", flat, dev, dt, (W, KE))
-    _check("node_gather", node_gather, dev, torch.int32, (C, N))
-    y = torch.empty((W, N), dtype=dt, device=dev)
-    variant = "restrict_f32" if dt == torch.float32 else "restrict_f64"
-    with torch.cuda.device(dev):
-        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(flat),
-                _ptr(node_gather), _ptr(y), W, C, N, KE, _stream(dev))
+    y = flat.new_empty((W, p.N))
+    _launch(variant, _fn(variant), p.ptr, flat.data_ptr(), y.data_ptr(), W,
+            KE, _stream(p.device))
     return y
 
 
@@ -503,11 +650,11 @@ def ell_matvec(values_ell: torch.Tensor, ell_cols: torch.Tensor,
                          f"1..{MAX_V}")
     _check("values_ell", values_ell, dev, dt, (V, W, L, N))
     _check("ell_cols", ell_cols, dev, torch.int32, (L, N))
-    _check("x", x, dev, dt, (W, N))
-    y = torch.empty((V, N), dtype=dt, device=dev)
+    _check_fast("x", x, dev, dt, (W, N))
+    y = values_ell.new_empty((V, N))
     variant = "ell_matvec_f32" if dt == torch.float32 else "ell_matvec_f64"
-    with torch.cuda.device(dev):
-        _launch(variant, getattr(_lib(), "rdc_" + variant), _ptr(values_ell),
+    with _on_device(dev):
+        _launch(variant, _fn(variant), _ptr(values_ell),
                 _ptr(ell_cols), _ptr(x), _ptr(y), V, W, L, N, _stream(dev))
     return y
 

@@ -5,7 +5,8 @@ multiply-adds only), and a short transient run and a solid load step
 through the kernels against the same runs through the plain versions; K6
 (the generic element apply, HEX8), K7 (the calibration lookup) and K8 (the
 generic gather + interpolation) the same way, and ADPM steps on HEX8
-through K8, K6 and K4.
+through K8, K6 and K4; K6 at 1 to 8 species on a mesh whose element count
+is odd, K4 at widths 1 to 25, and both on a side stream.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -116,6 +117,60 @@ def test_wrappers_check_inputs(cuda):
                                      c["dphi0"])
     with pytest.raises(TypeError):
         kernels.restrict(c["x"], c["ng"].long())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.restrict(c["x"], c["ng"].T.contiguous().T)
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.restrict(c["x"], c["ng"].cpu())
+    # K6: the per-call x and the once-per-step tables and stacks
+    h = _hex_case(cuda, "some")
+    wfb = blocks_from_numpy(*h["blocks"], cuda)
+    st = kernels.stack_apply_generic(wfb)
+    args = (h["conn_T"], h["phi"], h["JxW"], h["dphi"], st)
+    kernels.apply_generic(h["x"], *args)  # a valid call makes the plan
+    with pytest.raises(TypeError):
+        kernels.apply_generic(h["x"].float(), *args)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.apply_generic(h["x"][:, :-1].contiguous(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.apply_generic(h["x"].T.contiguous().T, *args)
+    with pytest.raises(ValueError, match="on cuda"):
+        kernels.apply_generic(h["x"], h["conn_T"], h["phi"], h["JxW"].cpu(),
+                              h["dphi"], st)
+    with pytest.raises(TypeError):
+        kernels.apply_generic(h["x"], h["conn_T"].long(), h["phi"], h["JxW"],
+                              h["dphi"], st)
+    with pytest.raises(TypeError):  # f64 stacks under an f32 operator
+        kernels.apply_generic(h["x"].float(), h["conn_T"], h["phi"],
+                              h["JxW"].float(), h["dphi"].float(), st)
+
+
+def test_launches_follow_the_current_stream(cuda):
+    """K4 and K6 launch on the stream current at the call: the input is
+    doubled on a side stream behind a long device sleep, so a launch on
+    any other stream would read it undoubled."""
+    c = _case(cuda, "all")
+    h = _hex_case(cuda, "some")
+    st = kernels.stack_apply_generic(blocks_from_numpy(*h["blocks"], cuda))
+    K, E = c["conn_T"].shape
+    flat = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (V, K * E)), device=cuda)
+    x = h["x"].clone()
+    kernels.restrict(flat, c["ng"])  # plans made outside the check
+    kernels.apply_generic(x, h["conn_T"], h["phi"], h["JxW"], h["dphi"], st)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        flat.mul_(2.0)
+        x.mul_(2.0)
+        y = kernels.restrict(flat, c["ng"])
+        Ye = kernels.apply_generic(x, h["conn_T"], h["phi"], h["JxW"],
+                                   h["dphi"], st)
+    side.synchronize()
+    assert torch.equal(y, kernels.restrict_plain(flat, c["ng"]))
+    ref = kernels.apply_generic_plain(x, h["conn_T"], h["phi"], h["JxW"],
+                                      h["dphi"], st)
+    assert rel(Ye, ref) < 1e-13
 
 
 def test_transient_kernel_path_matches_plain_path(cuda):
@@ -207,24 +262,28 @@ def test_solid_kernel_path_matches_plain_path(cuda):
     assert r.converged and all(n[v] > 0 for v in kernels.SOLID_VARIANTS)
 
 
-def _hex_case(dev, live):
-    """Seeded blocks on a jittered hex box: per-q gradients."""
-    mesh = box_hex_mesh(4, 3, 3, bounds=((0, 2.0), (0, 3.0), (0, 2.5)))
+def _hex_case(dev, live, n_vars=V, dims=(4, 3, 3)):
+    """Seeded blocks on a jittered hex box: per-q gradients.  live="some"
+    leaves blocks out by a pattern, and the last species with no block
+    at all."""
+    mesh = box_hex_mesh(*dims, bounds=((0, 2.0), (0, 3.0), (0, 2.5)))
     rng = np.random.default_rng(31)
     coords = mesh.coords + 0.04 * rng.standard_normal(mesh.coords.shape)
     phi, JxW, dphi = geometry_factors(
         torch.as_tensor(coords, device=dev),
         torch.as_tensor(mesh.connectivity, device=dev), "HEX8")
     Q, E = JxW.shape
-    on = lambda v, w: live == "all" or (v + 2 * w) % 3 == 0
+    nv = n_vars
+    on = lambda v, w: live == "all" or (
+        (v + 2 * w) % 3 == 0 and (v < nv - 1 or nv == 1))
     blk = lambda tail, s: [[rng.standard_normal(tail) if on(v, w + s)
-                            else 0.0 for w in range(V)] for v in range(V)]
-    blocks = ([rng.standard_normal((Q, E)) for _ in range(V)], [0.0] * V,
+                            else 0.0 for w in range(nv)] for v in range(nv)]
+    blocks = ([rng.standard_normal((Q, E)) for _ in range(nv)], [0.0] * nv,
               blk((Q, E), 0), blk((Q, 3, E), 1), blk((Q, E), 2))
     conn_T = np.ascontiguousarray(mesh.connectivity.T)
     return dict(phi=phi, JxW=JxW, dphi=dphi.contiguous(), blocks=blocks,
                 conn_T=torch.as_tensor(conn_T, device=dev),
-                x=torch.as_tensor(rng.standard_normal((V, mesh.n_nodes)),
+                x=torch.as_tensor(rng.standard_normal((nv, mesh.n_nodes)),
                                   device=dev))
 
 
@@ -250,6 +309,59 @@ def test_apply_generic_matches_plain(cuda, live, dtype, tol):
     with pytest.raises(ValueError, match="K="):  # TET4 is K3's, not K6's
         kernels.apply_generic(x, c["conn_T"][:4], c["phi"][:5, :4], JxW[:5],
                               dphi[:5, :4].contiguous(), st)
+
+
+@pytest.mark.parametrize("n_vars", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_apply_generic_odd_e_matches_plain(cuda, n_vars, dtype, tol):
+    """K6 on box_hex_mesh(5,5,5): E = 125 is odd (rows not 16-byte
+    aligned) and not a multiple of the tile; absent blocks and, beyond one
+    species, a species with none; one launch counted per call."""
+    c = _hex_case(cuda, "some", n_vars=n_vars, dims=(5, 5, 5))
+    wfb = blocks_from_numpy(*c["blocks"], cuda, dtype=dtype)
+    JxW, dphi, x = c["JxW"].to(dtype), c["dphi"].to(dtype), c["x"].to(dtype)
+    st = kernels.stack_apply_generic(wfb)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    before = kernels.launch_counts()[f"apply_generic_{tag}"]
+    for i in range(2):
+        Ye = kernels.apply_generic(x, c["conn_T"], c["phi"], JxW, dphi, st)
+        assert (kernels.launch_counts()[f"apply_generic_{tag}"]
+                == before + i + 1)
+    ref = kernels.apply_generic_plain(x, c["conn_T"], c["phi"], JxW, dphi,
+                                      st)
+    torch.cuda.synchronize()
+    assert Ye.shape == (n_vars, 8, 125)
+    assert rel(Ye, ref) < tol
+    if n_vars > 1:
+        assert not Ye[-1].any()
+
+
+@pytest.mark.parametrize("W", [1, 5, 9, 25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_restrict_bit_equal_any_width(cuda, W, dtype):
+    """K4 on a table whose nodes have 0 to C incidences (C = 13, not a
+    multiple of the kernel's chunk), tail-padded as gather_tables pads,
+    and on one with pads in the middle: equal to the plain version bit
+    for bit, one launch counted per call."""
+    rng = np.random.default_rng(W)
+    C, N, KE = 13, 1001, 4000
+    counts = rng.integers(0, C + 1, N)
+    ng = np.full((C, N), KE, np.int32)
+    for n in range(N):
+        ng[:counts[n], n] = rng.choice(KE, counts[n], replace=False)
+    holes = ng.copy()
+    holes[rng.random((C, N)) < 0.2] = KE
+    flat = torch.as_tensor(rng.standard_normal((W, KE)), dtype=dtype,
+                           device=cuda)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    for table in (ng, holes):
+        t = torch.as_tensor(table, device=cuda)
+        before = kernels.launch_counts()[f"restrict_{tag}"]
+        y = kernels.restrict(flat, t)
+        assert kernels.launch_counts()[f"restrict_{tag}"] == before + 1
+        assert y.shape == (W, N)
+        assert torch.equal(y, kernels.restrict_plain(flat, t))
 
 
 @pytest.mark.parametrize("n_vars", [1, 3, V])
