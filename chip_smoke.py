@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (rdcfes_tpu_torch) on one NVIDIA GPU, and
 check it: the PIHNA transient step on TET4 (phases 2-5), the hyperelastic
-solid load step (phases 6-8), and the generic (HEX8) transient path with
-PIHNA and ADPM plus the launch-cost calibration (phases 9-12).
+solid load step (phases 6-8), the generic (HEX8) transient path with
+PIHNA and ADPM plus the launch-cost calibration (phases 9-12), and the
+CLI with its PIHNA, ADPM and solid drivers (phase 13).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
     python3 chip_smoke.py --phases 0,1,6,7,8       # the solid slice
     python3 chip_smoke.py --phases 0,1,9,10,11,12  # HEX8, ADPM, calibration
+    python3 chip_smoke.py --phases 0,1,13          # the CLI drivers
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -85,8 +87,27 @@ Phases, one output line each (any failure raises, exit code != 0):
             1e3, subcycle=16), 2 outer steps with every residual <= 1e-8.
             The compiled-C++ denominators (BASELINE_MEASURED.json) are
             printed beside the results, not asserted
+  13 drivers  rdcfes_tpu_torch.cli.main in process, in generated case
+            directories, launch counts reset just before each run and
+            read just after: `-m pihna` on cases.make_pihna_case(n=28,
+            n_steps=120) (131,712 TET4, the run/PIHNA deck; CSV header +
+            13 rows, 13 VTU, a PVD of 13 DataSets, the last frame's five
+            species finite and >= 0, K1, K2, K3 f64, K4 f64 launched and
+            K3 f32 not); `-m adpm` on make_adpm_case(n=28, n_steps=40)
+            with the taxis amplitude of bench.py:158-192 (outputs at 0,
+            20, 40, the same checks); `-s` on box_hex_mesh(48,48,48)
+            (110,592 HEX8) with the solid bench's deck (bench.py:290-341,
+            loading_step 0.5: two load steps, each converged; every VTU
+            field finite; K4 f32 and K5 f32 launched).  Each run prints
+            its wall time, PerfLog's totals by phase, the solve phase's
+            rate beside the compiled-C++ denominator (18.87 and 83.11
+            steps/s, 2.95 s a load step; printed, not asserted) and its
+            launches.  Then `python3 -m rdcfes_tpu_torch.cli -m pihna` as
+            a subprocess on make_pihna_case(n=6, n_steps=3): exit code 0
+            and the artifacts present
 
-Then one JSON line {"kernels": [...]}: one row per kernel variant with
+Then nvidia-smi's name and power limit of the card once more, and one
+JSON line {"kernels": [...]}: one row per kernel variant with
 the numbers of its first shapes, the launches of every path that ran
 (zeros included) and, under "also", its rows at the other shapes; and as
 the last line
@@ -340,7 +361,7 @@ def phase_device():
     say("0 device", device=dev, kind=repr(torch.cuda.get_device_name(dev)),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
-    return dev
+    return dev, card
 
 
 def _ptxas_table(log: str):
@@ -1241,14 +1262,262 @@ def phase_generic_slice(dev, S):
 
 
 
+# ----------------------------------------------------------------------
+# phase 13: the CLI drivers
+# ----------------------------------------------------------------------
+DRV_N, DRV_PIHNA_STEPS, DRV_ADPM_STEPS = 28, 120, 40
+DRV_PIHNA_BASELINE_STEPS_PER_S = 18.87  # BASELINE_MEASURED.json
+DRV_SOLID_BASELINE_S = 2.95
+DRV_PHASES = ("mesh io", "initial conditions", "system setup", "solve",
+              "csv output", "vtu output")
+DRV_SOLID_PHASES = ("mesh io", "system setup", "newton solve",
+                    "post process", "vtu output")
+DRV_TRANSIENT = ("gather_interp_affine_f64", "rhs_affine_f64",
+                 "apply_affine_f64", "restrict_f64")
+DRV_SOLID = ("restrict_f32", "ell_matvec_f32")
+# the solid bench leg (bench.py:290-341) as a deck; the tangent and the
+# Krylov precision are the card's defaults (f32, mixed)
+DRV_SOLID_DECK = """directory = simulation
+input_GMSH = input.msh
+loading_step = 0.5
+BCs = ' 0 5 '
+BC/0/displacement/0 = 0.0
+BC/0/displacement/1 = 0.0
+BC/0/displacement/2 = 0.0
+BC/5/displacement/0 = NAN
+BC/5/displacement/1 = NAN
+BC/5/displacement/2 = -0.05
+BCs/displacement_penalty = 1.0e6
+materials = ' 0 '
+material/0/Hyperelastic/Young = 1.0e3
+material/0/Hyperelastic/Poisson = 0.3
+solver/nonlinear/max_nonlinear_iterations = 20
+solver/nonlinear/relative_residual_tolerance = 1e-6
+solver/nonlinear/relative_step_tolerance = 1e-6
+solver/nonlinear/reuse_tangent = true
+"""
+
+
+def _vtu_arrays(path):
+    """{name: float array} of the Float64 DataArrays of one VTU file."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    return {name: np.array(body.split(), dtype=np.float64)
+            for name, body in re.findall(
+                r'<DataArray type="Float64" Name="([^"]+)"[^>]*>\n(.*?)\n'
+                r"        </DataArray>", text, re.S)}
+
+
+def _perf_totals(stdout: str) -> dict:
+    """Phase -> total seconds from the PerfLog report a driver prints."""
+    tail = stdout.split(" Performance log:")[-1].splitlines()[2:]
+    out = {}
+    for line in tail:
+        if line.startswith(" TOTAL"):
+            break
+        out[line[1:29].strip()] = float(line[37:49])
+    return out
+
+
+def _drive(case_dir, argv, dev):
+    """cli.main(argv) in case_dir with the launch counts reset just before
+    and read just after; the driver's stdout is kept, not shown."""
+    import contextlib
+    import io
+    import os
+
+    from rdcfes_tpu_torch import cli
+
+    cwd, buf = os.getcwd(), io.StringIO()
+    os.chdir(case_dir)
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        os.chdir(cwd)
+    require(rc == 0, f"cli.main({argv}) returned {rc}")
+    return wall, counts, buf.getvalue()
+
+
+def _transient_artifacts(out_dir, base, outputs, species):
+    """CSV header + one row per output, one VTU per output, a PVD with as
+    many DataSets, the last frame's species finite and >= 0."""
+    import os
+
+    rows = open(os.path.join(out_dir, "output.csv")).read().splitlines()
+    require(len(rows) == 1 + len(outputs) and rows[0].startswith('"TIME"'),
+            f"{out_dir}: CSV has {len(rows)} lines")
+    for t in outputs:
+        require(os.path.exists(os.path.join(out_dir, f"{base}-{t}.vtu")),
+                f"{out_dir}: no VTU at t = {t}")
+    pvd = open(os.path.join(out_dir, base + ".pvd")).read()
+    require(pvd.count("<DataSet") == len(outputs) and "</Collection>" in pvd,
+            f"{out_dir}: PVD with {pvd.count('<DataSet')} DataSets")
+    last = _vtu_arrays(os.path.join(out_dir, f"{base}-{outputs[-1]}.vtu"))
+    for name in species:
+        v = last[name]
+        require(np.isfinite(v).all() and (v >= 0).all(),
+                f"{out_dir}: {name} not finite and >= 0")
+    return rows
+
+
+def _say_driver(tag, wall, stdout, counts, variants, **kw):
+    totals = _perf_totals(stdout)
+    phases = DRV_SOLID_PHASES if tag == "solid" else DRV_PHASES
+    say("13 " + tag, seconds=f"{wall:.4f}",
+        **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+           for k in phases}, **kw)
+    say(f"13 {tag} launches", **{k: counts[k] for k in variants})
+    return totals
+
+
+def phase_drivers(dev):
+    """The CLI in process at full width (PIHNA and ADPM on 131,712 TET4,
+    the solid on 110,592 HEX8), then as `python3 -m rdcfes_tpu_torch.cli`
+    in a subprocess on a small case."""
+    import os
+    import shutil
+    import sys
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.systems import solid as solid_mod
+
+    root = tempfile.mkdtemp(prefix="rdcfes_drivers_")
+    total = {k: 0 for k in KERNELS}
+    try:
+        d = cases.make_pihna_case(os.path.join(root, "pihna"), n=DRV_N,
+                                  n_steps=DRV_PIHNA_STEPS)
+        wall, counts, out = _drive(d, ["-m", "pihna"], dev)
+        outputs = list(range(0, DRV_PIHNA_STEPS + 1, 10))
+        _transient_artifacts(os.path.join(d, "PIHNA_simulation"),
+                             "Brain_Model", outputs,
+                             ("n", "c", "h", "v", "a"))
+        require(out.count(" ==== Step") == DRV_PIHNA_STEPS, "PIHNA banners")
+        totals = _say_driver("pihna", wall, out, counts,
+                             DRV_TRANSIENT + ("apply_affine_f32",),
+                             steps=DRV_PIHNA_STEPS)
+        say("13 pihna rate",
+            solve_steps_per_s=f"{DRV_PIHNA_STEPS / totals['solve']:.4f}",
+            baseline_steps_per_s=DRV_PIHNA_BASELINE_STEPS_PER_S)
+        _require_launched(counts, DRV_TRANSIENT, "the PIHNA driver")
+        require(counts["apply_affine_f32"] == 0,
+                "the PIHNA driver runs f64: K3 f32 launched")
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+        d = cases.make_adpm_case(os.path.join(root, "adpm"), n=DRV_N,
+                                 n_steps=DRV_ADPM_STEPS)
+        # the case deck's taxis amplitude 1e3 is bench.py's deck regime,
+        # which needs subcycle=16 (phase 12); the driver, as the
+        # reference's, steps the full dt, where its f64 BiCGStab does not
+        # converge at this width: run the taxis-active leg's amplitude 50
+        # (bench.py:158-192) instead
+        deck = open(os.path.join(d, "input.dat")).read()
+        require(deck.count("0.999999e+3") == 2, "ADPM case deck changed")
+        with open(os.path.join(d, "input.dat"), "w") as f:
+            f.write(deck.replace("0.999999e+3", "50.0"))
+        wall, counts, out = _drive(d, ["-m", "adpm"], dev)
+        (res_dir,) = [e for e in os.listdir(d)
+                      if os.path.isdir(os.path.join(d, e))]
+        rows = _transient_artifacts(os.path.join(d, res_dir), "Brain_Model",
+                                    list(range(0, DRV_ADPM_STEPS + 1, 20)),
+                                    ("PrP", "A_b", "Tau"))
+        require("CONCENTRATION__A_b__10" in rows[0]
+                and "VOLUME__Tau__20" in rows[0], "ADPM CSV header")
+        totals = _say_driver("adpm", wall, out, counts,
+                             DRV_TRANSIENT + ("apply_affine_f32",),
+                             steps=DRV_ADPM_STEPS)
+        say("13 adpm rate",
+            solve_steps_per_s=f"{DRV_ADPM_STEPS / totals['solve']:.4f}",
+            baseline_steps_per_s=ADPM_BASELINE_STEPS_PER_S)
+        _require_launched(counts, DRV_TRANSIENT, "the ADPM driver")
+        require(counts["apply_affine_f32"] == 0,
+                "the ADPM driver runs f64: K3 f32 launched")
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+        d = os.path.join(root, "solid")
+        os.makedirs(d)
+        gmsh.write(box_hex_mesh(SOLID_N, SOLID_N, SOLID_N),
+                   os.path.join(d, "input.msh"))
+        with open(os.path.join(d, "input.dat"), "w") as f:
+            f.write(DRV_SOLID_DECK)
+        results = []
+        run_solver = solid_mod.SolidSystem.run_solver
+
+        def recorded(self, x, pseudo_time):
+            r = run_solver(self, x, pseudo_time)
+            results.append(r)
+            return r
+
+        solid_mod.SolidSystem.run_solver = recorded
+        try:
+            wall, counts, out = _drive(d, ["-s"], dev)
+        finally:
+            solid_mod.SolidSystem.run_solver = run_solver
+        require(len(results) == 2, f"{len(results)} load steps, not 2")
+        for i, r in enumerate(results):
+            rel = r.residual_norm / r.initial_residual_norm
+            say("13 solid load step", step=i + 1, converged=r.converged,
+                newton_iters=r.iters, linear_iters=r.linear_iters,
+                residual=f"{r.residual_norm:.3e}", rel_residual=f"{rel:.3e}")
+            require(r.converged, f"solid load step {i + 1} did not converge")
+        last = _vtu_arrays(os.path.join(d, "simulation",
+                                        "output4paraview-2.vtu"))
+        require(len(last) == 18 and all(np.isfinite(v).all()
+                                         for v in last.values()),
+                "solid VTU fields not all finite")
+        totals = _say_driver("solid", wall, out, counts, DRV_SOLID,
+                             load_steps=2)
+        say("13 solid rate",
+            s_per_load_step=f"{totals['newton solve'] / 2:.4f}",
+            baseline_s=DRV_SOLID_BASELINE_S)
+        _require_launched(counts, DRV_SOLID, "the solid driver")
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+        d = cases.make_pihna_case(os.path.join(root, "module"), n=6,
+                                  n_steps=3)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "rdcfes_tpu_torch.cli",
+                            "-m", "pihna"], cwd=d, env=env,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(p.returncode == 0,
+                "python3 -m rdcfes_tpu_torch.cli -m pihna exited "
+                f"{p.returncode}: {p.stderr[-2000:]}")
+        _transient_artifacts(os.path.join(d, "PIHNA_simulation"),
+                             "Brain_Model", [0], ("n", "c", "h", "v", "a"))
+        say("13 module", command="python3 -m rdcfes_tpu_torch.cli -m pihna",
+            exit_code=p.returncode, seconds=f"{wall:.4f}",
+            banners=p.stdout.count(" ==== Step"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = phase_device()
+    dev, card = phase_device()
     if 1 in phases:
         phase_build()
     also = {}  # variant -> {shape label: row}, beside its first row
@@ -1274,6 +1543,9 @@ def main(argv=None) -> int:
         phase_generic_paths(dev)
     if 12 in phases:
         paths.update(phase_generic_slice(dev, H))
+    del H
+    if 13 in phases:
+        paths["drivers"] = phase_drivers(dev)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -1293,6 +1565,7 @@ def main(argv=None) -> int:
             row["also"] = {tag: {k: r[k] for k in keys}
                            for tag, r in also[name].items()}
         rows.append(row)
+    print(card, flush=True)  # again beside the results, for a cut log
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

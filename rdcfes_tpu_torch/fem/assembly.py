@@ -7,7 +7,8 @@ gather tables so every element -> node (or node-pair) sum is a
 deterministic gather-sum.
 
 Device side (torch, channel-first): `interpolate_ue` (corner values ->
-quadrature values and per-q gradients of any element),
+quadrature values and per-q gradients of any element) and
+`interpolate_at_qp` (the same from nodal values),
 `interpolate_ue_affine` (the same with the q-independent gradient of an
 affine element), `restrict` (the gather-sum through a padded table), and the solid path's
 `assemble_matrix_gather` / `assemble_vector_gather`, which are `restrict`
@@ -141,6 +142,16 @@ def interpolate_ue(ue: torch.Tensor, phi: np.ndarray, dphi: torch.Tensor
         x_qp = x_qp + ph[None, :, k, None] * ue[:, None, k, :]
         gx_qp = gx_qp + dphi[None, :, k] * ue[:, None, None, k, :]
     return x_qp, gx_qp
+
+
+def interpolate_at_qp(u: torch.Tensor, conn_T: torch.Tensor, phi: np.ndarray,
+                      dphi: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nodal fields u (V, N) -> (u_qp (V, Q, E), grad_qp (V, Q, 3, E)):
+    the corner gather through conn_T (K, E), then `interpolate_ue`
+    (rdcfes_tpu.fem.assembly.interpolate_at_qp; the ADPM driver's
+    element averages, src/adpm.C:765-781)."""
+    return interpolate_ue(u[:, conn_T], phi, dphi)
 
 
 def interpolate_ue_affine(ue: torch.Tensor, phi: np.ndarray,

@@ -98,6 +98,42 @@ class Mesh:
     def nodes_per_elem(self) -> int:
         return NODES_PER_ELEM[self.elem_type]
 
+    def element_volumes(self) -> np.ndarray:
+        """Exact element volumes (areas on TRI3/QUAD4): TET4 |det J| / 6,
+        the other types the integral of det J at the default quadrature,
+        exact for trilinear hexes (rdcfes_tpu.mesh.core.element_volumes,
+        bit-equal)."""
+        X = self.coords[self.connectivity]  # (E, K, 3)
+        if self.elem_type == "TET4":
+            v0 = X[:, 1] - X[:, 0]
+            v1 = X[:, 2] - X[:, 0]
+            v2 = X[:, 3] - X[:, 0]
+            return np.einsum("ei,ei->e", np.cross(v0, v1), v2) / 6.0
+        from ..fem import elements
+
+        qp, qw = elements.quadrature(self.elem_type)
+        dN = elements.shape_gradients(self.elem_type, qp)  # (Q, K, d)
+        if self.elem_type in ("TRI3", "QUAD4"):
+            X = X[..., :2]  # areas from the in-plane 2x2 Jacobian
+        J = np.einsum("ekd,qkr->eqdr", X, dN)
+        return np.einsum("eq,q->e", np.linalg.det(J), qw)
+
+    def subdomain_ids_present(self) -> np.ndarray:
+        return np.unique(self.subdomain_id)
+
+    def print_info(self) -> str:
+        """The mesh summary the drivers print (the role of libMesh's
+        mesh.print_info(), as rdcfes_tpu.mesh.core.print_info)."""
+        return "\n".join([
+            "Mesh Information:",
+            f"  elem_type={self.elem_type}",
+            f"  n_nodes={self.n_nodes}",
+            f"  n_elems={self.n_elems}",
+            f"  n_subdomains={len(self.subdomain_ids_present())}",
+            "  n_boundary_faces="
+            f"{0 if self.boundary_faces is None else len(self.boundary_faces)}",
+        ])
+
 
 def extract_boundary_faces(
     connectivity: np.ndarray, elem_type: str
