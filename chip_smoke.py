@@ -3,7 +3,7 @@
 check it: the PIHNA transient step on TET4 (phases 2-5), the hyperelastic
 solid load step (phases 6-8), the generic (HEX8) transient path with
 PIHNA and ADPM plus the launch-cost calibration (phases 9-12), and the
-CLI with its PIHNA, ADPM and solid drivers (phase 13).
+CLI with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -95,14 +95,28 @@ Phases, one output line each (any failure raises, exit code != 0):
             species finite and >= 0, K1, K2, K3 f64, K4 f64 launched and
             K3 f32 not); `-m adpm` on make_adpm_case(n=28, n_steps=40)
             with the taxis amplitude of bench.py:158-192 (outputs at 0,
-            20, 40, the same checks); `-s` on box_hex_mesh(48,48,48)
+            20, 40, the same checks); `-m proteas input=input.dat` on
+            make_proteas_case(n=28, n_steps=40) (131,712 TET4; the CSV
+            empty, as the reference's; 5 VTU, a PVD of 5 DataSets, the
+            same checks); `-m ripf` on make_ripf_case(n=24, n_steps=120)
+            (15,625 nodes, 82,944 TET4, the size of run/RIPF133; 6 CSV
+            rows, 6 VTU at 0, 10, 30, 60, 90, 120, every field finite, HU
+            within [-1000, 1000], cc and fb >= 0, K1 launched at least
+            twice a step: the step and the field rebuild; K1, K2, K3 f64,
+            K4 f64 launched and K3 f32 not, for both; before each of the
+            two runs, K1, K2, K3 f64 and K4 f64 (and its block-Jacobi
+            diagonal) held against their plain versions within 1e-13 at
+            the driver's own shapes and live planes, its system on its
+            case mesh at the case's initial state, RIPF's K1 also on
+            the field rebuild's (3, N) nodal stack); `-s` on
+            box_hex_mesh(48,48,48)
             (110,592 HEX8) with the solid bench's deck (bench.py:290-341,
             loading_step 0.5: two load steps, each converged; every VTU
             field finite; K4 f32 and K5 f32 launched).  Each run prints
             its wall time, PerfLog's totals by phase, the solve phase's
             rate beside the compiled-C++ denominator (18.87 and 83.11
-            steps/s, 2.95 s a load step; printed, not asserted) and its
-            launches.  Then `python3 -m rdcfes_tpu_torch.cli -m pihna` as
+            steps/s, 2.95 s a load step; printed, not asserted; PROTEAS
+            and RIPF have none) and its launches.  Then `python3 -m rdcfes_tpu_torch.cli -m pihna` as
             a subprocess on make_pihna_case(n=6, n_steps=3): exit code 0
             and the artifacts present
 
@@ -1266,6 +1280,9 @@ def phase_generic_slice(dev, S):
 # phase 13: the CLI drivers
 # ----------------------------------------------------------------------
 DRV_N, DRV_PIHNA_STEPS, DRV_ADPM_STEPS = 28, 120, 40
+DRV_PROTEAS_STEPS = 40
+# 24^3: 15,625 nodes, the size of run/RIPF133 (15,700 nodes)
+DRV_RIPF_N, DRV_RIPF_STEPS = 24, 120
 DRV_PIHNA_BASELINE_STEPS_PER_S = 18.87  # BASELINE_MEASURED.json
 DRV_SOLID_BASELINE_S = 2.95
 DRV_PHASES = ("mesh io", "initial conditions", "system setup", "solve",
@@ -1347,14 +1364,20 @@ def _drive(case_dir, argv, dev):
     return wall, counts, buf.getvalue()
 
 
-def _transient_artifacts(out_dir, base, outputs, species):
-    """CSV header + one row per output, one VTU per output, a PVD with as
-    many DataSets, the last frame's species finite and >= 0."""
+def _transient_artifacts(out_dir, base, outputs, species,
+                         csv="output.csv", csv_kind="header"):
+    """The CSV (csv_kind "header": a header + one row per output, "rows":
+    one row per output, "empty": nothing), one VTU per output, a PVD with
+    as many DataSets, the last frame's species finite and >= 0."""
     import os
 
-    rows = open(os.path.join(out_dir, "output.csv")).read().splitlines()
-    require(len(rows) == 1 + len(outputs) and rows[0].startswith('"TIME"'),
-            f"{out_dir}: CSV has {len(rows)} lines")
+    rows = open(os.path.join(out_dir, csv)).read().splitlines()
+    want = {"header": 1 + len(outputs), "rows": len(outputs),
+            "empty": 0}[csv_kind]
+    require(len(rows) == want, f"{out_dir}: CSV has {len(rows)} lines, "
+            f"not {want}")
+    require(csv_kind != "header" or rows[0].startswith('"TIME"'),
+            f"{out_dir}: no CSV header")
     for t in outputs:
         require(os.path.exists(os.path.join(out_dir, f"{base}-{t}.vtu")),
                 f"{out_dir}: no VTU at t = {t}")
@@ -1379,9 +1402,72 @@ def _say_driver(tag, wall, stdout, counts, variants, **kw):
     return totals
 
 
-def phase_drivers(dev):
-    """The CLI in process at full width (PIHNA and ADPM on 131,712 TET4,
-    the solid on 110,592 HEX8), then as `python3 -m rdcfes_tpu_torch.cli`
+def _driver_kernels(tag, d, dev, also):
+    """K1-K4 at a driver's own shapes and live planes, against their
+    plain versions: the driver's system on its case mesh at the case's
+    seeded initial state, with the driver's blocks and fields (PROTEAS:
+    the dose at qp as the driver builds it; RIPF: seeded TD fields and
+    the day-1 dose through the field rebuild, plus K1 on the rebuild's
+    own (3, N) nodal stack).  Rows go under "also", labelled `tag`."""
+    import os
+
+    from rdcfes_tpu_torch.drivers import proteas as dproteas
+    from rdcfes_tpu_torch.drivers import ripf as dripf
+    from rdcfes_tpu_torch.drivers.common import make_rdc_system
+    from rdcfes_tpu_torch.io import dat
+    from rdcfes_tpu_torch.io.getpot import Deck
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.models.proteas import proteas_blocks
+    from rdcfes_tpu_torch.models.ripf import ripf_blocks, rt_dose_schedule
+
+    deck = Deck(os.path.join(d, "input.dat"))
+    path = lambda key: os.path.join(d, deck(key, ""))
+    mesh = gmsh.read(path("input_GMSH"))
+    N = mesh.n_nodes
+    extra = {}
+    if tag == "proteas":
+        u0 = dat.read_rows_tolerant(path("input_nodal"), N, 5)
+        aux = dat.read_rows_tolerant(path("input_nodal_aux"), N, 2)
+        params = dproteas.load_params(deck)
+        s = make_rdc_system(mesh, 5, proteas_blocks, deck, device=dev)
+        f = {"RTD": torch.as_tensor(dproteas.rtd_at_qp(mesh, aux),
+                                    dtype=F64, device=dev)}
+        blocks = lambda uq, gq: proteas_blocks(uq, gq, f, params)
+    else:
+        u0 = dat.read_stream(path("input_nodal"), N, 3)
+        rt = torch.as_tensor(dat.read_stream(path("input_nodal_RT"), N, 2),
+                             dtype=F64, device=dev)
+        params = dripf.load_params(deck)
+        s = make_rdc_system(mesh, 3, ripf_blocks, deck, device=dev)
+        rng = np.random.default_rng(13)
+        dose = rt_dose_schedule(rt[:, 0], rt[:, 1], 1.0,
+                                deck("RT_dose/broad/fractions", 1),
+                                deck("RT_dose/focus/fractions", 1))
+        nodal = torch.cat([torch.as_tensor(0.01 * rng.standard_normal(
+            (2, N)), dtype=F64, device=dev), dose[None]])
+        f = dripf.qp_fields(s, nodal)
+        for key in ("lambda_RT_r", "omicro_RT_r"):
+            f[key] = params["_fb_" + key] or float(int(dose.max()))
+        blocks = lambda uq, gq: ripf_blocks(uq, gq, f, params)
+        Kc, Q, E = s.conn_T.shape[0], s.JxW.shape[0], mesh.n_elems
+        vq, g1 = K.gather_interp_affine_plain(nodal, s.conn_T, s.phi,
+                                              s.dphi0)
+        extra["gather_interp_affine_f64@field rebuild"] = dict(
+            kern=lambda: K.gather_interp_affine(nodal, s.conn_T, s.phi,
+                                                s.dphi0),
+            plain=lambda: K.gather_interp_affine_plain(nodal, s.conn_T,
+                                                       s.phi, s.dphi0),
+            tol=1e-13, n_bytes=nbytes(nodal, s.conn_T, s.dphi0, vq, g1),
+            flops=2.0 * 3 * Kc * E * (Q + 3))
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    cases = {k: c for k, c in affine_cases("13 " + tag, s, u, blocks).items()
+             if k.partition("@")[0] in DRV_TRANSIENT}
+    run_cases("13 driver kernel", {**cases, **extra}, {}, also, label=tag)
+
+
+def phase_drivers(dev, also):
+    """The CLI in process at full width (PIHNA, ADPM and PROTEAS on
+    131,712 TET4, RIPF on 82,944 TET4, the solid on 110,592 HEX8), then as `python3 -m rdcfes_tpu_torch.cli`
     in a subprocess on a small case."""
     import os
     import shutil
@@ -1443,6 +1529,59 @@ def phase_drivers(dev):
         _require_launched(counts, DRV_TRANSIENT, "the ADPM driver")
         require(counts["apply_affine_f32"] == 0,
                 "the ADPM driver runs f64: K3 f32 launched")
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+        d = cases.make_proteas_case(os.path.join(root, "proteas"), n=DRV_N,
+                                    n_steps=DRV_PROTEAS_STEPS)
+        _driver_kernels("proteas", d, dev, also)
+        wall, counts, out = _drive(d, ["-m", "proteas", "input=input.dat"],
+                                   dev)
+        _transient_artifacts(os.path.join(d, "simulation"), "out",
+                             list(range(0, DRV_PROTEAS_STEPS + 1, 10)),
+                             ("hos", "tum", "nec", "vsc", "oed"),
+                             csv="simulation.csv", csv_kind="empty")
+        require(out.count(" ==== Step") == DRV_PROTEAS_STEPS,
+                "PROTEAS banners")
+        totals = _say_driver("proteas", wall, out, counts,
+                             DRV_TRANSIENT + ("apply_affine_f32",),
+                             steps=DRV_PROTEAS_STEPS)
+        say("13 proteas rate",
+            solve_steps_per_s=f"{DRV_PROTEAS_STEPS / totals['solve']:.4f}",
+            baseline="none (BASELINE_MEASURED.json has no PROTEAS run)")
+        _require_launched(counts, DRV_TRANSIENT, "the PROTEAS driver")
+        require(counts["apply_affine_f32"] == 0,
+                "the PROTEAS driver runs f64: K3 f32 launched")
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+        d = cases.make_ripf_case(os.path.join(root, "ripf"), n=DRV_RIPF_N,
+                                 n_steps=DRV_RIPF_STEPS)
+        _driver_kernels("ripf", d, dev, also)
+        wall, counts, out = _drive(d, ["-m", "ripf"], dev)
+        (res_dir,) = [e for e in os.listdir(d)
+                      if os.path.isdir(os.path.join(d, e))]
+        outputs = [0, 10, 30, 60, 90, 120]
+        _transient_artifacts(os.path.join(d, res_dir), "Lung_Model",
+                             outputs, ("cc", "fb"), csv_kind="rows")
+        last = _vtu_arrays(os.path.join(d, res_dir,
+                                        f"Lung_Model-{outputs[-1]}.vtu"))
+        require(all(np.isfinite(v).all() for v in last.values())
+                and np.abs(last["HU"]).max() <= 1000.0,
+                "RIPF: a field not finite or HU outside [-1000, 1000]")
+        require(out.count(" ==== Step") == DRV_RIPF_STEPS, "RIPF banners")
+        totals = _say_driver("ripf", wall, out, counts,
+                             DRV_TRANSIENT + ("apply_affine_f32",),
+                             steps=DRV_RIPF_STEPS)
+        say("13 ripf rate",
+            solve_steps_per_s=f"{DRV_RIPF_STEPS / totals['solve']:.4f}",
+            baseline="none (BASELINE_MEASURED.json has no RIPF run)")
+        _require_launched(counts, DRV_TRANSIENT, "the RIPF driver")
+        # K1 twice a step: the step's interpolation and the field rebuild
+        require(counts["gather_interp_affine_f64"] >= 2 * DRV_RIPF_STEPS,
+                "the RIPF driver's field rebuild did not launch K1")
+        require(counts["apply_affine_f32"] == 0,
+                "the RIPF driver runs f64: K3 f32 launched")
         for k in total:
             total[k] += counts.get(k, 0)
 
@@ -1545,7 +1684,7 @@ def main(argv=None) -> int:
         paths.update(phase_generic_slice(dev, H))
     del H
     if 13 in phases:
-        paths["drivers"] = phase_drivers(dev)
+        paths["drivers"] = phase_drivers(dev, also)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

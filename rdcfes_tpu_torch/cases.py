@@ -1,14 +1,15 @@
-"""Synthetic PIHNA and ADPM case directories (the files of
-rdcfes_tpu.cases.make_pihna_case and make_adpm_case for single-type TET4
-meshes of order 1, byte for byte, except that the Makefile launches
-rdcfes_tpu_torch.cli).
+"""Synthetic PIHNA, ADPM, RIPF and PROTEAS case directories (the files of
+rdcfes_tpu.cases' make_*_case for single-type TET4 meshes of order 1,
+byte for byte, except that the Makefile launches rdcfes_tpu_torch.cli).
 
 The patient meshes of the C++ reference's run/ cases are not in the
 repository, so runs at patient scale need stand-ins: each function writes
 a complete case directory (Gmsh mesh, nodal/elemental IC `.dat` files,
-`input.dat` deck and a Makefile) at the documented case size.  Mixed and
-second-order cases come with ROADMAP queue 1 item 13; the PROTEAS, RIPF
-and HCC cases with their drivers (items 10 and 12).
+`input.dat` deck and a Makefile) at the documented case size.  The
+signatures are the reference's, so a caller switches packages unchanged;
+mixed and second-order cases (`mixed=True`, `order=2`) raise
+NotImplementedError (ROADMAP queue 1 item 13); the HCC case comes with
+its driver (item 12).
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ import os
 import numpy as np
 
 from .mesh import box_tet_mesh, gmsh
+
+_ITEM13 = "ROADMAP queue 1 item 13 (mixed and second-order meshes)"
+
+
+def _first_order_tet(mixed: bool, order: int) -> None:
+    if mixed or order != 1:
+        raise NotImplementedError(
+            f"case with mixed={mixed}, order={order}: {_ITEM13}")
 
 
 def _write_makefile(directory: str, args: str) -> None:
@@ -43,9 +52,11 @@ def _brain_mesh(n: int = 28):
 
 
 def make_pihna_case(directory: str, n: int = 28, seed: int = 0,
-                    n_steps: int = 120) -> str:
+                    n_steps: int = 120, mixed: bool = False,
+                    order: int = 1) -> str:
     """Synthetic PIHNA glioma case (deck values = run/PIHNA/input.dat) on
     box_tet_mesh(n, n, n) with brain bounds."""
+    _first_order_tet(mixed, order)
     os.makedirs(directory, exist_ok=True)
     mesh = _brain_mesh(n)
     gmsh.write(mesh, os.path.join(directory, "Brain_Model.msh"))
@@ -125,10 +136,12 @@ decay/a = 5678.4
 
 
 def make_adpm_case(directory: str, n: int = 28, seed: int = 1,
-                   n_steps: int = 400) -> str:
+                   n_steps: int = 400, mixed: bool = False,
+                   order: int = 1) -> str:
     """Synthetic ADPM Alzheimer's case (deck values = run/HCP102513/input.dat;
     the real case is 25,935 nodes / 125,702 elements) on
     box_tet_mesh(n, n, n) with brain bounds and two parcellations."""
+    _first_order_tet(mixed, order)
     os.makedirs(directory, exist_ok=True)
     mesh = _brain_mesh(n)
     mid = mesh.coords[mesh.connectivity].mean(axis=1)
@@ -182,4 +195,137 @@ decay/Tau/pulse/0 = 0.0005
     with open(os.path.join(directory, "input.dat"), "w") as f:
         f.write(deck)
     _write_makefile(directory, "-m adpm")
+    return directory
+
+
+def make_ripf_case(directory: str, n: int = 16, seed: int = 2,
+                   n_steps: int = 120, mixed: bool = False,
+                   order: int = 1) -> str:
+    """Synthetic RIPF lung-fibrosis case (deck values = run/RIPF133/input.dat;
+    the real case is 15,700 nodes) on box_tet_mesh(n, n, n) over a
+    250x180x250 mm box, with a broad and a focus RT dose."""
+    _first_order_tet(mixed, order)
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet_mesh(n, n, n, bounds=((0, 250.0), (0, 180.0), (0, 250.0)))
+    gmsh.write(mesh, os.path.join(directory, "Lung_Model.msh"))
+
+    rng = np.random.default_rng(seed)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    u0 = np.stack(
+        [
+            -800.0 + 100.0 * rng.random(mesh.n_nodes),       # HU (aerated lung)
+            0.4 * np.exp(-r2 / (2 * 20.0**2)),               # tumour
+            0.05 * np.ones(mesh.n_nodes),                    # fibroblasts
+        ],
+        axis=1,
+    )
+    np.savetxt(os.path.join(directory, "Lung_Model_Initial_Nodal_Field.dat"), u0)
+    rt = np.stack(
+        [
+            50.0 * np.exp(-r2 / (2 * 40.0**2)),              # broad beam
+            16.0 * np.exp(-r2 / (2 * 25.0**2)),              # focus boost
+        ],
+        axis=1,
+    )
+    np.savetxt(
+        os.path.join(directory, "Lung_Model_Initial_Nodal_Field~RT.dat"), rt
+    )
+
+    deck = f"""#
+input_GMSH     = 'Lung_Model.msh'
+input_nodal    = 'Lung_Model_Initial_Nodal_Field.dat'
+input_nodal_RT = 'Lung_Model_Initial_Nodal_Field~RT.dat'
+output_GMSH    = 'Lung_Model~processed.msh'
+output_PARAVIEW= 'Lung_Model'
+#
+time_step_number = {n_steps}
+time_step = 0.1
+output_time_points = ' 10 30 60 90 120 '
+#
+RT_dose/broad/fractions=28
+RT_dose/focus/fractions=8
+volume_fraction/stroma    =0.30
+volume_fraction/parenchyma=0.20
+volume_fraction/exponent=2.5
+volume_fraction/min_vacant=1.e-5
+HU/min = -1000.
+HU/max = +1000.
+#
+HU/phi/cc/build=0.
+HU/phi/cc/decay=0.
+HU/phi/fb/build=0.
+HU/phi/fb/decay=0.
+HU/phi/tolerance=1.0e-3
+#
+cc/delta=0.0864
+cc/delta/RT/a=0.3
+cc/delta/RT/b=0.03
+#
+fb/lambda= 0.01
+fb/lambda/RT/r=1.0
+fb/omega= 0.1
+fb/diffusion =1.0e-20
+fb/haptotaxis=0.05
+#
+"""
+    with open(os.path.join(directory, "input.dat"), "w") as f:
+        f.write(deck)
+    _write_makefile(directory, "-m ripf")
+    return directory
+
+
+def make_proteas_case(directory: str, n: int = 12, seed: int = 3,
+                      n_steps: int = 40, mixed: bool = False,
+                      order: int = 1) -> str:
+    """Synthetic PROTEAS radiotherapy-response case on box_tet_mesh(n, n,
+    n) over a 100 mm cube.  No run/ deck ships for PROTEAS, so the deck
+    follows the input() defaults and comment hints of proteas.C:93-216,
+    with a brain-like hos/tum/nec/vsc/oed composition and an AUX file of
+    HU and RT dose."""
+    _first_order_tet(mixed, order)
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet_mesh(n, n, n, bounds=((0, 100.0), (0, 100.0), (0, 100.0)))
+    gmsh.write(mesh, os.path.join(directory, "Proteas_Model.msh"))
+
+    rng = np.random.default_rng(seed)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    tum = 0.4 * np.exp(-r2 / (2 * 15.0**2))
+    nec = 0.1 * np.exp(-r2 / (2 * 8.0**2))
+    hos = np.clip(0.8 - tum - nec, 0.0, None)
+    vsc = 0.12 * np.ones(mesh.n_nodes) - 0.05 * np.exp(-r2 / (2 * 10.0**2))
+    oed = 0.02 * np.exp(-r2 / (2 * 20.0**2))
+    u0 = np.stack([hos, tum, nec, vsc, oed], axis=1)
+    np.savetxt(os.path.join(directory, "Proteas_Initial_Nodal_Field.dat"),
+               u0, fmt="%.9g")
+    # AUX: HU (CT density) + RTD (radiotherapy dose, Gy)
+    hu = rng.uniform(20.0, 80.0, mesh.n_nodes)
+    rtd = 60.0 * np.exp(-r2 / (2 * 20.0**2))
+    np.savetxt(os.path.join(directory, "Proteas_Aux_Nodal_Field.dat"),
+               np.stack([hu, rtd], axis=1), fmt="%.9g")
+
+    deck = f"""#
+directory = simulation
+input_GMSH = Proteas_Model.msh
+input_nodal = Proteas_Initial_Nodal_Field.dat
+input_nodal_aux = Proteas_Aux_Nodal_Field.dat
+output_Paraview = out
+#
+time_step = 0.01
+time_step_number = {n_steps}
+output_step = {max(1, n_steps // 4)}
+#
+cells/total_capacity = 2.0
+radiotherapy/max_dosage = 60.0
+host/proliferation = 0.4
+host/vsc_threshold = 0.05
+tumour/diffusion = 0.1
+tumour/diffusion_host = 0.05
+tumour/proliferation = 0.5
+tumour/vsc_threshold = 0.05
+necrosis/slope = 2.0
+oedema/diffusion = 0.1
+"""
+    with open(os.path.join(directory, "input.dat"), "w") as f:
+        f.write(deck)
+    _write_makefile(directory, "-m proteas input=input.dat")
     return directory

@@ -1,13 +1,14 @@
 """Command-line entry point, with the dispatch of the C++ reference's
 main.C (src/main.C:17-57) and of rdcfes_tpu.cli:
 
-  python -m rdcfes_tpu_torch.cli -m {pihna|adpm}
+  python -m rdcfes_tpu_torch.cli -m {pihna|adpm|proteas|ripf} [input=<file>]
   python -m rdcfes_tpu_torch.cli -s
 
-Each driver reads `input.dat` from the working directory and runs on the
-CUDA card.  `-m proteas`, `-m ripf`, `-c hcc` and `-u process_mesh` are
-not ported yet and raise NotImplementedError naming their ROADMAP item;
-anything else returns 1.
+Each driver runs on the CUDA card.  Only PROTEAS takes its deck from
+`input=<file>`, as in the reference; the others read `input.dat` from the
+working directory.  `-c hcc` and `-u process_mesh` are not ported yet and
+raise NotImplementedError naming their ROADMAP item; anything else
+returns 1.
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ from __future__ import annotations
 import sys
 
 _UNPORTED = {
-    ("-m", "proteas"): "ROADMAP queue 1 item 10 (PROTEAS)",
-    ("-m", "ripf"): "ROADMAP queue 1 item 10 (RIPF)",
     ("-c", "hcc"): "ROADMAP queue 1 item 12 (coupled HCC)",
     ("-u", "process_mesh"): "ROADMAP queue 1 item 16 (process_mesh)",
 }
@@ -56,6 +55,10 @@ def main(argv=None, device=None) -> int:
         drivers.pihna.run(device=device)
     elif (flag, choice) == ("-m", "adpm"):
         drivers.adpm.run(device=device)
+    elif (flag, choice) == ("-m", "proteas"):
+        drivers.proteas.run(input_file, device=device)
+    elif (flag, choice) == ("-m", "ripf"):
+        drivers.ripf.run(device=device)
     else:
         return 1
     return 0

@@ -1,10 +1,9 @@
-"""Science-metric CSV writers of the PIHNA and ADPM drivers (the rows of
-rdcfes_tpu.io.csv_metrics, byte for byte).
+"""Science-metric CSV writers of the PIHNA, ADPM and RIPF drivers (the
+rows of rdcfes_tpu.io.csv_metrics, byte for byte).
 
 Each replicates the C++ reference's `save_solution` (src/pihna.C:842-976,
-src/adpm.C:690-829) as NumPy reductions over (E, K) corner gathers of a
-host array u (N, V).  RIPF's rows come with its driver (ROADMAP queue 1
-item 10).
+src/adpm.C:690-829, src/ripf.C:777-864) as NumPy reductions over (E, K)
+corner gathers of a host array u (N, V).
 """
 
 from __future__ import annotations
@@ -22,6 +21,12 @@ def _elem_in_range(mesh: Mesh, u_col: np.ndarray, lo: float,
     rule of src/pihna.C:903-959)."""
     vals_e = u_col[mesh.connectivity]
     return np.all((vals_e >= lo) & (vals_e <= hi), axis=1)
+
+
+def _elem_mask(mesh: Mesh, u_cols, cond) -> np.ndarray:
+    """General per-element corner mask: `cond` maps one (E, K) corner
+    gather per column of `u_cols` to an (E,) bool."""
+    return cond(*[c[mesh.connectivity] for c in u_cols])
 
 
 def pihna_header(csv: TextIO) -> None:
@@ -98,4 +103,23 @@ def adpm_row(csv: TextIO, mesh: Mesh, u: np.ndarray, time: float,
         sel = subdomain == pid
         row += [f"{vols[sel & ab_ok].sum():g}", f"{vols[sel & ta_ok].sum():g}"]
     csv.write(",".join(row) + "\n")
+    csv.flush()
+
+
+def ripf_row(csv: TextIO, mesh: Mesh, u: np.ndarray, time: float,
+             params: Dict[str, float]) -> None:
+    """Tumour and fibrosis volumes: the elements whose every corner has HU
+    in the deck's range_cc (range_fb) HU window and cc (fb) at least its
+    minimum.  No header: the reference comments it out
+    (src/ripf.C:800-807)."""
+    vols = mesh.element_volumes()
+    tum = _elem_mask(mesh, (u[:, 0], u[:, 1]), lambda HU_e, cc_e: np.all(
+        (HU_e >= params["range_cc_HU_min"])
+        & (HU_e <= params["range_cc_HU_max"])
+        & (cc_e >= params["range_cc_min"]), axis=1))
+    fib = _elem_mask(mesh, (u[:, 0], u[:, 2]), lambda HU_e, fb_e: np.all(
+        (HU_e >= params["range_fb_HU_min"])
+        & (HU_e <= params["range_fb_HU_max"])
+        & (fb_e >= params["range_fb_min"]), axis=1))
+    csv.write(f"{time:g},{vols[tum].sum():g},{vols[fib].sum():g}\n")
     csv.flush()

@@ -120,8 +120,9 @@ class TransientRDCSystem:
     clamp           : callable(u (V,N)) -> (V,N), applied after each solve
     rtol, maxiter   : linear tolerance on the preconditioned residual, and
                       the iteration cap of the f64 solve or rescue
-    precision       : "mixed" (f32 BiCGStab passes, f64 refinement) or
-                      "f64" (one f64 Krylov solve with `method`)
+    precision       : "f64" (the default: one f64 Krylov solve with
+                      `method`) or "mixed" (f32 BiCGStab passes, f64
+                      refinement)
     method          : "bicgstab" or "gmres", the f64 solver of
                       precision="f64"
     precond_refresh : recompute the block-Jacobi inverse every k steps
@@ -138,7 +139,7 @@ class TransientRDCSystem:
     def __init__(self, mesh: Mesh, n_vars: int, physics_blocks: Callable,
                  clamp: Callable = clamp_nonnegative,
                  rtol: float = DEFAULT_RTOL,
-                 maxiter: int = DEFAULT_MAXITER, precision: str = "mixed",
+                 maxiter: int = DEFAULT_MAXITER, precision: str = "f64",
                  precond_refresh: int = 1,
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
@@ -347,7 +348,12 @@ class TransientRDCSystem:
         the CPU, residual_per_step (n,) on the state's device), plus the
         final `field_update` carry when `field_update` is given.  Step i
         rebuilds the block-Jacobi inverse when i % precond_refresh == 0,
-        as the reference's scan does.
+        i counted over the whole call: the reference's
+        run_steps(n, segment=n).  The reference chains scans of at most
+        `segment` steps (default 50) and restarts the count in each, so
+        the two schedules differ when n > segment and precond_refresh
+        does not divide segment; the port keeps one schedule and has no
+        segments.
 
         `subcycle=k` (int > 1) advances each requested step as k substeps
         at dt/k; `subcycle="auto"` probes for the smallest power-of-two k

@@ -492,8 +492,22 @@ def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):
 
 def test_cli_dispatch(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    for argv in (["-m", "ripf"], ["-m", "proteas"], ["-c", "hcc"],
-                 ["-u", "process_mesh"]):
+    # -m proteas and -m ripf reach their drivers; only PROTEAS takes the
+    # deck of input=<file>
+    from rdcfes_tpu_torch import drivers
+
+    calls = []
+    for name in ("proteas", "ripf"):
+        monkeypatch.setattr(getattr(drivers, name), "run",
+                            lambda *a, _n=name, **kw: calls.append(
+                                (_n, a, kw)))
+    assert cli.main(["-m", "proteas", "input=deck.dat"], device="cpu") == 0
+    assert cli.main(["-m", "proteas"], device="cpu") == 0
+    assert cli.main(["-m", "ripf", "input=deck.dat"], device="cpu") == 0
+    assert calls == [("proteas", ("deck.dat",), {"device": "cpu"}),
+                     ("proteas", ("input.dat",), {"device": "cpu"}),
+                     ("ripf", (), {"device": "cpu"})]
+    for argv in (["-c", "hcc"], ["-u", "process_mesh"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             cli.main(argv, device="cpu")
     for argv in (["-x"], [], ["-m", "nonsense"], ["-m"], ["-c", "x"],
