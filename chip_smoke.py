@@ -2,14 +2,16 @@
 """Drive the PyTorch + CUDA port (rdcfes_tpu_torch) on one NVIDIA GPU, and
 check it: the PIHNA transient step on TET4 (phases 2-5), the hyperelastic
 solid load step (phases 6-8), the generic (HEX8) transient path with
-PIHNA and ADPM plus the launch-cost calibration (phases 9-12), and the
-CLI with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13).
+PIHNA and ADPM plus the launch-cost calibration (phases 9-12), the CLI
+with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13), and
+the coupled HCC driver on the moving mesh with process_mesh (phase 14).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
     python3 chip_smoke.py --phases 0,1,6,7,8       # the solid slice
     python3 chip_smoke.py --phases 0,1,9,10,11,12  # HEX8, ADPM, calibration
     python3 chip_smoke.py --phases 0,1,13          # the CLI drivers
+    python3 chip_smoke.py --phases 0,1,14          # HCC, process_mesh
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -119,6 +121,33 @@ Phases, one output line each (any failure raises, exit code != 0):
             and RIPF have none) and its launches.  Then `python3 -m rdcfes_tpu_torch.cli -m pihna` as
             a subprocess on make_pihna_case(n=6, n_steps=3): exit code 0
             and the artifacts present
+  14 coupled  (a) the moving mesh, kernels vs plain versions, per-step
+            relative L2 within 1e-10: 3 HCC steps of run_steps(coords=)
+            and 2 of step(coords=), each at its own seeded smooth
+            non-affine displacement, with every HCC block live (rtol
+            1e-12), on box_tet_mesh(12,12,12) (K1-K4) and
+            box_hex_mesh(6,6,6) (K8, K6, K4); (b) K1, K2, K3 f64, K4
+            f64 and its block-Jacobi diagonal with the HCC driver's
+            system and blocks on make_hcc_case(n=28)'s mesh (24,389
+            nodes, 131,712 TET4, V = 3) at the case's initial state, on
+            the geometry of the positions after one converged load step,
+            and K4 f32 (the assembly) and K5 (f32, f64) on the TET4
+            solid's tangent there, against their plain versions (f64
+            within 1e-13, f32 within 1e-5), timed as in phase 2; (c)
+            `-c hcc` in process on make_hcc_case(n=28, n_steps=400,
+            n_loading=40), the shipped schedule (dt 0.01), launch counts
+            reset just before and read just after: VTU frames 0, 200 and
+            400 and a PVD of 3 DataSets, every field finite, l, c, n >=
+            0, the mesh moved (max |u| > 0, Points != undeformed), 40
+            converged Newton solves, K1, K2, K3 f64, K4 f64, K4 f32 and
+            K5 f32 launched and K3 f32 not; its wall time, PerfLog's
+            totals, RDC steps/s, s a load step, the Newton and inner
+            iterations and the launches; (d) `python3 -m
+            rdcfes_tpu_torch.cli -u process_mesh` as a process on the
+            case mesh, its answers on stdin (scale 2, a translation,
+            rotations of 30/45/60 degrees): exit code 0, the .msh, .ex2
+            and .config written, the .msh re-read at the transformed
+            coordinates within the writer's 6 significant digits
 
 Then nvidia-smi's name and power limit of the card once more, and one
 JSON line {"kernels": [...]}: one row per kernel variant with
@@ -517,56 +546,58 @@ def restrict_case(flat, s):
         flops=float(W * live), dtype=dt)
 
 
-def affine_cases(phase, s, u, blocks_of):
+def affine_cases(phase, s, u, blocks_of, g=None):
     """K1-K4 cases on the affine (TET4) system `s` at the state u (V, N)
-    f64, with the coefficient blocks blocks_of(u_qp, grad_qp) builds
-    there: every launch a step makes, at the step's shapes (K4 for the
-    right-hand side and both matvecs, W = V, and for the block-Jacobi
-    diagonal, W = V V)."""
+    f64 and the geometry g (default: its rest geometry), with the
+    coefficient blocks blocks_of(u_qp, grad_qp) builds there: every
+    launch a step makes, at the step's shapes (K4 for the right-hand side
+    and both matvecs, W = V, and for the block-Jacobi diagonal, W = V V)."""
     V, mesh = s.n_vars, s.mesh
-    u_qp, gx1 = K.gather_interp_affine_plain(u, s.conn_T, s.phi, s.dphi0)
+    g = s.geom if g is None else g
+    u_qp, gx1 = K.gather_interp_affine_plain(u, s.conn_T, s.phi, g.dphi)
     grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
     wfb = blocks_of(u_qp, grad_qp)
     rhs = K.stack_rhs(wfb)
-    st64 = K.stack_apply(wfb, diffusion_presum(wfb, s.JxW))
+    st64 = K.stack_apply(wfb, diffusion_presum(wfb, g.JxW))
     wfb32 = wfb.cast(F32)
-    st32 = K.stack_apply(wfb32, diffusion_presum(wfb32, s.JxW32))
+    st32 = K.stack_apply(wfb32, diffusion_presum(wfb32, g.JxW32))
     u32 = u.to(F32)
-    flat64 = K.rhs_affine_plain(rhs, s.JxW, s.phi, s.dphi0).reshape(V, -1)
-    flat32 = K.apply_affine_plain(u32, s.conn_T, s.phi, s.JxW32, s.dphi0_32,
+    flat64 = K.rhs_affine_plain(rhs, g.JxW, s.phi, g.dphi).reshape(V, -1)
+    flat32 = K.apply_affine_plain(u32, s.conn_T, s.phi, g.JxW32, g.dphi32,
                                   st32).reshape(V, -1)
-    diag64 = block_diag_affine(wfb, s.phi, s.JxW, s.dphi).reshape(V * V, -1)
+    diag64 = block_diag_affine(wfb, s.phi, g.JxW, g.dphi[None]).reshape(
+        V * V, -1)
     E = mesh.n_elems
-    Kc, Q = s.conn_T.shape[0], s.JxW.shape[0]
+    Kc, Q = s.conn_T.shape[0], g.JxW.shape[0]
     fe = flat64.reshape(V, Kc, E)
     nC, nD, nE = len(st64.idxC), len(st64.idxD), len(st64.idxE)
     apply_flops = 2.0 * E * Kc * (V * (Q + 3) + nC * Q + 3 * nD * Q + 3 * nE)
     cases = {
         "gather_interp_affine_f64": dict(
-            kern=lambda: K.gather_interp_affine(u, s.conn_T, s.phi, s.dphi0),
+            kern=lambda: K.gather_interp_affine(u, s.conn_T, s.phi, g.dphi),
             plain=lambda: K.gather_interp_affine_plain(u, s.conn_T, s.phi,
-                                                       s.dphi0), tol=1e-13,
-            n_bytes=nbytes(u, s.conn_T, s.dphi0, u_qp, gx1),
+                                                       g.dphi), tol=1e-13,
+            n_bytes=nbytes(u, s.conn_T, g.dphi, u_qp, gx1),
             flops=2.0 * V * Kc * E * (Q + 3)),
         "rhs_affine_f64": dict(
-            kern=lambda: K.rhs_affine(rhs, s.JxW, s.phi, s.dphi0),
-            plain=lambda: K.rhs_affine_plain(rhs, s.JxW, s.phi, s.dphi0),
-            tol=1e-13, n_bytes=nbytes(rhs.A, rhs.B, s.JxW, s.dphi0, fe),
+            kern=lambda: K.rhs_affine(rhs, g.JxW, s.phi, g.dphi),
+            plain=lambda: K.rhs_affine_plain(rhs, g.JxW, s.phi, g.dphi),
+            tol=1e-13, n_bytes=nbytes(rhs.A, rhs.B, g.JxW, g.dphi, fe),
             flops=2.0 * Kc * Q * E * (len(rhs.idxA) + 3 * len(rhs.idxB))),
         "apply_affine_f32": dict(
-            kern=lambda: K.apply_affine(u32, s.conn_T, s.phi, s.JxW32,
-                                        s.dphi0_32, st32),
-            plain=lambda: K.apply_affine_plain(u32, s.conn_T, s.phi, s.JxW32,
-                                               s.dphi0_32, st32), tol=1e-5,
-            n_bytes=nbytes(u32, s.conn_T, s.JxW32, s.dphi0_32, st32.C,
+            kern=lambda: K.apply_affine(u32, s.conn_T, s.phi, g.JxW32,
+                                        g.dphi32, st32),
+            plain=lambda: K.apply_affine_plain(u32, s.conn_T, s.phi, g.JxW32,
+                                               g.dphi32, st32), tol=1e-5,
+            n_bytes=nbytes(u32, s.conn_T, g.JxW32, g.dphi32, st32.C,
                            st32.D, st32.Epre, flat32), flops=apply_flops,
             dtype=F32),
         "apply_affine_f64": dict(
-            kern=lambda: K.apply_affine(u, s.conn_T, s.phi, s.JxW, s.dphi0,
+            kern=lambda: K.apply_affine(u, s.conn_T, s.phi, g.JxW, g.dphi,
                                         st64),
-            plain=lambda: K.apply_affine_plain(u, s.conn_T, s.phi, s.JxW,
-                                               s.dphi0, st64), tol=1e-13,
-            n_bytes=nbytes(u, s.conn_T, s.JxW, s.dphi0, st64.C, st64.D,
+            plain=lambda: K.apply_affine_plain(u, s.conn_T, s.phi, g.JxW,
+                                               g.dphi, st64), tol=1e-13,
+            n_bytes=nbytes(u, s.conn_T, g.JxW, g.dphi, st64.C, st64.D,
                            st64.Epre, fe), flops=apply_flops),
         "restrict_f32": restrict_case(flat32, s),
         "restrict_f64": restrict_case(flat64, s),
@@ -649,28 +680,28 @@ def phase_slice(dev):
     return counts
 
 
-def phase_solid_kernels(dev, S):
-    """K5 and K4's matrix assembly at the solid bench's shapes, on the
-    tangent assembled at seeded perturbed positions."""
-    rng = np.random.default_rng(6)
+def solid_cases(S, x, pt):
+    """K4's matrix assembly (f32, f64) and K5 (f32, f64) cases on solid
+    `S` at positions x (N, 3) and pseudo-time pt: the element blocks and
+    the tangent assembled there, beside index_add_ and a cuSPARSE CSR mv
+    of the same operator.  Returns (cases, what the prints need)."""
+    dev = x.device
+    rng = np.random.default_rng(7)
     N = S.mesh.n_nodes
-    h = 1.0 / SOLID_N
-    X0 = S.initial_positions()
-    x = X0 + torch.as_tensor(0.05 * h * rng.standard_normal((N, 3)),
-                             dtype=F64, device=dev)
     tab, tab32 = S.tables, S.tables32
-    pt = torch.tensor(SOLID_PT, dtype=F64, device=dev)
+    pt64 = torch.tensor(pt, dtype=F64, device=dev)
     args = lambda t: (t["X0e_cf"], t["young"], t["poisson"], t["fibre_k"],
                       t["rates"], t["fibres"])
-    flat64 = element_kernels_cf("HEX8", x, S.conn, *args(tab), pt)[1]
+    et = S.mesh.elem_type
+    flat64 = element_kernels_cf(et, x, S.conn, *args(tab), pt64)[1]
     flat64 = flat64.reshape(9, -1)
-    flat32 = element_kernels_cf("HEX8", x.to(F32), S.conn, *args(tab32),
-                                pt.to(F32))[1].reshape(9, -1)
-    _, values = S.assemble(x.T.contiguous(), SOLID_PT)  # f32 tangent
+    flat32 = element_kernels_cf(et, x.to(F32), S.conn, *args(tab32),
+                                pt64.to(F32))[1].reshape(9, -1)
+    _, values = S.assemble(x.T.contiguous(), pt)  # the system's tangent
     cols_np, slot_np = ell_structure(S.sp)
     cols = torch.as_tensor(cols_np, device=dev)
-    vell32 = to_ell(values, torch.as_tensor(slot_np, device=dev))
-    vell64 = vell32.to(F64)
+    vell = to_ell(values, torch.as_tensor(slot_np, device=dev))
+    vell32, vell64 = vell.to(F32), vell.to(F64)
     xv64 = torch.as_tensor(rng.standard_normal((3, N)), dtype=F64,
                            device=dev)
     xv32 = xv64.to(F32)
@@ -719,12 +750,26 @@ def phase_solid_kernels(dev, S):
             library=lambda: torch.mv(csr64, xi64),
             n_bytes=nbytes(vell64, cols, xv64, xv64), flops=mv_flops),
     }
-    results = {name: measure("6 solid kernel", name, **c)
-               for name, c in cases.items()}
     lib_err = float((torch.mv(csr64, xi64).reshape(N, 3).T
                      - K.ell_matvec_plain(vell64, cols, xv64)).abs().max())
-    say("6 solid kernels", shapes=f"E={S.mesh.n_elems} N={N} nnz={nnz} "
-        f"L={cols.shape[0]} C={sg.shape[0]} KKE={flat32.shape[1]}",
+    shapes = (f"E={S.mesh.n_elems} N={N} nnz={nnz} L={cols.shape[0]} "
+              f"C={sg.shape[0]} KKE={flat32.shape[1]}")
+    return cases, shapes, lib_err
+
+
+def phase_solid_kernels(dev, S):
+    """K5 and K4's matrix assembly at the solid bench's shapes, on the
+    tangent assembled at seeded perturbed positions."""
+    rng = np.random.default_rng(6)
+    N = S.mesh.n_nodes
+    h = 1.0 / SOLID_N
+    X0 = S.initial_positions()
+    x = X0 + torch.as_tensor(0.05 * h * rng.standard_normal((N, 3)),
+                             dtype=F64, device=dev)
+    cases, shapes, lib_err = solid_cases(S, x, SOLID_PT)
+    results = {name: measure("6 solid kernel", name, **c)
+               for name, c in cases.items()}
+    say("6 solid kernels", shapes=shapes,
         library_spmv_max_abs_diff=f"{lib_err:.3e}")
     for name, row in results.items():
         nb = cases[name]["n_bytes"]
@@ -857,12 +902,12 @@ def generic_cases(tag, s, x64, blocks_of):
     """K8, K6 and K4 cases on the generic (HEX8) system `s` at the state
     x64 (V, N), with the coefficient blocks blocks_of(u_qp, grad_qp)
     builds there: every launch a step makes, at the step's shapes."""
-    V, E = s.n_vars, s.mesh.n_elems
-    Kc, Q = s.conn_T.shape[0], s.JxW.shape[0]
+    V, E, g = s.n_vars, s.mesh.n_elems, s.geom
+    Kc, Q = s.conn_T.shape[0], g.JxW.shape[0]
     u_qp, grad_qp = K.gather_interp_generic_plain(x64, s.conn_T, s.phi,
-                                                  s.dphi)
+                                                  g.dphi)
     wfb = blocks_of(u_qp, grad_qp)
-    interp_bytes = nbytes(x64, s.conn_T, s.dphi, u_qp, grad_qp)
+    interp_bytes = nbytes(x64, s.conn_T, g.dphi, u_qp, grad_qp)
     del u_qp, grad_qp
     st64 = K.stack_apply_generic(wfb)
     st32 = K.stack_apply_generic(wfb.cast(F32))
@@ -872,13 +917,13 @@ def generic_cases(tag, s, x64, blocks_of):
     flops = 2.0 * E * Q * (4 * Kc * V + nC + 3 * nD + 3 * nE
                            + V * (4 + 4 * Kc))
     cases = {"gather_interp_generic_f64": dict(
-        kern=lambda: K.gather_interp_generic(x64, s.conn_T, s.phi, s.dphi),
+        kern=lambda: K.gather_interp_generic(x64, s.conn_T, s.phi, g.dphi),
         plain=lambda: K.gather_interp_generic_plain(x64, s.conn_T, s.phi,
-                                                    s.dphi),
+                                                    g.dphi),
         tol=1e-13, n_bytes=interp_bytes, flops=2.0 * 4 * V * Q * Kc * E)}
     for name, x, JxW, dphi, st, tol, dt in (
-            ("apply_generic_f32", x32, s.JxW32, s.dphi32, st32, 1e-5, F32),
-            ("apply_generic_f64", x64, s.JxW, s.dphi, st64, 1e-13, F64)):
+            ("apply_generic_f32", x32, g.JxW32, g.dphi32, st32, 1e-5, F32),
+            ("apply_generic_f64", x64, g.JxW, g.dphi, st64, 1e-13, F64)):
         out_bytes = V * Kc * E * x.element_size()
         cases[name] = dict(
             kern=lambda x=x, JxW=JxW, dphi=dphi, st=st: K.apply_generic(
@@ -890,10 +935,10 @@ def generic_cases(tag, s, x64, blocks_of):
             + out_bytes)
     # K4 at this mesh's node_gather: the matvecs' and the right-hand
     # side's restriction (W = V) and the block-Jacobi diagonal's (W = V V)
-    flat32 = K.apply_generic_plain(x32, s.conn_T, s.phi, s.JxW32, s.dphi32,
+    flat32 = K.apply_generic_plain(x32, s.conn_T, s.phi, g.JxW32, g.dphi32,
                                    st32).reshape(V, -1)
-    flat64 = block_rhs(wfb, s.phi, s.JxW, s.dphi).reshape(V, -1)
-    diag64 = block_diag(wfb, s.phi, s.JxW, s.dphi).reshape(V * V, -1)
+    flat64 = block_rhs(wfb, s.phi, g.JxW, g.dphi).reshape(V, -1)
+    diag64 = block_diag(wfb, s.phi, g.JxW, g.dphi).reshape(V * V, -1)
     cases["restrict_f32@hex8"] = restrict_case(flat32, s)
     cases["restrict_f64@hex8"] = restrict_case(flat64, s)
     cases["restrict_f64@hex8 diagonal"] = restrict_case(diag64, s)
@@ -1052,18 +1097,18 @@ def phase_calibration(dev):
                             device=dev)
         if s is hex_s:
             uq, gq = K.gather_interp_generic_plain(u, s.conn_T, s.phi,
-                                                   s.dphi)
+                                                   s.geom.dphi)
             st = K.stack_apply_generic(
                 pihna_blocks(uq, gq, {}, params).cast(F32))
-            args = (s.conn_T, s.phi, s.JxW32, s.dphi32, st)
+            args = (s.conn_T, s.phi, s.geom.JxW32, s.geom.dphi32, st)
             applies[name] = (K.apply_generic, u.to(F32), args)
         else:
             uq, g1 = K.gather_interp_affine_plain(u, s.conn_T, s.phi,
-                                                  s.dphi0)
+                                                  s.geom.dphi)
             gq = g1[:, None].expand(5, uq.shape[1], 3, g1.shape[-1])
             wfb = pihna_blocks(uq, gq, {}, params).cast(F32)
-            st = K.stack_apply(wfb, diffusion_presum(wfb, s.JxW32))
-            args = (s.conn_T, s.phi, s.JxW32, s.dphi0_32, st)
+            st = K.stack_apply(wfb, diffusion_presum(wfb, s.geom.JxW32))
+            args = (s.conn_T, s.phi, s.geom.JxW32, s.geom.dphi32, st)
             applies[name] = (K.apply_affine, u.to(F32), args)
     K.reset_launch_counts()
     fits = {
@@ -1449,15 +1494,15 @@ def _driver_kernels(tag, d, dev, also):
         for key in ("lambda_RT_r", "omicro_RT_r"):
             f[key] = params["_fb_" + key] or float(int(dose.max()))
         blocks = lambda uq, gq: ripf_blocks(uq, gq, f, params)
-        Kc, Q, E = s.conn_T.shape[0], s.JxW.shape[0], mesh.n_elems
+        Kc, Q, E = s.conn_T.shape[0], s.geom.JxW.shape[0], mesh.n_elems
         vq, g1 = K.gather_interp_affine_plain(nodal, s.conn_T, s.phi,
-                                              s.dphi0)
+                                              s.geom.dphi)
         extra["gather_interp_affine_f64@field rebuild"] = dict(
             kern=lambda: K.gather_interp_affine(nodal, s.conn_T, s.phi,
-                                                s.dphi0),
+                                                s.geom.dphi),
             plain=lambda: K.gather_interp_affine_plain(nodal, s.conn_T,
-                                                       s.phi, s.dphi0),
-            tol=1e-13, n_bytes=nbytes(nodal, s.conn_T, s.dphi0, vq, g1),
+                                                       s.phi, s.geom.dphi),
+            tol=1e-13, n_bytes=nbytes(nodal, s.conn_T, s.geom.dphi, vq, g1),
             flops=2.0 * 3 * Kc * E * (Q + 3))
     u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
     cases = {k: c for k, c in affine_cases("13 " + tag, s, u, blocks).items()
@@ -1649,9 +1694,265 @@ def phase_drivers(dev, also):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 14: the coupled HCC driver and process_mesh
+# ----------------------------------------------------------------------
+HCC_N, HCC_STEPS, HCC_LOADING = 28, 400, 40  # the shipped schedule
+# every HCC block live (the CPU tests' live deck): 8 C, 2 D, 1 E planes
+HCC_LIVE = {"dt": 0.05, "cells_min_capacity": 0.05,
+            "cells_max_capacity": 1.0, "cells_max_capacity_exponent": 3.0,
+            "produce_l": 0.2, "diffuse_c": 0.3, "mechano_c": 0.4,
+            "produce_c": 0.5, "necrosis_l": 0.05, "necrosis_c": 0.1,
+            "necrosis_pressure": 0.0}
+HCC_PHASES = ("mesh io", "initial conditions", "system setup", "rds solve",
+              "solid solve", "post process", "vtu output")
+HCC_KERNELS = DRV_TRANSIENT + DRV_SOLID
+HCC_OUTPUTS = (0, 200, 400)
+
+
+def _moved(coords, seed, amp):
+    """A seeded smooth, non-affine displacement of coords (N, 3) in a box
+    of unit size: a rigid motion would leave JxW as it is and hide a
+    stale table."""
+    rng = np.random.default_rng(seed)
+    k = rng.uniform(1.0, 2.5, (3, 3))
+    phase = rng.uniform(0.0, 2 * np.pi, 3)
+    return coords + amp * np.sin(np.pi * coords @ k.T + phase)
+
+
+def _hcc_state(coords):
+    r2 = ((coords - 0.5) ** 2).sum(axis=1)
+    rng = np.random.default_rng(9)
+    return np.stack([0.6 - 0.4 * np.exp(-r2 / 0.1),
+                     0.4 * np.exp(-r2 / 0.1) + 0.02 * rng.random(len(r2)),
+                     0.05 * np.exp(-r2 / 0.05)], axis=1)
+
+
+def _moving_paths(dev, mesh, tag, amp):
+    """3 steps of run_steps(coords=) and 2 of step(coords=), each at its
+    own displacement, through the kernels and the plain versions."""
+    from rdcfes_tpu_torch.models.hcc import hcc_blocks
+
+    systems = [TransientRDCSystem(mesh, 3, hcc_blocks, rtol=1e-12,
+                                  moving_mesh=True, device=dev, ops=ops)
+               for ops in (K.KERNEL_OPS, K.PLAIN_OPS)]
+    u0 = _hcc_state(mesh.coords)
+    states = [s.initial_state(u0) for s in systems]
+    worst, its = 0.0, []
+    for i in range(5):
+        x = torch.as_tensor(_moved(mesh.coords, i, amp), dtype=F64,
+                            device=dev)
+        for j, s in enumerate(systems):
+            if i < 3:
+                states[j], it, _ = s.run_steps(states[j], 1,
+                                               params=HCC_LIVE, coords=x)
+                it = int(it[0])
+            else:
+                states[j], it, _ = s.step(states[j], params=HCC_LIVE,
+                                          coords=x)
+                it = int(it)
+            its.append(it)
+        worst = max(worst, rel_l2(states[0]["u"], states[1]["u"]))
+    u = states[0]["u"].cpu().numpy()
+    say("14a moving paths", mesh=tag, n_nodes=mesh.n_nodes,
+        n_elems=mesh.n_elems, steps="3 run_steps + 2 step",
+        worst_rel_l2=f"{worst:.3e}", bar=1e-10, inner_iters=its[::2])
+    require(np.isfinite(u).all(), f"moving {tag}: non-finite state")
+    require(worst <= 1e-10, f"moving {tag} kernels vs plain: {worst:.3e}")
+
+
+def _hcc_kernels(d, dev, also):
+    """K1-K4 f64 with the HCC driver's system and blocks on its case mesh
+    at the case's initial state, on the geometry of the positions after
+    one converged load step; K4 f32 (the assembly) and K5 on the TET4
+    solid's tangent there.  Rows go under "also", labelled "hc"."""
+    import os
+
+    from rdcfes_tpu_torch.drivers import coupled_hcc as dhcc
+    from rdcfes_tpu_torch.drivers import solid as dsolid
+    from rdcfes_tpu_torch.drivers.common import make_rdc_system
+    from rdcfes_tpu_torch.io import dat
+    from rdcfes_tpu_torch.io.getpot import Deck
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.models.hcc import hcc_blocks
+
+    deck = Deck(os.path.join(d, "input.dat"))
+    mesh = gmsh.read(os.path.join(d, deck("input_GMSH", "")))
+    u0 = dat.read_stream(os.path.join(d, deck("input_nodal", "")),
+                         mesh.n_nodes, 3)
+    params = dhcc.load_params(deck)
+    s = make_rdc_system(mesh, 3, hcc_blocks, deck, device=dev,
+                        moving_mesh=True)
+    S = SolidSystem(mesh, materials=dsolid.load_materials(deck),
+                    bcs=dsolid.load_bcs(deck),
+                    penalty=deck("BCs/displacement_penalty", 1.0e5),
+                    fibres=dsolid.load_fibres(deck, mesh),
+                    newton=dsolid.load_newton_options(deck, dev),
+                    tangent_precision=dsolid.load_tangent_precision(deck,
+                                                                    dev),
+                    device=dev)
+    pt = deck("time_step", 1.0) * HCC_STEPS / HCC_LOADING
+    r = S.run_solver(S.initial_positions(), pt)
+    require(r.converged, "the HCC case's first load step did not converge")
+    du = float(S.displacement(r.x).abs().max())
+    require(du > 0.0, "the first load step did not move the mesh")
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    cases = {k: c for k, c in affine_cases(
+        "14b hcc", s, u, lambda uq, gq: hcc_blocks(uq, gq, {}, params),
+        s._geom_from_coords(r.x)).items()
+        if k.partition("@")[0] in DRV_TRANSIENT}
+    scases, shapes, _ = solid_cases(S, r.x, pt)
+    cases["restrict_f32@asm"] = scases["restrict_f32"]
+    cases["ell_matvec_f32"] = scases["ell_matvec_f32"]
+    cases["ell_matvec_f64"] = scases["ell_matvec_f64"]
+    say("14b hcc solid shapes", shapes=shapes, newton_iters=r.iters,
+        max_abs_u=f"{du:.6e}")
+    run_cases("14b hcc kernel", cases, {}, also, label="hc")
+
+
+def _process_mesh_module(root, case_mesh):
+    """`python3 -m rdcfes_tpu_torch.cli -u process_mesh` as a process, fed
+    its answers on stdin."""
+    import os
+    import sys
+
+    from rdcfes_tpu_torch.mesh import gmsh, transform
+
+    d = os.path.join(root, "process_mesh")
+    os.makedirs(d)
+    src = gmsh.read(case_mesh)
+    gmsh.write(src, os.path.join(d, "in.msh"))
+    answers = "in.msh\n2\n1.5\n-2\n0.25\n30\n45\n60\n1\nout\n"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "rdcfes_tpu_torch.cli", "-u",
+                        "process_mesh"], cwd=d, env=env, input=answers,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(p.returncode == 0, "python3 -m rdcfes_tpu_torch.cli -u "
+            f"process_mesh exited {p.returncode}: {p.stderr[-2000:]}")
+    for ext in (".msh", ".ex2", ".config"):
+        require(os.path.exists(os.path.join(d, "out" + ext)),
+                f"process_mesh wrote no out{ext}")
+    want = transform.transform_mesh(gmsh.read(os.path.join(d, "in.msh")),
+                                    2.0, (1.5, -2.0, 0.25),
+                                    (30.0, 45.0, 60.0)).coords
+    back = gmsh.read(os.path.join(d, "out.msh")).coords
+    # the Gmsh writer prints 6 significant digits
+    err = float(np.abs(back - want).max() / np.abs(want).max())
+    say("14d module", command="python3 -m rdcfes_tpu_torch.cli -u "
+        "process_mesh", exit_code=p.returncode, seconds=f"{wall:.4f}",
+        n_nodes=len(back), max_rel_coord_err=f"{err:.3e}", bar=1e-5)
+    require(err <= 1e-5, f"process_mesh coords off by {err:.3e}")
+
+
+def phase_coupled(dev, also):
+    """The moving paths, kernels vs plain (a); the kernels at the HCC
+    driver's shapes on a deformed geometry (b); `-c hcc` in process on
+    the shipped schedule at full width (c); `-u process_mesh` as a
+    process (d)."""
+    import os
+    import shutil
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.systems import solid as solid_mod
+    from rdcfes_tpu_torch.systems import transient as transient_mod
+
+    _moving_paths(dev, box_tet_mesh(12, 12, 12), "TET4 12^3", 0.02)
+    _moving_paths(dev, box_hex_mesh(6, 6, 6), "HEX8 6^3", 0.03)
+
+    root = tempfile.mkdtemp(prefix="rdcfes_hcc_")
+    try:
+        d = cases.make_hcc_case(os.path.join(root, "hcc"), n=HCC_N,
+                                n_steps=HCC_STEPS, n_loading=HCC_LOADING)
+        _hcc_kernels(d, dev, also)
+
+        newton, inner = [], []
+        run_solver = solid_mod.SolidSystem.run_solver
+        run_steps = transient_mod.TransientRDCSystem.run_steps
+        step = transient_mod.TransientRDCSystem.step
+
+        def rec_solver(self, x, pseudo_time):
+            r = run_solver(self, x, pseudo_time)
+            newton.append(r)
+            return r
+
+        def rec_run_steps(self, *a, **kw):
+            out = run_steps(self, *a, **kw)
+            inner.extend(int(i) for i in out[1])
+            return out
+
+        def rec_step(self, *a, **kw):
+            out = step(self, *a, **kw)
+            inner.append(int(out[1]))
+            return out
+
+        solid_mod.SolidSystem.run_solver = rec_solver
+        transient_mod.TransientRDCSystem.run_steps = rec_run_steps
+        transient_mod.TransientRDCSystem.step = rec_step
+        try:
+            wall, counts, out = _drive(d, ["-c", "hcc"], dev)
+        finally:
+            solid_mod.SolidSystem.run_solver = run_solver
+            transient_mod.TransientRDCSystem.run_steps = run_steps
+            transient_mod.TransientRDCSystem.step = step
+        sim = os.path.join(d, "simulation")
+        for t in HCC_OUTPUTS:
+            require(os.path.exists(os.path.join(sim, f"out-{t}.vtu")),
+                    f"HCC: no VTU at t = {t}")
+        pvd = open(os.path.join(sim, "out.pvd")).read()
+        require(pvd.count("<DataSet") == len(HCC_OUTPUTS)
+                and "</Collection>" in pvd, "HCC: PVD DataSets")
+        last = _vtu_arrays(os.path.join(sim, f"out-{HCC_OUTPUTS[-1]}.vtu"))
+        require(len(last) == 21 and all(np.isfinite(v).all()
+                                         for v in last.values()),
+                f"HCC: {len(last)} VTU arrays, not all finite")
+        for name in ("l", "c", "n"):
+            require((last[name] >= 0).all(), f"HCC: {name} < 0")
+        u_max = max(float(np.abs(last[k]).max())
+                    for k in ("u_x", "u_y", "u_z"))
+        pts = last["position"].reshape(-1, 3)
+        und = np.stack([last["undeformed_" + a] for a in "xyz"], axis=1)
+        require(u_max > 0.0 and not np.array_equal(pts, und),
+                "HCC: the mesh did not move")
+        require(out.count(" ==== Step") == HCC_STEPS, "HCC banners")
+        require(len(newton) == HCC_LOADING,
+                f"HCC: {len(newton)} Newton solves, not {HCC_LOADING}")
+        require(all(r.converged for r in newton),
+                "HCC: a load step did not converge")
+        require(len(inner) == HCC_STEPS, f"HCC: {len(inner)} RDC steps")
+        totals = _perf_totals(out)
+        say("14c hcc", seconds=f"{wall:.4f}",
+            **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+               for k in HCC_PHASES}, steps=HCC_STEPS,
+            load_steps=HCC_LOADING)
+        say("14c hcc rate",
+            rds_steps_per_s=f"{HCC_STEPS / totals['rds solve']:.4f}",
+            s_per_load_step=f"{totals['solid solve'] / HCC_LOADING:.4f}",
+            rds_inner_iters=sum(inner),
+            newton_iters=sum(int(r.iters) for r in newton),
+            newton_linear_iters=sum(int(r.linear_iters) for r in newton),
+            max_abs_u=f"{u_max:.6e}")
+        say("14c hcc launches", **{k: counts[k] for k in
+                                   HCC_KERNELS + ("apply_affine_f32",)})
+        _require_launched(counts, HCC_KERNELS, "the HCC driver")
+        require(counts["apply_affine_f32"] == 0,
+                "the HCC driver runs f64: K3 f32 launched")
+
+        _process_mesh_module(root, os.path.join(d, "HCC_Model.msh"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1685,6 +1986,8 @@ def main(argv=None) -> int:
     del H
     if 13 in phases:
         paths["drivers"] = phase_drivers(dev, also)
+    if 14 in phases:
+        paths["coupled"] = phase_coupled(dev, also)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

@@ -1,6 +1,7 @@
-"""Synthetic PIHNA, ADPM, RIPF and PROTEAS case directories (the files of
-rdcfes_tpu.cases' make_*_case for single-type TET4 meshes of order 1,
-byte for byte, except that the Makefile launches rdcfes_tpu_torch.cli).
+"""Synthetic PIHNA, ADPM, RIPF, PROTEAS and coupled HCC case directories
+(the files of rdcfes_tpu.cases' make_*_case for single-type TET4 meshes
+of order 1, byte for byte, except that the Makefile launches
+rdcfes_tpu_torch.cli).
 
 The patient meshes of the C++ reference's run/ cases are not in the
 repository, so runs at patient scale need stand-ins: each function writes
@@ -8,8 +9,7 @@ a complete case directory (Gmsh mesh, nodal/elemental IC `.dat` files,
 `input.dat` deck and a Makefile) at the documented case size.  The
 signatures are the reference's, so a caller switches packages unchanged;
 mixed and second-order cases (`mixed=True`, `order=2`) raise
-NotImplementedError (ROADMAP queue 1 item 13); the HCC case comes with
-its driver (item 12).
+NotImplementedError (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -328,4 +328,103 @@ oedema/diffusion = 0.1
     with open(os.path.join(directory, "input.dat"), "w") as f:
         f.write(deck)
     _write_makefile(directory, "-m proteas input=input.dat")
+    return directory
+
+
+def make_hcc_case(directory: str, n: int = 8, seed: int = 4,
+                  n_steps: int = 40, n_loading: int = 4,
+                  mixed: bool = False) -> str:
+    """Synthetic coupled-HCC case (deck values = run/Coupled/HCC/input.dat,
+    scaled down; the patient HCC_Model.msh is not in the repository) on
+    box_tet_mesh(n, n, n) over a 10 mm cube, with three subdomains (3000
+    host, 3001 capsule, 3002 growing tumour core: the material ids of the
+    shipped deck) and the shipped boundary-condition table mapped onto
+    the box: 2000 fixed at z = 0, 2002 and 2003 z-pinned on the two x
+    faces.  `seed` is unused, as in the reference."""
+    _first_order_tet(mixed, 1)
+    os.makedirs(directory, exist_ok=True)
+    mesh = box_tet_mesh(n, n, n, bounds=((0, 10.0),) * 3)
+    centers = mesh.coords[mesh.connectivity].mean(axis=1)
+    rc2 = ((centers - 5.0) ** 2).sum(axis=1)
+    mesh.subdomain_id[:] = 3000
+    mesh.subdomain_id[rc2 < 9.0] = 3001
+    mesh.subdomain_id[rc2 < 4.0] = 3002
+    bid, bf = mesh.boundary_id, mesh.boundary_faces
+    fc = mesh.coords[bf].sum(axis=1) / bf.shape[1]
+    bid[:] = 0
+    bid[np.isclose(fc[:, 2], 0.0)] = 2000
+    bid[np.isclose(fc[:, 0], 0.0)] = 2002
+    bid[np.isclose(fc[:, 0], 10.0)] = 2003
+    gmsh.write(mesh, os.path.join(directory, "HCC_Model.msh"))
+
+    r2 = ((mesh.coords - 5.0) ** 2).sum(axis=1)
+    l = np.clip(0.6 - 0.4 * np.exp(-r2 / 4.0), 0.0, None)   # liver
+    c = 0.4 * np.exp(-r2 / 4.0)                              # cancer
+    nec = 0.05 * np.exp(-r2 / 2.0)                           # necrotic
+    u0 = np.stack([l, c, nec], axis=1)
+    np.savetxt(os.path.join(directory, "HCC_Initial_Nodal_Field.dat"),
+               u0, fmt="%.9g")
+
+    deck = f"""#
+directory = simulation
+input_GMSH = HCC_Model.msh
+input_nodal = HCC_Initial_Nodal_Field.dat
+output_PARAVIEW = out
+#
+time_step = 0.01
+number_of_time_steps = {n_steps}
+number_of_loading_steps = {n_loading}
+output_step = {max(1, n_steps // 2)}
+remeshing_step = 0
+#
+solver/quiet = false
+solver/nonlinear/max_nonlinear_iterations = 30
+solver/nonlinear/relative_step_tolerance = 1.e-3
+solver/nonlinear/relative_residual_tolerance = 1.e-6
+solver/nonlinear/absolute_residual_tolerance = 1.e-8
+solver/nonlinear/require_reduction = false
+solver/linear/max_linear_iterations = 50000
+solver/linear/initial_linear_tolerance = 1.e-3
+solver/use_symmetry = true
+#
+mesh/skip_renumber_nodes_and_elements = false
+mesh/AMR/max_steps = 1
+mesh/AMR/max_level = 2
+mesh/AMR/refine_percentage  = 0.2
+mesh/AMR/coarsen_percentage = 0.2
+#
+cells/min_capacity = 0.0
+cells/max_capacity = 1.0
+cells/max_capacity/exponent = 3
+#
+produce/c = 0.5
+diffuse/c = 0.01
+necrosis/c = 0.1
+#
+BCs = ' 2000 2002 2003 '
+BC/2000/displacement/0 = +0.000
+BC/2000/displacement/1 = +0.000
+BC/2000/displacement/2 = +0.000
+BC/2002/displacement/0 = NAN
+BC/2002/displacement/1 = NAN
+BC/2002/displacement/2 = +0.000
+BC/2003/displacement/0 = NAN
+BC/2003/displacement/1 = NAN
+BC/2003/displacement/2 = +0.000
+BCs/displacement_penalty = 1.e+8
+#
+materials = ' 3000 3001 3002 '
+material/3000/Hyperelastic/Young   = 2.0e+3
+material/3000/Hyperelastic/Poisson = 0.4
+material/3001/Hyperelastic/Young   = 2.0e+3
+material/3001/Hyperelastic/Poisson = 0.4
+material/3002/Hyperelastic/Young   = 2.0e+3
+material/3002/Hyperelastic/Poisson = 0.4
+material/3002/Hyperelastic/VolumetricStretchRatio/rate_0 = 3.0e-1
+material/3002/Hyperelastic/VolumetricStretchRatio/rate_1 = 3.0e-1
+material/3002/Hyperelastic/VolumetricStretchRatio/rate_2 = 3.0e-1
+"""
+    with open(os.path.join(directory, "input.dat"), "w") as f:
+        f.write(deck)
+    _write_makefile(directory, "-c hcc")
     return directory

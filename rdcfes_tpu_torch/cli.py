@@ -3,23 +3,18 @@ main.C (src/main.C:17-57) and of rdcfes_tpu.cli:
 
   python -m rdcfes_tpu_torch.cli -m {pihna|adpm|proteas|ripf} [input=<file>]
   python -m rdcfes_tpu_torch.cli -s
+  python -m rdcfes_tpu_torch.cli -c hcc
+  python -m rdcfes_tpu_torch.cli -u process_mesh
 
-Each driver runs on the CUDA card.  Only PROTEAS takes its deck from
-`input=<file>`, as in the reference; the others read `input.dat` from the
-working directory.  `-c hcc` and `-u process_mesh` are not ported yet and
-raise NotImplementedError naming their ROADMAP item; anything else
-returns 1.
+Each driver but process_mesh (host only, prompts on stdin) runs on the
+CUDA card.  Only PROTEAS takes its deck from `input=<file>`, as in the
+reference; the others read `input.dat` from the working directory.
+Anything else returns 1.
 """
 
 from __future__ import annotations
 
 import sys
-
-_UNPORTED = {
-    ("-c", "hcc"): "ROADMAP queue 1 item 12 (coupled HCC)",
-    ("-u", "process_mesh"): "ROADMAP queue 1 item 16 (process_mesh)",
-}
-
 
 def main(argv=None, device=None) -> int:
     """Dispatch `argv` (default: sys.argv[1:]) to a driver; returns the
@@ -48,9 +43,6 @@ def main(argv=None, device=None) -> int:
         drivers.solid.run(device=device)
         return 0
     choice = next_after(flag)
-    if (flag, choice) in _UNPORTED:
-        raise NotImplementedError(
-            f"{flag} {choice}: {_UNPORTED[(flag, choice)]}")
     if (flag, choice) == ("-m", "pihna"):
         drivers.pihna.run(device=device)
     elif (flag, choice) == ("-m", "adpm"):
@@ -59,6 +51,10 @@ def main(argv=None, device=None) -> int:
         drivers.proteas.run(input_file, device=device)
     elif (flag, choice) == ("-m", "ripf"):
         drivers.ripf.run(device=device)
+    elif (flag, choice) == ("-c", "hcc"):
+        drivers.coupled_hcc.run(device=device)
+    elif (flag, choice) == ("-u", "process_mesh"):
+        drivers.process_mesh.run()
     else:
         return 1
     return 0

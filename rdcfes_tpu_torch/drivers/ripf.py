@@ -103,11 +103,11 @@ def qp_fields(system, nodal: torch.Tensor) -> dict:
     ops = system.ops
     if system.affine:
         vals, g1 = ops.gather_interp_affine(nodal, system.conn_T, system.phi,
-                                            system.dphi0)
+                                            system.geom.dphi)
         g = g1[2][None]                                      # (1, 3, E)
     else:
         vals, gq = ops.gather_interp_generic(nodal, system.conn_T,
-                                             system.phi, system.dphi)
+                                             system.phi, system.geom.dphi)
         g = gq[2]                                            # (Q, 3, E)
     norm = torch.sqrt(torch.sum(g * g, dim=-2, keepdim=True))
     unit = torch.where(norm > 0.0, g / torch.where(norm == 0.0, 1.0, norm),

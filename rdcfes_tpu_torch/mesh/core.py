@@ -98,6 +98,11 @@ class Mesh:
     def nodes_per_elem(self) -> int:
         return NODES_PER_ELEM[self.elem_type]
 
+    def with_coords(self, coords: np.ndarray) -> "Mesh":
+        """The same mesh at other node positions."""
+        return dataclasses.replace(self, coords=np.asarray(coords,
+                                                           dtype=np.float64))
+
     def element_volumes(self) -> np.ndarray:
         """Exact element volumes (areas on TRI3/QUAD4): TET4 |det J| / 6,
         the other types the integral of det J at the default quadrature,

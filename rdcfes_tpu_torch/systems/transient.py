@@ -20,6 +20,13 @@ use (src/pihna.C:66-93):
      apply, K3 on TET4 and K6 on HEX8, followed by K4;
   5. clamp at zero (`check_solution`, src/pihna.C:760-803).
 
+Every stage of a step reads one geometry record (JxW, the shape
+gradients and their f32 casts).  On a fixed mesh it is the rest
+geometry, built once; with moving_mesh=True, `step` and `run_steps`
+build it from the coords they are given (the coupled HCC driver's
+deformed positions), the role of the reference app's fe->reinit on the
+moved mesh (src/coupled_hcc.C:114).
+
 Layouts are channel-first inside (u is (V, N)); the public state keeps the
 reference's (N, V) arrays.  PyTorch runs eagerly, so the step is plain
 Python: the reference's jit/scan machinery has no counterpart here.
@@ -28,11 +35,12 @@ Python: the reference's jit/scan machinery has no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..fem import elements
 from ..fem.assembly import build_sparsity, gather_tables
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
@@ -47,10 +55,20 @@ from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.device import cuda_device
 
 # where the unported options land (ROADMAP.md, queue 1)
-_MOVING = "ROADMAP queue 1 item 12 (coupled HCC, moving mesh)"
 _AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
 _ELEMENT_TYPES = ("TET4", "HEX8")  # TET4 affine, HEX8 generic
 _METHODS = {"bicgstab": bicgstab, "gmres": gmres}
+
+
+class Geometry(NamedTuple):
+    """The coordinate-dependent tables of a step.  dphi is what the
+    kernels take: one gradient per element, dphi[0] (K, 3, E), on the
+    affine TET4 path (q-invariant there), the per-q tables (Q, K, 3, E)
+    on HEX8."""
+    JxW: torch.Tensor      # (Q, E) f64
+    dphi: torch.Tensor     # f64
+    JxW32: torch.Tensor    # the f32 casts of the inner matvec
+    dphi32: torch.Tensor
 
 
 def clamp_nonnegative(u: torch.Tensor) -> torch.Tensor:
@@ -108,8 +126,8 @@ def refine_mixed(mv32: Callable, pre_matvec64: Callable,
 
 
 class TransientRDCSystem:
-    """A transient multi-species RDC system on a fixed single-type TET4 or
-    HEX8 mesh, stepped on the matrix-free qp path.
+    """A transient multi-species RDC system on a single-type TET4 or HEX8
+    mesh, fixed or moving, stepped on the matrix-free qp path.
 
     mesh            : host Mesh (TET4: the affine path; HEX8: the generic
                       path with per-q shape gradients)
@@ -126,6 +144,9 @@ class TransientRDCSystem:
     method          : "bicgstab" or "gmres", the f64 solver of
                       precision="f64"
     precond_refresh : recompute the block-Jacobi inverse every k steps
+    moving_mesh     : the geometry follows the `coords` (N, 3) that step
+                      and run_steps are given (required then); on a fixed
+                      mesh `coords` is ignored, as in the reference
     device          : where the tables and the state live; None (the
                       default) is the CUDA card (utils.device.cuda_device,
                       which raises without one: never the CPU)
@@ -150,8 +171,6 @@ class TransientRDCSystem:
                 f"HEX8): {_AMR}")
         if constraints is not None and len(constraints):
             raise NotImplementedError(f"hanging-node constraints: {_AMR}")
-        if moving_mesh:
-            raise NotImplementedError(f"moving mesh: {_MOVING}")
         if precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         if method not in _METHODS:
@@ -166,6 +185,7 @@ class TransientRDCSystem:
         self.maxiter = maxiter
         self.precision = precision
         self.precond_refresh = int(precond_refresh)
+        self.moving_mesh = bool(moving_mesh)
         self.device = cuda_device() if device is None else torch.device(device)
         self.ops = ops
         self._dinv_cache = None
@@ -178,17 +198,33 @@ class TransientRDCSystem:
         self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
                                       device=dev)
         self.node_gather = torch.as_tensor(node_gather, device=dev)
-        coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=dev)
-        self.phi, self.JxW, self.dphi = geometry_factors(
-            coords, torch.as_tensor(conn, device=dev), mesh.elem_type)
-        # f32 geometry of the inner matvec.  The affine path keeps one
-        # gradient per element, dphi[0] (K, 3, E): q-invariant on TET4.
-        self.JxW32 = self.JxW.to(torch.float32)
+        self.phi = elements.tabulate(mesh.elem_type)[0]  # coordinate-free
+        # the rest geometry; a moving mesh's step and run_steps build
+        # theirs from the coords they are given
+        self.geom = self._geom_from_coords(mesh.coords)
+
+    def _geom_from_coords(self, coords) -> Geometry:
+        """The geometry record at node positions coords (N, 3) (the
+        reference's _geom_from_coords, rdcfes_tpu/systems/transient.py:
+        1202-1222); phi does not depend on them and is reused."""
+        coords = torch.as_tensor(coords, dtype=torch.float64,
+                                 device=self.device)
+        _, JxW, dphi = geometry_factors(coords, self.conn_T.T,
+                                        self.mesh.elem_type)
         if self.affine:
-            self.dphi0 = self.dphi[0]
-            self.dphi0_32 = self.dphi0.to(torch.float32)
-        else:
-            self.dphi32 = self.dphi.to(torch.float32)
+            dphi = dphi[0].clone()  # one gradient per element
+        return Geometry(JxW, dphi, JxW.to(torch.float32),
+                        dphi.to(torch.float32))
+
+    def _moving_geom(self, coords) -> Optional[Geometry]:
+        """The geometry of a step or run_steps call: built from coords on
+        a moving mesh, None (the rest geometry) on a fixed one."""
+        if not self.moving_mesh:
+            return None
+        if coords is None:
+            raise ValueError("a moving_mesh system needs the current "
+                             "coords")
+        return self._geom_from_coords(coords)
 
     # ------------------------------------------------------------------
     def initial_state(self, u0) -> Dict[str, torch.Tensor]:
@@ -216,44 +252,45 @@ class TransientRDCSystem:
         return self.ops.restrict(Ye.reshape(self.n_vars, -1),
                                  self.node_gather)
 
-    def _step_body(self, state, fields, params, Dinv):
-        """One qp step (the reference's _qp_raw_body step_fn).  Dinv None =
-        build a fresh block-Jacobi inverse.  Returns (new_state, inner
-        iterations, residual, Dinv)."""
+    def _step_body(self, state, fields, params, Dinv, geom=None):
+        """One qp step (the reference's _qp_raw_body step_fn) on geometry
+        `geom` (None: the rest geometry).  Dinv None = build a fresh
+        block-Jacobi inverse.  Returns (new_state, inner iterations,
+        residual, Dinv)."""
         V, N = self.n_vars, self.mesh.n_nodes
         ops = self.ops
         f32 = torch.float32
+        g = self.geom if geom is None else geom
         u_T = state["u"].T.contiguous()
         if self.affine:
             u_qp, gx1 = ops.gather_interp_affine(u_T, self.conn_T, self.phi,
-                                                 self.dphi0)
+                                                 g.dphi)
             # one gradient per element, broadcast over q for the physics
             grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
         else:
             u_qp, grad_qp = ops.gather_interp_generic(u_T, self.conn_T,
-                                                      self.phi, self.dphi)
+                                                      self.phi, g.dphi)
         wfb = self.physics_blocks(u_qp, grad_qp, fields, params)
         if self.affine:
-            Fe = ops.rhs_affine(stack_rhs(wfb), self.JxW, self.phi,
-                                self.dphi0)
+            Fe = ops.rhs_affine(stack_rhs(wfb), g.JxW, self.phi, g.dphi)
         else:
-            Fe = block_rhs(wfb, self.phi, self.JxW, self.dphi)
+            Fe = block_rhs(wfb, self.phi, g.JxW, g.dphi)
         b = ops.restrict(Fe.reshape(V, -1), self.node_gather)
         if Dinv is None:
-            diag_fn = block_diag_affine if self.affine else block_diag
-            diag_e = diag_fn(wfb, self.phi, self.JxW, self.dphi)
+            if self.affine:
+                diag_e = block_diag_affine(wfb, self.phi, g.JxW, g.dphi[None])
+            else:
+                diag_e = block_diag(wfb, self.phi, g.JxW, g.dphi)
             D = ops.restrict(diag_e.reshape(V * V, -1), self.node_gather)
             Dinv = small_block_inverse(D.reshape(V, V, N), pivot=False)
         # the operator's stacked live blocks, f64; on the affine path with
         # the once-per-step diffusion q-sum that every matvec reuses
         if self.affine:
-            st64 = stack_apply(wfb, diffusion_presum(wfb, self.JxW))
-            dphi64 = self.dphi0
+            st64 = stack_apply(wfb, diffusion_presum(wfb, g.JxW))
         else:
             st64 = stack_apply_generic(wfb)
-            dphi64 = self.dphi
         pre_matvec = lambda x: apply_block_jacobi(
-            Dinv, self._matvec(x, st64, self.JxW, dphi64))
+            Dinv, self._matvec(x, st64, g.JxW, g.dphi))
         pre_b = apply_block_jacobi(Dinv, b)
         # linear extrapolation warm start
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
@@ -262,15 +299,12 @@ class TransientRDCSystem:
             # its diffusion q-sum taken in f32 (the reference's wfb.cast)
             wfb32 = wfb.cast(f32)
             if self.affine:
-                st32 = stack_apply(wfb32,
-                                   diffusion_presum(wfb32, self.JxW32))
-                dphi32 = self.dphi0_32
+                st32 = stack_apply(wfb32, diffusion_presum(wfb32, g.JxW32))
             else:
                 st32 = stack_apply_generic(wfb32)
-                dphi32 = self.dphi32
             Dinv32 = Dinv.to(f32)
             mv32 = lambda x: apply_block_jacobi(
-                Dinv32, self._matvec(x, st32, self.JxW32, dphi32))
+                Dinv32, self._matvec(x, st32, g.JxW32, g.dphi32))
             u_raw, iters, resid = refine_mixed(mv32, pre_matvec, pre_b, x0,
                                                self.rtol, self.maxiter)
         else:
@@ -295,11 +329,16 @@ class TransientRDCSystem:
              scalars: Optional[Dict] = None):
         """Advance one time step.  Returns (new_state, lin_iters,
         lin_residual).  The block-Jacobi inverse is rebuilt on the first
-        call and then every `precond_refresh` calls."""
-        if coords is not None:
-            raise NotImplementedError(f"moving mesh: {_MOVING}")
+        call and then every `precond_refresh` calls; on a moving mesh, on
+        every call, with the geometry at `coords` (the reference's
+        _step_moving, served here on the qp path with the same
+        operator)."""
+        geom = self._moving_geom(coords)
         fields = {**(fields or {}), **(scalars or {})}
         p = self._plain_params(params)
+        if geom is not None:
+            self._dinv_cache = None  # it belongs to another geometry
+            return self._step_body(state, fields, p, None, geom)[:3]
         if (self.precond_refresh > 1 and self._dinv_cache is not None
                 and self._steps_since_precond < self.precond_refresh):
             self._steps_since_precond += 1
@@ -373,13 +412,17 @@ class TransientRDCSystem:
         `field_update(state, aux, tr, *field_args) -> (fields, new_aux)`
         runs BEFORE each step, for fields derived from the carried
         solution (RIPF's time-derivative fields); `tr` holds that step's
-        scalar_traj values, `field_aux` is the first carry."""
-        if coords is not None:
-            raise NotImplementedError(f"moving mesh: {_MOVING}")
+        scalar_traj values, `field_aux` is the first carry.
+
+        On a moving mesh the geometry is built once, from `coords`, for
+        all n steps (the coupled driver moves the mesh only between
+        calls), and the block-Jacobi inverse cached by `step` is dropped
+        (the reference's run_steps(coords=), rdcfes_tpu/systems/
+        transient.py:1124-1130)."""
         n = int(n)
         if subcycle not in (None, 1):
             k = (self.choose_subcycle(state, fields=fields, params=params,
-                                      scalars=scalars,
+                                      scalars=scalars, coords=coords,
                                       scalar_traj=scalar_traj)
                  if subcycle == "auto" else int(subcycle))
             if k > 1:
@@ -391,7 +434,7 @@ class TransientRDCSystem:
                     state, n * k, fields=fields, params=p_sub,
                     scalars=scalars, scalar_traj=traj_sub or None,
                     field_update=field_update, field_aux=field_aux,
-                    field_args=field_args)
+                    field_args=field_args, coords=coords)
                 its = out[1].reshape(n, k).sum(dim=1)
                 ress = out[2].reshape(n, k)[:, -1]
                 return (out[0], its, ress) + out[3:]
@@ -403,6 +446,9 @@ class TransientRDCSystem:
                 raise ValueError(f"scalar_traj[{k!r}] must have shape "
                                  f"({n},), got {v.shape}")
         p = self._plain_params(params)
+        geom = self._moving_geom(coords)
+        if geom is not None:
+            self._dinv_cache = None
         refresh = max(1, self.precond_refresh)
         Dinv = None
         aux = field_aux
@@ -414,7 +460,7 @@ class TransientRDCSystem:
                 fu, aux = field_update(state, aux, tr, *field_args)
                 f = {**f, **fu}
             state, it, res, Dinv = self._step_body(
-                state, f, p, None if i % refresh == 0 else Dinv)
+                state, f, p, None if i % refresh == 0 else Dinv, geom)
             its.append(it)
             ress.append(res)
         ress = (torch.stack(ress) if ress

@@ -47,7 +47,7 @@ from rdcfes_tpu.mesh import box_hex_mesh, box_mixed_mesh, box_tet_mesh
 from rdcfes_tpu.mesh import gmsh as jgmsh
 
 from rdcfes_tpu_torch import cli
-from rdcfes_tpu_torch.drivers import adpm, pihna, solid
+from rdcfes_tpu_torch.drivers import adpm, coupled_hcc, pihna, solid
 from rdcfes_tpu_torch.io import vtu
 from rdcfes_tpu_torch.io.getpot import Deck
 from rdcfes_tpu_torch.utils.checkpoint import save_checkpoint
@@ -492,24 +492,26 @@ def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):
 
 def test_cli_dispatch(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    # -m proteas and -m ripf reach their drivers; only PROTEAS takes the
-    # deck of input=<file>
+    # -m proteas, -m ripf, -c hcc and -u process_mesh reach their drivers;
+    # only PROTEAS takes the deck of input=<file>, and process_mesh (host
+    # only, stdin prompts) no device
     from rdcfes_tpu_torch import drivers
 
     calls = []
-    for name in ("proteas", "ripf"):
+    for name in ("proteas", "ripf", "coupled_hcc", "process_mesh"):
         monkeypatch.setattr(getattr(drivers, name), "run",
                             lambda *a, _n=name, **kw: calls.append(
                                 (_n, a, kw)))
     assert cli.main(["-m", "proteas", "input=deck.dat"], device="cpu") == 0
     assert cli.main(["-m", "proteas"], device="cpu") == 0
     assert cli.main(["-m", "ripf", "input=deck.dat"], device="cpu") == 0
+    assert cli.main(["-c", "hcc"], device="cpu") == 0
+    assert cli.main(["-u", "process_mesh"], device="cpu") == 0
     assert calls == [("proteas", ("deck.dat",), {"device": "cpu"}),
                      ("proteas", ("input.dat",), {"device": "cpu"}),
-                     ("ripf", (), {"device": "cpu"})]
-    for argv in (["-c", "hcc"], ["-u", "process_mesh"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            cli.main(argv, device="cpu")
+                     ("ripf", (), {"device": "cpu"}),
+                     ("coupled_hcc", (), {"device": "cpu"}),
+                     ("process_mesh", (), {})]
     for argv in (["-x"], [], ["-m", "nonsense"], ["-m"], ["-c", "x"],
                  ["-u", "x"]):
         assert cli.main(argv, device="cpu") == 1
@@ -526,7 +528,7 @@ def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     _tiny_pihna_case(tmp_path)
-    for fn in (pihna.run, adpm.run, solid.run,
+    for fn in (pihna.run, adpm.run, solid.run, coupled_hcc.run,
                lambda: cli.main(["-m", "pihna"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()

@@ -150,20 +150,26 @@ def test_unported_paths_raise():
                              "TET10")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransientRDCSystem(tet10, 5, pihna_blocks, device="cpu")
-    for kw in ({"constraints": np.array([[0, 1, 2]])},
-               {"moving_mesh": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                           constraints=np.array([[0, 1, 2]]))
     for kw in ({"precision": "f16"}, {"method": "cg"}):
         with pytest.raises(ValueError):
             TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu", **kw)
+    # a moving mesh constructs, and its step needs the current coords
+    moving = TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                                moving_mesh=True)
+    for step in (lambda st: moving.step(st, params=p),
+                 lambda st: moving.run_steps(st, 1, params=p)):
+        with pytest.raises(ValueError, match="coords"):
+            step(moving.initial_state(u0))
+    # a fixed mesh ignores coords, as the reference does
     s = TransientRDCSystem(mesh, 5, pihna_blocks, precision="mixed",
                            device="cpu")
     st = s.initial_state(u0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.run_steps(st, 1, params=p, coords=mesh.coords)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.step(st, params=p, coords=mesh.coords)
+    moved, _, _ = s.run_steps(st, 1, params=p, coords=mesh.coords + 1.0)
+    fixed, _, _ = s.run_steps(st, 1, params=p)
+    assert torch.equal(moved["u"], fixed["u"])
     with pytest.raises(ValueError):
         s.step(st, params={"dt": np.float32(0.1)})
 
