@@ -142,7 +142,10 @@ Phases, one output line each (any failure raises, exit code != 0):
             converged Newton solves, K1, K2, K3 f64, K4 f64, K4 f32 and
             K5 f32 launched and K3 f32 not; its wall time, PerfLog's
             totals, RDC steps/s, s a load step, the Newton and inner
-            iterations and the launches; (d) `python3 -m
+            iterations and the launches, and what the RDC solves did
+            (breakdowns, zero-iteration steps, the other steps'
+            iterations) beside each frame's largest l, c and n, printed,
+            not asserted; (d) `python3 -m
             rdcfes_tpu_torch.cli -u process_mesh` as a process on the
             case mesh, its answers on stdin (scale 2, a translation,
             rotations of 30/45/60 degrees): exit code 0, the .msh, .ex2
@@ -1871,10 +1874,9 @@ def phase_coupled(dev, also):
                                 n_steps=HCC_STEPS, n_loading=HCC_LOADING)
         _hcc_kernels(d, dev, also)
 
-        newton, inner = [], []
+        newton, inner, maxiter = [], [], []
         run_solver = solid_mod.SolidSystem.run_solver
         run_steps = transient_mod.TransientRDCSystem.run_steps
-        step = transient_mod.TransientRDCSystem.step
 
         def rec_solver(self, x, pseudo_time):
             r = run_solver(self, x, pseudo_time)
@@ -1884,22 +1886,16 @@ def phase_coupled(dev, also):
         def rec_run_steps(self, *a, **kw):
             out = run_steps(self, *a, **kw)
             inner.extend(int(i) for i in out[1])
-            return out
-
-        def rec_step(self, *a, **kw):
-            out = step(self, *a, **kw)
-            inner.append(int(out[1]))
+            maxiter.append(self.maxiter)
             return out
 
         solid_mod.SolidSystem.run_solver = rec_solver
         transient_mod.TransientRDCSystem.run_steps = rec_run_steps
-        transient_mod.TransientRDCSystem.step = rec_step
         try:
             wall, counts, out = _drive(d, ["-c", "hcc"], dev)
         finally:
             solid_mod.SolidSystem.run_solver = run_solver
             transient_mod.TransientRDCSystem.run_steps = run_steps
-            transient_mod.TransientRDCSystem.step = step
         sim = os.path.join(d, "simulation")
         for t in HCC_OUTPUTS:
             require(os.path.exists(os.path.join(sim, f"out-{t}.vtu")),
@@ -1939,6 +1935,24 @@ def phase_coupled(dev, also):
             max_abs_u=f"{u_max:.6e}")
         say("14c hcc launches", **{k: counts[k] for k in
                                    HCC_KERNELS + ("apply_affine_f32",)})
+        # what the RDC solves did, step by step: a BiCGStab breakdown
+        # reports maxiter, and a step whose residual is not a number
+        # takes 0 iterations; the largest species values show the state
+        its = np.array(inner)
+        broke = np.nonzero(its >= maxiter[0])[0]
+        solved = its[(its > 0) & (its < maxiter[0])]
+        frames = {t: _vtu_arrays(os.path.join(sim, f"out-{t}.vtu"))
+                  for t in HCC_OUTPUTS}
+        say("14c hcc solves", breakdowns=len(broke),
+            first_breakdown_step=int(broke[0]) + 1 if len(broke) else None,
+            zero_iteration_steps=int((its == 0).sum()),
+            first_zero_iteration_step=(int(np.argmax(its == 0)) + 1
+                                       if (its == 0).any() else None),
+            iters_of_other_steps=int(solved.sum()),
+            median_iters_of_other_steps=(float(np.median(solved))
+                                         if len(solved) else None),
+            **{f"max_{n}_at_{t}": f"{float(frames[t][n].max()):.3e}"
+               for t in HCC_OUTPUTS for n in ("l", "c", "n")})
         _require_launched(counts, HCC_KERNELS, "the HCC driver")
         require(counts["apply_affine_f32"] == 0,
                 "the HCC driver runs f64: K3 f32 launched")

@@ -11,10 +11,11 @@ pseudo-time schedule (the mechano-taxis term is inert, models/hcc.py).
 
 The steps between two events (a loading point, an output, a checkpoint)
 go through one `run_steps(coords=x)` call, which builds the geometry from
-the positions x once; a one-step segment goes through `step(coords=x)`.
-x stays on the device.  The solid's precision follows the device as in
-drivers/solid.py (an f32 tangent and a mixed Krylov on the card, f64 on
-the CPU; the deck keys override).
+the positions x once; a one-step segment too, since on the port's qp
+path it is the same operator as the reference's assembled one-step
+`step(coords=x)`.  x stays on the device.  The solid's precision follows
+the device as in drivers/solid.py (an f32 tangent and a mixed Krylov on
+the card, f64 on the CPU; the deck keys override).
 
 Not ported, each raising NotImplementedError before the first step:
 remeshing (`remeshing_step` > 0 while `mesh/AMR/max_steps` > 0, ROADMAP
@@ -203,22 +204,16 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     with maybe_profile():
         t = start_step
         while t < n_steps:
+            # a one-step segment too: run_steps(coords=) is the same
+            # operator as the reference's assembled one-step path
             seg = next_event(t) - t
-            if seg > 1:
-                with plog.scope("rds solve"):
-                    state, _its, _res = rds.run_steps(state, seg,
-                                                      params=params, coords=x)
-                for j in range(seg):
-                    time_value += dt
-                    step_banner(t + 1 + j, n_steps, time_value, label="time")
-                t += seg
-            else:
-                t += 1
+            with plog.scope("rds solve"):
+                state, _its, _res = rds.run_steps(state, seg, params=params,
+                                                  coords=x)
+            for j in range(seg):
                 time_value += dt
-                step_banner(t, n_steps, time_value, label="time")
-                with plog.scope("rds solve"):
-                    state, _its, _res = rds.step(state, params=params,
-                                                 coords=x)
+                step_banner(t + 1 + j, n_steps, time_value, label="time")
+            t += seg
             if t in ltp:
                 # the solid's equilibrium only at the loading points
                 pseudo_time += loading_step
