@@ -12,12 +12,14 @@ the coupled HCC driver on the moving mesh with process_mesh (phase 14).
     python3 chip_smoke.py --phases 0,1,9,10,11,12  # HEX8, ADPM, calibration
     python3 chip_smoke.py --phases 0,1,13          # the CLI drivers
     python3 chip_smoke.py --phases 0,1,14          # HCC, process_mesh
+    python3 chip_smoke.py --phases 0,1,6,14        # K5 at both its shapes
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
             power limit of the card
   1 build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
-            seconds taken
+            seconds taken; ptxas's registers, shared memory and spills
+            of every kernel instance
   2 kernels each transient kernel against its plain PyTorch version on
             the bench mesh and initial state (f64 within 1e-13, f32 within
             1e-5, relative to the largest plain value), K4 also at the
@@ -36,7 +38,12 @@ Phases, one output line each (any failure raises, exit code != 0):
   6 solid kernels  K5 (f32, f64) and K4's matrix assembly (f32, f64) at
             the solid bench's shapes, on the tangent assembled at
             perturbed positions, against their plain versions (f64 within
-            1e-13, f32 within 1e-5), timed as in phase 2
+            1e-13, f32 within 1e-5), timed as in phase 2; K5 also two
+            launches bit-equal, and timed per call after a 128 MB read
+            that flushes the L2 (flushed_ms) and as 50 back-to-back
+            launches over 50 (b2b_ms); K5 f32 also on the tangent
+            padded with 6 zero slots (ell_matvec_f32_pad6: L = 33, a
+            width whose slot groups take two passes)
   7 solid paths  one load step on box_hex_mesh(12,12,12) with exact-f64
             options through the kernels and through the plain versions,
             relative L2 of the displacements within 1e-10
@@ -133,7 +140,8 @@ Phases, one output line each (any failure raises, exit code != 0):
             the geometry of the positions after one converged load step,
             and K4 f32 (the assembly) and K5 (f32, f64) on the TET4
             solid's tangent there, against their plain versions (f64
-            within 1e-13, f32 within 1e-5), timed as in phase 2; (c)
+            within 1e-13, f32 within 1e-5), timed as in phase 2, K5 as
+            in phase 6; (c)
             `-c hcc` in process on make_hcc_case(n=28, n_steps=400,
             n_loading=40), the shipped schedule (dt 0.01), launch counts
             reset just before and read just after: VTU frames 0, 200 and
@@ -411,8 +419,8 @@ def phase_device():
 
 
 def _ptxas_table(log: str):
-    """(kernel, registers, spill stores, spill loads) per entry function
-    of nvcc's -Xptxas -v output."""
+    """(kernel, registers, static shared memory bytes, spill stores, spill
+    loads) per entry function of nvcc's -Xptxas -v output."""
     import re
 
     rows, name, spill = [], None, (0, 0)
@@ -426,7 +434,9 @@ def _ptxas_table(log: str):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            rows.append((_demangle(name), int(m.group(1))) + spill)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append((_demangle(name), int(m.group(1)),
+                         int(smem.group(1)) if smem else 0) + spill)
             name = None
     return rows
 
@@ -451,9 +461,9 @@ def phase_build():
     rows = _ptxas_table(res.log)
     say("1 build", seconds=f"{res.seconds:.3f}", lib=res.path.name,
         kernels=len(rows))
-    for name, regs, st, ld in rows:
-        print(f"    ptxas: {name} registers={regs} spill_stores={st} "
-              f"spill_loads={ld}", flush=True)
+    for name, regs, smem, st, ld in rows:
+        print(f"    ptxas: {name} registers={regs} smem={smem} "
+              f"spill_stores={st} spill_loads={ld}", flush=True)
 
 
 def cuda_ms(fn, runs: int = 20) -> float:
@@ -475,6 +485,57 @@ def cuda_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
+_FLUSH = []
+
+
+def _flush_l2() -> None:
+    """Read 128 MB, 2.5 times the 50 MB L2, so that the next kernel finds
+    its inputs in HBM; a read leaves clean lines, so that kernel pays no
+    writebacks for the flush."""
+    if not _FLUSH:
+        _FLUSH.append(torch.ones(32 << 20, dtype=F32, device="cuda"))
+    _FLUSH[0].sum()
+
+
+def cuda_ms_flushed(fn, runs: int = 20) -> float:
+    """cuda_ms with the L2 flushed before each call (inside the device
+    sleep's cover, outside the events)."""
+    fn()
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        _flush_l2()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def cuda_ms_b2b(fn, n: int = 50, reps: int = 5) -> float:
+    """Device time of n back-to-back calls over n (median of reps), all
+    queued behind one device sleep that covers issuing them, so that each
+    launch overlaps the tail of the one before."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -489,10 +550,11 @@ def bound(n_bytes: int, flops: float, dtype) -> dict:
 
 
 def measure(phase, name, kern, plain, tol, library=None, n_bytes=0,
-            flops=0.0, dtype=F64):
+            flops=0.0, dtype=F64, k5=None):
     """Kernel vs plain version on the same inputs, then the timings; the
     launches made here do not count (counts are reset before each main
-    path)."""
+    path).  k5: the L2 state of the inputs between calls, for K5's extra
+    timings and its bit-equality (_k5_extra)."""
     out = kern()
     torch.cuda.synchronize()
     ref = plain()
@@ -507,7 +569,29 @@ def measure(phase, name, kern, plain, tol, library=None, n_bytes=0,
                     else f"{row['library_ms']:.4f}"),
         bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"])
     require(rel <= tol, f"{name}: relative error {rel:.3e} > {tol}")
+    if k5 is not None:
+        row.update(_k5_extra(phase, name, kern, row, **k5))
     return row
+
+
+def _k5_extra(phase, name, kern, row, l2, values):
+    """K5's second launch bit-equal to its first; its time per call after
+    an L2 flush and of 50 back-to-back calls, beside two yardsticks of the
+    same timer: a one-element fill (the floor of a launch that moves
+    nothing) and values.sum() after a flush (one streaming read of the
+    values alone)."""
+    require(torch.equal(kern(), kern()), f"{name}: two launches differ")
+    extra = {"flushed_ms": cuda_ms_flushed(kern), "b2b_ms": cuda_ms_b2b(kern)}
+    one = values.new_zeros(1)
+    floor_ms = cuda_ms(lambda: one.fill_(1.0))
+    stream_ms = cuda_ms_flushed(lambda: values.sum())
+    say(phase + " k5", name=name, l2=repr(l2), bitequal=True,
+        ms=f"{row['ms']:.4f}", flushed_ms=f"{extra['flushed_ms']:.4f}",
+        b2b_ms=f"{extra['b2b_ms']:.4f}", bound_ms=f"{row['bound_ms']:.4f}",
+        flushed_share=f"{row['bound_ms'] / extra['flushed_ms']:.4f}",
+        b2b_share=f"{row['bound_ms'] / extra['b2b_ms']:.4f}",
+        floor_ms=f"{floor_ms:.4f}", values_sum_flushed_ms=f"{stream_ms:.4f}")
+    return extra
 
 
 def _err(out, ref):
@@ -684,10 +768,11 @@ def phase_slice(dev):
 
 
 def solid_cases(S, x, pt):
-    """K4's matrix assembly (f32, f64) and K5 (f32, f64) cases on solid
-    `S` at positions x (N, 3) and pseudo-time pt: the element blocks and
-    the tangent assembled there, beside index_add_ and a cuSPARSE CSR mv
-    of the same operator.  Returns (cases, what the prints need)."""
+    """K4's matrix assembly (f32, f64) and K5 (f32, f64; f32 also with 6
+    zero slots more) cases on solid `S` at positions x (N, 3) and
+    pseudo-time pt: the element blocks and the tangent assembled there,
+    beside index_add_ and a cuSPARSE CSR mv of the same operator.  Returns
+    (cases, what the prints need)."""
     dev = x.device
     rng = np.random.default_rng(7)
     N = S.mesh.n_nodes
@@ -725,6 +810,23 @@ def solid_cases(S, x, pt):
     del coo, r_idx, c_idx
     xi64, xi32 = xv64.T.reshape(-1), xv32.T.reshape(-1)
     mv_flops = 2.0 * 9 * nnz
+
+    def k5(vell, cols, xv):
+        """K5's extra timings: the L2 state of its inputs between
+        calls."""
+        held = nbytes(vell, cols, xv, xv)
+        l2 = (f"{held / 1e6:.1f} MB > 50 MB L2: cold in every timing"
+              if held > 50e6 else
+              f"{held / 1e6:.1f} MB fit the 50 MB L2: warm in ms and "
+              f"b2b_ms, cold in flushed_ms")
+        return dict(l2=l2, values=vell)
+
+    # the same operator at a width no mesh here gives: 6 more slots, each
+    # a zero block on a valid column
+    L = cols.shape[0]
+    vpad32 = torch.cat([vell32, vell32.new_zeros((3, 3, 6, N))], dim=2)
+    cpad = torch.cat([cols, cols[-1:].expand(6, N)]).contiguous()
+
     entries = int((sg < flat32.shape[1]).sum())
     cases = {
         "restrict_f32": dict(
@@ -746,12 +848,20 @@ def solid_cases(S, x, pt):
             plain=lambda: K.ell_matvec_plain(vell32, cols, xv32), tol=1e-5,
             library=lambda: torch.mv(csr32, xi32),
             n_bytes=nbytes(vell32, cols, xv32, xv32), flops=mv_flops,
-            dtype=F32),
+            dtype=F32, k5=k5(vell32, cols, xv32)),
         "ell_matvec_f64": dict(
             kern=lambda: K.ell_matvec(vell64, cols, xv64),
             plain=lambda: K.ell_matvec_plain(vell64, cols, xv64), tol=1e-13,
             library=lambda: torch.mv(csr64, xi64),
-            n_bytes=nbytes(vell64, cols, xv64, xv64), flops=mv_flops),
+            n_bytes=nbytes(vell64, cols, xv64, xv64), flops=mv_flops,
+            k5=k5(vell64, cols, xv64)),
+        "ell_matvec_f32_pad6": dict(
+            kern=lambda: K.ell_matvec(vpad32, cpad, xv32),
+            plain=lambda: K.ell_matvec_plain(vpad32, cpad, xv32), tol=1e-5,
+            library=lambda: torch.mv(csr32, xi32),
+            n_bytes=nbytes(vpad32, cpad, xv32, xv32),
+            flops=mv_flops * (L + 6) / L, dtype=F32,
+            k5=k5(vpad32, cpad, xv32)),
     }
     lib_err = float((torch.mv(csr64, xi64).reshape(N, 3).T
                      - K.ell_matvec_plain(vell64, cols, xv64)).abs().max())
@@ -2005,6 +2115,7 @@ def main(argv=None) -> int:
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
+    k5_keys = ("flushed_ms", "b2b_ms")  # K5's rows only
     for name, (src, replaces) in KERNELS.items():
         # every path that ran, with its zeros
         by_path = {p: c.get(name, 0) for p, c in paths.items() if c}
@@ -2015,10 +2126,11 @@ def main(argv=None) -> int:
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
+        row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:
             also.setdefault(name, {})["solid assembly"] = solid_kern[name]
         if name in also:
-            row["also"] = {tag: {k: r[k] for k in keys}
+            row["also"] = {tag: {k: r[k] for k in keys + k5_keys if k in r}
                            for tag, r in also[name].items()}
         rows.append(row)
     print(card, flush=True)  # again beside the results, for a cut log

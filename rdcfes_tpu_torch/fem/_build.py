@@ -60,7 +60,8 @@ SIGNATURES = {
 class BuildResult(NamedTuple):
     path: Path
     seconds: float   # 0.0 when the library was already built
-    log: str         # nvcc's output (ptxas register/spill report)
+    log: str         # nvcc's output (ptxas register/spill report), kept
+                     # beside the library for a later load
 
 
 def _sources():
@@ -86,8 +87,10 @@ def build() -> BuildResult:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     lib = BUILD_DIR / f"librdcfes_kernels_{h.hexdigest()[:16]}.so"
+    log_path = lib.with_suffix(".log")
     if lib.is_file():
-        return BuildResult(lib, 0.0, "")
+        return BuildResult(lib, 0.0, log_path.read_text()
+                           if log_path.is_file() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
@@ -120,6 +123,7 @@ def build() -> BuildResult:
     if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log)
 

@@ -6,7 +6,9 @@ through the kernels against the same runs through the plain versions; K6
 (the generic element apply, HEX8), K7 (the calibration lookup) and K8 (the
 generic gather + interpolation) the same way, and ADPM steps on HEX8
 through K8, K6 and K4; K6 at 1 to 8 species on a mesh whose element count
-is odd, K4 at widths 1 to 25, and both on a side stream.
+is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
+and HEX8 ELL structures and on widths and block shapes outside them, two
+launches bit-equal and one on a side stream.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -205,28 +207,77 @@ def test_transient_kernel_path_matches_plain_path(cuda):
     assert np.linalg.norm(uk - up) / np.linalg.norm(up) < 1e-10
 
 
+def _ell_case(kind, V, W, dev, dtype, seed=21):
+    """(values_ell (V, W, L, N), cols (L, N), x (W, N)) for K5: the ELL
+    layout of a mesh's node-pair sparsity with random block values (pad
+    slots zero, as to_ell leaves them), or ("random", L, N) a table of
+    random columns of width L."""
+    rng = np.random.default_rng(seed)
+    if kind[0] == "random":
+        _, L, N = kind
+        cols = rng.integers(0, N, (L, N)).astype(np.int32)
+        vell = torch.as_tensor(rng.standard_normal((V, W, L, N)),
+                               dtype=dtype, device=dev)
+    else:
+        mesh = kind[0](*kind[1:])
+        N = mesh.n_nodes
+        sp = assembly.build_sparsity(mesh.connectivity, N)
+        cols, slot = assembly.ell_structure(sp)
+        values = torch.as_tensor(rng.standard_normal((V, W, sp.nnz)),
+                                 dtype=dtype, device=dev)
+        vell = bcsr.to_ell(values, torch.as_tensor(slot, device=dev))
+    x = torch.as_tensor(rng.standard_normal((W, N)), dtype=dtype,
+                        device=dev)
+    return vell, torch.as_tensor(cols, device=dev), x
+
+
+# (structure, V, W, the ELL width it must have)
+ELL_CASES = {
+    "tet4": ((box_tet_mesh, 5, 4, 3), 3, 3, 15),
+    "hex8": ((box_hex_mesh, 5, 4, 3), 3, 3, 27),
+    # 294 nodes: more than one node tile, the last one ragged
+    "hex8-ragged": ((box_hex_mesh, 6, 6, 5), 3, 3, 27),
+    # 68,921 nodes: many blocks on every SM
+    "hex8-large": ((box_hex_mesh, 40, 40, 40), 3, 3, 27),
+    "width7": (("random", 7, 1000), 3, 3, 7),
+    "width1": (("random", 1, 333), 3, 3, 1),
+    "tet4-V5-W2": ((box_tet_mesh, 5, 4, 3), 5, 2, 15),
+    "hex8-V4-W1": ((box_hex_mesh, 5, 4, 3), 4, 1, 27),
+    "width9-V2-W8": (("random", 9, 517), 2, 8, 9),
+    # 10 slots a group: passes of 4, 4 and 2
+    "width37": (("random", 37, 700), 3, 3, 37),
+}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
-                                       (torch.float32, 1e-5)])
-def test_ell_matvec_matches_plain(cuda, dtype, tol):
-    """K5 on the ELL layout of a hex mesh's node-pair sparsity, with
-    random block values (pad slots zero, as to_ell leaves them)."""
-    mesh = box_hex_mesh(5, 4, 3)
-    sp = assembly.build_sparsity(mesh.connectivity, mesh.n_nodes)
-    cols, slot = assembly.ell_structure(sp)
-    rng = np.random.default_rng(21)
-    values = torch.as_tensor(rng.standard_normal((3, 3, sp.nnz)),
-                             dtype=dtype, device=cuda)
-    vell = bcsr.to_ell(values, torch.as_tensor(slot, device=cuda))
-    c = torch.as_tensor(cols, device=cuda)
-    x = torch.as_tensor(rng.standard_normal((3, mesh.n_nodes)), dtype=dtype,
-                        device=cuda)
+                                       (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(ELL_CASES))
+def test_ell_matvec_matches_plain(cuda, case, dtype, tol):
+    """K5 against its plain version on the TET4 and HEX8 ELL structures
+    (widths 15 and 27), a ragged last node tile, a large system, other
+    widths (7, 1, 9, and 37: three passes a slot group) and blocks with
+    V != W or W = 1; two launches bit-equal, and a launch on a side
+    stream equal to them."""
+    kind, V, W, L = ELL_CASES[case]
+    vell, c, x = _ell_case(kind, V, W, cuda, dtype)
+    assert vell.shape[:3] == (V, W, L)
     tag = "f32" if dtype == torch.float32 else "f64"
     before = kernels.launch_counts()[f"ell_matvec_{tag}"]
     y = kernels.ell_matvec(vell, c, x)
     ref = bcsr.ell_matvec(vell, c, x)
     torch.cuda.synchronize()
-    assert y.dtype == dtype and rel(y, ref) < tol
+    assert y.dtype == dtype and y.shape == (V, vell.shape[3])
+    assert rel(y, ref) < tol
     assert kernels.launch_counts()[f"ell_matvec_{tag}"] == before + 1
+    assert torch.equal(kernels.ell_matvec(vell, c, x), y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ys = kernels.ell_matvec(vell, c, x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, y)
     with pytest.raises(TypeError):
         kernels.ell_matvec(vell, c.long(), x)
 

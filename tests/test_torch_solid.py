@@ -272,17 +272,19 @@ def test_assembly_gathers_and_k4_wrapper(case):
         assert rel(m, refM) < 1e-14 and rel(v, refV) < 1e-14
 
 
-def test_ell_structure_and_k5_wrapper(case):
+@pytest.mark.parametrize("elem,L", [("HEX8", 27), ("TET4", 15)])
+def test_ell_structure_and_k5_wrapper(elem, L):
     """ell_structure bit-equal; to_ell, ell_matvec (plain and kernels.
     ell_matvec on the CPU) and extract_diagonal_blocks against the
-    reference, f64 and f32."""
-    jm = case["jm"]
+    reference, f64 and f32: on the jittered hex mesh (ELL width 27) and
+    on box_tet_mesh(3,3,3) (width 15, the TET4 solid's)."""
+    jm = _jittered_hex() if elem == "HEX8" else jax_box_tet_mesh(3, 3, 3)
     sp = jasm.build_sparsity(jm.connectivity, jm.n_nodes)
     cols, slot = jasm.ell_structure(sp)
     tcols, tslot = assembly.ell_structure(
         assembly.build_sparsity(jm.connectivity, jm.n_nodes))
     assert np.array_equal(cols, tcols) and np.array_equal(slot, tslot)
-    assert cols.shape[0] == 27  # interior hex nodes touch 27 nodes
+    assert cols.shape[0] == L  # the nodes an interior node touches
     rng = np.random.default_rng(13)
     values = rng.standard_normal((3, 3, sp.nnz))
     x = rng.standard_normal((3, jm.n_nodes))
