@@ -4,7 +4,8 @@ check it: the PIHNA transient step on TET4 (phases 2-5), the hyperelastic
 solid load step (phases 6-8), the generic (HEX8) transient path with
 PIHNA and ADPM plus the launch-cost calibration (phases 9-12), the CLI
 with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13), and
-the coupled HCC driver on the moving mesh with process_mesh (phase 14).
+the coupled HCC driver on the moving mesh with process_mesh (phase 14),
+and the PIHNA driver with AMR and the native Gmsh parser (phase 15).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -13,13 +14,15 @@ the coupled HCC driver on the moving mesh with process_mesh (phase 14).
     python3 chip_smoke.py --phases 0,1,13          # the CLI drivers
     python3 chip_smoke.py --phases 0,1,14          # HCC, process_mesh
     python3 chip_smoke.py --phases 0,1,6,14        # K5 at both its shapes
+    python3 chip_smoke.py --phases 0,1,15          # AMR, the native parser
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
             power limit of the card
   1 build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
-            seconds taken; ptxas's registers, shared memory and spills
-            of every kernel instance
+            and beside them native/meshkit.cpp with the host g++, seconds
+            taken; ptxas's registers, shared memory and spills of every
+            kernel instance
   2 kernels each transient kernel against its plain PyTorch version on
             the bench mesh and initial state (f64 within 1e-13, f32 within
             1e-5, relative to the largest plain value), K4 also at the
@@ -141,7 +144,10 @@ Phases, one output line each (any failure raises, exit code != 0):
             and K4 f32 (the assembly) and K5 (f32, f64) on the TET4
             solid's tangent there, against their plain versions (f64
             within 1e-13, f32 within 1e-5), timed as in phase 2, K5 as
-            in phase 6; (c)
+            in phase 6; the solid's residual and tangent assembled three
+            times there, and its penalty residual computed three times,
+            each bit-equal to the first (the penalty terms are summed in
+            a fixed order, through K4); (c)
             `-c hcc` in process on make_hcc_case(n=28, n_steps=400,
             n_loading=40), the shipped schedule (dt 0.01), launch counts
             reset just before and read just after: VTU frames 0, 200 and
@@ -152,13 +158,36 @@ Phases, one output line each (any failure raises, exit code != 0):
             totals, RDC steps/s, s a load step, the Newton and inner
             iterations and the launches, and what the RDC solves did
             (breakdowns, zero-iteration steps, the other steps'
-            iterations) beside each frame's largest l, c and n, printed,
-            not asserted; (d) `python3 -m
+            iterations) beside each frame's largest l, c and n, K3 f64's
+            launches and a checksum of the last frame (sha256 of its VTU
+            file), so two calls can be compared, printed, not asserted;
+            (d) `python3 -m
             rdcfes_tpu_torch.cli -u process_mesh` as a process on the
             case mesh, its answers on stdin (scale 2, a translation,
             rotations of 30/45/60 degrees): exit code 0, the .msh, .ex2
             and .config written, the .msh re-read at the transformed
             coordinates within the writer's 6 significant digits
+  15 amr    (a) make_pihna_case(n=28)'s mesh (24,389 nodes, 131,712 TET4)
+            read by the native meshkit parser and by the NumPy parser:
+            equal arrays, both parse times; (b) `-m pihna` in process on
+            make_pihna_case(n=28, n_steps=120), the shipped deck with
+            refinement_step = 40 and mesh/AMR/max_steps = 2 (AMR at
+            steps 40 and 80), once with mesh/AMR/strategy = bisection and
+            once with 1to8, launch counts reset just before and read
+            just after: the element count before and after each AMR step
+            and the hanging-node count, the amr scope's seconds and the
+            wall time, K1-K4's launches, each run_steps call's inner
+            iterations and final residual; every step's residual <= the
+            rtol, the CSV and the 13 VTU frames, the last frame's
+            species finite and >= 0 on the refined mesh's cells, K1, K2,
+            K3 f64 and K4 f64 launched and K3 f32 not; then K1-K4 at the
+            refined mesh's shapes, with the final state and the PIHNA
+            blocks, against their plain versions (f64 within 1e-13), and
+            with 1to8 u_h = (u_a + u_b) / 2 in the final state within
+            1e-12 relative; (c) checkpoint and resume across AMR:
+            make_pihna_case(n=12, n_steps=10), 1to8 at step 4, a
+            checkpoint at step 6, then a resume from it: the final state
+            within 1e-12 relative of the uninterrupted run's
 
 Then nvidia-smi's name and power limit of the card once more, and one
 JSON line {"kernels": [...]}: one row per kernel variant with
@@ -456,11 +485,16 @@ def _demangle(sym: str) -> str:
 
 
 def phase_build():
+    from rdcfes_tpu_torch import native
+
     res = _build.build()
     _build.library()
+    mk = native.build()
+    native.library()
     rows = _ptxas_table(res.log)
     say("1 build", seconds=f"{res.seconds:.3f}", lib=res.path.name,
-        kernels=len(rows))
+        kernels=len(rows), meshkit_seconds=f"{mk.seconds:.3f}",
+        meshkit=mk.path.name)
     for name, regs, smem, st, ld in rows:
         print(f"    ptxas: {name} registers={regs} smem={smem} "
               f"spill_stores={st} spill_loads={ld}", flush=True)
@@ -1914,6 +1948,22 @@ def _hcc_kernels(d, dev, also):
         "14b hcc", s, u, lambda uq, gq: hcc_blocks(uq, gq, {}, params),
         s._geom_from_coords(r.x)).items()
         if k.partition("@")[0] in DRV_TRANSIENT}
+    # the solid's scatters are ordered sums: assemblies, and penalty
+    # residuals, are bit-equal from run to run
+    x_T = r.x.T.contiguous()
+    R1, V1 = S.assemble(x_T, pt)
+    zero = torch.zeros_like(x_T)
+    P1 = S._penalty_bc_residual(r.x, pt, zero)
+    for _ in range(2):
+        R2, V2 = S.assemble(x_T, pt)
+        require(torch.equal(R1, R2) and torch.equal(V1, V2),
+                "HCC: two assemblies of the solid differ")
+        require(torch.equal(P1, S._penalty_bc_residual(r.x, pt, zero)),
+                "HCC: two penalty residuals differ")
+    say("14b hcc bit-equal", assemblies=3, penalty_residuals=3,
+        tangent_dtype=str(V1.dtype).replace("torch.", ""),
+        residual_norm=f"{float(R1.norm()):.6e}",
+        penalty_norm=f"{float(P1.norm()):.6e}")
     scases, shapes, _ = solid_cases(S, r.x, pt)
     cases["restrict_f32@asm"] = scases["restrict_f32"]
     cases["ell_matvec_f32"] = scases["ell_matvec_f32"]
@@ -1967,6 +2017,7 @@ def phase_coupled(dev, also):
     driver's shapes on a deformed geometry (b); `-c hcc` in process on
     the shipped schedule at full width (c); `-u process_mesh` as a
     process (d)."""
+    import hashlib
     import os
     import shutil
     import tempfile
@@ -2053,7 +2104,11 @@ def phase_coupled(dev, also):
         solved = its[(its > 0) & (its < maxiter[0])]
         frames = {t: _vtu_arrays(os.path.join(sim, f"out-{t}.vtu"))
                   for t in HCC_OUTPUTS}
-        say("14c hcc solves", breakdowns=len(broke),
+        with open(os.path.join(sim, f"out-{HCC_OUTPUTS[-1]}.vtu"),
+                  "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        say("14c hcc solves", k3_f64_launches=counts["apply_affine_f64"],
+            last_frame_sha256=digest, breakdowns=len(broke),
             first_breakdown_step=int(broke[0]) + 1 if len(broke) else None,
             zero_iteration_steps=int((its == 0).sum()),
             first_zero_iteration_step=(int(np.argmax(its == 0)) + 1
@@ -2073,10 +2128,206 @@ def phase_coupled(dev, also):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 15: the PIHNA driver with AMR, and the native Gmsh parser
+# ----------------------------------------------------------------------
+AMR_N, AMR_STEPS, AMR_EVERY, AMR_PASSES = 28, 120, 40, 2
+AMR_OUTPUTS = tuple(range(0, AMR_STEPS + 1, 10))
+# the resume run: AMR at step 4, a checkpoint at step 6 (12^3 with brain
+# bounds: its refined nodes are exact in the Gmsh writer's 6 digits)
+AMR_RESUME_N, AMR_RESUME_STEPS, AMR_RESUME_AT, AMR_RESUME_CKPT = 12, 10, 4, 6
+
+
+def _amr_deck(d, every, passes, strategy, extra=""):
+    """The PIHNA case deck with AMR every `every` steps, `passes` times,
+    by `strategy`."""
+    import os
+
+    path = os.path.join(d, "input.dat")
+    text = open(path).read()
+    require("refinement_step = 10000" in text
+            and "mesh/AMR/max_steps = 1" in text, "PIHNA case deck changed")
+    text = text.replace("refinement_step = 10000",
+                        f"refinement_step = {every}")
+    text = text.replace("mesh/AMR/max_steps = 1",
+                        f"mesh/AMR/max_steps = {passes}")
+    with open(path, "w") as f:
+        f.write(text + f"mesh/AMR/strategy = {strategy}\n" + extra)
+
+
+def _drive_recorded(d, dev):
+    """_drive(-m pihna) recording each run_steps call: (steps, inner
+    iterations, residuals, the system, the final state)."""
+    from rdcfes_tpu_torch.systems import transient as transient_mod
+
+    calls = []
+    run_steps = transient_mod.TransientRDCSystem.run_steps
+
+    def recorded(self, state, n, *a, **kw):
+        out = run_steps(self, state, n, *a, **kw)
+        calls.append((n, out[1].tolist(), out[2].tolist(), self, out[0]))
+        return out
+
+    transient_mod.TransientRDCSystem.run_steps = recorded
+    try:
+        wall, counts, out = _drive(d, ["-m", "pihna"], dev)
+    finally:
+        transient_mod.TransientRDCSystem.run_steps = run_steps
+    return wall, counts, out, calls
+
+
+def _parsers(path):
+    """The native meshkit parser and the NumPy parser on one file."""
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.native import read_gmsh_native
+
+    t0 = time.perf_counter()
+    a = read_gmsh_native(path)
+    t1 = time.perf_counter()
+    b = gmsh.read_numpy(path)
+    t2 = time.perf_counter()
+    for name in ("coords", "connectivity", "subdomain_id", "boundary_faces",
+                 "boundary_elem", "boundary_side", "boundary_id"):
+        require(np.array_equal(getattr(a, name), getattr(b, name)),
+                f"the parsers' {name} differ")
+    say("15a parsers", n_nodes=a.n_nodes, n_elems=a.n_elems,
+        native_s=f"{t1 - t0:.4f}", numpy_s=f"{t2 - t1:.4f}",
+        equal_arrays=True)
+
+
+def _amr_run(root, strategy, dev, also):
+    """`-m pihna` with AMR at steps 40 and 80 by `strategy`, its checks,
+    and K1-K4 at the refined mesh's shapes."""
+    import os
+    import re
+
+    from rdcfes_tpu_torch import cases
+
+    d = cases.make_pihna_case(os.path.join(root, strategy), n=AMR_N,
+                              n_steps=AMR_STEPS)
+    if strategy == "bisection":
+        _parsers(os.path.join(d, "Brain_Model.msh"))
+    _amr_deck(d, AMR_EVERY, AMR_PASSES, strategy)
+    wall, counts, out, calls = _drive_recorded(d, dev)
+    amr = re.findall(r"AMR step (\d+): adapted to (\d+) elements"
+                     r"(?: \((\d+) hanging nodes\))?", out)
+    require(len(amr) == AMR_PASSES,
+            f"AMR {strategy}: {len(amr)} adaptations, not {AMR_PASSES}")
+    require(out.count(" ==== Step") == AMR_STEPS, f"AMR {strategy}: banners")
+    res_dir = os.path.join(d, "PIHNA_simulation")
+    _transient_artifacts(res_dir, "Brain_Model", AMR_OUTPUTS,
+                         ("n", "c", "h", "v", "a"))
+    with open(os.path.join(res_dir,
+                           f"Brain_Model-{AMR_OUTPUTS[-1]}.vtu")) as f:
+        cells = int(re.search(r'NumberOfCells="(\d+)"', f.read()).group(1))
+    _, _, _, s, state = calls[-1]
+    require(cells == s.mesh.n_elems == int(amr[-1][1]),
+            f"AMR {strategy}: the last frame has {cells} cells")
+    ress = [r for c in calls for r in c[2]]
+    require(sum(c[0] for c in calls) == AMR_STEPS, "AMR: steps")
+    require(max(ress) <= s.rtol, f"AMR {strategy}: a residual "
+            f"{max(ress):.3e} > rtol {s.rtol}")
+    totals = _perf_totals(out)
+    before = AMR_N ** 3 * 6
+    say(f"15 amr {strategy}", seconds=f"{wall:.4f}",
+        amr_s=f"{totals.get('amr', 0.0):.4f}",
+        **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+           for k in DRV_PHASES},
+        steps=AMR_STEPS, elements_before=before,
+        **{f"elements_after_step_{t}": e for t, e, _ in amr},
+        **({f"hanging_after_step_{t}": h for t, _, h in amr}
+           if strategy == "1to8" else {}),
+        final_nodes=s.mesh.n_nodes)
+    say(f"15 amr {strategy} solves",
+        **{f"call{i}": f"{n}steps/{sum(its)}iters/{ress_[-1]:.3e}"
+           for i, (n, its, ress_, _, _) in enumerate(calls)})
+    say(f"15 amr {strategy} launches",
+        **{k: counts[k] for k in DRV_TRANSIENT + ("apply_affine_f32",)})
+    _require_launched(counts, DRV_TRANSIENT, f"the AMR ({strategy}) driver")
+    require(counts["apply_affine_f32"] == 0,
+            "the PIHNA driver runs f64: K3 f32 launched")
+    params = _pihna_deck_params(d)
+    u = state["u"].T.contiguous()
+    kcases = {k: c for k, c in affine_cases(
+        f"15 amr {strategy}", s, u,
+        lambda uq, gq: pihna_blocks(uq, gq, {}, params)).items()
+        if k.partition("@")[0] in DRV_TRANSIENT}
+    run_cases("15 amr kernel", kcases, {}, also, label=f"amr {strategy}")
+    if strategy == "1to8":
+        c = s.cons
+        require(c is not None and c.n_hanging == int(amr[-1][2]),
+                "AMR 1to8: the system's constraints")
+        uu = state["u"]
+        err = float((uu[c.hang] - 0.5 * (uu[c.a] + uu[c.b])).abs().max()
+                    / uu.abs().max())
+        say("15 amr 1to8 constraint", hanging=c.n_hanging,
+            max_rel_err=f"{err:.3e}", bar=1e-12)
+        require(err <= 1e-12, f"u_h != (u_a + u_b) / 2: {err:.3e}")
+    return counts
+
+
+def _pihna_deck_params(d):
+    import os
+
+    from rdcfes_tpu_torch.drivers import pihna as dpihna
+    from rdcfes_tpu_torch.io.getpot import Deck
+
+    return dpihna.load_params(Deck(os.path.join(d, "input.dat")))
+
+
+def _amr_resume(root, dev):
+    """1to8 AMR at step 4, a checkpoint at step 6; the resumed run's final
+    state against the uninterrupted run's."""
+    import os
+    import shutil
+
+    from rdcfes_tpu_torch import cases
+
+    d = cases.make_pihna_case(os.path.join(root, "resume"), n=AMR_RESUME_N,
+                              n_steps=AMR_RESUME_STEPS)
+    _amr_deck(d, AMR_RESUME_AT, 1, "1to8",
+              f"checkpoint/step = {AMR_RESUME_CKPT}\n")
+    wall, _, out, calls = _drive_recorded(d, dev)
+    full = calls[-1][4]["u"]
+    ck = os.path.join(root, "checkpoint")
+    os.makedirs(ck)
+    for name in ("checkpoint.npz", "checkpoint_mesh.msh"):
+        shutil.copy(os.path.join(d, "PIHNA_simulation", name), ck)
+    with open(os.path.join(d, "input.dat"), "a") as f:
+        f.write(f"checkpoint/resume = {ck}/checkpoint.npz\n")
+    wall2, _, out2, calls2 = _drive_recorded(d, dev)
+    require("resumed on AMR mesh" in out2, "AMR resume: not on the AMR mesh")
+    resumed = calls2[-1][4]["u"]
+    require(resumed.shape == full.shape, "AMR resume: shapes differ")
+    err = float((resumed - full).abs().max() / full.abs().max())
+    say("15c amr resume", seconds=f"{wall:.4f}", resume_seconds=f"{wall2:.4f}",
+        n_nodes=full.shape[0], hanging=calls[-1][3].cons.n_hanging,
+        resumed_steps=sum(c[0] for c in calls2), max_rel_err=f"{err:.3e}",
+        bar=1e-12)
+    require(err <= 1e-12, f"AMR resume: {err:.3e} from the uninterrupted run")
+
+
+def phase_amr(dev, also):
+    """The native parser against the NumPy one (a); the PIHNA driver with
+    AMR by bisection and by 1to8 at full width (b); checkpoint and resume
+    across AMR (c)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="rdcfes_amr_")
+    try:
+        paths = {f"amr {st}": _amr_run(root, st, dev, also)
+                 for st in ("bisection", "1to8")}
+        _amr_resume(root, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2112,6 +2363,8 @@ def main(argv=None) -> int:
         paths["drivers"] = phase_drivers(dev, also)
     if 14 in phases:
         paths["coupled"] = phase_coupled(dev, also)
+    if 15 in phases:
+        paths.update(phase_amr(dev, also))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")

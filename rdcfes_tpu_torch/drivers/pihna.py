@@ -5,13 +5,28 @@ Flow: deck -> results dir -> Gmsh read + processed copy -> nodal ICs
 (n, c, h, v, a) + elemental structure (HU, RT) -> time loop (rotate
 history, linearized-CN solve, clamp >= 0) -> CSV volumes + VTU/PVD at the
 output time points, and an optional checkpoint every `checkpoint/step`.
+The steps between two events (an output, a checkpoint or an AMR step)
+go through one `run_steps` call.
 
-The steps between two events (an output or a checkpoint) go through one
-`run_steps` call.  Not ported, each raising NotImplementedError before
-the first step: AMR (an adaptation step `t % refinement_step == 0` in
-1..time_step_number while `mesh/AMR/max_steps` > 0, ROADMAP queue 1 item
-13), a checkpoint written after AMR (`amr_done` or `constraints`, item
-13), `parallel/n_devices` > 1 (item 14), and meshes other than
+AMR (src/pihna.C:805-840: KellyErrorEstimator +
+flag_elements_by_mean_stddev + refine_and_coarsen_elements + reinit): at
+every `refinement_step`, up to `mesh/AMR/max_steps` times, the state
+comes off the device once, the Kelly indicator is summed over the five
+species, elements are flagged by the mean-stddev rule
+(`mesh/AMR/refine_percentage`, `mesh/AMR/coarsen_percentage`), and the
+mesh is adapted on the host: on TET4 by `mesh/AMR/strategy` "bisection"
+(the default: conforming bisection with coarsening, mesh/adapt.py) or
+"1to8" (selective 1:8 with hanging-node constraints and coarsening,
+mesh/constrain.py), both capped by `mesh/AMR/max_level`; on HEX8 by
+uniform 1:8 when anything is flagged (mesh/refine.refine_flagged).  The
+structure (HU, RT) is carried to the new elements, the state is
+P1-prolonged, and the system is rebuilt on the new mesh (with its
+hanging-node constraints).  A checkpoint written after AMR holds the
+refined mesh (`checkpoint_mesh.msh` beside it), the structure, `amr_done`
+and the constraints, and a resume goes on from that mesh.
+
+Not ported, each raising NotImplementedError before the first step:
+`parallel/n_devices` > 1 (ROADMAP queue 1 item 14) and meshes other than
 single-type TET4 or HEX8 (item 13).
 """
 
@@ -19,20 +34,21 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
+from ..fem.amr import flag_by_mean_stddev, kelly_error_indicator
 from ..io import dat, provenance
 from ..io.csv_metrics import pihna_header, pihna_row
 from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter, elemental_to_nodal
-from ..mesh import gmsh
+from ..mesh import (AdaptiveMesh, ConstrainedMesh, adapt_flagged, gmsh,
+                    refine_flagged)
 from ..models.pihna import PIHNA_VARS, pihna_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
                      output_time_points, step_banner)
-
-_AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
 
 
 def load_params(deck: Deck) -> dict:
@@ -93,18 +109,11 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     dt = deck("time_step", 1.0e-9)
     refinement_step = deck("refinement_step", 1 + n_steps)
     amr_max_steps = deck("mesh/AMR/max_steps", 0)
-    if amr_max_steps > 0 and 0 < refinement_step <= n_steps:
-        raise NotImplementedError(
-            f"AMR at step {refinement_step} (refinement_step = "
-            f"{refinement_step}, mesh/AMR/max_steps = {amr_max_steps}): "
-            f"{_AMR}")
-    # consumed as the reference consumes them; they only steer AMR
-    for key, default in (("mesh/AMR/max_level", 3),
-                         ("mesh/AMR/refine_percentage", 0.5),
-                         ("mesh/AMR/coarsen_percentage", 0.5),
-                         ("mesh/AMR/strategy", "bisection"),
-                         ("mesh/skip_renumber_nodes_and_elements", True)):
-        deck(key, default)
+    amr_max_level = deck("mesh/AMR/max_level", 3)
+    amr_refine_frac = deck("mesh/AMR/refine_percentage", 0.5)
+    amr_coarsen_frac = deck("mesh/AMR/coarsen_percentage", 0.5)
+    amr_strategy = str(deck("mesh/AMR/strategy", "bisection"))
+    deck("mesh/skip_renumber_nodes_and_elements", True)
     DIR = provenance.prepare_results_dir(
         deck("directory", "") or None, deck_path, [input_nodal, input_elem]
     )
@@ -126,16 +135,44 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     params = load_params(deck)
     ranges = load_ranges(deck)
+
+    def _amr_state(m):
+        """(bisection forest, constrained 1:8 mesh): the one the deck's
+        strategy picks on TET4; neither on HEX8 (uniform refinement)."""
+        if m.elem_type != "TET4":
+            return None, None
+        if amr_strategy == "1to8":
+            return None, ConstrainedMesh(m)
+        return AdaptiveMesh(m), None
+
+    amr_done = 0
+    sys_kw = {}
+    resume_msg = None
     if ckpt_resume:
         st, start_step, time_value, extra = load_checkpoint(ckpt_resume,
                                                             params)
-        if "amr_done" in extra or "constraints" in extra:
-            raise NotImplementedError(
-                f"{ckpt_resume} was written after AMR: {_AMR}")
+        ck_mesh = os.path.join(os.path.dirname(ckpt_resume),
+                               "checkpoint_mesh.msh")
+        if "amr_done" in extra and os.path.exists(ck_mesh):
+            # written after AMR: the state lives on the refined mesh saved
+            # beside it, with its structure and hanging-node constraints
+            mesh = gmsh.read(ck_mesh)
+            amr_done = int(extra["amr_done"])
+            structure = extra["structure"]
+            if "constraints" in extra and len(extra["constraints"]):
+                sys_kw["constraints"] = np.asarray(extra["constraints"])
+            resume_msg = f"resumed on AMR mesh ({mesh.n_elems} elements)"
+    amesh, cmesh = _amr_state(mesh)
+    if cmesh is not None and "constraints" in sys_kw:
+        # the 1to8 hanging set is restored (the bisection forest, and
+        # the 1:8 one, are not: pre-checkpoint refinements cannot coarsen)
+        cmesh.hanging = {(int(a), int(b)): int(h)
+                         for h, a, b in sys_kw["constraints"]}
 
     with plog.scope("system setup"):
-        system = make_rdc_system(mesh, 5, pihna_blocks, deck, device=dev)
-        state = system.initial_state(u0)
+        system = make_rdc_system(mesh, 5, pihna_blocks, deck, device=dev,
+                                 **sys_kw)
+        state = system.initial_state(u0) if not ckpt_resume else None
 
     paraview = ParaviewWriter(mesh)
     # a resumed run in the same results dir appends to the CSV and the
@@ -159,6 +196,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             paraview.update_pvd(fields, t)
 
     if ckpt_resume:
+        if resume_msg:
+            print(resume_msg)
         state = system.scatter_state(st)
         print(f"resumed from {ckpt_resume} at step {start_step}")
     else:
@@ -167,6 +206,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     def next_event(t: int) -> int:
         nxt = n_steps
+        if refinement_step > 0 and amr_done < amr_max_steps:
+            nxt = min(nxt, ((t // refinement_step) + 1) * refinement_step)
         if ckpt_step:
             nxt = min(nxt, ((t // ckpt_step) + 1) * ckpt_step)
         future = [s for s in otp if s > t]
@@ -192,11 +233,67 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                 step_banner(t, n_steps, time_value)
                 with plog.scope("solve"):
                     state, _its, _res = system.step(state, params=params)
+            if (refinement_step > 0 and t % refinement_step == 0
+                    and amr_done < amr_max_steps):
+                amr_done += 1
+                with plog.scope("amr"):
+                    gstate = system.gather_state(state)  # off the device
+                    eta = kelly_error_indicator(mesh, gstate["u"],
+                                                range(5))
+                    flags, coarsen = flag_by_mean_stddev(
+                        eta, amr_refine_frac, amr_coarsen_frac)
+                    if cmesh is not None:
+                        r = cmesh.refine_and_coarsen(
+                            flags, coarsen, max_level=amr_max_level)
+                    elif amesh is not None:
+                        r = adapt_flagged(amesh, flags, coarsen,
+                                          max_level=amr_max_level)
+                    else:
+                        r = refine_flagged(mesh, flags)
+                    if r is None:
+                        print(f"AMR step {t}: nothing flagged, mesh "
+                              f"unchanged")
+                    else:
+                        sys_kw = {}
+                        if cmesh is not None:
+                            cmesh = r.constrained
+                            mesh = cmesh.mesh
+                            cons = cmesh.constraints
+                            structure = r.transfer_elemental(structure)
+                            if len(cons):
+                                sys_kw["constraints"] = cons
+                            print(f"AMR step {t}: adapted to "
+                                  f"{mesh.n_elems} elements ({len(cons)} "
+                                  f"hanging nodes)")
+                        else:
+                            mesh = r.mesh
+                            if amesh is not None:
+                                amesh = r.adaptive
+                            structure = r.restrict_elemental(structure)
+                            print(f"AMR step {t}: adapted to "
+                                  f"{mesh.n_elems} elements")
+                        hu_nodal = elemental_to_nodal(mesh, structure[:, 0])
+                        rt_nodal = elemental_to_nodal(mesh, structure[:, 1])
+                        system = make_rdc_system(mesh, 5, pihna_blocks, deck,
+                                                 device=dev, **sys_kw)
+                        state = system.scatter_state(
+                            {k: r.prolong(v) for k, v in gstate.items()})
+                        paraview.mesh = mesh
             if ckpt_step and t % ckpt_step == 0:
                 with plog.scope("checkpoint"):
+                    extras = {}
+                    if amr_done:
+                        gmsh.write(mesh, os.path.join(DIR,
+                                                      "checkpoint_mesh.msh"))
+                        extras = {"structure": structure,
+                                  "amr_done": np.asarray(amr_done)}
+                        if cmesh is not None and len(cmesh.constraints):
+                            # the refined mesh is nonconforming without
+                            # its hanging-node constraints
+                            extras["constraints"] = cmesh.constraints
                     save_checkpoint(os.path.join(DIR, "checkpoint.npz"),
                                     system.gather_state(state), t,
-                                    time_value, params)
+                                    time_value, params, **extras)
             if t in otp:
                 save(t, time_value)
 

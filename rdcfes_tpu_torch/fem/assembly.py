@@ -51,8 +51,32 @@ class NodePairSparsity(NamedTuple):
 
 
 def build_sparsity(connectivity: np.ndarray, n_nodes: int) -> NodePairSparsity:
-    """Node-pair block sparsity + per-element slot table (the reference's
-    NumPy path; its native meshkit path gives the same arrays)."""
+    """Node-pair block sparsity + per-element slot table, through the
+    native meshkit runtime (rdcfes_tpu.fem.assembly.build_sparsity's
+    native path; `build_sparsity_numpy` is its plain version, with the
+    same arrays)."""
+    from ..native import build_sparsity_native
+
+    rows, cols, slots, nnz = build_sparsity_native(connectivity, n_nodes)
+    return _with_row_tables(n_nodes, nnz, rows, cols, slots)
+
+
+def _with_row_tables(n_nodes, nnz, rows, cols, slots) -> NodePairSparsity:
+    row_ptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.add.at(row_ptr, rows + 1, 1)
+    row_ptr = np.cumsum(row_ptr)
+    diag = np.nonzero(rows == cols)[0]
+    diag_slots = np.full(n_nodes, -1, dtype=np.int32)
+    diag_slots[rows[diag]] = diag.astype(np.int32)
+    return NodePairSparsity(
+        n_nodes=n_nodes, nnz=nnz, rows=rows, cols=cols, slots=slots,
+        row_ptr=row_ptr, diag_slots=diag_slots,
+    )
+
+
+def build_sparsity_numpy(connectivity: np.ndarray, n_nodes: int
+                         ) -> NodePairSparsity:
+    """The NumPy sparsity builder (the reference's NumPy path)."""
     conn = np.asarray(connectivity, dtype=np.int64)
     E, K = conn.shape
     rows = np.repeat(conn, K, axis=1).reshape(E, K, K)  # rows[e,i,j] = conn[e,i]
@@ -62,17 +86,8 @@ def build_sparsity(connectivity: np.ndarray, n_nodes: int) -> NodePairSparsity:
     nnz = uniq.shape[0]
     u_rows = (uniq // n_nodes).astype(np.int32)
     u_cols = (uniq % n_nodes).astype(np.int32)
-    row_ptr = np.zeros(n_nodes + 1, dtype=np.int64)
-    np.add.at(row_ptr, u_rows + 1, 1)
-    row_ptr = np.cumsum(row_ptr)
-    diag = np.nonzero(u_rows == u_cols)[0]
-    diag_slots = np.full(n_nodes, -1, dtype=np.int32)
-    diag_slots[u_rows[diag]] = diag.astype(np.int32)
-    return NodePairSparsity(
-        n_nodes=n_nodes, nnz=nnz, rows=u_rows, cols=u_cols,
-        slots=inv.reshape(E, K, K).astype(np.int32), row_ptr=row_ptr,
-        diag_slots=diag_slots,
-    )
+    return _with_row_tables(n_nodes, nnz, u_rows, u_cols,
+                            inv.reshape(E, K, K).astype(np.int32))
 
 
 def ell_structure(sp: NodePairSparsity) -> Tuple[np.ndarray, np.ndarray]:

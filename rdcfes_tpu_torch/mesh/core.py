@@ -160,3 +160,25 @@ def extract_boundary_faces(
     elem_ids = (idx // n_sides).astype(np.int32)
     side_ids = (idx % n_sides).astype(np.int32)
     return flat[idx].astype(np.int32), elem_ids, side_ids
+
+
+def element_neighbors(connectivity: np.ndarray, elem_type: str) -> np.ndarray:
+    """Neighbour element per (element, side), -1 on the boundary: faces
+    keyed by sorted node ids and matched in pairs (libMesh's
+    `elem->neighbor_ptr(s)`, as rdcfes_tpu.mesh.core.element_neighbors)."""
+    conn = np.asarray(connectivity)
+    faces_def = ELEMENT_FACES[elem_type]
+    n_sides = len(faces_def)
+    E = conn.shape[0]
+    all_faces = np.stack([conn[:, list(fd)] for fd in faces_def], axis=1)
+    flat = np.sort(all_faces.reshape(E * n_sides, all_faces.shape[-1]),
+                   axis=-1)
+    order = np.lexsort(flat.T[::-1])
+    flat_sorted = flat[order]
+    same_as_next = np.all(flat_sorted[:-1] == flat_sorted[1:], axis=1)
+    neighbors = np.full(E * n_sides, -1, dtype=np.int64)
+    a = order[:-1][same_as_next]
+    b = order[1:][same_as_next]
+    neighbors[a] = b // n_sides
+    neighbors[b] = a // n_sides
+    return neighbors.reshape(E, n_sides).astype(np.int32)

@@ -10,6 +10,12 @@ subdomain id).  Node and element ids are compacted to 0-based indices in
 FILE ORDER: the initial-condition files are read in that order
 (src/pihna.C:287-310).
 
+A file path goes through the native meshkit parser (native/, built with
+the host C++ compiler at first use), as the reference's does
+(rdcfes_tpu/mesh/gmsh.py:66-83); a file it does not take, and a text
+stream, go through the NumPy parser below, the plain version, which gives
+the same arrays.
+
 A file whose volume elements are of more than one type, or of a type
 other than TET4 and HEX8 (TET10, PRISM6, PYRAMID5, the hexes of order 2,
 a 2D mesh), raises NotImplementedError: ROADMAP queue 1 item 13.
@@ -36,7 +42,25 @@ _FACE_CODE = {"TET4": 2, "HEX8": 3}
 
 
 def read(path_or_file: Union[str, TextIO]) -> Mesh:
-    """Read a Gmsh 2.x ASCII mesh (a path or a text stream) into a Mesh."""
+    """Read a Gmsh 2.x ASCII mesh (a path or a text stream) into a Mesh:
+    a path whose header is Gmsh 2.x through the native parser, anything
+    else, or a file the native parser refuses, through `read_numpy`."""
+    if isinstance(path_or_file, str):
+        with open(path_or_file, "r") as f:
+            head = f.read(64)
+        if "$MeshFormat\n2" in head:
+            from ..native import read_gmsh_native
+
+            try:
+                return read_gmsh_native(path_or_file)
+            except ValueError:
+                pass  # the NumPy parser reads it, or says what is wrong
+    return read_numpy(path_or_file)
+
+
+def read_numpy(path_or_file: Union[str, TextIO]) -> Mesh:
+    """The NumPy parser: a Gmsh 2.x ASCII mesh (a path or a text stream)
+    into a Mesh."""
     if isinstance(path_or_file, str):
         with open(path_or_file, "r") as f:
             text = f.read()

@@ -13,7 +13,10 @@ stack, in functional form:
   tables (fem.assembly.assemble_*_gather): kernel K4 on the card;
 * penalty Dirichlet conditions on deformed-vs-reference positions, scaled
   by pseudo-time * 1.000001, NaN = free axis (src/solid_system.C:273-371),
-  with the reference's inexact linearization (psi_i psi_j * penalty only);
+  with the reference's inexact linearization (psi_i psi_j * penalty only),
+  their face terms summed onto nodes and blocks through the inverse
+  tables of their targets too (K4), so every sum of an assembly has a
+  fixed order and two assemblies are bit-equal;
 * post-processing: per-element averaged Cauchy stress -> pressure and Von
   Mises, and the fibre push-forward F eta (src/solid_system.C:394-538).
 
@@ -207,12 +210,19 @@ class SolidSystem:
             # sorted uniques, so searchsorted finds them
             keys = self.sp.rows.astype(np.int64) * mesh.n_nodes + self.sp.cols
             fkeys = fc[:, :, None] * mesh.n_nodes + fc[:, None, :]
+            slots = np.searchsorted(keys, fkeys)
+            # the penalty terms are summed onto nodes and blocks in a fixed
+            # order, through the inverse tables of their targets (K4 on
+            # the card), so two assemblies are bit-equal
             self.bc_groups.append({
                 "face_type": FACE_TYPE[mesh.elem_type],
                 "faces": t(fc, torch.int64),
                 "mask": t(np.concatenate(bmask).astype(np.float64)),
                 "disp": t(np.concatenate(bdisp)),
-                "slots": t(np.searchsorted(keys, fkeys), torch.int64),
+                "node_gather": idx(invert_scatter(fc.reshape(-1),
+                                                  mesh.n_nodes)),
+                "slot_gather": idx(invert_scatter(slots.reshape(-1),
+                                                  self.sp.nnz)),
             })
         self._newton = NewtonSolver(self.sp, newton, device=dev, ops=ops)
 
@@ -280,7 +290,8 @@ class SolidSystem:
             masked = diff * g["mask"][:, None, :]
             Rf = self.penalty * torch.einsum("fq,qi,fqv->vfi", JxWf, psi,
                                              masked)
-            R = R.index_add(1, faces.reshape(-1), Rf.reshape(3, -1))
+            R = R + self.ops.restrict(Rf.reshape(3, -1).contiguous(),
+                                      g["node_gather"])
         return R
 
     def _penalty_bc_values(self, x, values):
@@ -298,8 +309,8 @@ class SolidSystem:
             Kblocks = (eye[:, :, None, None, None]
                        * g["mask"].T.to(dt_)[:, None, :, None, None]
                        * Kf_pen[None, None, :, :, :])
-            values = values.index_add(2, g["slots"].reshape(-1),
-                                      Kblocks.reshape(3, 3, -1))
+            values = values + self.ops.restrict(
+                Kblocks.reshape(9, -1), g["slot_gather"]).reshape(3, 3, -1)
         return values
 
     # ------------------------------------------------------------------

@@ -20,6 +20,19 @@ use (src/pihna.C:66-93):
      apply, K3 on TET4 and K6 on HEX8, followed by K4;
   5. clamp at zero (`check_solution`, src/pihna.C:760-803).
 
+With `constraints=` (rows [h, a, b]: u_h = (u_a + u_b) / 2, the hanging
+nodes of a 1:8-refined mesh, mesh/constrain.py) the solve runs on the
+constrained operator C^T A C inside full vectors, as the reference's
+does (rdcfes_tpu/systems/transient.py:619-634): `c_apply` gives every
+hanging entry its masters' mean before each element apply, `ct_fold`
+folds the hanging rows onto their two masters after every restriction
+and on b, the block-Jacobi diagonal takes the folded quarter blocks and
+an identity on the hanging rows, the Krylov vectors keep zeros there,
+and the solved and the clamped u get `c_apply` again.  Both are plain
+torch index ops without atomics: `c_apply` an index_copy onto the
+hanging rows, `ct_fold` a gather-sum through the inverse table of the
+masters in a fixed order, so the step stays bit-equal from run to run.
+
 Every stage of a step reads one geometry record (JxW, the shape
 gradients and their f32 casts).  On a fixed mesh it is the rest
 geometry, built once; with moving_mesh=True, `step` and `run_steps`
@@ -41,7 +54,8 @@ import numpy as np
 import torch
 
 from ..fem import elements
-from ..fem.assembly import build_sparsity, gather_tables
+from ..fem.assembly import build_sparsity, gather_tables, invert_scatter
+from ..fem.assembly import restrict as gather_sum
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
                            stack_rhs)
@@ -69,6 +83,60 @@ class Geometry(NamedTuple):
     dphi: torch.Tensor     # f64
     JxW32: torch.Tensor    # the f32 casts of the inner matvec
     dphi32: torch.Tensor
+
+
+class Constraints:
+    """Hanging-node constraints u_h = (u_a + u_b) / 2 on channel-first
+    tensors (W, N): rows [h, a, b] (H, 3), every a and b a master dof."""
+
+    def __init__(self, rows: np.ndarray, device):
+        rows = np.asarray(rows, dtype=np.int64)
+        H = len(rows)
+        ends = np.concatenate([rows[:, 1], rows[:, 2]])  # (2H,)
+        masters, inv = np.unique(ends, return_inverse=True)
+        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                         device=device)
+        self.hang = as_t(rows[:, 0])
+        self.a = as_t(rows[:, 1])
+        self.b = as_t(rows[:, 2])
+        self.masters = as_t(masters)
+        # column c of this table: the c-th of each master's hanging
+        # contributions in [y_h of a's rows | y_h of b's rows], pad 2H
+        self.fold_table = as_t(invert_scatter(inv, len(masters)))
+        self.n_hanging = H
+
+    def c_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """C: every hanging entry set to the mean of its masters."""
+        return x.index_copy(1, self.hang,
+                            0.5 * (x[:, self.a] + x[:, self.b]))
+
+    def fold(self, y: torch.Tensor, weight: float) -> torch.Tensor:
+        """weight * y_h added onto both masters of every h, summed per
+        master in a fixed order; the hanging entries are left as they
+        are."""
+        part = weight * y[:, self.hang]
+        add = gather_sum(torch.cat([part, part], dim=1), self.fold_table)
+        return y.index_copy(1, self.masters, y[:, self.masters] + add)
+
+    def ct_fold(self, y: torch.Tensor) -> torch.Tensor:
+        """C^T, embedded: the hanging rows folded onto their masters, then
+        zero."""
+        return self.pin(self.fold(y, 0.5))
+
+    def pin(self, x: torch.Tensor) -> torch.Tensor:
+        """x with zeros on the hanging entries."""
+        return x.index_fill(1, self.hang, 0.0)
+
+    def fold_diagonal(self, D: torch.Tensor) -> torch.Tensor:
+        """The block-Jacobi diagonal (V, V, N) of C^T A C: each hanging
+        block's quarter onto both masters, identity blocks on the hanging
+        rows (so iterates stay zero there)."""
+        V = D.shape[0]
+        D = self.fold(D.reshape(V * V, -1), 0.25)
+        eye = torch.eye(V, dtype=D.dtype, device=D.device).reshape(V * V, 1)
+        D = D.index_copy(1, self.hang,
+                         eye.expand(V * V, self.n_hanging).contiguous())
+        return D.reshape(V, V, -1)
 
 
 def clamp_nonnegative(u: torch.Tensor) -> torch.Tensor:
@@ -144,6 +212,9 @@ class TransientRDCSystem:
     method          : "bicgstab" or "gmres", the f64 solver of
                       precision="f64"
     precond_refresh : recompute the block-Jacobi inverse every k steps
+    constraints     : (H, 3) rows [h, a, b], the hanging nodes u_h =
+                      (u_a + u_b) / 2 of mesh/constrain.ConstrainedMesh,
+                      or None
     moving_mesh     : the geometry follows the `coords` (N, 3) that step
                       and run_steps are given (required then); on a fixed
                       mesh `coords` is ignored, as in the reference
@@ -169,8 +240,6 @@ class TransientRDCSystem:
             raise NotImplementedError(
                 f"{mesh.elem_type} meshes (element tables beyond TET4 and "
                 f"HEX8): {_AMR}")
-        if constraints is not None and len(constraints):
-            raise NotImplementedError(f"hanging-node constraints: {_AMR}")
         if precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         if method not in _METHODS:
@@ -198,6 +267,9 @@ class TransientRDCSystem:
         self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
                                       device=dev)
         self.node_gather = torch.as_tensor(node_gather, device=dev)
+        self.cons = (Constraints(constraints, dev)
+                     if constraints is not None and len(constraints)
+                     else None)
         self.phi = elements.tabulate(mesh.elem_type)[0]  # coordinate-free
         # the rest geometry; a moving mesh's step and run_steps build
         # theirs from the coords they are given
@@ -245,12 +317,14 @@ class TransientRDCSystem:
     def _matvec(self, x, stacks, JxW, dphi):
         """Matrix-free operator: the gather + element apply (K3 with the
         element's one gradient table on TET4, K6 with the per-q tables on
-        HEX8), then K4."""
+        HEX8), then K4; with constraints C^T A C."""
         apply = (self.ops.apply_affine if self.affine
                  else self.ops.apply_generic)
+        if self.cons is not None:
+            x = self.cons.c_apply(x)
         Ye = apply(x, self.conn_T, self.phi, JxW, dphi, stacks)
-        return self.ops.restrict(Ye.reshape(self.n_vars, -1),
-                                 self.node_gather)
+        y = self.ops.restrict(Ye.reshape(self.n_vars, -1), self.node_gather)
+        return y if self.cons is None else self.cons.ct_fold(y)
 
     def _step_body(self, state, fields, params, Dinv, geom=None):
         """One qp step (the reference's _qp_raw_body step_fn) on geometry
@@ -276,13 +350,19 @@ class TransientRDCSystem:
         else:
             Fe = block_rhs(wfb, self.phi, g.JxW, g.dphi)
         b = ops.restrict(Fe.reshape(V, -1), self.node_gather)
+        cons = self.cons
+        if cons is not None:
+            b = cons.ct_fold(b)
         if Dinv is None:
             if self.affine:
                 diag_e = block_diag_affine(wfb, self.phi, g.JxW, g.dphi[None])
             else:
                 diag_e = block_diag(wfb, self.phi, g.JxW, g.dphi)
-            D = ops.restrict(diag_e.reshape(V * V, -1), self.node_gather)
-            Dinv = small_block_inverse(D.reshape(V, V, N), pivot=False)
+            D = ops.restrict(diag_e.reshape(V * V, -1),
+                             self.node_gather).reshape(V, V, N)
+            if cons is not None:
+                D = cons.fold_diagonal(D)
+            Dinv = small_block_inverse(D, pivot=False)
         # the operator's stacked live blocks, f64; on the affine path with
         # the once-per-step diffusion q-sum that every matvec reuses
         if self.affine:
@@ -294,6 +374,8 @@ class TransientRDCSystem:
         pre_b = apply_block_jacobi(Dinv, b)
         # linear extrapolation warm start
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
+        if cons is not None:
+            x0 = cons.pin(x0)  # iterate on the masters: hanging entries 0
         if self.precision == "mixed":
             # the f32 operator is built from f32 casts of the f64 blocks,
             # its diffusion q-sum taken in f32 (the reference's wfb.cast)
@@ -311,7 +393,13 @@ class TransientRDCSystem:
             r = _METHODS[self.method](pre_matvec, pre_b, x0=x0,
                                       rtol=self.rtol, maxiter=self.maxiter)
             u_raw, iters, resid = r.x, r.iters, r.residual
-        u_new = self.clamp(u_raw)
+        if cons is not None:
+            # the hanging values follow the solved masters, and again
+            # the clamped ones
+            u_raw = cons.c_apply(u_raw)
+            u_new = cons.c_apply(self.clamp(u_raw))
+        else:
+            u_new = self.clamp(u_raw)
         new_state = {"u": u_new.T, "u_old": state["u"],
                      "u_older": state["u_old"], "u_raw": u_raw.T}
         return new_state, iters, resid, Dinv

@@ -46,10 +46,12 @@ from rdcfes_tpu.io import vtu as jvtu
 from rdcfes_tpu.mesh import box_hex_mesh, box_mixed_mesh, box_tet_mesh
 from rdcfes_tpu.mesh import gmsh as jgmsh
 
+import rdcfes_tpu_torch.mesh as pmesh
 from rdcfes_tpu_torch import cli
 from rdcfes_tpu_torch.drivers import adpm, coupled_hcc, pihna, solid
 from rdcfes_tpu_torch.io import vtu
 from rdcfes_tpu_torch.io.getpot import Deck
+from rdcfes_tpu_torch.mesh import gmsh as pgmsh
 from rdcfes_tpu_torch.utils.checkpoint import save_checkpoint
 
 from tests.torch_helpers import quick_compile
@@ -169,6 +171,14 @@ def _run(case_dir, fn, writer_cls) -> Run:
                frames)
 
 
+def _keep_each(save):
+    """save_checkpoint that also keeps checkpoint-<step>.npz."""
+    def keep(path, state, step, *a, **kw):
+        save(path, state, step, *a, **kw)
+        shutil.copy(path, path.replace(".npz", f"-{step}.npz"))
+    return keep
+
+
 def _pihna_inputs():
     mesh = box_tet_mesh(3, 3, 3)
     rng = np.random.default_rng(0)
@@ -189,14 +199,9 @@ def pihna_runs(tmp_path_factory):
                                                       "pihna_port")]
     for d in dirs:
         _write_case(d, mesh, PIHNA_DECK, u0, structure)
-    keep = jutils.save_checkpoint
-
-    def keep_each(path, state, step, *a, **kw):  # checkpoint-<step>.npz
-        keep(path, state, step, *a, **kw)
-        shutil.copy(path, path.replace(".npz", f"-{step}.npz"))
-
     with quick_compile(), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jutils, "save_checkpoint", keep_each)
+        mp.setattr(jutils, "save_checkpoint",
+                   _keep_each(jutils.save_checkpoint))
         ref = _run(dirs[0], lambda: jpihna.run("input.dat"),
                    jvtu.ParaviewWriter)
     port = _run(dirs[1], lambda: pihna.run("input.dat", device="cpu"),
@@ -433,6 +438,155 @@ def test_solid_precision_follows_the_device():
     assert d.unused_keys() == []
 
 
+# ----------------------------------------------------------------------
+# PIHNA with AMR (the reference's tests/test_drivers.py:487 case, on a
+# box whose refined nodes the Gmsh writer's 6 digits keep exactly)
+# ----------------------------------------------------------------------
+AMR_DECK = PIHNA_DECK + """refinement_step = 2
+mesh/AMR/max_steps = 1
+mesh/AMR/strategy = {strategy}
+"""
+
+
+def _amr_inputs(mesh):
+    Kk = 2.39e5
+    u0 = np.zeros((mesh.n_nodes, 5))
+    mid = mesh.coords.mean(axis=0)
+    r2 = ((mesh.coords - mid) ** 2).sum(axis=1)
+    u0[:, 1] = 0.05 * Kk * np.exp(-r2 / 0.1)  # a localised seed: jumps
+    u0[:, 3] = 0.03 * Kk
+    u0[:, 4] = 1e-9
+    structure = np.random.default_rng(2).random((mesh.n_elems, 2))
+    return u0, structure
+
+
+@pytest.fixture(scope="module", params=["bisection", "1to8"])
+def pihna_amr_runs(request, tmp_path_factory):
+    """(reference run, port run) of 3 steps with AMR at step 2, each
+    step's checkpoint kept."""
+    strategy = request.param
+    mesh = box_tet_mesh(3, 3, 3, bounds=((0, 1.5),) * 3)
+    u0, structure = _amr_inputs(mesh)
+    dirs = [str(tmp_path_factory.mktemp(f"amr_{strategy}_{t}"))
+            for t in ("ref", "port")]
+    for d in dirs:
+        _write_case(d, mesh, AMR_DECK.format(strategy=strategy), u0,
+                    structure)
+    with quick_compile(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jutils, "save_checkpoint",
+                   _keep_each(jutils.save_checkpoint))
+        ref = _run(dirs[0], lambda: jpihna.run("input.dat"),
+                   jvtu.ParaviewWriter)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pihna, "save_checkpoint", _keep_each(save_checkpoint))
+        port = _run(dirs[1], lambda: pihna.run("input.dat", device="cpu"),
+                    vtu.ParaviewWriter)
+    return strategy, mesh, ref, port
+
+
+def test_pihna_amr_driver_matches_reference(pihna_amr_runs):
+    """The refined mesh (processed copy and checkpoint mesh byte-equal),
+    the carried structure (HU, RT), the CSV rows within 1e-10 relative,
+    the species within 1e-10 relative L2 per field and frame, the
+    checkpoint's AMR arrays equal, and the banners with the AMR line."""
+    strategy, mesh, ref, port = pihna_amr_runs
+    names = _check_files(ref, port, [
+        "output.msh", "input.dat", "output4paraview.pvd",
+        "checkpoint_mesh.msh"])
+    assert "checkpoint_mesh.msh" in names
+    _check_csv(ref, port)
+    _check_species(ref, port, ("n", "c", "h", "v", "a"))
+    for (_, fa, _), (_, fb, _) in zip(ref.frames, port.frames):
+        np.testing.assert_allclose(fb["HU"], fa["HU"], rtol=1e-15, atol=0)
+        np.testing.assert_allclose(fb["RT"], fa["RT"], rtol=1e-15, atol=0)
+    n_last = len(port.frames[-1][1]["c"])
+    assert mesh.n_nodes < n_last
+    assert _summary_lines(port.stdout) == _summary_lines(ref.stdout)
+    amr_line = [ln for ln in port.stdout.splitlines()
+                if ln.startswith("AMR step 2: adapted to")]
+    assert len(amr_line) == 1
+    assert ("hanging nodes" in amr_line[0]) == (strategy == "1to8")
+    assert re.search(r"^ amr +1 ", port.stdout, re.M)
+    a = np.load(os.path.join(ref.out, "checkpoint.npz"))
+    b = np.load(os.path.join(port.out, "checkpoint.npz"))
+    assert sorted(a.files) == sorted(b.files)
+    assert int(b["amr_done"]) == 1
+    np.testing.assert_allclose(b["structure"], a["structure"], rtol=1e-15)
+    if strategy == "1to8":
+        assert len(b["constraints"])
+        assert np.array_equal(a["constraints"], b["constraints"])
+        u = port.frames[-1][1]
+        h, ia, ib = b["constraints"].T
+        for name in ("n", "c", "h", "v", "a"):
+            np.testing.assert_allclose(u[name][h],
+                                       0.5 * (u[name][ia] + u[name][ib]),
+                                       rtol=1e-12, atol=0)
+
+
+def test_pihna_amr_resume_equals_uninterrupted(pihna_amr_runs, tmp_path):
+    """The reference's step-2 checkpoint, written after AMR, resumed in
+    the port's driver on the refined mesh (with its hanging nodes under
+    1to8), ends within 1e-12 of the port's uninterrupted run; the
+    port's own step-2 checkpoint resumes to the same frame."""
+    strategy, mesh, ref, port = pihna_amr_runs
+    u0, structure = _amr_inputs(mesh)
+    last = port.frames[-1][1]
+    for i, src in enumerate((ref.out, port.out)):
+        d = tmp_path / f"resume{i}"
+        d.mkdir()
+        ck = os.path.join(src, "checkpoint-2.npz")
+        _write_case(str(d), mesh, AMR_DECK.format(strategy=strategy)
+                    + f"checkpoint/resume = '{ck}'\n", u0, structure)
+        resumed = _run(str(d), lambda: pihna.run("input.dat", device="cpu"),
+                       vtu.ParaviewWriter)
+        assert "resumed on AMR mesh" in resumed.stdout
+        assert [f[0] for f in resumed.frames] == [3]
+        fr = resumed.frames[0][1]
+        for name in ("n", "c", "h", "v", "a"):
+            assert np.linalg.norm(fr[name] - last[name]) <= \
+                1e-12 * np.linalg.norm(last[name]), (src, name)
+
+
+def test_pihna_amr_hex8_matches_reference_refinement(tmp_path, monkeypatch):
+    """HEX8 refines uniformly where anything is flagged: the port's
+    driver state right after its AMR step equals the reference's Kelly,
+    flags, refine_flagged and prolongation applied to the port's state
+    before it (a reference HEX8 PIHNA step program takes about a minute
+    to compile, so the steps themselves are held to the reference by
+    tests/test_torch_generic.py), and the refined mesh's file is the
+    reference writer's."""
+    from rdcfes_tpu.fem import amr as jamr
+    from rdcfes_tpu.mesh import refine_flagged as jrefine_flagged
+
+    mesh = box_hex_mesh(2, 2, 2, bounds=((0, 1.5),) * 3)
+    u0, structure = _amr_inputs(mesh)
+    saved = {}
+    monkeypatch.setattr(pihna, "save_checkpoint",
+                        _keep_each(save_checkpoint))
+    for name, deck in (("plain", PIHNA_DECK),
+                       ("amr", AMR_DECK.format(strategy="bisection"))):
+        d = tmp_path / name
+        d.mkdir()
+        _write_case(str(d), mesh, deck, u0, structure)
+        saved[name] = _run(str(d), lambda: pihna.run("input.dat",
+                                                     device="cpu"),
+                           vtu.ParaviewWriter)
+    before = np.load(os.path.join(saved["plain"].out, "checkpoint-2.npz"))
+    after = np.load(os.path.join(saved["amr"].out, "checkpoint-2.npz"))
+    eta = jamr.kelly_error_indicator(mesh, before["u"], list(range(5)))
+    flags, _ = jamr.flag_by_mean_stddev(eta, 0.5, 0.5)
+    r = jrefine_flagged(mesh, flags)
+    assert r is not None and r.mesh.n_elems == 8 * mesh.n_elems
+    for k in ("u", "u_old", "u_older", "u_raw"):
+        np.testing.assert_allclose(after[k], r.prolong(before[k]),
+                                   rtol=1e-15, atol=0)
+    np.testing.assert_array_equal(after["structure"],
+                                  r.restrict_elemental(structure))
+    with open(os.path.join(saved["amr"].out, "checkpoint_mesh.msh")) as f:
+        assert f.read() == jgmsh.dumps(r.mesh)
+    assert len(saved["amr"].frames[-1][1]["c"]) == r.mesh.n_nodes
+
+
 def _tiny_pihna_case(d, extra=""):
     mesh = box_tet_mesh(1, 1, 2)
     _write_case(str(d), mesh, PIHNA_DECK.replace("checkpoint/step = 1\n", "")
@@ -441,30 +595,57 @@ def _tiny_pihna_case(d, extra=""):
 
 
 @pytest.mark.parametrize("extra", [
-    "refinement_step = 2\nmesh/AMR/max_steps = 1\n",
     "parallel/n_devices = 2\n",
     "mixed mesh",
-    "amr checkpoint",
 ])
 def test_pihna_unported_raise_before_any_step(extra, tmp_path, monkeypatch,
                                               capsys):
-    """AMR within the run, several devices, a MIXED mesh and a checkpoint
-    written after AMR each raise NotImplementedError before a step."""
+    """Several devices and a MIXED mesh each raise NotImplementedError
+    before a step."""
     if extra == "mixed mesh":
         _tiny_pihna_case(tmp_path)
         jgmsh.write(box_mixed_mesh(3, 1, 1), str(tmp_path / "input.msh"))
-    elif extra == "amr checkpoint":
-        ck = str(tmp_path / "ck.npz")
-        _tiny_pihna_case(tmp_path, f"checkpoint/resume = '{ck}'\n")
-        deck = Deck(str(tmp_path / "input.dat"))
-        save_checkpoint(ck, {"u": np.ones((12, 5))}, 1, 0.1,
-                        pihna.load_params(deck), amr_done=np.asarray(1))
     else:
         _tiny_pihna_case(tmp_path, extra)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         pihna.run("input.dat", device="cpu")
     assert " ==== Step" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [
+    "refinement_step = 2\nmesh/AMR/max_steps = 1\n",
+    "amr checkpoint",
+])
+def test_pihna_amr_cases_run(extra, tmp_path, monkeypatch, capsys):
+    """What raised before AMR was ported runs: an AMR step within the run
+    (the tiny case's 6 TET4 split by bisection), and a resume from a
+    checkpoint written after AMR, onto its refined mesh."""
+    monkeypatch.chdir(tmp_path)
+    if extra == "amr checkpoint":
+        mesh = box_tet_mesh(1, 1, 2)
+        refined = pmesh.refine_uniform(pmesh.box_tet_mesh(1, 1, 2)).mesh
+        ck = str(tmp_path / "ck.npz")
+        _tiny_pihna_case(tmp_path, f"checkpoint/resume = '{ck}'\n")
+        deck = Deck(str(tmp_path / "input.dat"))
+        u = np.ones((refined.n_nodes, 5))
+        pgmsh.write(refined, str(tmp_path / "checkpoint_mesh.msh"))
+        save_checkpoint(ck, {k: u for k in ("u", "u_old", "u_older",
+                                             "u_raw")}, 1, 0.1,
+                        pihna.load_params(deck), amr_done=np.asarray(1),
+                        structure=np.zeros((refined.n_elems, 2)))
+        out = pihna.run("input.dat", device="cpu")
+        text = capsys.readouterr().out
+        assert f"resumed on AMR mesh ({refined.n_elems} elements)" in text
+        assert mesh.n_elems < refined.n_elems
+    else:
+        _tiny_pihna_case(tmp_path, extra)
+        out = pihna.run("input.dat", device="cpu")
+        text = capsys.readouterr().out
+        assert "AMR step 2: " in text
+    assert " ==== Step    3 out of    3" in text
+    c = _arrays(os.path.join(out, "output4paraview-3.vtu"))["c"]
+    assert np.isfinite(np.array(c.split(), dtype=float)).all()
 
 
 def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):

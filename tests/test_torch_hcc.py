@@ -396,3 +396,55 @@ def test_unported_hcc_paths_raise(tmp_path, monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="item 13"):
         run()
     assert " ==== Step" not in capsys.readouterr().out
+
+
+def test_shipped_hcc_schedule_diverges_in_both_packages(tmp_path,
+                                                        monkeypatch):
+    """The HCC case on its shipped schedule's ratio (a load step every
+    10 RDC steps) and rtol 3e-11, at n = 3, for 40 steps through both
+    packages' drivers: the RDC state runs away in both (the largest
+    species value, equal in both, past 1e8 by step 30), and both take the
+    same per-step inner iterations through step 32, one apart at most at
+    steps 33-35 (l past 1e8, each solve stopping near rtol), reach the
+    first residual that is not a number at the same step, 36, and take 0
+    iterations from there.  The divergence is the model's, not the
+    port's."""
+    import rdcfes_tpu.systems.transient as jtransient
+
+    record = {"ref": ([], [], []), "port": ([], [], [])}
+
+    def recording(cls, key):
+        orig = cls.run_steps
+
+        def run_steps(self, st, n, *a, **kw):
+            out = orig(self, st, n, *a, **kw)
+            record[key][0].extend(np.asarray(out[1]).tolist())
+            record[key][1].extend(np.asarray(out[2]).tolist())
+            record[key][2].append(float(np.abs(np.asarray(out[0]["u"])).max()))
+            return out
+        monkeypatch.setattr(cls, "run_steps", run_steps)
+
+    recording(jtransient.TransientRDCSystem, "ref")
+    recording(TransientRDCSystem, "port")
+    for key, make, run in (
+            ("ref", jcases.make_hcc_case, lambda: jhcc.run("input.dat")),
+            ("port", cases.make_hcc_case,
+             lambda: coupled_hcc.run("input.dat", device="cpu"))):
+        d = str(tmp_path / key)
+        make(d, n=3, n_steps=40, n_loading=4)
+        _run(d, run, vtu.ParaviewWriter if key == "port"
+             else jvtu.ParaviewWriter)
+    (its_r, res_r, big_r), (its_p, res_p, big_p) = (record["ref"],
+                                                    record["port"])
+    assert len(its_r) == len(its_p) == 40
+    # the largest species value after steps 10, 20, 30: equal, and past
+    # 1e8 by step 30
+    np.testing.assert_allclose(big_p[:3], big_r[:3], rtol=1e-6)
+    assert big_r[0] < big_r[1] < big_r[2] and big_r[2] > 1e8
+    first_nan = lambda res: next(i + 1 for i, r in enumerate(res)
+                                 if not np.isfinite(r))
+    assert first_nan(res_r) == first_nan(res_p) == 36
+    assert its_p[:32] == its_r[:32]
+    assert all(abs(a - b) <= 1 for a, b in zip(its_p[32:35], its_r[32:35]))
+    assert its_p[35:] == its_r[35:] == [0] * 5
+    assert all(r <= DRIVER_RTOL for r in res_p[:35])

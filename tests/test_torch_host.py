@@ -15,7 +15,7 @@ from rdcfes_tpu.fem import elements as jel
 from rdcfes_tpu.mesh import box_tet_mesh as jax_box_tet_mesh
 
 from rdcfes_tpu_torch.fem import assembly, elements
-from rdcfes_tpu_torch.mesh import box_tet_mesh
+from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
 from rdcfes_tpu_torch.utils.convert import (mesh_from_arrays,
                                             state_from_numpy, state_to_numpy)
 
@@ -58,6 +58,39 @@ def test_sparsity_and_gather_tables_bit_equal(n):
     for x, y in zip(assembly.gather_tables(a, mesh.connectivity),
                     jasm.gather_tables(b, mesh.connectivity)):
         assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["tet", "hex"])
+def test_native_sparsity_matches_numpy(kind):
+    """build_sparsity goes through the native meshkit runtime; its arrays
+    are the NumPy builder's."""
+    mesh = (box_tet_mesh(3, 2, 4) if kind == "tet"
+            else box_hex_mesh(3, 2, 2))
+    a = assembly.build_sparsity(mesh.connectivity, mesh.n_nodes)
+    b = assembly.build_sparsity_numpy(mesh.connectivity, mesh.n_nodes)
+    assert a.n_nodes == b.n_nodes and a.nnz == b.nnz
+    for name in ("rows", "cols", "slots", "row_ptr", "diag_slots"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and np.array_equal(x, y), name
+
+
+def test_native_build_caches_and_a_failed_build_raises(tmp_path,
+                                                       monkeypatch):
+    """The library is built once per source hash into the build
+    directory; a source that does not compile raises with the compiler's
+    message, and nothing is loaded in its place."""
+    from rdcfes_tpu_torch import native
+
+    first = native.build()
+    assert first.path.parent == ROOT / "build" / "rdcfes_tpu_torch"
+    assert native.build() == (first.path, 0.0)
+    bad = tmp_path / "meshkit.cpp"
+    bad.write_text(native.SOURCE.read_text() + "\nint broken( {\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="error"):
+        native.build()
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_package_imports_no_jax():

@@ -187,6 +187,41 @@ def test_gmsh_read_and_write_match_reference(kind, tmp_path):
     assert np.array_equal(a.boundary_id, b.boundary_id)
 
 
+@pytest.mark.parametrize("kind", ["tet", "hex"])
+def test_native_gmsh_parser_matches_numpy_and_reference(kind, tmp_path):
+    """A file path goes through the native meshkit parser: its arrays are
+    the NumPy parser's and the reference's, sparse ids and subdomains
+    included; a file it refuses (here a truncated one, or a mixed mesh)
+    falls to the NumPy parser, which says what is wrong."""
+    from rdcfes_tpu_torch.native import read_gmsh_native
+
+    ref, _ = _mesh_pair(kind)
+    ref.subdomain_id[::3] = 7
+    text = jgmsh.dumps(ref)
+    path = str(tmp_path / "m.msh")
+    with open(path, "w") as f:
+        f.write(text)
+    a = read_gmsh_native(path)
+    for b in (gmsh.read_numpy(path), jgmsh.read(path), gmsh.read(path)):
+        assert a.elem_type == b.elem_type
+        for name in ("coords", "connectivity", "subdomain_id",
+                     "boundary_faces", "boundary_elem", "boundary_side",
+                     "boundary_id"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
+    with open(path, "w") as f:
+        f.write(text[: len(text) // 2])
+    with pytest.raises(ValueError, match="code"):
+        read_gmsh_native(path)
+    with pytest.raises(ValueError) as numpy_error:
+        gmsh.read_numpy(path)
+    with pytest.raises(ValueError, match=str(numpy_error.value)):
+        gmsh.read(path)
+    jgmsh.write(jax_box_mixed_mesh(3, 2, 2), path)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        gmsh.read(path)
+
+
 def test_gmsh_unsupported_meshes_raise():
     mixed = jgmsh.dumps(jax_box_mixed_mesh(3, 2, 2))
     tet10 = jgmsh.dumps(jax_tet4_to_tet10(jax_box_tet_mesh(1, 1, 1)))

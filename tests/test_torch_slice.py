@@ -138,6 +138,19 @@ def test_precond_refresh_step_and_run_steps_agree():
     assert torch.equal(st["u"], sb["u"])
 
 
+def test_constraints_hold_in_a_step():
+    """constraints= (rows [h, a, b]) is honoured: the step's state keeps
+    u_h = (u_a + u_b) / 2 (tests/test_torch_amr.py holds the constrained
+    step to the reference's)."""
+    mesh, p, u0 = _case()
+    s = TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                           constraints=np.array([[0, 1, 2]]))
+    st, _, res = s.step(s.initial_state(u0), params=p)
+    assert float(res) <= s.rtol
+    u = st["u"]
+    assert torch.equal(u[0], 0.5 * (u[1] + u[2]))
+
+
 def test_unported_paths_raise():
     mesh, p, u0 = _case()
     # HEX8 runs (the generic path); the other element types wait for
@@ -150,9 +163,6 @@ def test_unported_paths_raise():
                              "TET10")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransientRDCSystem(tet10, 5, pihna_blocks, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
-                           constraints=np.array([[0, 1, 2]]))
     for kw in ({"precision": "f16"}, {"method": "cg"}):
         with pytest.raises(ValueError):
             TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu", **kw)

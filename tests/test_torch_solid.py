@@ -248,6 +248,47 @@ def test_solid_assemble(case, tp, tol):
     assert ts.sp.nnz == js.sp.nnz
 
 
+@pytest.mark.parametrize("tp,tol", [("f64", 1e-15), ("f32", 1e-6)])
+def test_penalty_scatters_equal_index_add(case, tp, tol):
+    """The penalty residual (f64) and tangent terms (f64 or f32), summed
+    in a fixed order through the inverse tables of their targets (K4 on
+    the card), equal index_add's sums of the same terms."""
+    ts = case["tsys"][tp]
+    x64 = _t(case["x"])
+    pt = torch.as_tensor(0.4, dtype=F64)
+    g = ts.bc_groups[0]
+    faces = g["faces"]
+    psi, JxWf, xyz, _ = geometry.face_geometry_factors(x64, faces,
+                                                       g["face_type"])
+    # the residual's terms, as _penalty_bc_residual makes them
+    orig = torch.einsum("qk,fkd->fqd", psi, ts.X0[faces])
+    diff = xyz - orig - (pt * 1.000001 * g["disp"])[:, None, :]
+    Rf = ts.penalty * torch.einsum("fq,qi,fqv->vfi", JxWf, psi,
+                                   diff * g["mask"][:, None, :])
+    R0 = _t(np.random.default_rng(4).standard_normal((3, ts.mesh.n_nodes)))
+    want = R0.index_add(1, faces.reshape(-1), Rf.reshape(3, -1))
+    assert rel(ts._penalty_bc_residual(x64, pt, R0), want.numpy()) <= 1e-15
+    # the tangent's diagonal-block terms, in the tangent's precision
+    dt_ = F32 if tp == "f32" else F64
+    x = x64.to(dt_)
+    psi, JxWf, _, _ = geometry.face_geometry_factors(x, faces,
+                                                     g["face_type"])
+    psi, JxWf = psi.to(dt_), JxWf.to(dt_)
+    Kf = ts.penalty * torch.einsum("fq,qi,qj->fij", JxWf, psi, psi)
+    eye = torch.eye(3, dtype=dt_)
+    Kb = (eye[:, :, None, None, None]
+          * g["mask"].T.to(dt_)[:, None, :, None, None] * Kf[None, None])
+    n = ts.mesh.n_nodes
+    keys = ts.sp.rows.astype(np.int64) * n + ts.sp.cols
+    fc = faces.numpy()
+    slots = torch.as_tensor(np.searchsorted(
+        keys, fc[:, :, None] * n + fc[:, None, :]).reshape(-1))
+    v0 = _t(np.random.default_rng(6).standard_normal((3, 3, ts.sp.nnz)),
+            dt_)
+    want = v0.index_add(2, slots, Kb.reshape(3, 3, -1))
+    assert rel(ts._penalty_bc_values(x, v0), want.numpy()) <= tol
+
+
 def test_assembly_gathers_and_k4_wrapper(case):
     """assemble_matrix_gather / assemble_vector_gather against the
     reference, plain and through kernels.restrict (K4's wrapper, which
