@@ -5,7 +5,8 @@ solid load step (phases 6-8), the generic (HEX8) transient path with
 PIHNA and ADPM plus the launch-cost calibration (phases 9-12), the CLI
 with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13), and
 the coupled HCC driver on the moving mesh with process_mesh (phase 14),
-and the PIHNA driver with AMR and the native Gmsh parser (phase 15).
+the PIHNA driver with AMR and the native Gmsh parser (phase 15), and the
+mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -15,6 +16,7 @@ and the PIHNA driver with AMR and the native Gmsh parser (phase 15).
     python3 chip_smoke.py --phases 0,1,14          # HCC, process_mesh
     python3 chip_smoke.py --phases 0,1,6,14        # K5 at both its shapes
     python3 chip_smoke.py --phases 0,1,15          # AMR, the native parser
+    python3 chip_smoke.py --phases 0,1,16          # mixed and TET10 meshes
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -188,6 +190,41 @@ Phases, one output line each (any failure raises, exit code != 0):
             make_pihna_case(n=12, n_steps=10), 1to8 at step 4, a
             checkpoint at step 6, then a resume from it: the final state
             within 1e-12 relative of the uninterrupted run's
+  16 mixed  (a) the K8 and K6 (f32, f64) instances of each element type
+            against their plain versions (f64 within 1e-13, f32 within
+            1e-6), timed as in phase 2, with PIHNA's bench deck and state:
+            on box_mixed_mesh(28,28,28) with brain bounds (25,173 nodes)
+            its HEX8 (10,976) and PYRAMID5 (3,920) blocks, K1-K3 at its
+            TET4 block (62,720) and K4 (f32, f64, and the block-Jacobi
+            diagonal) at its one table over the three blocks, index_add_
+            beside it; PRISM6 on box_hex_mesh(28)'s cells split in two
+            (43,904); TET10 on tet4_to_tet10(box_tet_mesh(28)) (131,712
+            elements, 185,193 nodes) with K4 there, and K8 and K6 again
+            with ADPM's blocks (V = 3: the f32 instances ptxas spills 8-16
+            bytes in); each new instance's ms, bound and share of the
+            bound; (b) 3
+            MixedTransientRDCSystem steps on the same mixed mesh, f64 at
+            rtol 1e-14, kernels vs plain versions from a common state,
+            per-step relative L2 within 1e-10; (c) cli.main in process,
+            every run_steps call recorded, launch counts reset just before
+            each run and read just after: `-m pihna` on
+            make_pihna_case(n=28, n_steps=120, mixed=True), `-m adpm` on
+            make_adpm_case(n=28, n_steps=40, mixed=True) at phase 13's
+            taxis amplitude, `-m pihna` on that PIHNA case's Gmsh file
+            rewritten with its hexes split into prisms (PRISM6, PYRAMID5,
+            TET4; 20 steps) and `-m pihna` on make_pihna_case(n=28,
+            n_steps=20, order=2) (TET10; its state runs away from step
+            ~23, below): the CSV, the VTU frames and the PVD, the last
+            frame's species finite and >= 0, every step's residual <= the
+            rtol; the wall time, PerfLog's phases, the inner iterations
+            and the last residual; before that run, that TET10 case's
+            mesh and deck stepped in f64 through the kernels for up to 30
+            steps, each step's iterations, residual and largest v
+            printed, the run stopped at the first failed solve, and at
+            steps 1, 10 and 20 the plain versions' step from the same
+            state within 1e-10 relative L2; (d) each K8 and K6
+            instance, and K1-K4, launched on the runs whose mesh has its
+            element type (the TET10 run in f64: K6 f32 not launched)
 
 Then nvidia-smi's name and power limit of the card once more, and one
 JSON line {"kernels": [...]}: one row per kernel variant with
@@ -251,6 +288,12 @@ KERNELS = {
     "gather_interp_generic_f64": (CSRC + "gather_interp_generic.cu",
                                   "rdcfes_tpu/fem/pallas_perm.py:274"),
 }
+# the K8 and K6 instances of the mixed-mesh and TET10 element types, rows
+# of their own (the HEX8 instance's numbers are its variant's rows)
+KERNELS.update({f"{v}:{e}": KERNELS[v]
+                for v in ("gather_interp_generic_f64", "apply_generic_f32",
+                          "apply_generic_f64")
+                for e in ("pyramid5", "prism6", "tet10")})
 BENCH_STEPS = 120
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense f32 and f64 rates outside
 # the tensor cores (the kernels here use the CUDA cores)
@@ -1045,10 +1088,11 @@ def phase_solid_slice(dev, S):
     return counts
 
 
-def generic_cases(tag, s, x64, blocks_of):
+def generic_cases(tag, s, x64, blocks_of, f32_tol=1e-5, with_restrict=True):
     """K8, K6 and K4 cases on the generic (HEX8) system `s` at the state
     x64 (V, N), with the coefficient blocks blocks_of(u_qp, grad_qp)
-    builds there: every launch a step makes, at the step's shapes."""
+    builds there: every launch a step makes, at the step's shapes (K4
+    only with with_restrict)."""
     V, E, g = s.n_vars, s.mesh.n_elems, s.geom
     Kc, Q = s.conn_T.shape[0], g.JxW.shape[0]
     u_qp, grad_qp = K.gather_interp_generic_plain(x64, s.conn_T, s.phi,
@@ -1069,7 +1113,8 @@ def generic_cases(tag, s, x64, blocks_of):
                                                     g.dphi),
         tol=1e-13, n_bytes=interp_bytes, flops=2.0 * 4 * V * Q * Kc * E)}
     for name, x, JxW, dphi, st, tol, dt in (
-            ("apply_generic_f32", x32, g.JxW32, g.dphi32, st32, 1e-5, F32),
+            ("apply_generic_f32", x32, g.JxW32, g.dphi32, st32, f32_tol,
+             F32),
             ("apply_generic_f64", x64, g.JxW, g.dphi, st64, 1e-13, F64)):
         out_bytes = V * Kc * E * x.element_size()
         cases[name] = dict(
@@ -1080,6 +1125,11 @@ def generic_cases(tag, s, x64, blocks_of):
             tol=tol, flops=flops, dtype=dt,
             n_bytes=nbytes(x, s.conn_T, JxW, dphi, st.C, st.D, st.E)
             + out_bytes)
+    say("9 blocks", deck=tag, V=V, live=f"C:{nC} D:{nD} E:{nE}",
+        f32_bytes=cases["apply_generic_f32"]["n_bytes"],
+        f64_bytes=cases["apply_generic_f64"]["n_bytes"])
+    if not with_restrict:
+        return cases
     # K4 at this mesh's node_gather: the matvecs' and the right-hand
     # side's restriction (W = V) and the block-Jacobi diagonal's (W = V V)
     flat32 = K.apply_generic_plain(x32, s.conn_T, s.phi, g.JxW32, g.dphi32,
@@ -1089,9 +1139,6 @@ def generic_cases(tag, s, x64, blocks_of):
     cases["restrict_f32@hex8"] = restrict_case(flat32, s)
     cases["restrict_f64@hex8"] = restrict_case(flat64, s)
     cases["restrict_f64@hex8 diagonal"] = restrict_case(diag64, s)
-    say("9 blocks", deck=tag, V=V, live=f"C:{nC} D:{nD} E:{nE}",
-        f32_bytes=cases["apply_generic_f32"]["n_bytes"],
-        f64_bytes=cases["apply_generic_f64"]["n_bytes"])
     return cases
 
 
@@ -2324,10 +2371,392 @@ def phase_amr(dev, also):
     return paths
 
 
+# phase 16: mixed (HEX8 + PYRAMID5 + TET4, and PRISM6) and TET10 meshes
+MIX_N = 28  # box_mixed_mesh(28, 28, 28): 25,173 nodes; 10,976 HEX8,
+#             3,920 PYRAMID5 and 62,720 TET4
+MIX_PIHNA_STEPS, MIX_ADPM_STEPS, PRISM_STEPS = 120, 40, 20
+# the TET10 PIHNA case runs away from step ~23 in f64, as the reference's
+# does (at n = 20: `python -m tests.test_torch_tet10 20 22`, on a machine
+# with JAX): the driver run takes the steps before it, 16b's trajectory 30
+T10_STEPS, T10_TRAJ_STEPS, T10_CHECK_AT = 20, 30, (1, 10, 20)
+MIX_INSTANCES = tuple(f"{v}:{e}" for v in ("gather_interp_generic_f64",
+                                           "apply_generic_f32",
+                                           "apply_generic_f64")
+                      for e in ("hex8", "pyramid5"))
+T10_INSTANCES = ("gather_interp_generic_f64:tet10", "apply_generic_f64:tet10")
+PRISM_INSTANCES = tuple(f"{v}:prism6" for v in ("gather_interp_generic_f64",
+                                                "apply_generic_f32",
+                                                "apply_generic_f64"))
+MIX_PATH = DRV_TRANSIENT + ("apply_affine_f32", "restrict_f32") \
+    + MIX_INSTANCES
+
+
+def _prism_conn(hex_conn):
+    """Each HEX8 cell split into two PRISM6 along its (v0, v2, v6, v4)
+    diagonal plane, bottom triangles counterclockwise seen from above:
+    conforming across cells, and each of the cell's four side faces stays
+    one prism's quad."""
+    return np.concatenate([hex_conn[:, [0, 1, 2, 4, 5, 6]],
+                           hex_conn[:, [0, 2, 3, 4, 6, 7]]])
+
+
+def _block_shim(blk, g, n_vars, n_nodes):
+    """What generic_cases and affine_cases read of a system, for one
+    ElementBlock with its geometry g (node_gather: the block's own)."""
+    from types import SimpleNamespace as NS
+
+    from rdcfes_tpu_torch.fem.assembly import block_node_gather
+
+    ng = block_node_gather([blk.conn_T.T.cpu().numpy()], n_nodes)
+    return NS(n_vars=n_vars, geom=g, conn_T=blk.conn_T, phi=blk.phi,
+              node_gather=torch.as_tensor(ng, device=blk.conn_T.device),
+              mesh=NS(n_elems=blk.conn_T.shape[1], n_nodes=n_nodes))
+
+
+def _restrict_concat(label, flat, ng, conns):
+    """K4 on one table over several blocks (flat (W, sum K_b E_b)),
+    beside index_add_ over the blocks' concatenated connectivities."""
+    W, dt = flat.shape[0], flat.dtype
+    N = ng.shape[1]
+    conn_flat = torch.cat([c.reshape(-1) for c in conns]).long()
+    live = int((ng < flat.shape[1]).sum())
+    return {f"restrict_{'f32' if dt == F32 else 'f64'}@{label}": dict(
+        kern=lambda: K.restrict(flat, ng),
+        plain=lambda: K.restrict_plain(flat, ng),
+        tol=1e-5 if dt == F32 else 1e-13,
+        library=lambda: torch.zeros((W, N), dtype=dt, device=flat.device
+                                    ).index_add_(1, conn_flat, flat),
+        n_bytes=nbytes(flat, ng) + W * N * flat.element_size(),
+        flops=float(W * live), dtype=dt)}
+
+
+def _say_bounds(rows, names):
+    for name in names:
+        r = rows[name]
+        say("16 bound", name=name, ms=f"{r['ms']:.4f}",
+            bound_ms=f"{r['bound_ms']:.4f}",
+            pct_of_bound=f"{100.0 * r['bound_ms'] / r['ms']:.1f}",
+            plain_ms=f"{r['plain_ms']:.4f}")
+
+
+def _mixed_block_cases(dev, mesh, s, params, u, results, also):
+    """K8 and K6 at each generic block of the MixedTransientRDCSystem s,
+    K1-K3 at its TET4 block, K4 at its one table over every block."""
+    from rdcfes_tpu_torch.fem.weakform import block_diag, block_diag_affine
+
+    blocks_of = lambda uq, gq: pihna_blocks(uq, gq, {}, params)
+    V, N = s.n_vars, mesh.n_nodes
+    flats32, flats64, diags = [], [], []
+    for blk, g in zip(s.blocks, s.geoms):
+        shim = _block_shim(blk, g, V, N)
+        elem = blk.elem_type.lower()
+        if blk.affine:
+            cases = {f"{k}@mixed tet4": c
+                     for k, c in affine_cases("16 mixed tet4", shim, u,
+                                              blocks_of).items()
+                     if not k.startswith("restrict")}
+            u_qp, gx1 = K.gather_interp_affine_plain(u, blk.conn_T, blk.phi,
+                                                     g.dphi)
+            gq = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
+        else:
+            cases = {}
+            for k, c in generic_cases(f"mixed {elem}", shim, u, blocks_of,
+                                      f32_tol=1e-6,
+                                      with_restrict=False).items():
+                # the HEX8 instance's main row is phase 9's
+                cases[f"{k}@mixed hex8" if elem == "hex8"
+                      else f"{k}:{elem}"] = c
+            u_qp, gq = K.gather_interp_generic_plain(u, blk.conn_T, blk.phi,
+                                                     g.dphi)
+        run_cases("16 mixed kernel", cases, results, also)
+        wfb = blocks_of(u_qp, gq)
+        st32 = blk.stacks(wfb.cast(F32), g.JxW32)
+        flats32.append(blk.apply(K.PLAIN_OPS, u.to(F32), st32, g.JxW32,
+                                 g.dphi32).reshape(V, -1))
+        flats64.append(blk.rhs(K.PLAIN_OPS, wfb, g).reshape(V, -1))
+        diags.append((block_diag_affine(wfb, blk.phi, g.JxW, g.dphi[None])
+                      if blk.affine else block_diag(wfb, blk.phi, g.JxW,
+                                                    g.dphi)
+                      ).reshape(V * V, -1))
+        del wfb, st32
+    conns = [blk.conn_T for blk in s.blocks]
+    cases = {}
+    cases.update(_restrict_concat("mixed", torch.cat(flats32, 1),
+                                  s.node_gather, conns))
+    cases.update(_restrict_concat("mixed", torch.cat(flats64, 1),
+                                  s.node_gather, conns))
+    cases.update({k + " diagonal": c for k, c in _restrict_concat(
+        "mixed", torch.cat(diags, 1), s.node_gather, conns).items()})
+    run_cases("16 mixed kernel", cases, results, also)
+    say("16 mixed shapes", N=N, C=s.node_gather.shape[0],
+        **{b.elem_type: b.conn_T.shape[1] for b in s.blocks})
+
+
+def _prism_cases(dev, results, also):
+    """K8 and K6 at PRISM6 on box_hex_mesh(28)'s cells split in two
+    (43,904 elements), with PIHNA's bench blocks."""
+    from rdcfes_tpu_torch.systems.transient import ElementBlock
+
+    hexm = box_hex_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN)
+    _, params, u0 = bench_case(hexm)
+    blk = ElementBlock("PRISM6", _prism_conn(hexm.connectivity), dev)
+    g = blk.geometry(torch.as_tensor(hexm.coords, dtype=F64, device=dev))
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    cases = {f"{k}:prism6": c for k, c in generic_cases(
+        "prism6", _block_shim(blk, g, 5, hexm.n_nodes), u,
+        lambda uq, gq: pihna_blocks(uq, gq, {}, params), f32_tol=1e-6,
+        with_restrict=False).items()}
+    run_cases("16 prism kernel", cases, results, also)
+    say("16 prism shapes", E=blk.conn_T.shape[1], N=hexm.n_nodes)
+
+
+def _tet10_cases(dev, results, also):
+    """K8 and K6 at TET10 on tet4_to_tet10(box_tet_mesh(28)) (131,712
+    elements), K4 at its table, with PIHNA's bench blocks."""
+    from rdcfes_tpu_torch.mesh import tet4_to_tet10
+
+    mesh = tet4_to_tet10(box_tet_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN))
+    _, params, u0 = bench_case(mesh)
+    s = make_system(mesh, dev)
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    blocks_of = lambda uq, gq: pihna_blocks(uq, gq, {}, params)
+    cases = {f"{k}:tet10": c for k, c in generic_cases(
+        "tet10", s, u, blocks_of, f32_tol=1e-6,
+        with_restrict=False).items()}
+    run_cases("16 tet10 kernel", cases, results, also)
+    # ADPM's V = 3: the instances ptxas spills a few bytes in (f32, V <= 3)
+    pa, ua0, tracts = adpm_case(mesh, 50.0)
+    f = adpm_fields(tracts, dev)
+    ua = torch.as_tensor(np.ascontiguousarray(ua0.T), dtype=F64, device=dev)
+    sa = make_adpm(mesh, dev, 1e-9)
+    cases = {f"{k}:tet10@adpm": c for k, c in generic_cases(
+        "tet10 adpm", sa, ua, lambda uq, gq: adpm.adpm_blocks(uq, gq, f, pa),
+        f32_tol=1e-6, with_restrict=False).items()}
+    run_cases("16 tet10 kernel", cases, results, also)
+    del sa, f
+    blk, g = s.blocks[0], s.geom
+    u_qp, gq = K.gather_interp_generic_plain(u, blk.conn_T, blk.phi, g.dphi)
+    wfb = blocks_of(u_qp, gq)
+    del u_qp, gq
+    V = s.n_vars
+    flat32 = blk.apply(K.PLAIN_OPS, u.to(F32),
+                       blk.stacks(wfb.cast(F32), g.JxW32), g.JxW32,
+                       g.dphi32).reshape(V, -1)
+    flat64 = blk.rhs(K.PLAIN_OPS, wfb, g).reshape(V, -1)
+    cases = {}
+    cases.update(_restrict_concat("tet10", flat32, s.node_gather,
+                                  [blk.conn_T]))
+    cases.update(_restrict_concat("tet10", flat64, s.node_gather,
+                                  [blk.conn_T]))
+    run_cases("16 tet10 kernel", cases, results, also)
+    say("16 tet10 shapes", E=mesh.n_elems, N=mesh.n_nodes,
+        C=s.node_gather.shape[0])
+
+
+def _mixed_paths(dev, mesh):
+    """3 MixedTransientRDCSystem steps in f64 at rtol 1e-14 through the
+    kernels and through the plain versions, each from the kernel path's
+    state."""
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    _, params, u0 = bench_case(mesh)
+    a, b = (MixedTransientRDCSystem(mesh, 5, pihna_blocks, rtol=1e-14,
+                                    device=dev, ops=ops)
+            for ops in (K.KERNEL_OPS, K.PLAIN_OPS))
+    sa = a.initial_state(u0)
+    worst, iters = 0.0, []
+    for _ in range(3):
+        sb, _, rb = b.step(sa, params=params)
+        sa, ia, ra = a.step(sa, params=params)
+        iters.append(int(ia))
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+        require(max(float(ra), float(rb)) <= 1e-14,
+                f"mixed paths: residuals {float(ra):.3e}, {float(rb):.3e}")
+    say("16b paths", mesh=f"box_mixed_mesh({MIX_N})", steps=3, rtol=1e-14,
+        precision="f64", iters=iters, worst_rel_l2=f"{worst:.3e}",
+        bar=1e-10)
+    require(worst <= 1e-10, f"mixed kernel vs plain path: {worst:.3e}")
+
+
+def _tet10_trajectory(dev, d):
+    """The TET10 PIHNA case (its mesh and deck, the driver's f64 BiCGStab
+    at rtol 3e-11) stepped through the kernels until a solve fails or
+    T10_TRAJ_STEPS, each step's iterations, residual and largest v
+    printed; at the steps of T10_CHECK_AT the plain versions take the
+    same step from the same state, relative L2 within 1e-10.  Every step
+    before the first failed solve converges."""
+    import os
+
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    mesh = gmsh.read(os.path.join(d, "Brain_Model.msh"))
+    params = _pihna_deck_params(d)
+    u0 = np.loadtxt(os.path.join(d, "Brain_Model_Initial_Nodal_Field.dat"))
+    a, b = (TransientRDCSystem(mesh, 5, pihna_blocks, rtol=3e-11,
+                               device=dev, ops=ops)
+            for ops in (K.KERNEL_OPS, K.PLAIN_OPS))
+    st, rows, worst, failed = a.initial_state(u0), [], 0.0, None
+    for k in range(1, T10_TRAJ_STEPS + 1):
+        if k in T10_CHECK_AT:
+            sb, _, _ = b.step(st, params=params)
+        st, it, res = a.step(st, params=params)
+        it, res = int(it), float(res)
+        rows.append(f"{k}:{it}:{res:.2e}:{float(st['u'][:, 3].max()):.3e}")
+        if k in T10_CHECK_AT:
+            worst = max(worst, rel_l2(st["u"], sb["u"]))
+        if not (res <= a.rtol) or it >= a.maxiter:
+            failed = k
+            break
+    say("16b tet10 steps", mesh=f"tet4_to_tet10(box_tet_mesh({MIX_N}))",
+        precision="f64", rtol=a.rtol, step_iters_residual_vmax=" ".join(rows))
+    say("16b tet10 paths", checked_at=list(T10_CHECK_AT),
+        worst_rel_l2=f"{worst:.3e}", bar=1e-10,
+        first_failed_solve=failed if failed else "none")
+    require(worst <= 1e-10, f"TET10 kernel vs plain path: {worst:.3e}")
+    require(failed is None or failed > max(T10_CHECK_AT),
+            f"TET10: a solve failed at step {failed}, before the checks")
+
+
+def _drive_mixed(tag, d, argv, dev, steps, species, outputs, res_dir, want,
+                 absent=()):
+    """One driver run through cli.main with every run_steps call
+    recorded: the artifacts, the banners, every residual <= rtol, the
+    kernels of `want` launched and those of `absent` not."""
+    import os
+
+    from rdcfes_tpu_torch.systems.transient import TransientRDCSystem
+
+    calls = []
+    fn = TransientRDCSystem.run_steps
+
+    def recorded(self, state, n, *a, **kw):
+        out = fn(self, state, n, *a, **kw)
+        calls.append((n, out[1].tolist(), out[2].tolist(), self))
+        return out
+
+    TransientRDCSystem.run_steps = recorded
+    try:
+        wall, counts, out = _drive(d, argv, dev)
+    finally:
+        TransientRDCSystem.run_steps = fn
+    rdir = os.path.join(d, res_dir) if res_dir else os.path.join(d, next(
+        e for e in os.listdir(d) if os.path.isdir(os.path.join(d, e))))
+    _transient_artifacts(rdir, "Brain_Model", outputs, species)
+    require(out.count(" ==== Step") == steps, f"{tag}: banners")
+    require(sum(c[0] for c in calls) == steps, f"{tag}: run_steps steps")
+    s = calls[-1][3]
+    ress = [r for c in calls for r in c[2]]
+    its = [i for c in calls for i in c[1]]
+    totals = _perf_totals(out)
+    say(f"16c {tag}", seconds=f"{wall:.4f}",
+        **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+           for k in DRV_PHASES},
+        steps=steps, solve_steps_per_s=f"{steps / totals['solve']:.4f}",
+        inner_iters_total=sum(its), inner_iters_max=max(its),
+        last_residual=f"{ress[-1]:.3e}", max_residual=f"{max(ress):.3e}",
+        rtol=s.rtol, precision=s.precision, n_nodes=s.mesh.n_nodes,
+        n_elems=s.mesh.n_elems, fields="finite, >= 0")
+    say(f"16c {tag} launches", **{k: counts[k] for k in want + absent})
+    require(max(ress) <= s.rtol,
+            f"{tag}: a residual {max(ress):.3e} > rtol {s.rtol}")
+    _require_launched(counts, want, f"the {tag} driver")
+    require(not any(counts[k] for k in absent),
+            f"{tag}: launched {[k for k in absent if counts[k]]}")
+    return counts
+
+
+def phase_mixed(dev, also):
+    """(a) each K6 and K8 instance of PYRAMID5, PRISM6 and TET10 (and
+    HEX8's, and K1-K4, at the mixed mesh's blocks) against its plain
+    version at full width; (b) three MixedTransientRDCSystem steps,
+    kernels against plain versions; (c) the PIHNA and ADPM drivers on
+    the mixed box, the PIHNA driver on a Gmsh file whose hexes are split
+    into prisms, and the PIHNA driver on TET10."""
+    import os
+    import shutil
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.mesh import MeshBlock, MixedMesh, box_mixed_mesh
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    results = {}
+    mesh = box_mixed_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN)
+    _, params, u0 = bench_case(mesh)
+    s = MixedTransientRDCSystem(mesh, 5, pihna_blocks, precision="mixed",
+                                device=dev)
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
+    _mixed_block_cases(dev, mesh, s, params, u, results, also)
+    del s, u
+    _prism_cases(dev, results, also)
+    _tet10_cases(dev, results, also)
+    _say_bounds(results, [k for k in results if ":" in k])
+    _mixed_paths(dev, mesh)
+
+    root = tempfile.mkdtemp(prefix="rdcfes_mixed_")
+    paths = {}
+    try:
+        d = cases.make_pihna_case(os.path.join(root, "pihna"), n=MIX_N,
+                                  n_steps=MIX_PIHNA_STEPS, mixed=True)
+        paths["mixed pihna"] = _drive_mixed(
+            "mixed pihna", d, ["-m", "pihna"], dev, MIX_PIHNA_STEPS,
+            ("n", "c", "h", "v", "a"),
+            list(range(0, MIX_PIHNA_STEPS + 1, 10)), "PIHNA_simulation",
+            MIX_PATH)
+
+        d = cases.make_adpm_case(os.path.join(root, "adpm"), n=MIX_N,
+                                 n_steps=MIX_ADPM_STEPS, mixed=True)
+        # the taxis-active amplitude, as phase 13's ADPM run
+        deck = open(os.path.join(d, "input.dat")).read()
+        require(deck.count("0.999999e+3") == 2, "ADPM case deck changed")
+        with open(os.path.join(d, "input.dat"), "w") as f:
+            f.write(deck.replace("0.999999e+3", "50.0"))
+        paths["mixed adpm"] = _drive_mixed(
+            "mixed adpm", d, ["-m", "adpm"], dev, MIX_ADPM_STEPS,
+            ("PrP", "A_b", "Tau"), list(range(0, MIX_ADPM_STEPS + 1, 20)),
+            None, MIX_PATH)
+
+        # the PIHNA case's mesh with its hexes split into prisms, written
+        # and read back as a Gmsh file (PRISM6, PYRAMID5, TET4)
+        d = cases.make_pihna_case(os.path.join(root, "prism"), n=MIX_N,
+                                  n_steps=PRISM_STEPS, mixed=True)
+        m = gmsh.read(os.path.join(d, "Brain_Model.msh"))
+        hexb = m.blocks[0]
+        require(hexb.elem_type == "HEX8", "mixed case: first block")
+        pm = MixedMesh(coords=m.coords, blocks=[
+            MeshBlock("PRISM6", _prism_conn(hexb.connectivity))]
+            + m.blocks[1:])
+        gmsh.write(pm, os.path.join(d, "Brain_Model.msh"))
+        rng = np.random.default_rng(0)
+        structure = np.zeros((pm.n_elems, 2))
+        structure[:, 0] = 40.0 + 5.0 * rng.random(pm.n_elems)
+        np.savetxt(os.path.join(d, "Brain_Model_Initial_Elemental_Field.dat"),
+                   structure)
+        paths["prism pihna"] = _drive_mixed(
+            "prism pihna", d, ["-m", "pihna"], dev, PRISM_STEPS,
+            ("n", "c", "h", "v", "a"), list(range(0, PRISM_STEPS + 1, 10)),
+            "PIHNA_simulation",
+            DRV_TRANSIENT + ("apply_affine_f32",) + PRISM_INSTANCES
+            + tuple(k for k in MIX_INSTANCES if k.endswith("pyramid5")))
+
+        d = cases.make_pihna_case(os.path.join(root, "tet10"), n=MIX_N,
+                                  n_steps=T10_STEPS, order=2)
+        _tet10_trajectory(dev, d)
+        paths["tet10 pihna"] = _drive_mixed(
+            "tet10 pihna", d, ["-m", "pihna"], dev, T10_STEPS,
+            ("n", "c", "h", "v", "a"), list(range(0, T10_STEPS + 1, 10)),
+            "PIHNA_simulation", T10_INSTANCES + ("restrict_f64",),
+            absent=("apply_generic_f32:tet10", "apply_affine_f64"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2365,6 +2794,10 @@ def main(argv=None) -> int:
         paths["coupled"] = phase_coupled(dev, also)
     if 15 in phases:
         paths.update(phase_amr(dev, also))
+    mix_kern = {}
+    if 16 in phases:
+        mix_kern, mix_paths = phase_mixed(dev, also)
+        paths.update(mix_paths)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -2377,7 +2810,7 @@ def main(argv=None) -> int:
                "launches": sum(by_path.values()) if by_path else None,
                "launches_by_path": by_path}
         first = (kern.get(name) or solid_kern.get(name)
-                 or gen_kern.get(name) or {})
+                 or gen_kern.get(name) or mix_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

@@ -1,15 +1,16 @@
 """Synthetic PIHNA, ADPM, RIPF, PROTEAS and coupled HCC case directories
-(the files of rdcfes_tpu.cases' make_*_case for single-type TET4 meshes
-of order 1, byte for byte, except that the Makefile launches
-rdcfes_tpu_torch.cli).
+(the files of rdcfes_tpu.cases' make_*_case, byte for byte, except that
+the Makefile launches rdcfes_tpu_torch.cli).
 
 The patient meshes of the C++ reference's run/ cases are not in the
 repository, so runs at patient scale need stand-ins: each function writes
 a complete case directory (Gmsh mesh, nodal/elemental IC `.dat` files,
 `input.dat` deck and a Makefile) at the documented case size.  The
-signatures are the reference's, so a caller switches packages unchanged;
-mixed and second-order cases (`mixed=True`, `order=2`) raise
-NotImplementedError (ROADMAP queue 1 item 13).
+signatures are the reference's, so a caller switches packages unchanged.
+PIHNA and ADPM also take `mixed=True` (the box as HEX8 + PYRAMID5 + TET4
+blocks, mesh.generators.box_mixed_mesh) and `order=2` (TET10,
+mesh.generators.tet4_to_tet10); RIPF, PROTEAS and HCC raise
+NotImplementedError for them (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import os
 
 import numpy as np
 
-from .mesh import box_tet_mesh, gmsh
+from .mesh import box_mixed_mesh, box_tet_mesh, gmsh, tet4_to_tet10
 
-_ITEM13 = "ROADMAP queue 1 item 13 (mixed and second-order meshes)"
+_ITEM13 = "ROADMAP queue 1 item 13 (RIPF, PROTEAS and HCC on mixed and " \
+          "second-order meshes)"
+_BRAIN = ((0, 150.0), (0, 180.0), (0, 150.0))
 
 
 def _first_order_tet(mixed: bool, order: int) -> None:
@@ -48,17 +51,31 @@ def _write_makefile(directory: str, args: str) -> None:
 def _brain_mesh(n: int = 28):
     """~24k nodes / ~132k TET4 over a 150x180x150 mm box (the run/PIHNA
     patient mesh is 24,903 nodes / 134,646 elements)."""
-    return box_tet_mesh(n, n, n, bounds=((0, 150.0), (0, 180.0), (0, 150.0)))
+    return box_tet_mesh(n, n, n, bounds=_BRAIN)
+
+
+def _brain_case_mesh(n: int, mixed: bool, order: int):
+    """The brain box as a MixedMesh (box_mixed_mesh(max(n, 3), n, n)), a
+    TET4 mesh, or its TET10 upgrade."""
+    if mixed:
+        if order != 1:
+            raise ValueError("mixed meshes are first-order")
+        return box_mixed_mesh(max(n, 3), n, n, bounds=_BRAIN)
+    if order not in (1, 2):
+        raise ValueError(f"order {order}: 1 or 2")
+    mesh = _brain_mesh(n)
+    return tet4_to_tet10(mesh) if order == 2 else mesh
 
 
 def make_pihna_case(directory: str, n: int = 28, seed: int = 0,
                     n_steps: int = 120, mixed: bool = False,
                     order: int = 1) -> str:
     """Synthetic PIHNA glioma case (deck values = run/PIHNA/input.dat) on
-    box_tet_mesh(n, n, n) with brain bounds."""
-    _first_order_tet(mixed, order)
+    box_tet_mesh(n, n, n) with brain bounds; mixed=True meshes the same
+    box with HEX8 + PYRAMID5 + TET4 blocks (the stand-in for a patient
+    mesh with transition elements), order=2 upgrades the tets to TET10."""
+    mesh = _brain_case_mesh(n, mixed, order)
     os.makedirs(directory, exist_ok=True)
-    mesh = _brain_mesh(n)
     gmsh.write(mesh, os.path.join(directory, "Brain_Model.msh"))
 
     rng = np.random.default_rng(seed)
@@ -140,12 +157,18 @@ def make_adpm_case(directory: str, n: int = 28, seed: int = 1,
                    order: int = 1) -> str:
     """Synthetic ADPM Alzheimer's case (deck values = run/HCP102513/input.dat;
     the real case is 25,935 nodes / 125,702 elements) on
-    box_tet_mesh(n, n, n) with brain bounds and two parcellations."""
-    _first_order_tet(mixed, order)
+    box_tet_mesh(n, n, n) with brain bounds and two parcellations;
+    mixed=True and order=2 as make_pihna_case (the tracts then an
+    elemental field over the blocks)."""
+    mesh = _brain_case_mesh(n, mixed, order if mixed else 1)
+    # two parcellation regions, by element centroid
+    for conn, sid in ([(b.connectivity, b.subdomain_id) for b in mesh.blocks]
+                      if mixed else [(mesh.connectivity, mesh.subdomain_id)]):
+        mid = mesh.coords[conn].mean(axis=1)
+        sid[:] = np.where(mid[:, 0] < 75.0, 10, 20)
+    if order == 2:
+        mesh = tet4_to_tet10(mesh)
     os.makedirs(directory, exist_ok=True)
-    mesh = _brain_mesh(n)
-    mid = mesh.coords[mesh.connectivity].mean(axis=1)
-    mesh.subdomain_id[:] = np.where(mid[:, 0] < 75.0, 10, 20)
     gmsh.write(mesh, os.path.join(directory, "Brain_Model.msh"))
 
     rng = np.random.default_rng(seed)

@@ -1,6 +1,8 @@
 // K6 apply_generic (f32 and f64): the matrix-free element apply of the
 // Krylov matvec for elements whose shape gradients differ per quadrature
-// point (HEX8), with the corner gather fused into its prologue.
+// point, with the corner gather fused into its prologue.  One instance
+// per element type, (K, Q) = HEX8 (8, 8), PRISM6 (6, 8), PYRAMID5 (5, 8)
+// and TET10 (10, 14).
 //
 // Replaces rdcfes_tpu/fem/pallas_apply.py:qp_apply_fused (:263, body
 // _apply_kernel :209-260) and the Beneš corner gathers in front of it
@@ -22,7 +24,9 @@
 // 3*Q*E.  On 110,592 HEX8 with the PIHNA deck's 20 C, 4 D and 1 E plane an
 // f32 call streams dphi 84.9 MB + C 70.8 MB + D 42.5 MB + E 3.5 MB + JxW
 // 3.5 MB + conn_T 3.5 MB and writes Ye 17.7 MB: ~226 MB, ~68 us at
-// 3.35 TB/s; f64 moves twice the float bytes.
+// 3.35 TB/s; f64 moves twice the float bytes.  The other types move
+// the same planes at their own K and Q: TET10's dphi is 30 rows a
+// q-slice and 14 slices, 2.2x HEX8's per element.
 //
 // Design.  A block takes a tile of TE elements (32, or 16 when the planes
 // are many) with one thread per (species v, element): thread (v, e)
@@ -40,13 +44,19 @@
 // exchange buffer, barrier, then the responses of v from every species'
 // interpolated values and the projection back into the accumulators.
 // Warps share v when TE >= 32, so the (v, w) slot branches are warp-
-// uniform; the slot and phi tables ride in the kernel parameters.
+// uniform; the slot and phi tables ride in the kernel parameters (at
+// TET10's (10, 14) the f64 phi table is 1,120 B, the whole parameter
+// struct under 2 KB of the 4 KB limit).  The staged rows of a q-slice
+// grow with K only (3 K of them for dphi), so Q changes the loop count
+// and not the shared memory: TET10 with PIHNA's live planes takes 55 KB
+// in f64 at TE = 32 and 3 stages, above the 48 KB default, which the
+// plan raises with cudaFuncSetAttribute.
 #include "common.cuh"
 
 namespace {
 
 constexpr int M = rdc::kMaxV;
-constexpr int kMaxQK = 8 * 8;  // phi entries of the largest element built
+constexpr int kMaxQK = 14 * 10;  // phi entries of the largest element built
 constexpr int kSmemTwoBlocks = 113 * 1024;  // leaves room for 2 blocks/SM
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kRowBytes = 16;  // shared memory of a row's source and stride
@@ -327,12 +337,18 @@ GenericKernel<T, K, Q> kernel_for(int V) {
   }
 }
 
-// one line per element type: (K, Q) = HEX8 (8, 8); PRISM6 (6, 8),
-// PYRAMID5 (5, 8) and TET10 (10, 14) go here with their element tables
+// one line per element type: (K, Q) = HEX8 (8, 8), PRISM6 (6, 8),
+// PYRAMID5 (5, 8), TET10 (10, 14)
 template <typename T>
 const void* kernel_ptr(int V, int K, int Q) {
   if (K == 8 && Q == 8)
     return reinterpret_cast<const void*>(kernel_for<T, 8, 8>(V));
+  if (K == 6 && Q == 8)
+    return reinterpret_cast<const void*>(kernel_for<T, 6, 8>(V));
+  if (K == 5 && Q == 8)
+    return reinterpret_cast<const void*>(kernel_for<T, 5, 8>(V));
+  if (K == 10 && Q == 14)
+    return reinterpret_cast<const void*>(kernel_for<T, 10, 14>(V));
   return nullptr;
 }
 
@@ -370,6 +386,9 @@ int launch_generic(const void* plan, const T* x, T* Ye, void* stream) {
   const rdc::DeviceGuard guard(p.device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.K == 8 && p.Q == 8) return launch_kq<T, 8, 8>(p, x, Ye, st);
+  if (p.K == 6 && p.Q == 8) return launch_kq<T, 6, 8>(p, x, Ye, st);
+  if (p.K == 5 && p.Q == 8) return launch_kq<T, 5, 8>(p, x, Ye, st);
+  if (p.K == 10 && p.Q == 14) return launch_kq<T, 10, 14>(p, x, Ye, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Shared definitions of the kernels of csrc/ (sm_90a): the transient
-// qp-path kernels (TET4 affine, and the generic apply for HEX8), the solid
-// path's block-ELL SpMV and the calibration lookup.  kK, kQ and PhiTable
+// qp-path kernels (TET4 affine, and the generic ones for HEX8, PRISM6,
+// PYRAMID5 and TET10), the solid path's block-ELL SpMV and the
+// calibration lookup.  kK, kQ and PhiTable
 // are TET4's and serve K1-K3 only; apply_generic.cu carries its own K, Q
 // and phi table as template parameters.
 //

@@ -1,5 +1,7 @@
 // K8 gather_interp_generic (f64): corner gather + interpolation with
-// per-q shape gradients, K1's counterpart for non-affine elements (HEX8).
+// per-q shape gradients, K1's counterpart for non-affine elements: one
+// instance per element type, (K, Q) = HEX8 (8, 8), PRISM6 (6, 8),
+// PYRAMID5 (5, 8) and TET10 (10, 14).
 //
 // Replaces the corner gather in front of the generic coefficient build,
 // rdcfes_tpu/fem/pallas_perm.py:gather_corners_f64 (:274) as
@@ -16,6 +18,8 @@
 // Bound: device-memory bandwidth.  On 110,592 HEX8 with 5 species a call
 // reads dphi 169.9 MB and conn_T 3.5 MB, writes u_qp 35.4 MB and gx
 // 106.2 MB, and reads u 4.7 MB through L2: ~320 MB, ~95 us at 3.35 TB/s.
+// On 131,712 TET10 (K 10, Q 14) the same terms are 442.6 + 5.3 + 73.8 +
+// 221.3 + 7.4 MB, ~750 MB.
 // Design: one thread per element, <K, Q> template parameters.  The q loop
 // is outermost and stays rolled: one iteration holds dphi[q] (3 K values)
 // in registers and serves every species from it, so dphi is read exactly
@@ -97,8 +101,15 @@ extern "C" int rdc_gather_interp_generic_f64(
   if (V < 1) return cudaErrorInvalidValue;
   if (E == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // one line per element type, as csrc/apply_generic.cu: HEX8 (8, 8)
+  // one line per element type, as csrc/apply_generic.cu
   if (K == 8 && Q == 8)
     return launch_kq<8, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
+  if (K == 6 && Q == 8)
+    return launch_kq<6, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
+  if (K == 5 && Q == 8)
+    return launch_kq<5, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
+  if (K == 10 && Q == 14)
+    return launch_kq<10, 14>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E,
+                             st);
   return cudaErrorInvalidValue;
 }

@@ -9,8 +9,11 @@ every `checkpoint/step`.
 The tracts are an element field on the system's device; the advancing
 `time` (it gates the time^gamma PrP decay, src/adpm.C:268-296) is the
 `scalar_traj` of the one `run_steps` call that takes the steps between
-two events.  `parallel/n_devices` > 1 and meshes other than single-type
-TET4 or HEX8 raise NotImplementedError (ROADMAP queue 1 items 14, 13).
+two events.  On a MixedMesh the tracts are sliced per block by
+systems.mixed.MixedTransientRDCSystem (mixed precision, as the
+reference's driver runs it), and the CSV's element integrals are taken
+block by block, concatenated in block order.  `parallel/n_devices` > 1
+raises NotImplementedError (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..io import dat, provenance
 from ..io.csv_metrics import adpm_header, adpm_row
 from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter, elemental_to_nodal
-from ..mesh import gmsh
+from ..mesh import element_blocks, gmsh
 from ..models.adpm import ADPM_VARS, adpm_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
@@ -127,18 +130,22 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     ]
     tracts_field = torch.as_tensor(tracts, dtype=torch.float64, device=dev)
 
-    # the CSV's own quadrature geometry, independent of the system's
-    conn_T = torch.as_tensor(np.ascontiguousarray(mesh.connectivity.T),
-                             device=dev)
-    phi, JxW, dphi = geometry_factors(
-        torch.as_tensor(mesh.coords, dtype=torch.float64, device=dev),
-        conn_T.T, mesh.elem_type)
+    # the CSV's own quadrature geometry, independent of the system's, one
+    # entry per element block (a MixedMesh's in block order)
+    coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=dev)
+    geo = []
+    for elem_type, conn in element_blocks(mesh):
+        conn_T = torch.as_tensor(np.ascontiguousarray(conn.T), device=dev)
+        geo.append((conn_T,) + geometry_factors(coords, conn_T.T, elem_type))
 
     def elem_averages(u: torch.Tensor) -> np.ndarray:
         """JxW-integrated (A_b, Tau) per element (E, 2) from u (N, V):
         the quadrature loop of save_solution (src/adpm.C:765-781)."""
-        u_qp, _ = interpolate_at_qp(u.T, conn_T, phi, dphi)
-        return torch.einsum("vqe,qe->ve", u_qp[1:3], JxW).T.cpu().numpy()
+        outs = []
+        for conn_T, phi, JxW, dphi in geo:
+            u_qp, _ = interpolate_at_qp(u.T, conn_T, phi, dphi)
+            outs.append(torch.einsum("vqe,qe->ve", u_qp[1:3], JxW))
+        return torch.cat(outs, dim=1).T.cpu().numpy()
 
     def save(t: int, time_value: float):
         u = state["u"].cpu().numpy()

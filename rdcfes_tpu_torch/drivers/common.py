@@ -13,9 +13,10 @@ from typing import Callable, Optional, Set
 import torch
 
 from ..io.getpot import export_integers
-from ..systems import TransientRDCSystem
+from ..systems import MixedTransientRDCSystem, TransientRDCSystem
 
 _MULTI = "ROADMAP queue 1 item 14 (multi-device)"
+_ITEM13 = "ROADMAP queue 1 item 13"
 
 
 @contextmanager
@@ -97,6 +98,16 @@ def require_one_device(deck) -> None:
         raise NotImplementedError(f"parallel/n_devices = {n_dev}: {_MULTI}")
 
 
+def require_first_order_tet_or_hex(mesh, what: str) -> None:
+    """The drivers that run only on single-type TET4 and HEX8 meshes
+    (PROTEAS, RIPF, HCC and the solid) raise NotImplementedError on a
+    MIXED or TET10 mesh, before the first step."""
+    if mesh.elem_type not in ("TET4", "HEX8"):
+        raise NotImplementedError(
+            f"{what} on a {mesh.elem_type} mesh: {_ITEM13} (PROTEAS, RIPF, "
+            "HCC and the solid on mixed and TET10 meshes)")
+
+
 def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
                     clamp: Optional[Callable] = None, device=None,
                     **kw) -> TransientRDCSystem:
@@ -104,14 +115,20 @@ def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
     settings: precision "f64", method "bicgstab", precond_refresh 1, and
     rtol from the deck key `solver/linear/tolerance` (default 3e-11, the
     value the reference calibrated against its direct-solve oracles,
-    rdcfes_tpu/drivers/common.py:98-111).  device None is the CUDA card.
+    rdcfes_tpu/drivers/common.py:98-111).  A MixedMesh gets a
+    MixedTransientRDCSystem with precision "mixed", as the reference's
+    (rdcfes_tpu/drivers/common.py:110-130).  device None is the CUDA card.
     `parallel/n_devices` > 1 raises NotImplementedError."""
     require_one_device(deck)
     kw.setdefault("rtol", float(deck("solver/linear/tolerance", 3e-11)))
-    kw.setdefault("precision", "f64")
     kw.setdefault("method", "bicgstab")
     kw.setdefault("precond_refresh", 1)
     if clamp is not None:
         kw["clamp"] = clamp
+    if mesh.elem_type == "MIXED":
+        kw["precision"] = "mixed"
+        return MixedTransientRDCSystem(mesh, n_vars, physics_blocks,
+                                       device=device, **kw)
+    kw.setdefault("precision", "f64")
     return TransientRDCSystem(mesh, n_vars, physics_blocks, device=device,
                               **kw)

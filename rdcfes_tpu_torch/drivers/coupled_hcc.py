@@ -40,7 +40,8 @@ from ..systems import SolidSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     require_one_device, step_banner)
+                     require_first_order_tet_or_hex, require_one_device,
+                     step_banner)
 from .solid import (load_bcs, load_fibres, load_materials,
                     load_newton_options, load_tangent_precision)
 
@@ -112,6 +113,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
+        require_first_order_tet_or_hex(mesh, "the HCC driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 

@@ -25,9 +25,15 @@ hanging-node constraints).  A checkpoint written after AMR holds the
 refined mesh (`checkpoint_mesh.msh` beside it), the structure, `amr_done`
 and the constraints, and a resume goes on from that mesh.
 
+A MixedMesh (HEX8, PYRAMID5, PRISM6 and TET4 blocks) runs through
+systems.mixed.MixedTransientRDCSystem in mixed precision, as the
+reference's driver does; a TET10 mesh through TransientRDCSystem's
+generic path.  The structure is an elemental field in the global
+(block-concatenated) element order.
+
 Not ported, each raising NotImplementedError before the first step:
-`parallel/n_devices` > 1 (ROADMAP queue 1 item 14) and meshes other than
-single-type TET4 or HEX8 (item 13).
+`parallel/n_devices` > 1 (ROADMAP queue 1 item 14) and AMR on a MIXED
+or TET10 mesh (item 13).
 """
 
 from __future__ import annotations
@@ -127,6 +133,11 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
         print(mesh.print_info())
+        if (mesh.elem_type in ("MIXED", "TET10") and refinement_step > 0
+                and amr_max_steps > 0 and refinement_step <= n_steps):
+            raise NotImplementedError(
+                f"AMR on a {mesh.elem_type} mesh (mesh/adapt_ext.py): "
+                "ROADMAP queue 1 item 13")
         gmsh.write(mesh, out_gmsh)
 
     with plog.scope("initial conditions"):

@@ -36,7 +36,8 @@ from ..models.proteas import PROTEAS_VARS, proteas_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     output_time_points, step_banner)
+                     output_time_points, require_first_order_tet_or_hex,
+                     step_banner)
 
 _PARAM_KEYS = [
     ("cells/total_capacity", "cells_total_capacity"),
@@ -120,6 +121,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
+        require_first_order_tet_or_hex(mesh, "the PROTEAS driver")
         print(mesh.print_info())
 
     with plog.scope("initial conditions"):

@@ -47,7 +47,8 @@ from ..models.ripf import RIPF_VARS, ripf_blocks, rt_dose_schedule
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     output_time_points, step_banner)
+                     output_time_points, require_first_order_tet_or_hex,
+                     step_banner)
 
 _RESOLVED = ("lambda_RT_r", "omicro_RT_r")
 
@@ -156,6 +157,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
+        require_first_order_tet_or_hex(mesh, "the RIPF driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 

@@ -44,7 +44,8 @@ from ..solvers.newton import NewtonOptions
 from ..systems import SolidSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
-from .common import PerfLog, require_one_device, step_banner
+from .common import (PerfLog, require_first_order_tet_or_hex,
+                     require_one_device, step_banner)
 
 _AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
 
@@ -168,6 +169,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
+        require_first_order_tet_or_hex(mesh, "the solid driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 

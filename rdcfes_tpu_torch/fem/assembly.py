@@ -107,20 +107,16 @@ def ell_structure(sp: NodePairSparsity) -> Tuple[np.ndarray, np.ndarray]:
     return ell_cols, ell_slot
 
 
-def gather_tables(sp: NodePairSparsity, connectivity: np.ndarray
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Invert the scatter maps into padded gather tables.
-
-    slot_gather : (C, nnz) int32 indices into the flat (i, j, e)-ordered
-                  element-matrix buffer; padding = K*K*E
-    node_gather : (C2, n_nodes) int32 indices into the flat (k, e)-ordered
-                  element-vector buffer; padding = K*E
-    """
-    conn = np.asarray(connectivity)
-    slot_gather = invert_scatter(sp.slots_flat_cf().astype(np.int64), sp.nnz)
-    node_gather = invert_scatter(conn.T.reshape(-1).astype(np.int64),
-                                 sp.n_nodes)
-    return slot_gather, node_gather
+def block_node_gather(connectivities, n_nodes: int) -> np.ndarray:
+    """node_gather (C, n_nodes) of several element blocks over one node
+    set: the flat source buffer is the blocks' (k, e)-ordered corner
+    values concatenated in block order (pad = sum of K_b E_b), so one
+    gather-sum restricts every block, each node's contributions summed
+    block by block in that order.  For one block it is the reference's
+    gather_tables node_gather."""
+    targets = np.concatenate([np.asarray(c).T.reshape(-1)
+                              for c in connectivities]).astype(np.int64)
+    return invert_scatter(targets, n_nodes)
 
 
 def invert_scatter(targets: np.ndarray, n_bins: int) -> np.ndarray:

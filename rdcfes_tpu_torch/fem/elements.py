@@ -1,5 +1,6 @@
-"""P1 Lagrange reference elements and their quadrature (NumPy copy of the
-TET4, HEX8, TRI3 and QUAD4 rows of rdcfes_tpu.fem.elements).
+"""Lagrange reference elements and their quadrature (NumPy copy of the
+TET4, HEX8, PRISM6, PYRAMID5, TET10, TRI3 and QUAD4 rows of
+rdcfes_tpu.fem.elements).
 
 The degree-3 ("THIRD", libMesh's default for FIRST/LAGRANGE) rules:
 
@@ -10,8 +11,23 @@ The degree-3 ("THIRD", libMesh's default for FIRST/LAGRANGE) rules:
          points w=25/96 (reference area 1/2)
 * QUAD4 face: 2x2 tensor Gauss
 
-Other element types come with the generic path (ROADMAP queue 1 item 8)
-and the mixed meshes (item 13).
+The mixed-mesh transition types:
+
+* PRISM6   : the TRI3 rule x 2-point Gauss in z (8 points; reference
+             volume 1)
+* PYRAMID5 : 2x2 Gauss in the base directions x 2-point Gauss-Jacobi with
+             weight (1-z)^2 in z (8 points; reference volume 4/3).  The
+             Jacobi weight absorbs the rational denominator of the pyramid
+             basis, so mass and stiffness entries integrate exactly on
+             affine pyramids.
+
+and the second-order tet:
+
+* TET10 : Keast degree-5 14-point rule (all weights positive), exact past
+          degree 4 as the P2 mass matrix needs (libMesh's FIFTH for p = 2)
+
+The 2D element types (TRI6, QUAD8/9, EDGE2/3 as volume or face types) and
+HEX20/27 come with ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -21,7 +37,8 @@ from typing import Tuple
 
 import numpy as np
 
-_PORTED_TYPES = ("TET4", "HEX8", "TRI3", "QUAD4")
+_PORTED_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5", "TET10", "TRI3",
+                 "QUAD4")
 
 _SQ3 = 1.0 / np.sqrt(3.0)
 # vertex signs in the standard HEX8 / QUAD4 orderings
@@ -58,8 +75,52 @@ def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
         wts = np.array([-27.0 / 96.0, 25.0 / 96.0, 25.0 / 96.0,
                         25.0 / 96.0])
         return pts, wts
-    g = [-_SQ3, _SQ3]  # QUAD4
-    return np.array([[x, y] for y in g for x in g]), np.ones(4)
+    if elem_type == "QUAD4":
+        g = [-_SQ3, _SQ3]
+        return np.array([[x, y] for y in g for x in g]), np.ones(4)
+    if elem_type == "PRISM6":
+        # triangle degree-3 rule x 2-point Gauss on z in [-1, 1]
+        tpts, twts = quadrature("TRI3")
+        pts = np.array([[x, y, z] for z in (-_SQ3, _SQ3)
+                        for (x, y) in tpts])
+        wts = np.array([w for _ in range(2) for w in twts])
+        return pts, wts
+    if elem_type == "TET10":
+        # Keast degree-5 14-point rule
+        a1, c1, w1 = 0.3108859192633005, 0.0673422422100983, \
+            0.018781320953002642
+        a2, c2, w2 = 0.09273525031089123, 0.7217942490673263, \
+            0.012248840519393658
+        a3, b3, w3 = 0.04550370412564965, 0.45449629587435036, \
+            0.007091003462846911
+        pts, wts = [], []
+        for (a, c, w) in ((a1, c1, w1), (a2, c2, w2)):
+            # barycentric (a, a, a, c) orbit: c in each slot
+            bary = [(c, a, a, a), (a, c, a, a), (a, a, c, a), (a, a, a, c)]
+            pts += [[x, y, z] for (_, x, y, z) in bary]
+            wts += [w] * 4
+        # barycentric (a, a, b, b) orbit: 6 placements of the two b's
+        for i in range(3):
+            for j in range(i + 1, 4):
+                bl = [a3] * 4
+                bl[i] = bl[j] = b3
+                pts.append(bl[1:])
+                wts.append(w3)
+        return np.array(pts), np.array(wts)
+    # PYRAMID5.  z: 2-point Gauss-Jacobi for int_0^1 (1-z)^2 f(z) dz (the
+    # moment equations of the weight t^2, t = 1 - z: p2(t) = t^2 - 4/3 t
+    # + 2/5); the base points scale with (1 - z), the conical (Duffy) map
+    # from the cube whose (1-z)^2 Jacobian the Jacobi weights carry
+    t = 2.0 / 3.0 + np.array([-1.0, 1.0]) * np.sqrt(2.0 / 45.0)
+    m0, m1 = 1.0 / 3.0, 1.0 / 4.0
+    w1 = (m1 - m0 * t[1]) / (t[0] - t[1])
+    zw = np.array([w1, m0 - w1])
+    z = 1.0 - t
+    g = [-_SQ3, _SQ3]
+    pts = np.array([[a * (1 - zz), b * (1 - zz), zz]
+                    for zz in z for b in g for a in g])
+    wts = np.array([wz for wz in zw for _ in range(4)])
+    return pts, wts
 
 
 def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
@@ -73,6 +134,35 @@ def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
         x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
         return ((1 + x[:, None] * _SX8) * (1 + y[:, None] * _SY8)
                 * (1 + z[:, None] * _SZ8) / 8.0)
+    if elem_type == "PRISM6":
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        L = np.stack([1.0 - x - y, x, y], axis=1)  # (Q, 3)
+        lo = (1.0 - z[:, None]) / 2.0
+        hi = (1.0 + z[:, None]) / 2.0
+        return np.concatenate([L * lo, L * hi], axis=1)
+    if elem_type == "TET10":
+        # quadratic Lagrange, Gmsh node order: vertices 0..3, then the
+        # mid-edge nodes (0,1),(1,2),(0,2),(0,3),(2,3),(1,3)
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        L0, L1, L2, L3 = 1.0 - x - y - z, x, y, z
+        return np.stack([
+            L0 * (2 * L0 - 1), L1 * (2 * L1 - 1),
+            L2 * (2 * L2 - 1), L3 * (2 * L3 - 1),
+            4 * L0 * L1, 4 * L1 * L2, 4 * L0 * L2,
+            4 * L0 * L3, 4 * L2 * L3, 4 * L1 * L3,
+        ], axis=1)
+    if elem_type == "PYRAMID5":
+        # rational first-order basis (libMesh Pyramid5 LAGRANGE): base
+        # quad [-1,1]^2 at z=0, apex (0,0,1); s = 1-z.  At the apex
+        # x = y = 0, so the guarded denominator leaves the exact limit 0.
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        s = 1.0 - z
+        s4 = 4.0 * np.where(s == 0.0, 1.0, s)
+        N0 = (s - x) * (s - y) / s4
+        N1 = (s + x) * (s - y) / s4
+        N2 = (s + x) * (s + y) / s4
+        N3 = (s - x) * (s + y) / s4
+        return np.stack([N0, N1, N2, N3, z], axis=1)
     x, y = pts[:, 0], pts[:, 1]
     if elem_type == "TRI3":
         return np.stack([1.0 - x - y, x, y], axis=1)
@@ -97,6 +187,42 @@ def shape_gradients(elem_type: str, pts: np.ndarray) -> np.ndarray:
     if elem_type == "TRI3":
         dN = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
         return np.broadcast_to(dN, (Q, 3, 2)).copy()
+    if elem_type == "PRISM6":
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        L = np.stack([1.0 - x - y, x, y], axis=1)       # (Q, 3)
+        dL = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])  # (3, 2)
+        lo = (1.0 - z) / 2.0
+        hi = (1.0 + z) / 2.0
+        gx = np.concatenate([dL[:, 0] * lo[:, None],
+                             dL[:, 0] * hi[:, None]], axis=1)
+        gy = np.concatenate([dL[:, 1] * lo[:, None],
+                             dL[:, 1] * hi[:, None]], axis=1)
+        gz = np.concatenate([-0.5 * L, 0.5 * L], axis=1)
+        return np.stack([gx, gy, gz], axis=2)
+    if elem_type == "TET10":
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        L = [1.0 - x - y - z, x, y, z]                   # (4,) of (Q,)
+        dL = np.array([[-1.0, -1.0, -1.0], [1.0, 0.0, 0.0],
+                       [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])  # (4, 3)
+        cols = [(4 * L[i] - 1)[:, None] * dL[i] for i in range(4)]
+        for (i, j) in ((0, 1), (1, 2), (0, 2),            # mid-edge nodes
+                       (0, 3), (2, 3), (1, 3)):
+            cols.append(4 * (L[i][:, None] * dL[j] + L[j][:, None] * dL[i]))
+        return np.stack(cols, axis=1)                     # (Q, 10, 3)
+    if elem_type == "PYRAMID5":
+        # singular AT the apex (standard for Pyramid5 LAGRANGE); the
+        # quadrature points are interior, the guard only keeps z == 1
+        # from giving NaN
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        s = np.where(z == 1.0, 1.0, 1.0 - z)
+        q = x * y / (4.0 * s * s)
+        gx = np.stack([-(s - y), (s - y), (s + y), -(s + y),
+                       np.zeros_like(s)], axis=1) / (4.0 * s)[:, None]
+        gy = np.stack([-(s - x), -(s + x), (s + x), (s - x),
+                       np.zeros_like(s)], axis=1) / (4.0 * s)[:, None]
+        gz = np.stack([-0.25 + q, -0.25 - q, -0.25 + q, -0.25 - q,
+                       np.ones_like(s)], axis=1)
+        return np.stack([gx, gy, gz], axis=2)
     x, y = pts[:, 0], pts[:, 1]  # QUAD4
     gx = _SX4 * (1 + y[:, None] * _SY4) / 4.0
     gy = (1 + x[:, None] * _SX4) * _SY4 / 4.0

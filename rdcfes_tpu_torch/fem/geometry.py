@@ -20,7 +20,7 @@ import torch
 
 from . import elements
 
-_VOLUME_TYPES = ("TET4", "HEX8")
+_VOLUME_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5", "TET10")
 _FACE_TYPES = ("TRI3", "QUAD4")
 
 
@@ -46,15 +46,18 @@ def _inv3x3_cf(J: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def geometry_factors(coords: torch.Tensor, connectivity: torch.Tensor,
                      elem_type: str
                      ) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor]:
-    """Per-element quadrature geometry of a 3D mesh (TET4 or HEX8).
+    """Per-element quadrature geometry of a 3D mesh (TET4, HEX8, PRISM6,
+    PYRAMID5 or TET10), on the general route: a Jacobian per quadrature
+    point, whatever the element (a straight-sided TET10's is constant, but
+    its dphi varies with q).
 
     coords (N, 3) float tensor; connectivity (E, K) integer tensor on the
     same device.  Returns phi (Q, K) NumPy, JxW (Q, E) and dphi
     (Q, K, 3, E) in coords' dtype and device."""
     if elem_type not in _VOLUME_TYPES:
         raise NotImplementedError(
-            f"geometry_factors: {elem_type} comes with the generic "
-            "path (ROADMAP queue 1 item 8)")
+            f"geometry_factors: {elem_type} elements: ROADMAP queue 1 "
+            "item 13 (the 2D types and HEX20/27)")
     phi_np, dN_np, w_np = elements.tabulate(elem_type)
     w = torch.as_tensor(w_np, dtype=coords.dtype, device=coords.device)
     X = coords.T[:, connectivity.T]  # (3, K, E)

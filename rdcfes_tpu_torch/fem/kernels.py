@@ -12,10 +12,13 @@ versions and their launch counts.
 
 K1-K3 serve affine elements (TET4); K8 and K6 are K1's and K3's
 counterparts for elements whose shape gradients differ per quadrature
-point (HEX8).  K7 is the `take_along_axis(axis=0)` lookup of the
-launch-cost calibration.  K4 is every element -> node (or node-pair)
-gather-sum: the transient restriction and the solid path's vector and
-matrix assembly (fem.assembly.assemble_*_gather).
+point, one instance per element type (GENERIC_KQ: HEX8, PRISM6,
+PYRAMID5, TET10), each launch counted under its variant and under its
+instance, "<variant>:<element type>".  K7 is the
+`take_along_axis(axis=0)` lookup of the launch-cost calibration.  K4 is
+every element -> node (or node-pair) gather-sum: the transient
+restriction and the solid path's vector and matrix assembly
+(fem.assembly.assemble_*_gather).
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 then.  For CUDA tensors it checks device, dtype, shape and contiguity,
@@ -73,11 +76,21 @@ KERNEL_VARIANTS = (TRANSIENT_VARIANTS
                       "apply_generic_f32", "apply_generic_f64",
                       "take_along_f32", "gather_interp_generic_f64"))
 
-_launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS}
+# (K, Q) -> the element type K6 and K8 are instantiated for
+GENERIC_KQ = {(8, 8): "hex8", (6, 8): "prism6", (5, 8): "pyramid5",
+              (10, 14): "tet10"}
+GENERIC_INSTANCES = tuple(
+    f"{v}:{elem}" for v in ("gather_interp_generic_f64", "apply_generic_f32",
+                            "apply_generic_f64")
+    for elem in GENERIC_KQ.values())
+
+_launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS
+                             + GENERIC_INSTANCES}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per variant since the last reset."""
+    """Kernel launches per variant, and per K6/K8 instance, since the last
+    reset."""
     return dict(_launches)
 
 
@@ -293,11 +306,13 @@ def _phi_host(phi, Q: int, K: int) -> np.ndarray:
     return p
 
 
-def _launch(variant: str, fn: Callable, *args) -> None:
+def _launch(variant: str, fn: Callable, *args, instance: str = "") -> None:
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{variant}: kernel launch failed, cudaError {rc}")
     _launches[variant] += 1
+    if instance:
+        _launches[instance] += 1
 
 
 def _stream(device: torch.device) -> int:
@@ -369,13 +384,12 @@ def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
     return u_qp, gx
 
 
-GENERIC_KQ = ((8, 8),)  # (K, Q) pairs K6 and K8 are instantiated for
-
-
-def _check_kq(name: str, K: int, Q: int) -> None:
+def _check_kq(name: str, K: int, Q: int) -> str:
+    """The instance tag of K6's or K8's (K, Q); ValueError if not built."""
     if (K, Q) not in GENERIC_KQ:
         raise ValueError(f"{name}: no kernel for K={K}, Q={Q} "
-                         f"(built for {GENERIC_KQ})")
+                         f"(built for {tuple(GENERIC_KQ)})")
+    return GENERIC_KQ[(K, Q)]
 
 
 def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
@@ -388,7 +402,7 @@ def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
     K, E = conn_T.shape
     Q = np.shape(phi)[0]
     dev, f64 = u.device, torch.float64
-    _check_kq("gather_interp_generic", K, Q)
+    elem = _check_kq("gather_interp_generic", K, Q)
     _check("u", u, dev, f64, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
     _check("dphi", dphi, dev, f64, (Q, K, 3, E))
@@ -399,7 +413,7 @@ def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
         _launch("gather_interp_generic_f64",
                 _fn("gather_interp_generic_f64"), _ptr(u), _ptr(conn_T),
                 _host(ph), _ptr(dphi), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
-                _stream(dev))
+                _stream(dev), instance=f"gather_interp_generic_f64:{elem}")
     return u_qp, gx
 
 
@@ -484,6 +498,7 @@ def apply_launch_data(kind: str, conn_T: torch.Tensor, phi,
 
 class _ApplyPlan(NamedTuple):
     variant: str
+    instance: str  # "<variant>:<element type>" for K6, "" for K3
     fn: Callable
     ptr: int
     buf: ctypes.Array
@@ -513,7 +528,9 @@ def _apply_plan(kind: str, x: torch.Tensor, conn_T, phi, JxW, dphi,
                      _host(d.slots), _host(d.phi), d.V, d.N, d.K, d.Q, d.E,
                      *extra, JxW.element_size(), d.device.index)
     variant = f"apply_{kind}_{tag}"
-    p = _ApplyPlan(variant, _fn(variant), ptr, buf,
+    instance = (f"{variant}:{GENERIC_KQ[(d.K, d.Q)]}" if kind == "generic"
+                else "")
+    p = _ApplyPlan(variant, instance, _fn(variant), ptr, buf,
                    d.device, d.dtype, (d.V, d.N), (d.V, d.K, d.E),
                    (conn_T, phi, JxW, dphi))
     plans[key] = p
@@ -525,7 +542,7 @@ def _apply(kind: str, x, conn_T, phi, JxW, dphi, st) -> torch.Tensor:
     _check_fast("x", x, p.device, p.dtype, p.x_shape)
     Ye = x.new_empty(p.out_shape)
     _launch(p.variant, p.fn, p.ptr, x.data_ptr(), Ye.data_ptr(),
-            _stream(p.device))
+            _stream(p.device), instance=p.instance)
     return Ye
 
 

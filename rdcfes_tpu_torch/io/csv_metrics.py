@@ -3,7 +3,8 @@ rows of rdcfes_tpu.io.csv_metrics, byte for byte).
 
 Each replicates the C++ reference's `save_solution` (src/pihna.C:842-976,
 src/adpm.C:690-829, src/ripf.C:777-864) as NumPy reductions over (E, K)
-corner gathers of a host array u (N, V).
+corner gathers of a host array u (N, V); on a MixedMesh, block by block,
+the masks concatenated in block order as element_volumes is.
 """
 
 from __future__ import annotations
@@ -12,21 +13,22 @@ from typing import Dict, Sequence, TextIO
 
 import numpy as np
 
-from ..mesh.core import Mesh
+from ..mesh.core import Mesh, element_blocks
 
 
-def _elem_in_range(mesh: Mesh, u_col: np.ndarray, lo: float,
+def _elem_mask(mesh, u_cols, cond) -> np.ndarray:
+    """General per-element corner mask: `cond` maps one (E, K) corner
+    gather per column of `u_cols` to an (E,) bool, per block."""
+    return np.concatenate([cond(*[c[conn] for c in u_cols])
+                           for _, conn in element_blocks(mesh)])
+
+
+def _elem_in_range(mesh, u_col: np.ndarray, lo: float,
                    hi: float) -> np.ndarray:
     """(E,) bool: every corner of the element in [lo, hi] (the inclusion
     rule of src/pihna.C:903-959)."""
-    vals_e = u_col[mesh.connectivity]
-    return np.all((vals_e >= lo) & (vals_e <= hi), axis=1)
-
-
-def _elem_mask(mesh: Mesh, u_cols, cond) -> np.ndarray:
-    """General per-element corner mask: `cond` maps one (E, K) corner
-    gather per column of `u_cols` to an (E,) bool."""
-    return cond(*[c[mesh.connectivity] for c in u_cols])
+    return _elem_mask(mesh, (u_col,), lambda v: np.all(
+        (v >= lo) & (v <= hi), axis=1))
 
 
 def pihna_header(csv: TextIO) -> None:

@@ -7,8 +7,8 @@ reference package's optional nodal variables have no caller here).
 ExodusII is NetCDF-3 classic underneath; the standard dimensions and
 variables go through `scipy.io.netcdf_file` (no libnetcdf or exodus
 library), readable by ParaView or any NetCDF tool.  A MIXED mesh (one
-block per element type) raises NotImplementedError: ROADMAP queue 1
-item 13.
+block per element type) and a TET10 mesh raise NotImplementedError:
+ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import numpy as np
 
 from ..mesh.core import Mesh
 
-_ITEM13 = "ROADMAP queue 1 item 13 (mixed meshes and element types " \
-          "beyond TET4 and HEX8)"
+_ITEM13 = "ROADMAP queue 1 item 13 (ExodusII multi-block export: MIXED " \
+          "and TET10 meshes)"
 _ELEM_TYPE_NAME = {"TET4": "TETRA4", "HEX8": "HEX8"}
 
 

@@ -1,4 +1,4 @@
-"""ParaView VTU / PVD writers for single-type TET4 and HEX8 meshes (the
+"""ParaView VTU / PVD writers for TET4, HEX8, TET10 and mixed meshes (the
 files of rdcfes_tpu.io.vtu, byte for byte).
 
 Output format of the C++ reference's Paraview_IO (src/paraview.h:12-248):
@@ -12,7 +12,9 @@ Output format of the C++ reference's Paraview_IO (src/paraview.h:12-248):
 Per-element fields are written as nodal averages of the adjacent element
 values (`elemental_to_nodal`), libMesh's nodal projection of CONSTANT
 MONOMIAL variables.  Arrays come in as NumPy (the drivers move tensors
-to the host first).
+to the host first).  A MixedMesh's cells are its blocks' in block order,
+each with its own VTK type; a TET10's last two mid-edge nodes are swapped
+into VTK_QUADRATIC_TETRA's order.
 """
 
 from __future__ import annotations
@@ -22,22 +24,44 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..mesh.core import Mesh
+from ..mesh.core import Mesh, element_blocks
 
 SMALLEST_NUMBER = 1.0e-24
 
-_VTK_TYPE = {"TET4": 10, "HEX8": 12}
+_VTK_TYPE = {"TET4": 10, "HEX8": 12, "PRISM6": 13, "PYRAMID5": 14,
+             "TET10": 24}
+# VTK_QUADRATIC_TETRA orders the mid-edge nodes (0,1),(1,2),(0,2),(0,3),
+# (1,3),(2,3); Gmsh swaps the last two
+_TET10_TO_VTK = [0, 1, 2, 3, 4, 5, 6, 7, 9, 8]
 
 
-def elemental_to_nodal(mesh: Mesh, values: np.ndarray) -> np.ndarray:
-    """Arithmetic average of the adjacent element values at each node."""
+def elemental_to_nodal(mesh, values: np.ndarray) -> np.ndarray:
+    """Arithmetic average of the adjacent element values at each node
+    (values in the global element order: a MixedMesh's block by block)."""
     values = np.asarray(values)
     total = np.zeros(mesh.n_nodes)
     count = np.zeros(mesh.n_nodes)
-    conn = mesh.connectivity
-    np.add.at(total, conn.ravel(), np.repeat(values, conn.shape[1]))
-    np.add.at(count, conn.ravel(), 1.0)
+    off = 0
+    for _, conn in element_blocks(mesh):
+        v = values[off:off + len(conn)]
+        np.add.at(total, conn.ravel(), np.repeat(v, conn.shape[1]))
+        np.add.at(count, conn.ravel(), 1.0)
+        off += len(conn)
     return total / np.maximum(count, 1.0)
+
+
+def _cell_arrays(mesh) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(flat connectivity, offsets, VTK types) of the cells in the global
+    element order."""
+    conns, sizes, types = [], [], []
+    for elem_type, conn in element_blocks(mesh):
+        if elem_type == "TET10":
+            conn = conn[:, _TET10_TO_VTK]
+        conns.append(conn.ravel())
+        sizes.append(np.full(len(conn), conn.shape[1]))
+        types.append(np.full(len(conn), _VTK_TYPE[elem_type]))
+    return (np.concatenate(conns), np.cumsum(np.concatenate(sizes)),
+            np.concatenate(types))
 
 
 def _floats(vals) -> str:
@@ -70,11 +94,12 @@ def write_vtu(
     fields with `elemental_to_nodal` first); cell_fields: extra
     (name, (E,) array) CellData after element_ID/region_ID/processor_ID;
     coords: the Points (default: the mesh's coordinates)."""
-    if mesh.elem_type not in _VTK_TYPE:
+    if mesh.elem_type != "MIXED" and mesh.elem_type not in _VTK_TYPE:
         raise NotImplementedError(
             f"{mesh.elem_type} meshes: ROADMAP queue 1 item 13")
     coords = mesh.coords if coords is None else np.asarray(coords)
-    E, N, K = mesh.n_elems, mesh.n_nodes, mesh.nodes_per_elem
+    E, N = mesh.n_elems, mesh.n_nodes
+    cells, offsets, types = _cell_arrays(mesh)
     proc = processor_id if processor_id is not None else np.zeros(E, dtype=int)
 
     with open(path, "w") as f:
@@ -103,9 +128,9 @@ def write_vtu(
                    _floats(np.asarray(vals, dtype=np.float64)))
         w("      </CellData>\n")
         w("      <Cells>\n")
-        _array(w, "Int32", "connectivity", _ints(mesh.connectivity.ravel()))
-        _array(w, "Int32", "offsets", _ints(K * np.arange(1, E + 1)))
-        _array(w, "Int32", "types", _ints(np.full(E, _VTK_TYPE[mesh.elem_type])))
+        _array(w, "Int32", "connectivity", _ints(cells))
+        _array(w, "Int32", "offsets", _ints(offsets))
+        _array(w, "Int32", "types", _ints(types))
         w("      </Cells>\n    </Piece>\n  </UnstructuredGrid>\n</VTKFile>\n")
 
 

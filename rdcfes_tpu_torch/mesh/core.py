@@ -1,9 +1,12 @@
-"""Host-side unstructured-mesh container (NumPy copy of rdcfes_tpu.mesh.core).
+"""Host-side unstructured-mesh containers (NumPy copy of
+rdcfes_tpu.mesh.core).
 
 The mesh lives on the host as plain NumPy struct-of-arrays; the device only
 sees the tables built from it (coordinates, connectivity, gather tables).
-Only single-type volume meshes are carried here (mixed meshes: ROADMAP
-queue 1 item 13).
+`Mesh` carries one volume element type (TET4, HEX8, TET10, or TRI3/QUAD4
+as face meshes); `MixedMesh` carries several first-order types (TET4,
+HEX8, PRISM6, PYRAMID5) as `MeshBlock`s over one node set, its elements
+in block-concatenated order.
 """
 
 from __future__ import annotations
@@ -25,6 +28,22 @@ ELEMENT_FACES: Dict[str, Tuple[Tuple[int, ...], ...]] = {
         (3, 0, 4, 7),
         (4, 5, 6, 7),
     ),
+    # mixed-mesh transition types (libMesh Prism6/Pyramid5 side numbering)
+    "PRISM6": (
+        (0, 2, 1),
+        (0, 1, 4, 3),
+        (1, 2, 5, 4),
+        (2, 0, 3, 5),
+        (3, 4, 5),
+    ),
+    "PYRAMID5": (
+        (0, 1, 4),
+        (1, 2, 4),
+        (2, 3, 4),
+        (3, 0, 4),
+        (0, 3, 2, 1),
+    ),
+    # sides are TRI6: the TET4 corner face plus its three mid-edge nodes
     "TET10": (
         (0, 2, 1, 6, 5, 4),
         (0, 1, 3, 4, 9, 7),
@@ -35,7 +54,12 @@ ELEMENT_FACES: Dict[str, Tuple[Tuple[int, ...], ...]] = {
     "QUAD4": ((0, 1), (1, 2), (2, 3), (3, 0)),
 }
 
-NODES_PER_ELEM = {"TET4": 4, "HEX8": 8, "TET10": 10, "TRI3": 3, "QUAD4": 4}
+NODES_PER_ELEM = {"TET4": 4, "HEX8": 8, "PRISM6": 6, "PYRAMID5": 5,
+                  "TET10": 10, "TRI3": 3, "QUAD4": 4}
+# the element types of a single-type Mesh; PRISM6 and PYRAMID5 come only
+# as MixedMesh blocks, and a MixedMesh block is first-order
+_SINGLE_TYPES = ("TET4", "HEX8", "TET10", "TRI3", "QUAD4")
+_BLOCK_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5")
 # boundary-face element type of each volume type
 FACE_TYPE = {"TET4": "TRI3", "HEX8": "QUAD4", "TET10": "TRI6",
              "TRI3": "EDGE2", "QUAD4": "EDGE2"}
@@ -65,7 +89,7 @@ class Mesh:
     boundary_id: Optional[np.ndarray] = None
 
     def __post_init__(self):
-        if self.elem_type not in NODES_PER_ELEM:
+        if self.elem_type not in _SINGLE_TYPES:
             raise ValueError(f"unsupported element type {self.elem_type!r}")
         self.coords = np.ascontiguousarray(self.coords, dtype=np.float64)
         self.connectivity = np.ascontiguousarray(self.connectivity,
@@ -138,6 +162,158 @@ class Mesh:
             "  n_boundary_faces="
             f"{0 if self.boundary_faces is None else len(self.boundary_faces)}",
         ])
+
+
+@dataclasses.dataclass
+class MeshBlock:
+    """One element-type block of a MixedMesh: its connectivity into the
+    shared node set and its subdomain ids."""
+
+    elem_type: str
+    connectivity: np.ndarray  # (Eb, Kb) int32
+    subdomain_id: Optional[np.ndarray] = None  # (Eb,) int32
+
+    def __post_init__(self):
+        if self.elem_type not in _BLOCK_TYPES:
+            raise ValueError(
+                f"MixedMesh blocks are first-order ({_BLOCK_TYPES}), got "
+                f"{self.elem_type!r}")
+        self.connectivity = np.ascontiguousarray(self.connectivity,
+                                                 dtype=np.int32)
+        if self.connectivity.shape[1] != NODES_PER_ELEM[self.elem_type]:
+            raise ValueError(
+                f"{self.elem_type} needs {NODES_PER_ELEM[self.elem_type]} "
+                f"nodes per element, got {self.connectivity.shape[1]}")
+        if self.subdomain_id is None:
+            self.subdomain_id = np.zeros(len(self.connectivity),
+                                         dtype=np.int32)
+        self.subdomain_id = np.ascontiguousarray(self.subdomain_id,
+                                                 dtype=np.int32)
+
+    @property
+    def n_elems(self) -> int:
+        return self.connectivity.shape[0]
+
+
+def _padded_faces(conn: np.ndarray, elem_type: str) -> np.ndarray:
+    """All (element, side) faces as (E, S, 4), triangles padded with -1:
+    one keying layout across the face arities of a mixed mesh."""
+    rows = []
+    for fd in ELEMENT_FACES[elem_type]:
+        f = conn[:, list(fd)].astype(np.int32)
+        if f.shape[1] == 3:
+            f = np.concatenate([f, np.full((len(f), 1), -1, np.int32)],
+                               axis=1)
+        rows.append(f)
+    return np.stack(rows, axis=1)
+
+
+@dataclasses.dataclass
+class MixedMesh:
+    """A mesh of several element-type blocks over one node set.
+
+    The boundary is extracted over all blocks: a face shared by two blocks
+    (a pyramid's quad against a hex's) is interior.  Faces are stored
+    padded with -1 to 4 nodes; boundary_block and boundary_elem name the
+    owning (block, element within the block).  The global element order
+    (IC files, VTU cells, CSV masks) is the blocks' concatenation.
+    `elem_type` is "MIXED"."""
+
+    coords: np.ndarray
+    blocks: list
+    boundary_faces: Optional[np.ndarray] = None   # (F, 4), -1 pad
+    boundary_block: Optional[np.ndarray] = None
+    boundary_elem: Optional[np.ndarray] = None
+    boundary_side: Optional[np.ndarray] = None
+    boundary_id: Optional[np.ndarray] = None
+
+    elem_type = "MIXED"
+
+    def __post_init__(self):
+        self.coords = np.ascontiguousarray(self.coords, dtype=np.float64)
+        if not self.blocks:
+            raise ValueError("a MixedMesh needs at least one block")
+        if self.boundary_faces is None:
+            keys, blocks_of, elems_of, sides_of, faces_all = \
+                [], [], [], [], []
+            for bi, blk in enumerate(self.blocks):
+                pf = _padded_faces(blk.connectivity, blk.elem_type)
+                E, S, _ = pf.shape
+                keys.append(np.sort(pf, axis=-1).reshape(E * S, 4))
+                blocks_of.append(np.full(E * S, bi, np.int32))
+                elems_of.append(np.repeat(np.arange(E, dtype=np.int32), S))
+                sides_of.append(np.tile(np.arange(S, dtype=np.int32), E))
+                faces_all.append(pf.reshape(E * S, 4))
+            keys = np.concatenate(keys)
+            _, inv, counts = np.unique(keys, axis=0, return_inverse=True,
+                                       return_counts=True)
+            sel = counts[inv.reshape(-1)] == 1
+            self.boundary_faces = np.concatenate(faces_all)[sel]
+            self.boundary_block = np.concatenate(blocks_of)[sel]
+            self.boundary_elem = np.concatenate(elems_of)[sel]
+            self.boundary_side = np.concatenate(sides_of)[sel]
+            self.boundary_id = np.zeros(int(sel.sum()), dtype=np.int32)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def n_elems(self) -> int:
+        return sum(b.n_elems for b in self.blocks)
+
+    @property
+    def dim(self) -> int:
+        return 3
+
+    @property
+    def subdomain_id(self) -> np.ndarray:
+        """Per-element subdomain ids, concatenated in block order."""
+        return np.concatenate([b.subdomain_id for b in self.blocks])
+
+    def subdomain_ids_present(self) -> np.ndarray:
+        return np.unique(self.subdomain_id)
+
+    def element_volumes(self) -> np.ndarray:
+        """Volumes per element in block order: the integral of det J at
+        each type's default quadrature (exact for the affine and trilinear
+        first-order types; rdcfes_tpu.mesh.core.MixedMesh.element_volumes,
+        bit-equal)."""
+        from ..fem import elements
+
+        out = []
+        for b in self.blocks:
+            X = self.coords[b.connectivity]
+            qp, qw = elements.quadrature(b.elem_type)
+            dN = elements.shape_gradients(b.elem_type, qp)
+            J = np.einsum("ekd,qkr->eqdr", X, dN)
+            out.append(np.einsum("eq,q->e", np.linalg.det(J), qw))
+        return np.concatenate(out)
+
+    def with_coords(self, coords: np.ndarray) -> "MixedMesh":
+        """The same mesh at other node positions."""
+        return dataclasses.replace(self, coords=np.asarray(coords,
+                                                           dtype=np.float64))
+
+    def print_info(self) -> str:
+        census = ", ".join(f"{b.n_elems} {b.elem_type}" for b in self.blocks)
+        return "\n".join([
+            "Mesh Information:",
+            "  elem_type=MIXED (" + census + ")",
+            f"  n_nodes={self.n_nodes}",
+            f"  n_elems={self.n_elems}",
+            f"  n_subdomains={len(self.subdomain_ids_present())}",
+            f"  n_boundary_faces={len(self.boundary_faces)}",
+        ])
+
+
+def element_blocks(mesh):
+    """(elem_type, connectivity) of each block of `mesh` in the global
+    element order: the blocks of a MixedMesh, or a single-type mesh's one
+    block."""
+    if mesh.elem_type == "MIXED":
+        return [(b.elem_type, b.connectivity) for b in mesh.blocks]
+    return [(mesh.elem_type, mesh.connectivity)]
 
 
 def extract_boundary_faces(

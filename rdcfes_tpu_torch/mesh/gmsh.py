@@ -1,6 +1,7 @@
-"""Gmsh 2.x ASCII mesh reader and writer for single-type TET4 and HEX8
-meshes (the NumPy parser of rdcfes_tpu.mesh.gmsh: the same arrays from a
-file, the same bytes written).
+"""Gmsh 2.x ASCII mesh reader and writer for TET4, HEX8 and TET10 meshes
+and for mixed meshes of TET4, HEX8, PRISM6 and PYRAMID5 (the NumPy parser
+of rdcfes_tpu.mesh.gmsh: the same arrays from a file, the same bytes
+written).
 
 Format as the C++ reference's writer gives it (src/process_mesh.C:22-83):
 `$MeshFormat 2.2 0 8`, 1-based node ids, two integer tags per element
@@ -12,13 +13,14 @@ FILE ORDER: the initial-condition files are read in that order
 
 A file path goes through the native meshkit parser (native/, built with
 the host C++ compiler at first use), as the reference's does
-(rdcfes_tpu/mesh/gmsh.py:66-83); a file it does not take, and a text
-stream, go through the NumPy parser below, the plain version, which gives
-the same arrays.
+(rdcfes_tpu/mesh/gmsh.py:66-83); a file it does not take (several volume
+types, TET10), and a text stream, go through the NumPy parser below, the
+plain version, which gives the same arrays.
 
-A file whose volume elements are of more than one type, or of a type
-other than TET4 and HEX8 (TET10, PRISM6, PYRAMID5, the hexes of order 2,
-a 2D mesh), raises NotImplementedError: ROADMAP queue 1 item 13.
+Volume elements of one type (TET4, HEX8, TET10) make a Mesh; several
+types make a MixedMesh, one MeshBlock per type in first-seen order, its
+boundary ids from the TRI3 and QUAD4 rows.  HEX20/27 and 2D meshes raise
+NotImplementedError: ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -28,17 +30,17 @@ from typing import Dict, TextIO, Union
 
 import numpy as np
 
-from .core import Mesh
+from .core import Mesh, MeshBlock, MixedMesh
 
-_ITEM13 = "ROADMAP queue 1 item 13 (mixed meshes and element types " \
-          "beyond TET4 and HEX8)"
+_ITEM13 = "ROADMAP queue 1 item 13 (the 2D element types and HEX20/27)"
 # Gmsh element type codes
-_VOLUME = {4: ("TET4", 4), 5: ("HEX8", 8)}
-_OTHER_VOLUME = {6: "PRISM6", 7: "PYRAMID5", 11: "TET10", 12: "HEX27",
-                 17: "HEX20"}
-_SURFACE = {2: 3, 3: 4}  # boundary rows: TRI3, QUAD4
-_CODE = {"TET4": 4, "HEX8": 5}
-_FACE_CODE = {"TET4": 2, "HEX8": 3}
+_VOLUME = {4: ("TET4", 4), 5: ("HEX8", 8), 6: ("PRISM6", 6),
+           7: ("PYRAMID5", 5), 11: ("TET10", 10)}
+_OTHER_VOLUME = {12: "HEX27", 17: "HEX20"}
+_SURFACE = {2: 3, 3: 4, 9: 6}  # boundary rows: TRI3, QUAD4, TRI6
+_SINGLE = ("TET4", "HEX8", "TET10")  # a file of one of these is a Mesh
+_CODE = {name: code for code, (name, _) in _VOLUME.items()}
+_FACE_CODE = {"TET4": 2, "HEX8": 3, "TET10": 9}
 
 
 def read(path_or_file: Union[str, TextIO]) -> Mesh:
@@ -101,7 +103,7 @@ def _read_lines(lines) -> Mesh:
         raise ValueError("missing $Elements")
     n_elems_total = int(next(lines))
     kinds = []  # volume element types in first-seen order
-    vol_conn, vol_sid = [], []
+    by_type: Dict[str, list] = {}  # type -> [(nodes, physical)]
     surf_conn, surf_bcid = [], []
     for _ in range(n_elems_total):
         parts = next(lines).split()
@@ -115,32 +117,39 @@ def _read_lines(lines) -> Mesh:
                 else _OTHER_VOLUME[etype]
             if name not in kinds:
                 kinds.append(name)
+                by_type[name] = []
             if etype in _VOLUME:
                 if len(nodes) != _VOLUME[etype][1]:
                     raise ValueError(f"{name} element with {len(nodes)} "
                                      "nodes")
-                vol_conn.append(nodes)
-                vol_sid.append(physical)
+                by_type[name].append((nodes, physical))
         elif etype in _SURFACE:
             if len(nodes) != _SURFACE[etype]:
                 raise ValueError(f"surface element type {etype} with "
                                  f"{len(nodes)} nodes")
             surf_conn.append(nodes)
             surf_bcid.append(physical)
-        # points, edges and quadratic faces carry nothing a TET4 or HEX8
-        # mesh uses
+        # points, edges and other faces carry nothing a 3D mesh uses
     if not kinds:
         raise NotImplementedError(
             f"mesh without 3D volume elements (a 2D mesh): {_ITEM13}")
-    if len(kinds) > 1 or kinds[0] not in _CODE:
-        raise NotImplementedError(
-            f"volume element types {kinds}: {_ITEM13}")
-    mesh = Mesh(coords=coords,
-                connectivity=np.asarray(vol_conn, dtype=np.int32),
-                elem_type=kinds[0],
-                subdomain_id=np.asarray(vol_sid, dtype=np.int32))
+    other = [k for k in kinds if k in _OTHER_VOLUME.values()]
+    if other:
+        raise NotImplementedError(f"volume element types {other}: {_ITEM13}")
+    arrays = lambda name: (
+        np.asarray([r[0] for r in by_type[name]], dtype=np.int32),
+        np.asarray([r[1] for r in by_type[name]], dtype=np.int32))
+    if len(kinds) == 1 and kinds[0] in _SINGLE:
+        conn, sid = arrays(kinds[0])
+        mesh = Mesh(coords=coords, connectivity=conn, elem_type=kinds[0],
+                    subdomain_id=sid)
+        if surf_conn:
+            _attach_boundary_ids(mesh, surf_conn, surf_bcid)
+        return mesh
+    mesh = MixedMesh(coords=coords, blocks=[MeshBlock(name, *arrays(name))
+                                            for name in kinds])
     if surf_conn:
-        _attach_boundary_ids(mesh, surf_conn, surf_bcid)
+        _attach_boundary_ids_mixed(mesh, surf_conn, surf_bcid)
     return mesh
 
 
@@ -155,10 +164,26 @@ def _attach_boundary_ids(mesh: Mesh, surf_faces, surf_ids) -> None:
             mesh.boundary_id[i] = bid
 
 
-def write(mesh: Mesh, path_or_file: Union[str, TextIO]) -> None:
+def _attach_boundary_ids_mixed(mesh: MixedMesh, surf_faces,
+                               surf_ids) -> None:
+    """_attach_boundary_ids for a MixedMesh, whose boundary faces are
+    padded with -1 to 4 nodes."""
+    key_of = {tuple(sorted(f)): i
+              for i, f in enumerate(mesh.boundary_faces.tolist())}
+    for f, bid in zip(surf_faces, surf_ids):
+        key = sorted(f)
+        if len(key) == 3:
+            key = [-1] + key
+        i = key_of.get(tuple(key))
+        if i is not None:
+            mesh.boundary_id[i] = bid
+
+
+def write(mesh, path_or_file: Union[str, TextIO]) -> None:
     """Write Gmsh 2.2 ASCII: boundary faces first (physical tag = boundary
-    id), then the volume elements (physical tag = subdomain id)."""
-    if mesh.elem_type not in _CODE:
+    id), then the volume elements (physical tag = subdomain id), a
+    MixedMesh's block by block."""
+    if mesh.elem_type != "MIXED" and mesh.elem_type not in _FACE_CODE:
         raise NotImplementedError(f"{mesh.elem_type} meshes: {_ITEM13}")
     if isinstance(path_or_file, str):
         with open(path_or_file, "w") as out:
@@ -167,7 +192,7 @@ def write(mesh: Mesh, path_or_file: Union[str, TextIO]) -> None:
         _write(mesh, path_or_file)
 
 
-def _write(mesh: Mesh, out: TextIO) -> None:
+def _write(mesh, out: TextIO) -> None:
     w = out.write
     w("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
     w("$Nodes\n")
@@ -180,18 +205,25 @@ def _write(mesh: Mesh, out: TextIO) -> None:
     w("$Elements\n")
     w(f"{n_faces + mesh.n_elems}\n")
     index = 1
-    code = _FACE_CODE[mesh.elem_type]
+    mixed = mesh.elem_type == "MIXED"
     if n_faces:
         for f, bid in zip(faces.tolist(), mesh.boundary_id.tolist()):
+            if mixed:
+                f = [n for n in f if n >= 0]
+                code = 2 if len(f) == 3 else 3
+            else:
+                code = _FACE_CODE[mesh.elem_type]
             nodes = " ".join(str(n + 1) for n in f)
             w(f"{index} {code} 2 {bid} 0 {nodes}\n")
             index += 1
-    code = _CODE[mesh.elem_type]
-    for conn, sid in zip(mesh.connectivity.tolist(),
-                         mesh.subdomain_id.tolist()):
-        nodes = " ".join(str(n + 1) for n in conn)
-        w(f"{index} {code} 2 {sid} 0 {nodes}\n")
-        index += 1
+    blocks = (mesh.blocks if mixed else [mesh])
+    for b in blocks:
+        code = _CODE[b.elem_type]
+        for conn, sid in zip(b.connectivity.tolist(),
+                             b.subdomain_id.tolist()):
+            nodes = " ".join(str(n + 1) for n in conn)
+            w(f"{index} {code} 2 {sid} 0 {nodes}\n")
+            index += 1
     w("$EndElements\n")
 
 

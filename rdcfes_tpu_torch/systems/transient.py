@@ -1,6 +1,6 @@
 """Transient linearized-Crank-Nicolson RDC system, matrix-free qp path
-(port of rdcfes_tpu.systems.transient for single-type TET4 and HEX8
-meshes).
+(port of rdcfes_tpu.systems.transient for single-type TET4, HEX8 and
+TET10 meshes; systems/mixed.py runs the same step on a MixedMesh).
 
 Per time step, as in the reference app's TransientLinearImplicitSystem
 use (src/pihna.C:66-93):
@@ -9,16 +9,23 @@ use (src/pihna.C:66-93):
      evaluate the coefficient blocks, build the element right-hand side
      and restrict it to the nodal b (K4).  TET4 is affine (one gradient
      per element): K1 gathers and interpolates, K2 builds the
-     right-hand side.  HEX8 has per-q gradients: K8 gathers and
-     interpolates, and fem.weakform.block_rhs, plain tensor code as in
-     the reference, builds the right-hand side, once per step;
+     right-hand side.  HEX8 and TET10 have per-q gradients: K8 gathers
+     and interpolates, and fem.weakform.block_rhs, plain tensor code as
+     in the reference, builds the right-hand side, once per step;
   3. every `precond_refresh` steps, restrict the per-element (i, i)
      blocks to the block-Jacobi diagonal (K4) and invert it;
   4. solve: mixed-precision iterative refinement (f32 BiCGStab passes with
      f64 residual correction and an f64 rescue) or, with precision="f64",
      BiCGStab or GMRES in f64.  Every matvec is the gather + element
-     apply, K3 on TET4 and K6 on HEX8, followed by K4;
+     apply, K3 on TET4 and K6 on the others, followed by K4;
   5. clamp at zero (`check_solution`, src/pihna.C:760-803).
+
+The element-type specific part of steps 2-4 is an `ElementBlock`: its
+connectivity, its phi table and the calls of its kernels.  A single-type
+mesh is one block; a MixedMesh (systems/mixed.py) one per type, whose
+corner values are concatenated in block order and restricted by one K4
+launch through one table (fem.assembly.block_node_gather), so every
+node's sum runs in the same order in every run.
 
 With `constraints=` (rows [h, a, b]: u_h = (u_a + u_b) / 2, the hanging
 nodes of a 1:8-refined mesh, mesh/constrain.py) the solve runs on the
@@ -54,7 +61,7 @@ import numpy as np
 import torch
 
 from ..fem import elements
-from ..fem.assembly import build_sparsity, gather_tables, invert_scatter
+from ..fem.assembly import block_node_gather, invert_scatter
 from ..fem.assembly import restrict as gather_sum
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
@@ -68,9 +75,10 @@ from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
 from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.device import cuda_device
 
-# where the unported options land (ROADMAP.md, queue 1)
-_AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
-_ELEMENT_TYPES = ("TET4", "HEX8")  # TET4 affine, HEX8 generic
+# where the unported element types land (ROADMAP.md, queue 1)
+_ITEM13 = "ROADMAP queue 1 item 13 (the 2D element types and HEX20/27)"
+# TET4 affine (K1-K3); the others generic (K8, K6 at their (K, Q))
+_ELEMENT_TYPES = ("TET4", "HEX8", "TET10")
 _METHODS = {"bicgstab": bicgstab, "gmres": gmres}
 
 
@@ -78,7 +86,7 @@ class Geometry(NamedTuple):
     """The coordinate-dependent tables of a step.  dphi is what the
     kernels take: one gradient per element, dphi[0] (K, 3, E), on the
     affine TET4 path (q-invariant there), the per-q tables (Q, K, 3, E)
-    on HEX8."""
+    on the other types."""
     JxW: torch.Tensor      # (Q, E) f64
     dphi: torch.Tensor     # f64
     JxW32: torch.Tensor    # the f32 casts of the inner matvec
@@ -139,6 +147,66 @@ class Constraints:
         return D.reshape(V, V, -1)
 
 
+class ElementBlock:
+    """The elements of one type in a system: connectivity, phi and the
+    kernel calls of a step's element stages.  TET4 is affine: K1, K2, K3,
+    with dphi one gradient per element (K, 3, E); the other types run K8,
+    fem.weakform.block_rhs and K6 on the per-q dphi (Q, K, 3, E)."""
+
+    def __init__(self, elem_type: str, conn: np.ndarray, device):
+        self.elem_type = elem_type
+        self.affine = elem_type == "TET4"
+        self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
+                                      device=device)
+        self.phi = elements.tabulate(elem_type)[0]  # coordinate-free
+
+    def geometry(self, coords: torch.Tensor) -> Geometry:
+        """The block's Geometry at node positions coords (N, 3) f64."""
+        _, JxW, dphi = geometry_factors(coords, self.conn_T.T,
+                                        self.elem_type)
+        if self.affine:
+            dphi = dphi[0].clone()  # one gradient per element
+        return Geometry(JxW, dphi, JxW.to(torch.float32),
+                        dphi.to(torch.float32))
+
+    def interp(self, ops: Ops, u_T: torch.Tensor, g: Geometry):
+        """u_T (V, N) -> (u_qp (V, Q, E), grad_qp (V, Q, 3, E))."""
+        if self.affine:
+            u_qp, gx1 = ops.gather_interp_affine(u_T, self.conn_T, self.phi,
+                                                 g.dphi)
+            # one gradient per element, broadcast over q for the physics
+            return u_qp, gx1[:, None].expand(gx1.shape[0], u_qp.shape[1],
+                                             3, gx1.shape[-1])
+        return ops.gather_interp_generic(u_T, self.conn_T, self.phi, g.dphi)
+
+    def rhs(self, ops: Ops, wfb, g: Geometry) -> torch.Tensor:
+        """The element right-hand side Fe (V, K, E)."""
+        if self.affine:
+            return ops.rhs_affine(stack_rhs(wfb), g.JxW, self.phi, g.dphi)
+        return block_rhs(wfb, self.phi, g.JxW, g.dphi)
+
+    def diag(self, wfb, g: Geometry) -> torch.Tensor:
+        """The element (i, i) blocks (V, V, K, E) of the block-Jacobi
+        diagonal."""
+        if self.affine:
+            return block_diag_affine(wfb, self.phi, g.JxW, g.dphi[None])
+        return block_diag(wfb, self.phi, g.JxW, g.dphi)
+
+    def stacks(self, wfb, JxW: torch.Tensor):
+        """The operator's stacked live blocks in wfb's dtype (JxW in the
+        same dtype); on the affine path with the diffusion q-sum that
+        every matvec reuses."""
+        if self.affine:
+            return stack_apply(wfb, diffusion_presum(wfb, JxW))
+        return stack_apply_generic(wfb)
+
+    def apply(self, ops: Ops, x: torch.Tensor, st, JxW: torch.Tensor,
+              dphi: torch.Tensor) -> torch.Tensor:
+        """The gather + element apply of x (V, N) -> Ye (V, K, E)."""
+        fn = ops.apply_affine if self.affine else ops.apply_generic
+        return fn(x, self.conn_T, self.phi, JxW, dphi, st)
+
+
 def clamp_nonnegative(u: torch.Tensor) -> torch.Tensor:
     """Default post-solve clamp: every species >= 0 (src/pihna.C:786-790)."""
     return torch.clamp(u, min=0.0)
@@ -194,11 +262,11 @@ def refine_mixed(mv32: Callable, pre_matvec64: Callable,
 
 
 class TransientRDCSystem:
-    """A transient multi-species RDC system on a single-type TET4 or HEX8
-    mesh, fixed or moving, stepped on the matrix-free qp path.
+    """A transient multi-species RDC system on a single-type TET4, HEX8 or
+    TET10 mesh, fixed or moving, stepped on the matrix-free qp path.
 
-    mesh            : host Mesh (TET4: the affine path; HEX8: the generic
-                      path with per-q shape gradients)
+    mesh            : host Mesh (TET4: the affine path; HEX8 and TET10:
+                      the generic path with per-q shape gradients)
     n_vars          : number of coupled nodal variables V
     physics_blocks  : callable(u_qp (V,Q,E), grad_qp (V,Q,3,E), fields,
                       params) -> WeakFormBlocks (e.g. models.pihna,
@@ -228,6 +296,9 @@ class TransientRDCSystem:
     "tracts" (E, 3)) and Python floats ("time").
     """
 
+    # refine_mixed's inner-pass settings (its defaults here)
+    _refine_kw: Dict = {}
+
     def __init__(self, mesh: Mesh, n_vars: int, physics_blocks: Callable,
                  clamp: Callable = clamp_nonnegative,
                  rtol: float = DEFAULT_RTOL,
@@ -238,14 +309,31 @@ class TransientRDCSystem:
                  ops: Ops = KERNEL_OPS, method: str = "bicgstab"):
         if mesh.elem_type not in _ELEMENT_TYPES:
             raise NotImplementedError(
-                f"{mesh.elem_type} meshes (element tables beyond TET4 and "
-                f"HEX8): {_AMR}")
+                f"{mesh.elem_type} meshes in TransientRDCSystem (a "
+                f"MixedMesh goes to systems.mixed): {_ITEM13}")
+        self._setup(mesh, [(mesh.elem_type, mesh.connectivity)], n_vars,
+                    physics_blocks, clamp, rtol, maxiter, precision,
+                    precond_refresh, device, ops, method)
+        dev = self.device
+        self.moving_mesh = bool(moving_mesh)
+        self.cons = (Constraints(constraints, dev)
+                     if constraints is not None and len(constraints)
+                     else None)
+        blk = self.blocks[0]
+        self.affine, self.conn_T, self.phi = blk.affine, blk.conn_T, blk.phi
+        self.geom = self.geoms[0]
+
+    def _setup(self, mesh, element_blocks, n_vars, physics_blocks, clamp,
+               rtol, maxiter, precision, precond_refresh, device, ops,
+               method) -> None:
+        """What every system keeps: the settings, one ElementBlock per
+        (elem_type, connectivity) in the global element order, their
+        rest geometries and the one K4 table over their corners."""
         if precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         if method not in _METHODS:
             raise ValueError(f"unknown method {method!r}")
         self.mesh = mesh
-        self.affine = mesh.elem_type == "TET4"
         self.method = method
         self.n_vars = n_vars
         self.physics_blocks = physics_blocks
@@ -254,39 +342,32 @@ class TransientRDCSystem:
         self.maxiter = maxiter
         self.precision = precision
         self.precond_refresh = int(precond_refresh)
-        self.moving_mesh = bool(moving_mesh)
         self.device = cuda_device() if device is None else torch.device(device)
         self.ops = ops
+        self.moving_mesh = False
+        self.cons = None
         self._dinv_cache = None
         self._steps_since_precond = 0
-
-        conn = mesh.connectivity
-        self.sp = build_sparsity(conn, mesh.n_nodes)
-        _, node_gather = gather_tables(self.sp, conn)
         dev = self.device
-        self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
-                                      device=dev)
-        self.node_gather = torch.as_tensor(node_gather, device=dev)
-        self.cons = (Constraints(constraints, dev)
-                     if constraints is not None and len(constraints)
-                     else None)
-        self.phi = elements.tabulate(mesh.elem_type)[0]  # coordinate-free
-        # the rest geometry; a moving mesh's step and run_steps build
-        # theirs from the coords they are given
-        self.geom = self._geom_from_coords(mesh.coords)
+        self.blocks = [ElementBlock(t, conn, dev) for t, conn in element_blocks]
+        self.node_gather = torch.as_tensor(
+            block_node_gather([c for _, c in element_blocks], mesh.n_nodes),
+            device=dev)
+        # the rest geometry of each block; a moving mesh's step and
+        # run_steps build theirs from the coords they are given
+        self.geoms = self._geoms_from_coords(mesh.coords)
 
-    def _geom_from_coords(self, coords) -> Geometry:
-        """The geometry record at node positions coords (N, 3) (the
-        reference's _geom_from_coords, rdcfes_tpu/systems/transient.py:
-        1202-1222); phi does not depend on them and is reused."""
+    def _geoms_from_coords(self, coords):
+        """Each block's geometry record at node positions coords (N, 3)
+        (the reference's _geom_from_coords, rdcfes_tpu/systems/
+        transient.py:1202-1222); phi does not depend on them."""
         coords = torch.as_tensor(coords, dtype=torch.float64,
                                  device=self.device)
-        _, JxW, dphi = geometry_factors(coords, self.conn_T.T,
-                                        self.mesh.elem_type)
-        if self.affine:
-            dphi = dphi[0].clone()  # one gradient per element
-        return Geometry(JxW, dphi, JxW.to(torch.float32),
-                        dphi.to(torch.float32))
+        return [blk.geometry(coords) for blk in self.blocks]
+
+    def _geom_from_coords(self, coords) -> Geometry:
+        """The one block's geometry record at node positions coords."""
+        return self._geoms_from_coords(coords)[0]
 
     def _moving_geom(self, coords) -> Optional[Geometry]:
         """The geometry of a step or run_steps call: built from coords on
@@ -314,16 +395,27 @@ class TransientRDCSystem:
         return state_from_numpy(gstate, self.device)
 
     # ------------------------------------------------------------------
-    def _matvec(self, x, stacks, JxW, dphi):
-        """Matrix-free operator: the gather + element apply (K3 with the
-        element's one gradient table on TET4, K6 with the per-q tables on
-        HEX8), then K4; with constraints C^T A C."""
-        apply = (self.ops.apply_affine if self.affine
-                 else self.ops.apply_generic)
+    def _fields_for_block(self, bi: int, fields: Dict) -> Dict:
+        """The fields block bi's physics sees: on one block, `fields`."""
+        return fields
+
+    def _restrict(self, parts, W: int) -> torch.Tensor:
+        """K4 of the blocks' corner values parts[b] (..., K_b, E_b),
+        flattened to (W, K_b E_b) and concatenated in block order."""
+        flat = [p.reshape(W, -1) for p in parts]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+        return self.ops.restrict(flat, self.node_gather)
+
+    def _matvec(self, x, stacks, geoms, f32: bool):
+        """Matrix-free operator: each block's gather + element apply (K3
+        with the element's one gradient table on TET4, K6 with the per-q
+        tables on the others), then K4; with constraints C^T A C."""
         if self.cons is not None:
             x = self.cons.c_apply(x)
-        Ye = apply(x, self.conn_T, self.phi, JxW, dphi, stacks)
-        y = self.ops.restrict(Ye.reshape(self.n_vars, -1), self.node_gather)
+        Ye = [blk.apply(self.ops, x, st, g.JxW32 if f32 else g.JxW,
+                        g.dphi32 if f32 else g.dphi)
+              for blk, st, g in zip(self.blocks, stacks, geoms)]
+        y = self._restrict(Ye, self.n_vars)
         return y if self.cons is None else self.cons.ct_fold(y)
 
     def _step_body(self, state, fields, params, Dinv, geom=None):
@@ -334,43 +426,29 @@ class TransientRDCSystem:
         V, N = self.n_vars, self.mesh.n_nodes
         ops = self.ops
         f32 = torch.float32
-        g = self.geom if geom is None else geom
+        geoms = self.geoms if geom is None else [geom]
         u_T = state["u"].T.contiguous()
-        if self.affine:
-            u_qp, gx1 = ops.gather_interp_affine(u_T, self.conn_T, self.phi,
-                                                 g.dphi)
-            # one gradient per element, broadcast over q for the physics
-            grad_qp = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
-        else:
-            u_qp, grad_qp = ops.gather_interp_generic(u_T, self.conn_T,
-                                                      self.phi, g.dphi)
-        wfb = self.physics_blocks(u_qp, grad_qp, fields, params)
-        if self.affine:
-            Fe = ops.rhs_affine(stack_rhs(wfb), g.JxW, self.phi, g.dphi)
-        else:
-            Fe = block_rhs(wfb, self.phi, g.JxW, g.dphi)
-        b = ops.restrict(Fe.reshape(V, -1), self.node_gather)
+        wfbs = []
+        for bi, (blk, g) in enumerate(zip(self.blocks, geoms)):
+            u_qp, grad_qp = blk.interp(ops, u_T, g)
+            wfbs.append(self.physics_blocks(
+                u_qp, grad_qp, self._fields_for_block(bi, fields), params))
+        b = self._restrict([blk.rhs(ops, wfb, g) for blk, wfb, g
+                            in zip(self.blocks, wfbs, geoms)], V)
         cons = self.cons
         if cons is not None:
             b = cons.ct_fold(b)
         if Dinv is None:
-            if self.affine:
-                diag_e = block_diag_affine(wfb, self.phi, g.JxW, g.dphi[None])
-            else:
-                diag_e = block_diag(wfb, self.phi, g.JxW, g.dphi)
-            D = ops.restrict(diag_e.reshape(V * V, -1),
-                             self.node_gather).reshape(V, V, N)
+            D = self._restrict([blk.diag(wfb, g) for blk, wfb, g
+                                in zip(self.blocks, wfbs, geoms)],
+                               V * V).reshape(V, V, N)
             if cons is not None:
                 D = cons.fold_diagonal(D)
             Dinv = small_block_inverse(D, pivot=False)
-        # the operator's stacked live blocks, f64; on the affine path with
-        # the once-per-step diffusion q-sum that every matvec reuses
-        if self.affine:
-            st64 = stack_apply(wfb, diffusion_presum(wfb, g.JxW))
-        else:
-            st64 = stack_apply_generic(wfb)
+        st64 = [blk.stacks(wfb, g.JxW)
+                for blk, wfb, g in zip(self.blocks, wfbs, geoms)]
         pre_matvec = lambda x: apply_block_jacobi(
-            Dinv, self._matvec(x, st64, g.JxW, g.dphi))
+            Dinv, self._matvec(x, st64, geoms, False))
         pre_b = apply_block_jacobi(Dinv, b)
         # linear extrapolation warm start
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
@@ -379,16 +457,14 @@ class TransientRDCSystem:
         if self.precision == "mixed":
             # the f32 operator is built from f32 casts of the f64 blocks,
             # its diffusion q-sum taken in f32 (the reference's wfb.cast)
-            wfb32 = wfb.cast(f32)
-            if self.affine:
-                st32 = stack_apply(wfb32, diffusion_presum(wfb32, g.JxW32))
-            else:
-                st32 = stack_apply_generic(wfb32)
+            st32 = [blk.stacks(wfb.cast(f32), g.JxW32)
+                    for blk, wfb, g in zip(self.blocks, wfbs, geoms)]
             Dinv32 = Dinv.to(f32)
             mv32 = lambda x: apply_block_jacobi(
-                Dinv32, self._matvec(x, st32, g.JxW32, g.dphi32))
+                Dinv32, self._matvec(x, st32, geoms, True))
             u_raw, iters, resid = refine_mixed(mv32, pre_matvec, pre_b, x0,
-                                               self.rtol, self.maxiter)
+                                               self.rtol, self.maxiter,
+                                               **self._refine_kw)
         else:
             r = _METHODS[self.method](pre_matvec, pre_b, x0=x0,
                                       rtol=self.rtol, maxiter=self.maxiter)

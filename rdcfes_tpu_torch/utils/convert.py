@@ -1,6 +1,6 @@
-"""Move meshes, coefficient blocks, material tables, positions, step fields
-and solver state between NumPy and the port, so both packages can be fed identical
-data.
+"""Move meshes (single-type and mixed), coefficient blocks, material
+tables, positions, step fields and solver state between NumPy and the
+port, so both packages can be fed identical data.
 
 The state dict is the one rdcfes_tpu's TransientRDCSystem.gather_state
 returns: keys u, u_old, u_older, u_raw, each (N, V) float64.  Solid
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..fem.weakform import WeakFormBlocks, _is_zero
-from ..mesh.core import Mesh
+from ..mesh.core import Mesh, MeshBlock, MixedMesh
 
 
 def state_from_numpy(gstate: Dict[str, np.ndarray], device,
@@ -50,11 +50,31 @@ def mesh_from_arrays(coords: np.ndarray, connectivity: np.ndarray,
         connectivity), elem_type=elem_type, subdomain_id=subdomain_id)
 
 
-def mesh_from_reference(mesh) -> Mesh:
-    """A port Mesh holding copies of another single-type mesh's arrays
-    (e.g. an rdcfes_tpu Mesh): coordinates, connectivity, subdomain ids,
-    boundary faces with their elements, sides and ids."""
+def mixed_mesh_from_arrays(coords: np.ndarray, blocks) -> MixedMesh:
+    """A port MixedMesh from coords (N, 3) and blocks, a sequence of
+    (elem_type, connectivity (Eb, Kb), subdomain_id (Eb,) or None)."""
+    return MixedMesh(coords=np.array(coords), blocks=[
+        MeshBlock(t, np.array(conn), None if sid is None else np.array(sid))
+        for t, conn, sid in blocks])
+
+
+def mesh_from_reference(mesh):
+    """A port Mesh (or MixedMesh) holding copies of another mesh's arrays
+    (e.g. an rdcfes_tpu Mesh or MixedMesh): coordinates, connectivity (a
+    MixedMesh's per block), subdomain ids, boundary faces with their
+    (blocks,) elements, sides and ids."""
     arr = lambda name: np.array(getattr(mesh, name))
+    if mesh.elem_type == "MIXED":
+        return MixedMesh(
+            coords=arr("coords"),
+            blocks=[MeshBlock(b.elem_type, np.array(b.connectivity),
+                              np.array(b.subdomain_id))
+                    for b in mesh.blocks],
+            boundary_faces=arr("boundary_faces"),
+            boundary_block=arr("boundary_block"),
+            boundary_elem=arr("boundary_elem"),
+            boundary_side=arr("boundary_side"),
+            boundary_id=arr("boundary_id"))
     return Mesh(coords=arr("coords"), connectivity=arr("connectivity"),
                 elem_type=mesh.elem_type, subdomain_id=arr("subdomain_id"),
                 boundary_faces=arr("boundary_faces"),

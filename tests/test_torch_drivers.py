@@ -600,11 +600,16 @@ def _tiny_pihna_case(d, extra=""):
 ])
 def test_pihna_unported_raise_before_any_step(extra, tmp_path, monkeypatch,
                                               capsys):
-    """Several devices and a MIXED mesh each raise NotImplementedError
-    before a step."""
+    """Several devices, and AMR on a MIXED mesh, each raise
+    NotImplementedError before a step."""
     if extra == "mixed mesh":
-        _tiny_pihna_case(tmp_path)
-        jgmsh.write(box_mixed_mesh(3, 1, 1), str(tmp_path / "input.msh"))
+        _tiny_pihna_case(tmp_path, "refinement_step = 2\n"
+                         "mesh/AMR/max_steps = 1\n")
+        mesh = box_mixed_mesh(3, 1, 1)
+        jgmsh.write(mesh, str(tmp_path / "input.msh"))
+        np.savetxt(str(tmp_path / "input.nodal"), np.ones((mesh.n_nodes, 5)))
+        np.savetxt(str(tmp_path / "input.elemental"),
+                   np.zeros((mesh.n_elems, 2)))
     else:
         _tiny_pihna_case(tmp_path, extra)
     monkeypatch.chdir(tmp_path)

@@ -90,9 +90,9 @@ def test_geometry_factors_match(case):
     assert np.array_equal(phi, case["phi"])
     assert rel(JxW, case["JxW"]) < TOL
     assert rel(dphi, case["dphi"]) < TOL
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # HEX20: ROADMAP item 13
         geometry.geometry_factors(_t(m.coords), torch.as_tensor(
-            m.connectivity), "PRISM6")
+            m.connectivity), "HEX20")
 
 
 def test_interpolate_ue_affine_matches(case):
@@ -157,8 +157,7 @@ def test_block_diag_affine_matches(case, kind):
 @pytest.mark.parametrize("W", [V, V * V])
 def test_restrict_matches(case, W):
     m = case["mesh"]
-    sp = assembly.build_sparsity(m.connectivity, m.n_nodes)
-    _, ng = assembly.gather_tables(sp, m.connectivity)
+    ng = assembly.block_node_gather([m.connectivity], m.n_nodes)
     Fe = case["rng"].standard_normal((W, 4, m.n_elems))
     ref = jasm.assemble_vector_gather(jnp.asarray(Fe), jnp.asarray(ng))
     out = assembly.restrict(_t(Fe).reshape(W, -1), torch.as_tensor(ng))

@@ -5,7 +5,9 @@ multiply-adds only), and a short transient run and a solid load step
 through the kernels against the same runs through the plain versions; K6
 (the generic element apply, HEX8), K7 (the calibration lookup) and K8 (the
 generic gather + interpolation) the same way, and ADPM steps on HEX8
-through K8, K6 and K4; K6 at 1 to 8 species on a mesh whose element count
+through K8, K6 and K4; the K6 and K8 instances of PRISM6, PYRAMID5 and
+TET10 (f32 within 1e-6) and three MixedTransientRDCSystem steps and a
+TET10 step through the kernels against the plain versions; K6 at 1 to 8 species on a mesh whose element count
 is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
 and HEX8 ELL structures and on widths and block shapes outside them, two
 launches bit-equal and one on a side stream.
@@ -22,11 +24,13 @@ import torch
 
 from rdcfes_tpu_torch.fem import assembly, bcsr, kernels, weakform
 from rdcfes_tpu_torch.fem.geometry import geometry_factors
-from rdcfes_tpu_torch.mesh import box_hex_mesh, box_tet_mesh
+from rdcfes_tpu_torch.mesh import (box_hex_mesh, box_mixed_mesh,
+                                   box_tet_mesh, tet4_to_tet10)
 from rdcfes_tpu_torch.models import adpm
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions
-from rdcfes_tpu_torch.systems import TransientRDCSystem
+from rdcfes_tpu_torch.systems import (MixedTransientRDCSystem,
+                                      TransientRDCSystem)
 from rdcfes_tpu_torch.systems.solid import SolidSystem
 from rdcfes_tpu_torch.utils.convert import blocks_from_numpy
 
@@ -60,8 +64,7 @@ def _case(dev, live):
     blk = lambda tail, s: [[rng.standard_normal(tail) if on(v, w + s)
                             else 0.0 for w in range(V)] for v in range(V)]
     blocks = (A, B, blk((Q, E), 0), blk((Q, 3, E), 1), blk((Q, E), 2))
-    sp = assembly.build_sparsity(mesh.connectivity, mesh.n_nodes)
-    ng = assembly.gather_tables(sp, mesh.connectivity)[1]
+    ng = assembly.block_node_gather([mesh.connectivity], mesh.n_nodes)
     conn_T = np.ascontiguousarray(mesh.connectivity.T)
     x = rng.standard_normal((V, mesh.n_nodes))
     return dict(phi=phi, JxW=JxW, dphi0=dphi[0].contiguous(), blocks=blocks,
@@ -392,7 +395,7 @@ def test_apply_generic_odd_e_matches_plain(cuda, n_vars, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_restrict_bit_equal_any_width(cuda, W, dtype):
     """K4 on a table whose nodes have 0 to C incidences (C = 13, not a
-    multiple of the kernel's chunk), tail-padded as gather_tables pads,
+    multiple of the kernel's chunk), tail-padded as invert_scatter pads,
     and on one with pads in the middle: equal to the plain version bit
     for bit, one launch counted per call."""
     rng = np.random.default_rng(W)
@@ -492,3 +495,142 @@ def test_hex8_kernel_path_matches_plain_path(cuda):
         assert n["apply_generic_f64"] > 0 and n["restrict_f64"] > 0
         assert n["gather_interp_generic_f64"] == 3
         assert (n["apply_generic_f32"] > 0) == (kw["precision"] == "mixed")
+
+
+def _prism_block(n):
+    """(coords, conn) of box_hex_mesh(n, n, n)'s cells each split into two
+    PRISM6 (bottom triangle counterclockwise seen from above)."""
+    m = box_hex_mesh(n, n, n)
+    c = m.connectivity
+    conn = np.concatenate([c[:, [0, 1, 2, 4, 5, 6]], c[:, [0, 2, 3, 4, 6, 7]]])
+    return m.coords, conn
+
+
+def _block(elem_type):
+    """(coords, conn) of a small block of one element type."""
+    if elem_type == "PRISM6":
+        return _prism_block(3)
+    if elem_type == "TET10":
+        m = tet4_to_tet10(box_tet_mesh(3, 3, 2))
+        return m.coords, m.connectivity
+    m = box_mixed_mesh(5, 3, 3)
+    b = next(b for b in m.blocks if b.elem_type == elem_type)
+    return m.coords, b.connectivity
+
+
+NEW_TYPES = {"PYRAMID5": "pyramid5", "PRISM6": "prism6", "TET10": "tet10"}
+
+
+def _elem_case(dev, elem_type, n_vars=V):
+    """Seeded blocks (some absent) on a jittered block of elem_type."""
+    coords, conn = _block(elem_type)
+    rng = np.random.default_rng(41)
+    coords = coords + 0.02 * rng.standard_normal(coords.shape)
+    phi, JxW, dphi = geometry_factors(torch.as_tensor(coords, device=dev),
+                                      torch.as_tensor(conn, device=dev),
+                                      elem_type)
+    Q, E = JxW.shape
+    on = lambda v, w: (v + 2 * w) % 3 != 1
+    blk = lambda tail, s: [[rng.standard_normal(tail) if on(v, w + s)
+                            else 0.0 for w in range(n_vars)]
+                           for v in range(n_vars)]
+    blocks = ([rng.standard_normal((Q, E)) for _ in range(n_vars)],
+              [0.0] * n_vars, blk((Q, E), 0), blk((Q, 3, E), 1),
+              blk((Q, E), 2))
+    return dict(phi=phi, JxW=JxW, dphi=dphi.contiguous(), blocks=blocks,
+                conn_T=torch.as_tensor(np.ascontiguousarray(conn.T),
+                                       device=dev),
+                x=torch.as_tensor(rng.standard_normal((n_vars, len(coords))),
+                                  device=dev))
+
+
+@pytest.mark.parametrize("elem_type", list(NEW_TYPES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-6)])
+def test_apply_generic_new_instances_match_plain(cuda, elem_type, dtype,
+                                                 tol):
+    """K6 at PYRAMID5 (5, 8), PRISM6 (6, 8) and TET10 (10, 14): one launch
+    counted under the variant and under the instance."""
+    c = _elem_case(cuda, elem_type)
+    wfb = blocks_from_numpy(*c["blocks"], cuda, dtype=dtype)
+    JxW, dphi, x = c["JxW"].to(dtype), c["dphi"].to(dtype), c["x"].to(dtype)
+    st = kernels.stack_apply_generic(wfb)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    inst = f"apply_generic_{tag}:{NEW_TYPES[elem_type]}"
+    before = kernels.launch_counts()
+    Ye = kernels.apply_generic(x, c["conn_T"], c["phi"], JxW, dphi, st)
+    ref = kernels.apply_generic_plain(x, c["conn_T"], c["phi"], JxW, dphi,
+                                      st)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert Ye.shape == ref.shape and rel(Ye, ref) < tol
+    assert after[inst] == before[inst] + 1
+    assert (after[f"apply_generic_{tag}"]
+            == before[f"apply_generic_{tag}"] + 1)
+
+
+@pytest.mark.parametrize("elem_type", list(NEW_TYPES))
+def test_gather_interp_generic_new_instances_match_plain(cuda, elem_type):
+    """K8 at PYRAMID5, PRISM6 and TET10, within 1e-13 of its plain
+    version."""
+    c = _elem_case(cuda, elem_type)
+    inst = f"gather_interp_generic_f64:{NEW_TYPES[elem_type]}"
+    before = kernels.launch_counts()[inst]
+    out = kernels.gather_interp_generic(c["x"], c["conn_T"], c["phi"],
+                                        c["dphi"])
+    ref = kernels.gather_interp_generic_plain(c["x"], c["conn_T"], c["phi"],
+                                              c["dphi"])
+    torch.cuda.synchronize()
+    assert all(rel(o, r) < 1e-13 for o, r in zip(out, ref))
+    assert kernels.launch_counts()[inst] == before + 1
+
+
+@pytest.mark.parametrize("mesh_kind", ["mixed", "tet10"])
+def test_mixed_and_tet10_kernel_path_matches_plain_path(cuda, mesh_kind):
+    """3 PIHNA steps on box_mixed_mesh(6,4,4) (HEX8, PYRAMID5, TET4) and
+    on a TET10 box, through the kernels and through the plain versions,
+    mixed precision, each from a common state; every kernel of the path
+    launched."""
+    b30 = ((0, 30.0),) * 3
+    if mesh_kind == "mixed":
+        mesh = box_mixed_mesh(6, 4, 4, bounds=b30)
+        make = MixedTransientRDCSystem
+        want = ["gather_interp_affine_f64", "rhs_affine_f64",
+                "apply_affine_f32", "apply_affine_f64",
+                "gather_interp_generic_f64:hex8",
+                "gather_interp_generic_f64:pyramid5",
+                "apply_generic_f64:hex8", "apply_generic_f64:pyramid5",
+                "apply_generic_f32:pyramid5", "restrict_f64"]
+    else:
+        mesh = tet4_to_tet10(box_tet_mesh(3, 3, 3, bounds=b30))
+        make = TransientRDCSystem
+        want = ["gather_interp_generic_f64:tet10", "apply_generic_f64:tet10",
+                "apply_generic_f32:tet10", "restrict_f64"]
+    p = default_params()
+    Kk = 2.39e5
+    p.update(dt=0.1, cells_min_capacity=1.0, cells_max_capacity=Kk,
+             cells_max_capacity_exponent=3.0, cytokines_max_capacity=1e-8,
+             necrosis_c=500 / Kk, necrosis_h=200 / Kk, necrosis_v=300 / Kk,
+             produce_c=-2.5, switch_c2h=1.0, switch_h2c=1.82,
+             switch_h2n=0.5, diffuse_c=0.5, taxis_c=2e-5, diffuse_h=1.0,
+             taxis_h=4e-5, diffuse_v=0.5, taxis_v=1e-4, produce_v=10.0,
+             secrete_a_c=2.77e-13, secrete_a_h=5.22e-10, uptake_a_v=1e-3,
+             decay_a=5678.4)
+    p = {k: float(v) for k, v in p.items()}
+    rng = np.random.default_rng(0)
+    u0 = np.abs(rng.random((mesh.n_nodes, 5))) * np.array(
+        [1., 100., 50., 500., 1e-10])
+    a = make(mesh, 5, pihna_blocks, rtol=1e-12, precision="mixed",
+             device=cuda)
+    b = make(mesh, 5, pihna_blocks, rtol=1e-12, precision="mixed",
+             device=cuda, ops=kernels.PLAIN_OPS)
+    kernels.reset_launch_counts()
+    sa = a.initial_state(u0)
+    for _ in range(3):
+        sb, _, _ = b.step(sa, params=p)
+        sa, _, res = a.step(sa, params=p)
+        assert float(res) <= 1e-12
+        ua, ub = sa["u"].cpu().numpy(), sb["u"].cpu().numpy()
+        assert np.linalg.norm(ua - ub) / np.linalg.norm(ub) < 1e-10
+    n = kernels.launch_counts()
+    assert all(n[k] > 0 for k in want), {k: n[k] for k in want}

@@ -217,15 +217,29 @@ def test_native_gmsh_parser_matches_numpy_and_reference(kind, tmp_path):
         gmsh.read_numpy(path)
     with pytest.raises(ValueError, match=str(numpy_error.value)):
         gmsh.read(path)
+    # a mixed mesh: the native parser refuses it, the NumPy parser reads
+    # it as the reference does
     jgmsh.write(jax_box_mixed_mesh(3, 2, 2), path)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        gmsh.read(path)
+    with pytest.raises(ValueError, match="code"):
+        read_gmsh_native(path)
+    assert gmsh.dumps(gmsh.read(path)) == jgmsh.dumps(jgmsh.read(path))
 
 
 def test_gmsh_unsupported_meshes_raise():
+    """2D meshes and HEX20 raise NotImplementedError (item 13); mixed and
+    TET10 meshes read as the reference reads them; malformed files raise
+    ValueError."""
+    from rdcfes_tpu.mesh import Mesh as JaxMesh
+    from rdcfes_tpu.mesh.generators import box_quad_mesh
+
     mixed = jgmsh.dumps(jax_box_mixed_mesh(3, 2, 2))
     tet10 = jgmsh.dumps(jax_tet4_to_tet10(jax_box_tet_mesh(1, 1, 1)))
     for text in (mixed, tet10):
+        assert gmsh.dumps(gmsh.read(io.StringIO(text))) == text
+    hex20 = JaxMesh(coords=np.random.default_rng(0).random((20, 3)),
+                    connectivity=np.arange(20)[None], elem_type="HEX20",
+                    subdomain_id=None)
+    for text in (jgmsh.dumps(box_quad_mesh(2, 2)), jgmsh.dumps(hex20)):
         with pytest.raises(NotImplementedError, match="item 13"):
             gmsh.read(io.StringIO(text))
     for text in ("", "$MeshFormat\n4.1 0 8\n$EndMeshFormat\n",

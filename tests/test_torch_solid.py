@@ -112,7 +112,7 @@ def test_element_tables_bit_equal(elem_type):
     for a, b in zip(elements.tabulate(elem_type), jel.tabulate(elem_type)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     with pytest.raises(ValueError):
-        elements.tabulate("PRISM6")
+        elements.tabulate("HEX20")
 
 
 @pytest.mark.parametrize("shape,bounds", [
@@ -145,7 +145,7 @@ def test_geometry_factors_non_affine_hex(case, dtype, tol):
     assert rel(tJxW, JxW) < tol and rel(tdphi, dphi) < tol
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         geometry.geometry_factors(_t(x), torch.as_tensor(jm.connectivity),
-                                  "PRISM6")
+                                  "HEX20")
 
 
 @pytest.mark.parametrize("mesh_fn,face_type", [
