@@ -5,8 +5,10 @@ solid load step (phases 6-8), the generic (HEX8) transient path with
 PIHNA and ADPM plus the launch-cost calibration (phases 9-12), the CLI
 with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13), and
 the coupled HCC driver on the moving mesh with process_mesh (phase 14),
-the PIHNA driver with AMR and the native Gmsh parser (phase 15), and the
-mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16).
+the PIHNA driver with AMR and the native Gmsh parser (phase 15), the
+mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16), and
+PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
+17).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -17,6 +19,7 @@ mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16).
     python3 chip_smoke.py --phases 0,1,6,14        # K5 at both its shapes
     python3 chip_smoke.py --phases 0,1,15          # AMR, the native parser
     python3 chip_smoke.py --phases 0,1,16          # mixed and TET10 meshes
+    python3 chip_smoke.py --phases 0,1,17          # PROTEAS, RIPF, AMR on them
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -172,10 +175,11 @@ Phases, one output line each (any failure raises, exit code != 0):
   15 amr    (a) make_pihna_case(n=28)'s mesh (24,389 nodes, 131,712 TET4)
             read by the native meshkit parser and by the NumPy parser:
             equal arrays, both parse times; (b) `-m pihna` in process on
-            make_pihna_case(n=28, n_steps=120), the shipped deck with
-            refinement_step = 40 and mesh/AMR/max_steps = 2 (AMR at
-            steps 40 and 80), once with mesh/AMR/strategy = bisection and
-            once with 1to8, launch counts reset just before and read
+            make_pihna_case(n=28, n_steps=60), the shipped deck with
+            refinement_step = 20 and mesh/AMR/max_steps = 2 (AMR at steps
+            20 and 40; 120 steps with AMR at 40 and 80 until phase 17
+            came), once with mesh/AMR/strategy = bisection and once with
+            1to8, launch counts reset just before and read
             just after: the element count before and after each AMR step
             and the hanging-node count, the amr scope's seconds and the
             wall time, K1-K4's launches, each run_steps call's inner
@@ -225,6 +229,43 @@ Phases, one output line each (any failure raises, exit code != 0):
             state within 1e-10 relative L2; (d) each K8 and K6
             instance, and K1-K4, launched on the runs whose mesh has its
             element type (the TET10 run in f64: K6 f32 not launched)
+  17 mixed drivers  (a) every kernel the new systems launch against its
+            plain version (f64 within 1e-13, f32 within 1e-6), timed as
+            in phase 2: K1-K3 at the TET4 block, K8 and K6 at each other
+            block, K4 (f64, the block-Jacobi diagonal, and f32 on a
+            mixed-precision system) at the system's one table, with
+            PROTEAS's blocks and dose (V = 5) on make_proteas_case(n=28,
+            mixed=True) and order=2, with RIPF's blocks and rebuilt fields
+            (V = 3, seeded time derivatives, the day-1 dose) on
+            make_ripf_case(n=24, mixed=True) and order=2, and RIPF's
+            field rebuild on each block (K1 on TET4, K8 on the others);
+            then the same at the shapes of the mixed PIHNA mesh after its
+            first constrained adaptation and of the TET10 PIHNA mesh
+            after its bisection, with PIHNA's blocks at the run's state;
+            (b) 3 f64 steps of the constrained MixedTransientRDCSystem on
+            that adapted mixed mesh at rtol 1e-13, kernels vs plain
+            versions from a common state, per-step relative L2 within
+            1e-10; (c) cli.main in process, every run_steps call
+            recorded, launch counts reset just before each run and read
+            just after: `-m proteas` on make_proteas_case(n=28,
+            n_steps=40) and `-m ripf` on make_ripf_case(n=24,
+            n_steps=120), each with mixed=True and with order=2 (the
+            artifacts, the last frame's species finite and >= 0, RIPF's
+            HU within [-1000, 1000] and its field rebuild's K1 / K8
+            launched at least twice a step on each block); `-u
+            process_mesh` in process on the mixed and the TET10 PROTEAS
+            case meshes, the ExodusII file read back with scipy (one block
+            per element type, their element total, the node count); `-m
+            pihna` with AMR on make_pihna_case(n=28, mixed=True)
+            (refinement_step 40, two adaptations, 120 steps, an output
+            every 40) and on
+            make_pihna_case(n=28, order=2) (refinement_step 10, one
+            bisection, 20 steps, before the runaway of 16b): elements and
+            hanging nodes after each adaptation, the amr scope's seconds,
+            the last frame's cells the refined mesh's, on the mixed mesh
+            u_h = (u_a + u_b) / 2 within 1e-12; each run's wall time,
+            PerfLog's phases, inner iterations, residuals and launches per
+            kernel instance, every residual <= the rtol
 
 Then nvidia-smi's name and power limit of the card once more, and one
 JSON line {"kernels": [...]}: one row per kernel variant with
@@ -679,10 +720,11 @@ def _err(out, ref):
     return abs_err, abs_err / scale
 
 
-def run_cases(phase, cases, main, also, label=""):
+def run_cases(phase, cases, main, also, label="", first=None):
     """measure() every case.  A key is a variant name, or 'variant@what'
     for a second shape of the same variant.  Rows of plain keys without a
-    label go to main[variant], the others to also[variant][label what]."""
+    label go to main[variant], the others to also[variant][label what];
+    `first`, if given, keeps each variant's first row measured here."""
     for key, c in cases.items():
         variant, _, sub = key.partition("@")
         tag = " ".join(x for x in (label, sub) if x)
@@ -691,6 +733,8 @@ def run_cases(phase, cases, main, also, label=""):
             also.setdefault(variant, {})[tag] = row
         else:
             main[variant] = row
+        if first is not None:
+            first.setdefault(variant, row)
 
 
 def restrict_case(flat, s):
@@ -1641,69 +1685,6 @@ def _say_driver(tag, wall, stdout, counts, variants, **kw):
     return totals
 
 
-def _driver_kernels(tag, d, dev, also):
-    """K1-K4 at a driver's own shapes and live planes, against their
-    plain versions: the driver's system on its case mesh at the case's
-    seeded initial state, with the driver's blocks and fields (PROTEAS:
-    the dose at qp as the driver builds it; RIPF: seeded TD fields and
-    the day-1 dose through the field rebuild, plus K1 on the rebuild's
-    own (3, N) nodal stack).  Rows go under "also", labelled `tag`."""
-    import os
-
-    from rdcfes_tpu_torch.drivers import proteas as dproteas
-    from rdcfes_tpu_torch.drivers import ripf as dripf
-    from rdcfes_tpu_torch.drivers.common import make_rdc_system
-    from rdcfes_tpu_torch.io import dat
-    from rdcfes_tpu_torch.io.getpot import Deck
-    from rdcfes_tpu_torch.mesh import gmsh
-    from rdcfes_tpu_torch.models.proteas import proteas_blocks
-    from rdcfes_tpu_torch.models.ripf import ripf_blocks, rt_dose_schedule
-
-    deck = Deck(os.path.join(d, "input.dat"))
-    path = lambda key: os.path.join(d, deck(key, ""))
-    mesh = gmsh.read(path("input_GMSH"))
-    N = mesh.n_nodes
-    extra = {}
-    if tag == "proteas":
-        u0 = dat.read_rows_tolerant(path("input_nodal"), N, 5)
-        aux = dat.read_rows_tolerant(path("input_nodal_aux"), N, 2)
-        params = dproteas.load_params(deck)
-        s = make_rdc_system(mesh, 5, proteas_blocks, deck, device=dev)
-        f = {"RTD": torch.as_tensor(dproteas.rtd_at_qp(mesh, aux),
-                                    dtype=F64, device=dev)}
-        blocks = lambda uq, gq: proteas_blocks(uq, gq, f, params)
-    else:
-        u0 = dat.read_stream(path("input_nodal"), N, 3)
-        rt = torch.as_tensor(dat.read_stream(path("input_nodal_RT"), N, 2),
-                             dtype=F64, device=dev)
-        params = dripf.load_params(deck)
-        s = make_rdc_system(mesh, 3, ripf_blocks, deck, device=dev)
-        rng = np.random.default_rng(13)
-        dose = rt_dose_schedule(rt[:, 0], rt[:, 1], 1.0,
-                                deck("RT_dose/broad/fractions", 1),
-                                deck("RT_dose/focus/fractions", 1))
-        nodal = torch.cat([torch.as_tensor(0.01 * rng.standard_normal(
-            (2, N)), dtype=F64, device=dev), dose[None]])
-        f = dripf.qp_fields(s, nodal)
-        for key in ("lambda_RT_r", "omicro_RT_r"):
-            f[key] = params["_fb_" + key] or float(int(dose.max()))
-        blocks = lambda uq, gq: ripf_blocks(uq, gq, f, params)
-        Kc, Q, E = s.conn_T.shape[0], s.geom.JxW.shape[0], mesh.n_elems
-        vq, g1 = K.gather_interp_affine_plain(nodal, s.conn_T, s.phi,
-                                              s.geom.dphi)
-        extra["gather_interp_affine_f64@field rebuild"] = dict(
-            kern=lambda: K.gather_interp_affine(nodal, s.conn_T, s.phi,
-                                                s.geom.dphi),
-            plain=lambda: K.gather_interp_affine_plain(nodal, s.conn_T,
-                                                       s.phi, s.geom.dphi),
-            tol=1e-13, n_bytes=nbytes(nodal, s.conn_T, s.geom.dphi, vq, g1),
-            flops=2.0 * 3 * Kc * E * (Q + 3))
-    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64, device=dev)
-    cases = {k: c for k, c in affine_cases("13 " + tag, s, u, blocks).items()
-             if k.partition("@")[0] in DRV_TRANSIENT}
-    run_cases("13 driver kernel", {**cases, **extra}, {}, also, label=tag)
-
-
 def phase_drivers(dev, also):
     """The CLI in process at full width (PIHNA, ADPM and PROTEAS on
     131,712 TET4, RIPF on 82,944 TET4, the solid on 110,592 HEX8), then as `python3 -m rdcfes_tpu_torch.cli`
@@ -1773,7 +1754,7 @@ def phase_drivers(dev, also):
 
         d = cases.make_proteas_case(os.path.join(root, "proteas"), n=DRV_N,
                                     n_steps=DRV_PROTEAS_STEPS)
-        _driver_kernels("proteas", d, dev, also)
+        _driver_kernels("13 driver", "proteas", d, "proteas", dev, also)
         wall, counts, out = _drive(d, ["-m", "proteas", "input=input.dat"],
                                    dev)
         _transient_artifacts(os.path.join(d, "simulation"), "out",
@@ -1796,7 +1777,7 @@ def phase_drivers(dev, also):
 
         d = cases.make_ripf_case(os.path.join(root, "ripf"), n=DRV_RIPF_N,
                                  n_steps=DRV_RIPF_STEPS)
-        _driver_kernels("ripf", d, dev, also)
+        _driver_kernels("13 driver", "ripf", d, "ripf", dev, also)
         wall, counts, out = _drive(d, ["-m", "ripf"], dev)
         (res_dir,) = [e for e in os.listdir(d)
                       if os.path.isdir(os.path.join(d, e))]
@@ -2178,7 +2159,11 @@ def phase_coupled(dev, also):
 # ----------------------------------------------------------------------
 # phase 15: the PIHNA driver with AMR, and the native Gmsh parser
 # ----------------------------------------------------------------------
-AMR_N, AMR_STEPS, AMR_EVERY, AMR_PASSES = 28, 120, 40, 2
+# two adaptations, at steps 20 and 40 of 60: only the second can
+# coarsen, and the 1to8 run's second mesh is the largest K1-K4 shape of
+# the script (the depth was 120 steps with AMR at 40 and 80 until phase
+# 17 came; the steps on the twice-refined mesh took most of each run)
+AMR_N, AMR_STEPS, AMR_EVERY, AMR_PASSES = 28, 60, 20, 2
 AMR_OUTPUTS = tuple(range(0, AMR_STEPS + 1, 10))
 # the resume run: AMR at step 4, a checkpoint at step 6 (12^3 with brain
 # bounds: its refined nodes are exact in the Gmsh writer's 6 digits)
@@ -2243,8 +2228,8 @@ def _parsers(path):
 
 
 def _amr_run(root, strategy, dev, also):
-    """`-m pihna` with AMR at steps 40 and 80 by `strategy`, its checks,
-    and K1-K4 at the refined mesh's shapes."""
+    """`-m pihna` with AMR at steps 20 and 40 by `strategy`, its checks,
+    and K1-K4 at the shapes of the mesh after the second adaptation."""
     import os
     import re
 
@@ -2618,10 +2603,13 @@ def _tet10_trajectory(dev, d):
 
 
 def _drive_mixed(tag, d, argv, dev, steps, species, outputs, res_dir, want,
-                 absent=()):
+                 absent=(), phase="16c", base="Brain_Model",
+                 csv="output.csv", csv_kind="header"):
     """One driver run through cli.main with every run_steps call
     recorded: the artifacts, the banners, every residual <= rtol, the
-    kernels of `want` launched and those of `absent` not."""
+    kernels of `want` launched and those of `absent` not.  Returns the
+    launch counts, the driver's stdout, the results directory and the
+    recorded calls (steps, iterations, residuals, system, state)."""
     import os
 
     from rdcfes_tpu_torch.systems.transient import TransientRDCSystem
@@ -2631,7 +2619,7 @@ def _drive_mixed(tag, d, argv, dev, steps, species, outputs, res_dir, want,
 
     def recorded(self, state, n, *a, **kw):
         out = fn(self, state, n, *a, **kw)
-        calls.append((n, out[1].tolist(), out[2].tolist(), self))
+        calls.append((n, out[1].tolist(), out[2].tolist(), self, out[0]))
         return out
 
     TransientRDCSystem.run_steps = recorded
@@ -2641,14 +2629,15 @@ def _drive_mixed(tag, d, argv, dev, steps, species, outputs, res_dir, want,
         TransientRDCSystem.run_steps = fn
     rdir = os.path.join(d, res_dir) if res_dir else os.path.join(d, next(
         e for e in os.listdir(d) if os.path.isdir(os.path.join(d, e))))
-    _transient_artifacts(rdir, "Brain_Model", outputs, species)
+    _transient_artifacts(rdir, base, outputs, species, csv=csv,
+                         csv_kind=csv_kind)
     require(out.count(" ==== Step") == steps, f"{tag}: banners")
     require(sum(c[0] for c in calls) == steps, f"{tag}: run_steps steps")
     s = calls[-1][3]
     ress = [r for c in calls for r in c[2]]
     its = [i for c in calls for i in c[1]]
     totals = _perf_totals(out)
-    say(f"16c {tag}", seconds=f"{wall:.4f}",
+    say(f"{phase} {tag}", seconds=f"{wall:.4f}",
         **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
            for k in DRV_PHASES},
         steps=steps, solve_steps_per_s=f"{steps / totals['solve']:.4f}",
@@ -2656,13 +2645,13 @@ def _drive_mixed(tag, d, argv, dev, steps, species, outputs, res_dir, want,
         last_residual=f"{ress[-1]:.3e}", max_residual=f"{max(ress):.3e}",
         rtol=s.rtol, precision=s.precision, n_nodes=s.mesh.n_nodes,
         n_elems=s.mesh.n_elems, fields="finite, >= 0")
-    say(f"16c {tag} launches", **{k: counts[k] for k in want + absent})
+    say(f"{phase} {tag} launches", **{k: counts[k] for k in want + absent})
     require(max(ress) <= s.rtol,
             f"{tag}: a residual {max(ress):.3e} > rtol {s.rtol}")
     _require_launched(counts, want, f"the {tag} driver")
     require(not any(counts[k] for k in absent),
             f"{tag}: launched {[k for k in absent if counts[k]]}")
-    return counts
+    return counts, out, rdir, calls
 
 
 def phase_mixed(dev, also):
@@ -2703,7 +2692,7 @@ def phase_mixed(dev, also):
             "mixed pihna", d, ["-m", "pihna"], dev, MIX_PIHNA_STEPS,
             ("n", "c", "h", "v", "a"),
             list(range(0, MIX_PIHNA_STEPS + 1, 10)), "PIHNA_simulation",
-            MIX_PATH)
+            MIX_PATH)[0]
 
         d = cases.make_adpm_case(os.path.join(root, "adpm"), n=MIX_N,
                                  n_steps=MIX_ADPM_STEPS, mixed=True)
@@ -2715,7 +2704,7 @@ def phase_mixed(dev, also):
         paths["mixed adpm"] = _drive_mixed(
             "mixed adpm", d, ["-m", "adpm"], dev, MIX_ADPM_STEPS,
             ("PrP", "A_b", "Tau"), list(range(0, MIX_ADPM_STEPS + 1, 20)),
-            None, MIX_PATH)
+            None, MIX_PATH)[0]
 
         # the PIHNA case's mesh with its hexes split into prisms, written
         # and read back as a Gmsh file (PRISM6, PYRAMID5, TET4)
@@ -2738,7 +2727,8 @@ def phase_mixed(dev, also):
             ("n", "c", "h", "v", "a"), list(range(0, PRISM_STEPS + 1, 10)),
             "PIHNA_simulation",
             DRV_TRANSIENT + ("apply_affine_f32",) + PRISM_INSTANCES
-            + tuple(k for k in MIX_INSTANCES if k.endswith("pyramid5")))
+            + tuple(k for k in MIX_INSTANCES
+                    if k.endswith("pyramid5")))[0]
 
         d = cases.make_pihna_case(os.path.join(root, "tet10"), n=MIX_N,
                                   n_steps=T10_STEPS, order=2)
@@ -2747,16 +2737,424 @@ def phase_mixed(dev, also):
             "tet10 pihna", d, ["-m", "pihna"], dev, T10_STEPS,
             ("n", "c", "h", "v", "a"), list(range(0, T10_STEPS + 1, 10)),
             "PIHNA_simulation", T10_INSTANCES + ("restrict_f64",),
-            absent=("apply_generic_f32:tet10", "apply_affine_f64"))
+            absent=("apply_generic_f32:tet10", "apply_affine_f64"))[0]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return results, paths
 
 
+# ----------------------------------------------------------------------
+# phase 17: PROTEAS and RIPF on mixed and TET10 meshes, their ExodusII
+# export, and AMR on mixed and TET10 meshes in the PIHNA driver
+# ----------------------------------------------------------------------
+P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 40
+P17_RIPF_N, P17_RIPF_STEPS = 24, 120
+RIPF_OUTPUTS = (0, 10, 30, 60, 90, 120)
+# mixed AMR at steps 40 and 80, an output every 40 steps (the host's
+# CSV and VTU writes of 13 frames took 31 of the run's 82 s); TET10 AMR
+# at step 10 of the 20 steps before its runaway (phase 16)
+P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 120, 40, 2
+P17_MIX_AMR_OUTPUT = 40
+P17_T10_AMR_STEPS, P17_T10_AMR_EVERY = 20, 10
+PROTEAS_SPECIES = ("hos", "tum", "nec", "vsc", "oed")
+PIHNA_SPECIES = ("n", "c", "h", "v", "a")
+T10_ABSENT = ("apply_generic_f32:tet10", "apply_affine_f64")
+# process_mesh's answers: the mesh, scale 1, no translation or rotation
+P17_EXPORT_ANSWERS = "in.msh\n1\n0\n0\n0\n0\n0\n0\n1\nout\n"
+EXODUS_NAMES = {"TET4": "TETRA4", "HEX8": "HEX8", "PRISM6": "WEDGE6",
+                "PYRAMID5": "PYRAMID5", "TET10": "TETRA10"}
+
+
+def _generic_name(variant, elem):
+    """The launch-count name of a K6 or K8 instance (HEX8's is the
+    variant's own)."""
+    return variant if elem == "hex8" else f"{variant}:{elem}"
+
+
+def _system_cases(phase, tag, s, u, fields, blocks_fn, also, first=None):
+    """Every kernel launch of a step of the system `s` (single-type or
+    mixed) at its shapes: per block K1-K3 (TET4) or K8 and K6 (the other
+    types) with the coefficient blocks that blocks_fn(u_qp, grad_qp, the
+    block's fields) builds at the state u (V, N) f64; then K4 over the
+    system's one table at the right-hand side's and the block-Jacobi
+    diagonal's widths.  The f32 kernels (K3, K6, K4 at the f32 matvec's
+    width) only on a mixed-precision system: an f64 one launches none.
+    Rows go under "also", labelled `tag`."""
+    from rdcfes_tpu_torch.fem.weakform import block_diag, block_diag_affine
+
+    V, N = s.n_vars, s.mesh.n_nodes
+    mixed = s.precision == "mixed"
+    run = lambda cases: run_cases(
+        f"{phase} kernel", {k: c for k, c in cases.items()
+                            if mixed or "_f32" not in k}, {}, also,
+        first=first)
+    flats32, flats64, diags = [], [], []
+    for bi, (blk, g) in enumerate(zip(s.blocks, s.geoms)):
+        f = s._fields_for_block(bi, fields)
+        blocks_of = lambda uq, gq, f=f: blocks_fn(uq, gq, f)
+        shim = _block_shim(blk, g, V, N)
+        elem = blk.elem_type.lower()
+        if blk.affine:
+            cases = {f"{k}@{tag}": c for k, c in affine_cases(
+                f"{phase} {tag} {elem}", shim, u, blocks_of).items()
+                if not k.startswith("restrict")}
+            u_qp, gx1 = K.gather_interp_affine_plain(u, blk.conn_T, blk.phi,
+                                                     g.dphi)
+            gq = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
+        else:
+            cases = {f"{_generic_name(k, elem)}@{tag}": c
+                     for k, c in generic_cases(
+                         f"{tag} {elem}", shim, u, blocks_of, f32_tol=1e-6,
+                         with_restrict=False).items()}
+            u_qp, gq = K.gather_interp_generic_plain(u, blk.conn_T, blk.phi,
+                                                     g.dphi)
+        run(cases)
+        wfb = blocks_of(u_qp, gq)
+        del u_qp, gq
+        if mixed:
+            st32 = blk.stacks(wfb.cast(F32), g.JxW32)
+            flats32.append(blk.apply(K.PLAIN_OPS, u.to(F32), st32, g.JxW32,
+                                     g.dphi32).reshape(V, -1))
+        flats64.append(blk.rhs(K.PLAIN_OPS, wfb, g).reshape(V, -1))
+        diags.append((block_diag_affine(wfb, blk.phi, g.JxW, g.dphi[None])
+                      if blk.affine else block_diag(wfb, blk.phi, g.JxW,
+                                                    g.dphi)
+                      ).reshape(V * V, -1))
+        del wfb
+    conns = [blk.conn_T for blk in s.blocks]
+    cases = {}
+    for flat in ([torch.cat(flats32, 1)] if flats32 else []) + [
+            torch.cat(flats64, 1)]:
+        cases.update(_restrict_concat(tag, flat, s.node_gather, conns))
+    cases.update({k + " diagonal": c for k, c in _restrict_concat(
+        tag, torch.cat(diags, 1), s.node_gather, conns).items()})
+    run(cases)
+    say(f"{phase} shapes", system=tag.replace(" ", "_"), V=V, N=N,
+        C=s.node_gather.shape[0], precision=s.precision,
+        **{b.elem_type: b.conn_T.shape[1] for b in s.blocks})
+
+
+def _driver_kernels(phase, tag, d, driver, dev, also, first=None):
+    """The kernels of a PROTEAS or RIPF case's system at its shapes and
+    live planes (_system_cases), at the case's initial state, with the
+    driver's fields: PROTEAS the dose at each block's quadrature points;
+    RIPF seeded time derivatives and the day-1 dose through the field
+    rebuild, which is also held on each block (K1 on TET4, K8 on the
+    others, on its (3, N) nodal stack).  Rows go under "also",
+    labelled `tag`."""
+    import os
+
+    from rdcfes_tpu_torch.drivers import proteas as dproteas
+    from rdcfes_tpu_torch.drivers import ripf as dripf
+    from rdcfes_tpu_torch.drivers.common import make_rdc_system
+    from rdcfes_tpu_torch.io import dat
+    from rdcfes_tpu_torch.io.getpot import Deck
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.models.proteas import proteas_blocks
+    from rdcfes_tpu_torch.models.ripf import ripf_blocks, rt_dose_schedule
+
+    deck = Deck(os.path.join(d, "input.dat"))
+    path = lambda key: os.path.join(d, deck(key, ""))
+    mesh = gmsh.read(path("input_GMSH"))
+    N = mesh.n_nodes
+    as_dev = lambda a: torch.as_tensor(a, dtype=F64, device=dev)
+    if driver == "proteas":
+        u0 = dat.read_rows_tolerant(path("input_nodal"), N, 5)
+        aux = dat.read_rows_tolerant(path("input_nodal_aux"), N, 2)
+        params = dproteas.load_params(deck)
+        s = make_rdc_system(mesh, 5, proteas_blocks, deck, device=dev)
+        rtd = dproteas.rtd_at_qp(mesh, aux)
+        fields = {"RTD": (tuple(map(as_dev, rtd)) if isinstance(rtd, tuple)
+                          else as_dev(rtd))}
+        blocks_fn = lambda uq, gq, f: proteas_blocks(uq, gq, f, params)
+    else:
+        u0 = dat.read_stream(path("input_nodal"), N, 3)
+        rt = as_dev(dat.read_stream(path("input_nodal_RT"), N, 2))
+        params = dripf.load_params(deck)
+        s = make_rdc_system(mesh, 3, ripf_blocks, deck, device=dev)
+        rng = np.random.default_rng(13)
+        dose = rt_dose_schedule(rt[:, 0], rt[:, 1], 1.0,
+                                deck("RT_dose/broad/fractions", 1),
+                                deck("RT_dose/focus/fractions", 1))
+        nodal = torch.cat([as_dev(0.01 * rng.standard_normal((2, N))),
+                           dose[None]])
+        fields = dripf.qp_fields(s, nodal)
+        for key in ("lambda_RT_r", "omicro_RT_r"):
+            fields[key] = params["_fb_" + key] or float(int(dose.max()))
+        blocks_fn = lambda uq, gq, f: ripf_blocks(uq, gq, f, params)
+        rebuild = {}
+        for blk, g in zip(s.blocks, s.geoms):
+            Kc, E = blk.conn_T.shape
+            Q = g.JxW.shape[0]
+            fn = (K.gather_interp_affine if blk.affine
+                  else K.gather_interp_generic)
+            pl = (K.gather_interp_affine_plain if blk.affine
+                  else K.gather_interp_generic_plain)
+            out = pl(nodal, blk.conn_T, blk.phi, g.dphi)
+            name = ("gather_interp_affine_f64" if blk.affine else
+                    _generic_name("gather_interp_generic_f64",
+                                  blk.elem_type.lower()))
+            rebuild[f"{name}@field rebuild"] = dict(
+                kern=lambda fn=fn, b=blk, g=g: fn(nodal, b.conn_T, b.phi,
+                                                  g.dphi),
+                plain=lambda pl=pl, b=blk, g=g: pl(nodal, b.conn_T, b.phi,
+                                                   g.dphi),
+                tol=1e-13, n_bytes=nbytes(nodal, blk.conn_T, g.dphi, *out),
+                flops=2.0 * 3 * Kc * E * ((Q + 3) if blk.affine
+                                          else 4 * Q))
+        run_cases(f"{phase} kernel", rebuild, {}, also, label=tag,
+                  first=first)
+    _system_cases(phase, tag, s, as_dev(np.ascontiguousarray(u0.T)), fields,
+                  blocks_fn, also, first)
+
+
+def _p17_transient(root, driver, kind, dev, also, first):
+    """PROTEAS (40 steps, n = 28) or RIPF (120 steps, n = 24) on the
+    mixed or the TET10 case: its kernels held first (_driver_kernels),
+    then the driver through cli.main (_drive_mixed): the artifacts, every
+    residual <= rtol, the kernels of its mesh launched; RIPF's fields
+    finite, HU within [-1000, 1000], the field rebuild's K1 / K8 launched
+    at least twice a step on each block."""
+    import os
+
+    from rdcfes_tpu_torch import cases
+
+    proteas = driver == "proteas"
+    n, steps = ((P17_PROTEAS_N, P17_PROTEAS_STEPS) if proteas
+                else (P17_RIPF_N, P17_RIPF_STEPS))
+    make = cases.make_proteas_case if proteas else cases.make_ripf_case
+    kw = {"mixed": True} if kind == "mixed" else {"order": 2}
+    d = make(os.path.join(root, f"{driver}_{kind}"), n=n, n_steps=steps,
+             **kw)
+    tag = f"{kind} {driver}"
+    _driver_kernels("17a", tag, d, driver, dev, also, first)
+    want, absent = ((MIX_PATH, ()) if kind == "mixed"
+                    else (T10_INSTANCES + ("restrict_f64",), T10_ABSENT))
+    if proteas:
+        counts, _, rdir, _ = _drive_mixed(
+            tag, d, ["-m", "proteas", "input=input.dat"], dev, steps,
+            PROTEAS_SPECIES, list(range(0, steps + 1, steps // 4)),
+            "simulation", want, absent, phase="17c", base="out",
+            csv="simulation.csv", csv_kind="empty")
+        return counts, os.path.join(d, "Proteas_Model.msh")
+    counts, _, rdir, _ = _drive_mixed(
+        tag, d, ["-m", "ripf"], dev, steps, ("cc", "fb"),
+        list(RIPF_OUTPUTS), None, want, absent, phase="17c",
+        base="Lung_Model", csv_kind="rows")
+    last = _vtu_arrays(os.path.join(rdir,
+                                    f"Lung_Model-{RIPF_OUTPUTS[-1]}.vtu"))
+    require(all(np.isfinite(v).all() for v in last.values())
+            and np.abs(last["HU"]).max() <= 1000.0,
+            f"{tag}: a field not finite or HU outside [-1000, 1000]")
+    rebuild = (("gather_interp_affine_f64", "gather_interp_generic_f64",
+                "gather_interp_generic_f64:pyramid5") if kind == "mixed"
+               else ("gather_interp_generic_f64:tet10",))
+    for k in rebuild:
+        require(counts[k] >= 2 * steps,
+                f"{tag}: the field rebuild did not launch {k}")
+    return counts, None
+
+
+def _p17_export(root, msh, kind):
+    """`-u process_mesh` in process on a case's Gmsh file (scale 1, no
+    translation or rotation): the ExodusII file read back with
+    scipy.io.netcdf_file, one block per element type of the mesh, their
+    element total and the node count the mesh's."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import sys
+
+    from scipy.io import netcdf_file
+
+    from rdcfes_tpu_torch.drivers import process_mesh
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    d = os.path.join(root, f"export_{kind}")
+    os.makedirs(d)
+    shutil.copy(msh, os.path.join(d, "in.msh"))
+    mesh = gmsh.read(msh)
+    cwd, stdin = os.getcwd(), sys.stdin
+    out, err = io.StringIO(), io.StringIO()
+    os.chdir(d)
+    sys.stdin = io.StringIO(P17_EXPORT_ANSWERS)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            process_mesh.run()
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin = stdin
+        os.chdir(cwd)
+    require("NOTE" not in err.getvalue(),
+            f"process_mesh ({kind}): {err.getvalue()[-500:]}")
+    with netcdf_file(os.path.join(d, "out.ex2"), "r", mmap=False) as f:
+        nb = f.dimensions["num_el_blk"]
+        types = [f.variables[f"connect{i}"].elem_type.decode()
+                 for i in range(1, nb + 1)]
+        total = sum(f.dimensions[f"num_el_in_blk{i}"]
+                    for i in range(1, nb + 1))
+        nodes = f.dimensions["num_nodes"]
+    blocks = mesh.blocks if mesh.elem_type == "MIXED" else [mesh]
+    say("17c export", mesh=kind, seconds=f"{wall:.4f}", blocks=nb,
+        types=",".join(types), elements=total, nodes=nodes,
+        ex2_bytes=os.path.getsize(os.path.join(d, "out.ex2")))
+    require(types == [EXODUS_NAMES[b.elem_type] for b in blocks]
+            and total == mesh.n_elems and nodes == mesh.n_nodes,
+            f"process_mesh ({kind}): the ExodusII file does not hold the "
+            "mesh")
+
+
+def _p17_amr(root, kind, dev, also, first):
+    """`-m pihna` with AMR: on the mixed case (120 steps, the TET4 block
+    refined 1:8 with hanging nodes at steps 40 and 80) or on the TET10
+    case (20 steps, one skeleton bisection at step 10).  The run's checks
+    (_drive_mixed), the elements and hanging nodes after each adaptation,
+    the mesh of the last frame; then the kernels at the shapes of the
+    mesh after the first adaptation, with the state at the end of the
+    first segment on it; on the mixed mesh u_h = (u_a + u_b) / 2 within
+    1e-12 at the end of the run.  Returns the launches and that system
+    and state."""
+    import os
+    import re
+
+    from rdcfes_tpu_torch import cases
+
+    if kind == "mixed":
+        steps, every, passes = (P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY,
+                                P17_MIX_AMR_PASSES)
+        d = cases.make_pihna_case(os.path.join(root, "amr_mixed"), n=MIX_N,
+                                  n_steps=steps, mixed=True)
+        _amr_deck(d, every, passes, "1to8")
+        path = os.path.join(d, "input.dat")
+        text = open(path).read()
+        require("output_step = 10\n" in text, "PIHNA case deck changed")
+        with open(path, "w") as f:
+            f.write(text.replace("output_step = 10\n",
+                                 f"output_step = {P17_MIX_AMR_OUTPUT}\n"))
+        want, absent, every_out = MIX_PATH, (), P17_MIX_AMR_OUTPUT
+    else:
+        steps, every, passes = P17_T10_AMR_STEPS, P17_T10_AMR_EVERY, 1
+        d = cases.make_pihna_case(os.path.join(root, "amr_tet10"), n=MIX_N,
+                                  n_steps=steps, order=2)
+        _amr_deck(d, every, passes, "bisection")
+        want, absent = T10_INSTANCES + ("restrict_f64",), T10_ABSENT
+        every_out = 10
+    tag = f"{kind} pihna amr"
+    outputs = list(range(0, steps + 1, every_out))
+    counts, out, rdir, calls = _drive_mixed(
+        tag, d, ["-m", "pihna"], dev, steps, PIHNA_SPECIES, outputs,
+        "PIHNA_simulation", want, absent, phase="17c")
+    elements_before = int(re.search(r"n_elems=(\d+)", out).group(1))
+    amr = re.findall(r"AMR step (\d+): adapted to (\d+) elements"
+                     r"(?: \((\d+) hanging nodes\))?", out)
+    require(len(amr) == passes,
+            f"{tag}: {len(amr)} adaptations, not {passes}")
+    say(f"17c {tag} adaptations", elements_before=elements_before,
+        **{f"elements_after_step_{t}": e for t, e, _ in amr},
+        **({f"hanging_after_step_{t}": h for t, _, h in amr}
+           if kind == "mixed" else {}),
+        amr_s=f"{_perf_totals(out).get('amr', 0.0):.4f}")
+    with open(os.path.join(rdir, f"Brain_Model-{outputs[-1]}.vtu")) as f:
+        cells = int(re.search(r'NumberOfCells="(\d+)"', f.read()).group(1))
+    s_last, st_last = calls[-1][3], calls[-1][4]
+    require(cells == s_last.mesh.n_elems == int(amr[-1][1]),
+            f"{tag}: the last frame has {cells} cells")
+    if kind == "mixed":
+        c = s_last.cons
+        require(c is not None and c.n_hanging == int(amr[-1][2]),
+                f"{tag}: the system's constraints")
+        uu = st_last["u"]
+        err = float((uu[c.hang] - 0.5 * (uu[c.a] + uu[c.b])).abs().max()
+                    / uu.abs().max())
+        say(f"17c {tag} constraint", hanging=c.n_hanging,
+            max_rel_err=f"{err:.3e}", bar=1e-12)
+        require(err <= 1e-12, f"u_h != (u_a + u_b) / 2: {err:.3e}")
+    # the first segment on the adapted mesh: its system and final state
+    i = next(j for j, c in enumerate(calls)
+             if c[3].mesh.n_elems != elements_before)
+    s, st = calls[i][3], calls[i][4]
+    params = _pihna_deck_params(d)
+    _system_cases("17a", f"{kind} amr", s, st["u"].T.contiguous(), {},
+                  lambda uq, gq, f: pihna_blocks(uq, gq, f, params), also,
+                  first)
+    return counts, s, st, params
+
+
+def _p17_constrained_paths(dev, s, state, params):
+    """3 f64 steps of the constrained MixedTransientRDCSystem on the mesh
+    after the first adaptation, at rtol 1e-13, through the kernels and
+    through the plain versions, each from the kernel path's state; the
+    first from the run's state with every master value scaled by a
+    seeded factor in [1, 1.05) (the hanging values their masters' mean),
+    so that the solves iterate; per-step relative L2 within 1e-10."""
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    c = s.cons
+    rows = torch.stack([c.hang, c.a, c.b], 1).cpu().numpy()
+    a, b = (MixedTransientRDCSystem(s.mesh, 5, pihna_blocks,
+                                    precision="f64", rtol=1e-13,
+                                    constraints=rows, device=dev, ops=ops)
+            for ops in (K.KERNEL_OPS, K.PLAIN_OPS))
+    rng = np.random.default_rng(17)
+    u = state["u"] * torch.as_tensor(
+        1.0 + 0.05 * rng.random(tuple(state["u"].shape)), device=dev)
+    u = c.c_apply(u.T.contiguous()).T
+    sa = {"u": u, "u_old": state["u"], "u_older": state["u_old"],
+          "u_raw": u}
+    worst, iters = 0.0, []
+    for _ in range(3):
+        sb, _, rb = b.step(sa, params=params)
+        sa, ia, ra = a.step(sa, params=params)
+        iters.append(int(ia))
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+        require(max(float(ra), float(rb)) <= 1e-13,
+                f"17b: residuals {float(ra):.3e}, {float(rb):.3e}")
+    say("17b constrained paths", n_nodes=s.mesh.n_nodes,
+        n_elems=s.mesh.n_elems, hanging=c.n_hanging, steps=3, rtol=1e-13,
+        precision="f64", iters=iters, worst_rel_l2=f"{worst:.3e}",
+        bar=1e-10)
+    require(worst <= 1e-10,
+            f"constrained mixed kernel vs plain path: {worst:.3e}")
+
+
+def phase_mixed_drivers(dev, also):
+    """(a) every kernel the new systems launch against its plain version
+    at their shapes, (b) three constrained mixed f64 steps, kernels
+    against plain versions, (c) PROTEAS and RIPF on the mixed and the
+    TET10 cases, process_mesh exporting both meshes to ExodusII, and the
+    PIHNA driver with AMR on the mixed and the TET10 case."""
+    import shutil
+    import tempfile
+
+    first, paths = {}, {}
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rdcfes_p17_")
+    try:
+        for kind in ("mixed", "tet10"):
+            for driver in ("proteas", "ripf"):
+                counts, msh = _p17_transient(root, driver, kind, dev, also,
+                                             first)
+                paths[f"{kind} {driver}"] = counts
+                if msh:
+                    _p17_export(root, msh, kind)
+        counts, s, st, params = _p17_amr(root, "mixed", dev, also, first)
+        paths["mixed pihna amr"] = counts
+        _p17_constrained_paths(dev, s, st, params)
+        del s, st
+        paths["tet10 pihna amr"] = _p17_amr(root, "tet10", dev, also,
+                                            first)[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("17 done", seconds=f"{time.perf_counter() - t0:.4f}")
+    return first, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2798,6 +3196,10 @@ def main(argv=None) -> int:
     if 16 in phases:
         mix_kern, mix_paths = phase_mixed(dev, also)
         paths.update(mix_paths)
+    p17_kern = {}
+    if 17 in phases:
+        p17_kern, p17_paths = phase_mixed_drivers(dev, also)
+        paths.update(p17_paths)
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -2810,7 +3212,8 @@ def main(argv=None) -> int:
                "launches": sum(by_path.values()) if by_path else None,
                "launches_by_path": by_path}
         first = (kern.get(name) or solid_kern.get(name)
-                 or gen_kern.get(name) or mix_kern.get(name) or {})
+                 or gen_kern.get(name) or mix_kern.get(name)
+                 or p17_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

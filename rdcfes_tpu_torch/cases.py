@@ -7,10 +7,10 @@ repository, so runs at patient scale need stand-ins: each function writes
 a complete case directory (Gmsh mesh, nodal/elemental IC `.dat` files,
 `input.dat` deck and a Makefile) at the documented case size.  The
 signatures are the reference's, so a caller switches packages unchanged.
-PIHNA and ADPM also take `mixed=True` (the box as HEX8 + PYRAMID5 + TET4
-blocks, mesh.generators.box_mixed_mesh) and `order=2` (TET10,
-mesh.generators.tet4_to_tet10); RIPF, PROTEAS and HCC raise
-NotImplementedError for them (ROADMAP queue 1 item 13).
+PIHNA, ADPM, RIPF and PROTEAS also take `mixed=True` (the box as HEX8 +
+PYRAMID5 + TET4 blocks, mesh.generators.box_mixed_mesh) and `order=2`
+(TET10, mesh.generators.tet4_to_tet10); HCC raises NotImplementedError
+for `mixed=True` (ROADMAP queue 1 item 13, sub-slice 5).
 """
 
 from __future__ import annotations
@@ -21,15 +21,15 @@ import numpy as np
 
 from .mesh import box_mixed_mesh, box_tet_mesh, gmsh, tet4_to_tet10
 
-_ITEM13 = "ROADMAP queue 1 item 13 (RIPF, PROTEAS and HCC on mixed and " \
-          "second-order meshes)"
+_ITEM13 = "ROADMAP queue 1 item 13, sub-slice 5 (HCC on mixed meshes)"
 _BRAIN = ((0, 150.0), (0, 180.0), (0, 150.0))
+_LUNG = ((0, 250.0), (0, 180.0), (0, 250.0))
+_CUBE = ((0, 100.0),) * 3
 
 
-def _first_order_tet(mixed: bool, order: int) -> None:
-    if mixed or order != 1:
-        raise NotImplementedError(
-            f"case with mixed={mixed}, order={order}: {_ITEM13}")
+def _first_order_tet(mixed: bool) -> None:
+    if mixed:
+        raise NotImplementedError(f"HCC case with mixed=True: {_ITEM13}")
 
 
 def _write_makefile(directory: str, args: str) -> None:
@@ -48,22 +48,16 @@ def _write_makefile(directory: str, args: str) -> None:
         )
 
 
-def _brain_mesh(n: int = 28):
-    """~24k nodes / ~132k TET4 over a 150x180x150 mm box (the run/PIHNA
-    patient mesh is 24,903 nodes / 134,646 elements)."""
-    return box_tet_mesh(n, n, n, bounds=_BRAIN)
-
-
-def _brain_case_mesh(n: int, mixed: bool, order: int):
-    """The brain box as a MixedMesh (box_mixed_mesh(max(n, 3), n, n)), a
-    TET4 mesh, or its TET10 upgrade."""
+def _case_mesh(n: int, mixed: bool, order: int, bounds=_BRAIN):
+    """The box over `bounds` as a MixedMesh (box_mixed_mesh(max(n, 3), n,
+    n)), box_tet_mesh(n, n, n), or its TET10 upgrade."""
     if mixed:
         if order != 1:
             raise ValueError("mixed meshes are first-order")
-        return box_mixed_mesh(max(n, 3), n, n, bounds=_BRAIN)
+        return box_mixed_mesh(max(n, 3), n, n, bounds=bounds)
     if order not in (1, 2):
         raise ValueError(f"order {order}: 1 or 2")
-    mesh = _brain_mesh(n)
+    mesh = box_tet_mesh(n, n, n, bounds=bounds)
     return tet4_to_tet10(mesh) if order == 2 else mesh
 
 
@@ -74,7 +68,7 @@ def make_pihna_case(directory: str, n: int = 28, seed: int = 0,
     box_tet_mesh(n, n, n) with brain bounds; mixed=True meshes the same
     box with HEX8 + PYRAMID5 + TET4 blocks (the stand-in for a patient
     mesh with transition elements), order=2 upgrades the tets to TET10."""
-    mesh = _brain_case_mesh(n, mixed, order)
+    mesh = _case_mesh(n, mixed, order)
     os.makedirs(directory, exist_ok=True)
     gmsh.write(mesh, os.path.join(directory, "Brain_Model.msh"))
 
@@ -160,7 +154,7 @@ def make_adpm_case(directory: str, n: int = 28, seed: int = 1,
     box_tet_mesh(n, n, n) with brain bounds and two parcellations;
     mixed=True and order=2 as make_pihna_case (the tracts then an
     elemental field over the blocks)."""
-    mesh = _brain_case_mesh(n, mixed, order if mixed else 1)
+    mesh = _case_mesh(n, mixed, order if mixed else 1)
     # two parcellation regions, by element centroid
     for conn, sid in ([(b.connectivity, b.subdomain_id) for b in mesh.blocks]
                       if mixed else [(mesh.connectivity, mesh.subdomain_id)]):
@@ -226,10 +220,11 @@ def make_ripf_case(directory: str, n: int = 16, seed: int = 2,
                    order: int = 1) -> str:
     """Synthetic RIPF lung-fibrosis case (deck values = run/RIPF133/input.dat;
     the real case is 15,700 nodes) on box_tet_mesh(n, n, n) over a
-    250x180x250 mm box, with a broad and a focus RT dose."""
-    _first_order_tet(mixed, order)
+    250x180x250 mm box, with a broad and a focus RT dose; mixed=True and
+    order=2 as make_pihna_case (mixed=True ignores `order`, as the
+    reference does)."""
+    mesh = _case_mesh(n, mixed, 1 if mixed else order, _LUNG)
     os.makedirs(directory, exist_ok=True)
-    mesh = box_tet_mesh(n, n, n, bounds=((0, 250.0), (0, 180.0), (0, 250.0)))
     gmsh.write(mesh, os.path.join(directory, "Lung_Model.msh"))
 
     rng = np.random.default_rng(seed)
@@ -304,10 +299,9 @@ def make_proteas_case(directory: str, n: int = 12, seed: int = 3,
     n) over a 100 mm cube.  No run/ deck ships for PROTEAS, so the deck
     follows the input() defaults and comment hints of proteas.C:93-216,
     with a brain-like hos/tum/nec/vsc/oed composition and an AUX file of
-    HU and RT dose."""
-    _first_order_tet(mixed, order)
+    HU and RT dose; mixed=True and order=2 as make_ripf_case."""
+    mesh = _case_mesh(n, mixed, 1 if mixed else order, _CUBE)
     os.makedirs(directory, exist_ok=True)
-    mesh = box_tet_mesh(n, n, n, bounds=((0, 100.0), (0, 100.0), (0, 100.0)))
     gmsh.write(mesh, os.path.join(directory, "Proteas_Model.msh"))
 
     rng = np.random.default_rng(seed)
@@ -364,7 +358,7 @@ def make_hcc_case(directory: str, n: int = 8, seed: int = 4,
     shipped deck) and the shipped boundary-condition table mapped onto
     the box: 2000 fixed at z = 0, 2002 and 2003 z-pinned on the two x
     faces.  `seed` is unused, as in the reference."""
-    _first_order_tet(mixed, 1)
+    _first_order_tet(mixed)
     os.makedirs(directory, exist_ok=True)
     mesh = box_tet_mesh(n, n, n, bounds=((0, 10.0),) * 3)
     centers = mesh.coords[mesh.connectivity].mean(axis=1)

@@ -99,13 +99,13 @@ def require_one_device(deck) -> None:
 
 
 def require_first_order_tet_or_hex(mesh, what: str) -> None:
-    """The drivers that run only on single-type TET4 and HEX8 meshes
-    (PROTEAS, RIPF, HCC and the solid) raise NotImplementedError on a
-    MIXED or TET10 mesh, before the first step."""
+    """The drivers that run only on single-type TET4 and HEX8 meshes (the
+    solid and HCC) raise NotImplementedError on a MIXED or TET10 mesh,
+    before the first step."""
     if mesh.elem_type not in ("TET4", "HEX8"):
         raise NotImplementedError(
-            f"{what} on a {mesh.elem_type} mesh: {_ITEM13} (PROTEAS, RIPF, "
-            "HCC and the solid on mixed and TET10 meshes)")
+            f"{what} on a {mesh.elem_type} mesh: {_ITEM13}, sub-slices 4 "
+            "and 5 (the solid and HCC on mixed and TET10 meshes)")
 
 
 def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,

@@ -20,7 +20,7 @@ the card, f64 on the CPU; the deck keys override).
 Not ported, each raising NotImplementedError before the first step:
 remeshing (`remeshing_step` > 0 while `mesh/AMR/max_steps` > 0, ROADMAP
 queue 1 item 13), a checkpoint written after remeshing (item 13), MIXED
-meshes (item 13, raised by the Gmsh reader) and `parallel/n_devices` > 1
+and TET10 meshes (item 13, sub-slice 5) and `parallel/n_devices` > 1
 (item 14).
 """
 

@@ -18,9 +18,14 @@ mesh is adapted on the host: on TET4 by `mesh/AMR/strategy` "bisection"
 (the default: conforming bisection with coarsening, mesh/adapt.py) or
 "1to8" (selective 1:8 with hanging-node constraints and coarsening,
 mesh/constrain.py), both capped by `mesh/AMR/max_level`; on HEX8 by
-uniform 1:8 when anything is flagged (mesh/refine.refine_flagged).  The
+uniform 1:8 when anything is flagged (mesh/refine.refine_flagged); on
+TET10 by bisection of the corner skeleton with the exact quadratic
+transfer (mesh/adapt_ext.Tet10Adaptive; "1to8" warns and bisects, as the
+reference does); on a MixedMesh by 1:8 of its TET4 block with hanging
+nodes against the other blocks, which do not refine (mesh/adapt_ext.
+MixedConstrained, the Kelly indicator on the TET4 block only).  The
 structure (HU, RT) is carried to the new elements, the state is
-P1-prolonged, and the system is rebuilt on the new mesh (with its
+prolonged, and the system is rebuilt on the new mesh (with its
 hanging-node constraints).  A checkpoint written after AMR holds the
 refined mesh (`checkpoint_mesh.msh` beside it), the structure, `amr_done`
 and the constraints, and a resume goes on from that mesh.
@@ -31,9 +36,8 @@ reference's driver does; a TET10 mesh through TransientRDCSystem's
 generic path.  The structure is an elemental field in the global
 (block-concatenated) element order.
 
-Not ported, each raising NotImplementedError before the first step:
-`parallel/n_devices` > 1 (ROADMAP queue 1 item 14) and AMR on a MIXED
-or TET10 mesh (item 13).
+`parallel/n_devices` > 1 raises NotImplementedError before the first
+step (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ from ..io import dat, provenance
 from ..io.csv_metrics import pihna_header, pihna_row
 from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter, elemental_to_nodal
-from ..mesh import (AdaptiveMesh, ConstrainedMesh, adapt_flagged, gmsh,
+from ..mesh import (AdaptiveMesh, ConstrainedMesh, MixedConstrained,
+                    Tet10Adaptive, adapt_flagged, gmsh, kelly_mixed,
                     refine_flagged)
 from ..models.pihna import PIHNA_VARS, pihna_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -133,11 +138,6 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
         print(mesh.print_info())
-        if (mesh.elem_type in ("MIXED", "TET10") and refinement_step > 0
-                and amr_max_steps > 0 and refinement_step <= n_steps):
-            raise NotImplementedError(
-                f"AMR on a {mesh.elem_type} mesh (mesh/adapt_ext.py): "
-                "ROADMAP queue 1 item 13")
         gmsh.write(mesh, out_gmsh)
 
     with plog.scope("initial conditions"):
@@ -148,8 +148,19 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     ranges = load_ranges(deck)
 
     def _amr_state(m):
-        """(bisection forest, constrained 1:8 mesh): the one the deck's
-        strategy picks on TET4; neither on HEX8 (uniform refinement)."""
+        """(bisection forest, constrained 1:8 mesh), one of them live:
+        the one the deck's strategy picks on TET4, the skeleton forest
+        on TET10, the TET4 block's constrained 1:8 on a MixedMesh;
+        neither on HEX8 (uniform refinement)."""
+        if m.elem_type == "TET10":
+            if amr_strategy == "1to8":
+                deck.warn("mesh/AMR/strategy = 1to8 is not honored on "
+                          "TET10 meshes (quadratic hanging-node "
+                          "constraints are out of scope); refining by "
+                          "skeleton bisection instead")
+            return Tet10Adaptive.from_mesh(m), None
+        if m.elem_type == "MIXED":
+            return None, MixedConstrained.from_mesh(m)
         if m.elem_type != "TET4":
             return None, None
         if amr_strategy == "1to8":
@@ -176,7 +187,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     amesh, cmesh = _amr_state(mesh)
     if cmesh is not None and "constraints" in sys_kw:
         # the 1to8 hanging set is restored (the bisection forest, and
-        # the 1:8 one, are not: pre-checkpoint refinements cannot coarsen)
+        # the 1:8 one, are not: pre-checkpoint refinements cannot
+        # coarsen)
         cmesh.hanging = {(int(a), int(b)): int(h)
                          for h, a, b in sys_kw["constraints"]}
 
@@ -249,8 +261,9 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                 amr_done += 1
                 with plog.scope("amr"):
                     gstate = system.gather_state(state)  # off the device
-                    eta = kelly_error_indicator(mesh, gstate["u"],
-                                                range(5))
+                    kelly = (kelly_mixed if mesh.elem_type == "MIXED"
+                             else kelly_error_indicator)
+                    eta = kelly(mesh, gstate["u"], range(5))
                     flags, coarsen = flag_by_mean_stddev(
                         eta, amr_refine_frac, amr_coarsen_frac)
                     if cmesh is not None:

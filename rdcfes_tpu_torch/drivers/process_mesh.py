@@ -4,8 +4,9 @@ rdcfes_tpu.drivers.process_mesh; C++ reference src/process_mesh.C:86-172).
 Prompts on stdin for a Gmsh input file, a scale, a translation and a
 rotation, then writes the transformed mesh as Gmsh 2.2 ASCII (boundary
 side elements first, with their boundary-condition ids), an ExodusII
-`.ex2` copy (src/process_mesh.C:169, io/exodus.py) and a `.config` record
-of the answers.  A failed ExodusII export prints a NOTE to stderr and the
+`.ex2` copy (src/process_mesh.C:169, io/exodus.py: one element block per
+type, so mixed and TET10 meshes export too) and a `.config` record of the
+answers.  A failed ExodusII export prints a NOTE to stderr and the
 driver goes on.  Node order is always kept (mesh/gmsh.py), so the
 renumbering prompt is asked and its answer unused, as in the reference
 package.
@@ -52,7 +53,7 @@ def run() -> None:
     gmsh.write(mesh, out + ".msh")
     try:
         write_exodus(out + ".ex2", mesh)
-    except (OSError, ImportError, ValueError, NotImplementedError) as e:
+    except (OSError, ImportError, ValueError) as e:
         print(f"NOTE: ExodusII export skipped ({e})", file=sys.stderr)
     with open(out + ".config", "w") as f:
         f.write(f"Gmsh input: {input_file}\n")

@@ -10,14 +10,15 @@ writes a row (src/proteas.C:53-55 has no save_solution); so does this
 driver.
 
 The dose at the quadrature points is built once on the host, as a (Q, E)
-field: the full P1 interpolation of the AUX file's RTD column by default,
-or, with the deck key `proteas/aux_sampling = reference`, the C++
-reference's phi_1(qp) * HU(local node 1) (src/proteas.C:479-482).  The
-steps between two events (an output or a checkpoint) go through one
-`run_steps` call, one step or many; the time of step k is dt * k.
-`parallel/n_devices` > 1 and meshes other than
-single-type TET4 or HEX8 raise NotImplementedError (ROADMAP queue 1 items
-14, 13) before the first step.
+field (a tuple of one (Q_b, E_b) field per block on a MixedMesh): the
+interpolation of the AUX file's RTD column through the element's shape
+functions by default, or, with the deck key `proteas/aux_sampling =
+reference`, the C++ reference's phi_1(qp) * HU(local node 1)
+(src/proteas.C:479-482) on every block.  The steps between two events
+(an output or a checkpoint) go through one `run_steps` call, one step or
+many; the time of step k is dt * k.  It runs on TET4, HEX8, TET10 and
+mixed meshes; `parallel/n_devices` > 1 raises NotImplementedError
+(ROADMAP queue 1 item 14) before the first step.
 """
 
 from __future__ import annotations
@@ -32,12 +33,12 @@ from ..io import dat, provenance
 from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter
 from ..mesh import gmsh
+from ..mesh.core import element_blocks
 from ..models.proteas import PROTEAS_VARS, proteas_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     output_time_points, require_first_order_tet_or_hex,
-                     step_banner)
+                     output_time_points, step_banner)
 
 _PARAM_KEYS = [
     ("cells/total_capacity", "cells_total_capacity"),
@@ -80,15 +81,19 @@ def load_params(deck: Deck) -> dict:
     return p
 
 
-def rtd_at_qp(mesh, aux: np.ndarray, sampling: str = "full") -> np.ndarray:
+def rtd_at_qp(mesh, aux: np.ndarray, sampling: str = "full"):
     """The dose at the quadrature points, (Q, E), from the nodal AUX (HU,
-    RTD) (N, 2): the P1 interpolation of RTD, or with sampling
-    "reference" the C++ reference's phi_1(qp) * HU(local node 1)."""
-    phi = tabulate(mesh.elem_type)[0]
-    conn = np.asarray(mesh.connectivity)
-    if sampling == "reference":
-        return phi[:, 1][:, None] * aux[conn[:, 1], 0][None, :]
-    return np.einsum("qk,ek->qe", phi, aux[conn, 1])
+    RTD) (N, 2): the interpolation of RTD, or with sampling "reference"
+    the C++ reference's phi_1(qp) * HU(local node 1).  On a MixedMesh a
+    tuple of one (Q_b, E_b) array per block, in block order."""
+    out = []
+    for etype, conn in element_blocks(mesh):
+        phi = tabulate(etype)[0]
+        if sampling == "reference":
+            out.append(phi[:, 1][:, None] * aux[conn[:, 1], 0][None, :])
+        else:
+            out.append(np.einsum("qk,ek->qe", phi, aux[conn, 1]))
+    return tuple(out) if mesh.elem_type == "MIXED" else out[0]
 
 
 def run(deck_path: str = "input.dat", device=None) -> str:
@@ -121,7 +126,6 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
-        require_first_order_tet_or_hex(mesh, "the PROTEAS driver")
         print(mesh.print_info())
 
     with plog.scope("initial conditions"):
@@ -135,8 +139,11 @@ def run(deck_path: str = "input.dat", device=None) -> str:
         system = make_rdc_system(mesh, 5, proteas_blocks, deck, device=dev)
         state = system.initial_state(u0)
         # the AUX file is static: the dose at qp is built once
-        fields = {"RTD": torch.as_tensor(rtd_at_qp(mesh, aux, sampling),
-                                         dtype=torch.float64, device=dev)}
+        rtd = rtd_at_qp(mesh, aux, sampling)
+        as_dev = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                           device=dev)
+        fields = {"RTD": (tuple(map(as_dev, rtd)) if isinstance(rtd, tuple)
+                          else as_dev(rtd))}
 
     paraview = ParaviewWriter(mesh)
     # a resumed run in the same results dir appends instead of truncating

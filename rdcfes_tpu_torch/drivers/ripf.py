@@ -26,9 +26,10 @@ on the reference's segment path; the reference's per-step path (its
 one-step segments) sums dt instead, so at a day boundary that the sum
 misses (dt = 0.1: ten additions give 0.9999999999999999) it reads the
 previous day's dose there.  The field rebuild goes through the system's
-own kernels: K1 on TET4, K8 on HEX8.  `parallel/n_devices` > 1 and meshes other than single-type TET4 or
-HEX8 raise NotImplementedError (ROADMAP queue 1 items 14, 13) before the
-first step.
+own kernels, once per element block: K1 on TET4, K8 on HEX8, PRISM6,
+PYRAMID5 and TET10; on a MixedMesh each field is a tuple of one entry
+per block.  `parallel/n_devices` > 1 raises NotImplementedError (ROADMAP
+queue 1 item 14) before the first step.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ from ..models.ripf import RIPF_VARS, ripf_blocks, rt_dose_schedule
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     output_time_points, require_first_order_tet_or_hex,
-                     step_banner)
+                     output_time_points, step_banner)
 
 _RESOLVED = ("lambda_RT_r", "omicro_RT_r")
 
@@ -98,23 +98,32 @@ def load_params(deck: Deck) -> dict:
 def qp_fields(system, nodal: torch.Tensor) -> dict:
     """The model's fields from nodal (cc TD, fb TD, total dose) (3, N) on
     the system's device: their values at the quadrature points and the
-    unit gradient of the dose, through the system's gather + interpolation
-    kernel (K1 on TET4, whose one gradient per element is what
-    interpolate_at_qp gives an affine element; K8 on HEX8)."""
+    unit gradient of the dose (zero where the gradient is), through each
+    element block's gather + interpolation kernel (K1 on TET4, whose one
+    gradient per element is what interpolate_at_qp gives an affine
+    element, expanded over Q; K8 on the other types, per q).  On a
+    MixedMesh every field is a tuple of one entry per block."""
     ops = system.ops
-    if system.affine:
-        vals, g1 = ops.gather_interp_affine(nodal, system.conn_T, system.phi,
-                                            system.geom.dphi)
-        g = g1[2][None]                                      # (1, 3, E)
-    else:
-        vals, gq = ops.gather_interp_generic(nodal, system.conn_T,
-                                             system.phi, system.geom.dphi)
-        g = gq[2]                                            # (Q, 3, E)
-    norm = torch.sqrt(torch.sum(g * g, dim=-2, keepdim=True))
-    unit = torch.where(norm > 0.0, g / torch.where(norm == 0.0, 1.0, norm),
-                       0.0)
-    return {"cc_dtime": vals[0], "fb_dtime": vals[1], "RT": vals[2],
-            "RT_grad_unit": unit.expand(vals.shape[1], 3, vals.shape[2])}
+    parts = []
+    for blk, geom in zip(system.blocks, system.geoms):
+        if blk.affine:
+            vals, g1 = ops.gather_interp_affine(nodal, blk.conn_T, blk.phi,
+                                                geom.dphi)
+            g = g1[2][None]                                  # (1, 3, E)
+        else:
+            vals, gq = ops.gather_interp_generic(nodal, blk.conn_T, blk.phi,
+                                                 geom.dphi)
+            g = gq[2]                                        # (Q, 3, E)
+        norm = torch.sqrt(torch.sum(g * g, dim=-2, keepdim=True))
+        unit = torch.where(norm > 0.0,
+                           g / torch.where(norm == 0.0, 1.0, norm), 0.0)
+        parts.append({"cc_dtime": vals[0], "fb_dtime": vals[1],
+                      "RT": vals[2],
+                      "RT_grad_unit": unit.expand(vals.shape[1], 3,
+                                                  vals.shape[2])})
+    if system.mesh.elem_type != "MIXED":
+        return parts[0]
+    return {k: tuple(p[k] for p in parts) for k in parts[0]}
 
 
 def run(deck_path: str = "input.dat", device=None) -> str:
@@ -157,7 +166,6 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
-        require_first_order_tet_or_hex(mesh, "the RIPF driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 

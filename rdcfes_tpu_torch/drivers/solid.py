@@ -25,7 +25,7 @@ Not ported, each raising NotImplementedError before the first load step:
 remeshing (a step of the `remeshing_step` schedule while
 `mesh/AMR/max_steps` > 0, ROADMAP queue 1 item 13), a checkpoint written
 after remeshing (item 13), `parallel/n_devices` > 1 (item 14), and
-meshes other than single-type TET4 or HEX8 (item 13).
+meshes other than single-type TET4 or HEX8 (item 13, sub-slice 4).
 """
 
 from __future__ import annotations

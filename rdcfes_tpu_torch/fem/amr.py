@@ -83,8 +83,13 @@ def _face_center_gradients(mesh: Mesh, u: np.ndarray) -> np.ndarray:
         sy = np.array([-1, -1, 1, 1, -1, -1, 1, 1])
         sz = np.array([-1, -1, -1, -1, 1, 1, 1, 1])
         ref = np.stack([sx, sy, sz], axis=1).astype(float)  # (8, 3)
-    else:  # TET4 reference vertices
+    else:  # TET4 / TET10 reference vertices (+ Gmsh-order edge mids)
         ref = np.array([[0.0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+        if mesh.elem_type == "TET10":
+            edges = [(0, 1), (1, 2), (0, 2), (0, 3), (2, 3), (1, 3)]
+            ref = np.concatenate(
+                [ref, 0.5 * (ref[[a for a, _ in edges]]
+                             + ref[[b for _, b in edges]])], axis=0)
     pts = np.array([ref[list(f)].mean(axis=0) for f in faces_def])  # (S, 3)
     dN = shape_gradients(mesh.elem_type, pts)  # (S, K, 3)
     X = mesh.coords[mesh.connectivity]  # (E, K, 3)
@@ -101,13 +106,13 @@ def kelly_error_indicator(mesh: Mesh, u: np.ndarray,
     variables into one vector (matching the shared-ErrorVector pattern of
     src/pihna.C:826-831).  The flux jump is sampled at each interior face's
     center from BOTH adjacent elements — exact for P1 TET4 (constant
-    gradients) and first-order-correct for trilinear HEX8."""
-    if mesh.elem_type not in ("TET4", "HEX8"):
-        # the reference also takes TET10 (item 13's third sub-slice) and
-        # refuses 2D meshes, as this does
+    gradients) and first-order-correct for trilinear HEX8 and quadratic
+    TET10 (a MixedMesh goes through mesh/adapt_ext.kelly_mixed)."""
+    if mesh.elem_type not in ("TET4", "HEX8", "TET10"):
+        # the reference refuses 2D meshes too
         raise NotImplementedError(
             f"Kelly error indicator on {mesh.elem_type} meshes: ROADMAP "
-            f"queue 1 item 13 (mixed meshes and AMR)")
+            f"queue 1 item 13, sub-slice 6 (2D meshes)")
     ea, eb, area, normal, h, sa, sb = interior_face_table(mesh,
                                                           return_sides=True)
     grad = _face_center_gradients(mesh, np.asarray(u))  # (E, S, V, 3)

@@ -1,14 +1,14 @@
-"""Minimal ExodusII (.ex2) mesh writer for single-type TET4 and HEX8
-meshes (the layout of rdcfes_tpu.io.exodus).
+"""Minimal ExodusII (.ex2) mesh writer (the layout of
+rdcfes_tpu.io.exodus).
 
 Covers the C++ reference's ExodusII export (`ExodusII_IO(msh).write`,
-src/process_mesh.C:169): an unstructured mesh as one element block (the
-reference package's optional nodal variables have no caller here).
-ExodusII is NetCDF-3 classic underneath; the standard dimensions and
-variables go through `scipy.io.netcdf_file` (no libnetcdf or exodus
-library), readable by ParaView or any NetCDF tool.  A MIXED mesh (one
-block per element type) and a TET10 mesh raise NotImplementedError:
-ROADMAP queue 1 item 13.
+src/process_mesh.C:169): an unstructured mesh as one element block per
+type (TETRA4, HEX8, WEDGE6, PYRAMID5 or TETRA10; a MixedMesh writes one
+block per entry of `mesh.blocks`).  The reference package's optional
+nodal variables have no caller here.  ExodusII is NetCDF-3 classic
+underneath; the standard dimensions and variables go through
+`scipy.io.netcdf_file` (no libnetcdf or exodus library), readable by
+ParaView or any NetCDF tool.
 """
 
 from __future__ import annotations
@@ -17,20 +17,19 @@ import numpy as np
 
 from ..mesh.core import Mesh
 
-_ITEM13 = "ROADMAP queue 1 item 13 (ExodusII multi-block export: MIXED " \
-          "and TET10 meshes)"
-_ELEM_TYPE_NAME = {"TET4": "TETRA4", "HEX8": "HEX8"}
+_ELEM_TYPE_NAME = {"TET4": "TETRA4", "HEX8": "HEX8",
+                   "PRISM6": "WEDGE6", "PYRAMID5": "PYRAMID5",
+                   "TET10": "TETRA10"}
 
 
 def write_exodus(path: str, mesh: Mesh) -> None:
-    """Write `mesh` to the ExodusII file `path`."""
-    etype = getattr(mesh, "elem_type", None)
-    if etype not in _ELEM_TYPE_NAME:
-        raise NotImplementedError(f"ExodusII export of {etype} meshes: "
-                                  f"{_ITEM13}")
+    """Write `mesh` (a Mesh or a MixedMesh) to the ExodusII file `path`."""
     from scipy.io import netcdf_file
 
-    conn = mesh.connectivity
+    if mesh.elem_type == "MIXED":
+        blocks = [(b.elem_type, b.connectivity) for b in mesh.blocks]
+    else:
+        blocks = [(mesh.elem_type, mesh.connectivity)]
     f = netcdf_file(path, "w", version=1)
     try:
         f.title = b"rdcfes_tpu_torch export"
@@ -47,19 +46,22 @@ def write_exodus(path: str, mesh: Mesh) -> None:
         f.createDimension("num_dim", 3)
         f.createDimension("num_nodes", mesh.n_nodes)
         f.createDimension("num_elem", mesh.n_elems)
-        f.createDimension("num_el_blk", 1)
-        f.createDimension("num_el_in_blk1", conn.shape[0])
-        f.createDimension("num_nod_per_el1", conn.shape[1])
+        f.createDimension("num_el_blk", len(blocks))
+        for i, (_, conn) in enumerate(blocks, 1):
+            f.createDimension(f"num_el_in_blk{i}", conn.shape[0])
+            f.createDimension(f"num_nod_per_el{i}", conn.shape[1])
 
         eb_status = f.createVariable("eb_status", "i", ("num_el_blk",))
-        eb_status[:] = np.ones(1, dtype=np.int32)
+        eb_status[:] = np.ones(len(blocks), dtype=np.int32)
         eb_prop = f.createVariable("eb_prop1", "i", ("num_el_blk",))
-        eb_prop[:] = np.ones(1, dtype=np.int32)
+        eb_prop[:] = np.arange(1, len(blocks) + 1, dtype=np.int32)
         eb_prop.name = b"ID"
-        connect = f.createVariable("connect1", "i",
-                                   ("num_el_in_blk1", "num_nod_per_el1"))
-        connect[:] = (conn + 1).astype(np.int32)  # 1-based
-        connect.elem_type = _ELEM_TYPE_NAME[etype].encode()
+        for i, (etype, conn) in enumerate(blocks, 1):
+            connect = f.createVariable(
+                f"connect{i}", "i",
+                (f"num_el_in_blk{i}", f"num_nod_per_el{i}"))
+            connect[:] = (conn + 1).astype(np.int32)  # 1-based
+            connect.elem_type = _ELEM_TYPE_NAME[etype].encode()
 
         coord = f.createVariable("coord", "d", ("num_dim", "num_nodes"))
         coord[:] = mesh.coords.T

@@ -2,6 +2,8 @@
 
 from . import gmsh, transform
 from .adapt import AdaptiveMesh, AdaptOutcome, adapt_flagged
+from .adapt_ext import (MixedAdaptOutcome, MixedConstrained, Tet10Adaptive,
+                        kelly_mixed, quadratic_transfer, tet10_skeleton)
 from .constrain import ConstrainedAdaptResult, ConstrainedMesh
 from .core import (ELEMENT_FACES, Mesh, MeshBlock, MixedMesh,
                    element_blocks, extract_boundary_faces)
@@ -27,6 +29,12 @@ __all__ = [
     "adapt_flagged",
     "ConstrainedAdaptResult",
     "ConstrainedMesh",
+    "MixedAdaptOutcome",
+    "MixedConstrained",
+    "Tet10Adaptive",
+    "kelly_mixed",
+    "quadratic_transfer",
+    "tet10_skeleton",
     "Refinement",
     "gmsh",
     "transform",

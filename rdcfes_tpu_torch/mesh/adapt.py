@@ -431,7 +431,8 @@ class AdaptOutcome(NamedTuple):
 def adapt_flagged(adaptive: AdaptiveMesh, refine_flags: np.ndarray,
                   coarsen_flags: np.ndarray, max_level: int = 3
                   ) -> Optional[AdaptOutcome]:
-    """Selective refine-and-coarsen for driver AMR blocks (TET4).
+    """Selective refine-and-coarsen for driver AMR blocks: the TET4
+    bisection forest, or an adapt_ext.Tet10Adaptive (its skeleton's).
 
     Returns None when neither operation changes the mesh."""
     r = adaptive.refine_and_coarsen(refine_flags, coarsen_flags,

@@ -25,9 +25,14 @@ recomputed.  Collapses that would break the level-one rule are vetoed.
 The same meshes, constraint rows and transfers as the reference's; the
 closure, the veto sweep and the coarsening checks look edges up in a
 sorted table of edge keys instead of scanning the connectivity once per
-hanging node, so a pass costs O(E log E), not O(H E).  The reference's
-`frozen_edges` and `pinned_nodes` serve its MIXED meshes (ROADMAP queue
-1 item 13, third sub-slice) and are not part of this copy.
+hanging node, so a pass costs O(E log E), not O(H E).
+
+`frozen_edges` and `pinned_nodes` serve the MIXED meshes
+(mesh/adapt_ext.MixedConstrained): the edges and nodes of blocks outside
+this TET4 mesh that never refine.  A mid-edge node on a frozen edge
+hangs for good, a flagged element whose closure would need a frozen
+owner to split is vetoed instead, and coarsening never drops a pinned
+node.  The frozen edges join the same sorted key tables.
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ class ConstrainedRACResult(NamedTuple):
 
     kept_nodes: when the pass coarsened, (N_kept,) old node id per new
     node (refinement appends nodes AFTER these, ids stable); None when
-    no renumbering happened."""
+    no renumbering happened.  MixedConstrained remaps its other blocks'
+    connectivity through it."""
 
     constrained: "ConstrainedMesh"
     prolong: Callable[[np.ndarray], np.ndarray]          # nodal old->new
@@ -91,12 +97,19 @@ def _pair_keys(pairs, n_nodes: int) -> np.ndarray:
                                                                p[:, 1])
 
 
-class _EdgeTable:
-    """The elements around each edge: the (E * 6) element-edge keys
-    sorted, so that the owners of an edge are one contiguous range."""
+def _expand(order: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    """order[lo[i]:hi[i]] for every i, concatenated, and each entry's i."""
+    cnt = hi - lo
+    grp = np.repeat(np.arange(len(lo)), cnt)
+    start = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
+    return order[np.arange(int(cnt.sum())) + start], grp
 
-    def __init__(self, conn: np.ndarray, n_nodes: int):
-        flat = _edge_keys(conn, n_nodes).reshape(-1)
+
+class _SortedTable:
+    """A flat key array sorted, so that the entries of one key are one
+    contiguous range."""
+
+    def __init__(self, flat: np.ndarray):
         self.order = np.argsort(flat, kind="stable")
         self.keys = flat[self.order]
 
@@ -104,13 +117,21 @@ class _EdgeTable:
         return (np.searchsorted(self.keys, keys, "left"),
                 np.searchsorted(self.keys, keys, "right"))
 
+    def entries(self, keys: np.ndarray):
+        """(flat index, i) for every entry of every keys[i]."""
+        return _expand(self.order, *self.ranges(keys))
+
+
+class _EdgeTable(_SortedTable):
+    """The elements around each edge: the (E * 6) element-edge keys
+    sorted, so that the owners of an edge are one contiguous range."""
+
+    def __init__(self, conn: np.ndarray, n_nodes: int):
+        super().__init__(_edge_keys(conn, n_nodes).reshape(-1))
+
     def owners(self, keys: np.ndarray) -> np.ndarray:
         """Elements holding any of the edges `keys` (ascending, unique)."""
-        lo, hi = self.ranges(keys)
-        if not len(lo):
-            return np.zeros(0, dtype=np.int64)
-        idx = np.concatenate([self.order[a:b] for a, b in zip(lo, hi)])
-        return np.unique(idx // 6)
+        return np.unique(self.entries(keys)[0] // 6)
 
     def count(self, keys: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Per edge in `keys`, the owners with mask (E,) set."""
@@ -136,6 +157,10 @@ class ConstrainedMesh:
     groups: Dict[int, _Group] = field(default_factory=dict)
     elem_group: Optional[np.ndarray] = None  # (E,) sibling group, -1 root
     elem_level: Optional[np.ndarray] = None  # (E,) refinement level
+    # MIXED meshes: (F, 2) sorted node pairs, ascending, of the edges of
+    # the blocks outside this mesh, and (P,) their node ids
+    frozen_edges: Optional[np.ndarray] = None
+    pinned_nodes: Optional[np.ndarray] = None
 
     def __post_init__(self):
         E = self.mesh.n_elems
@@ -143,6 +168,12 @@ class ConstrainedMesh:
             self.elem_group = np.full(E, -1, dtype=np.int64)
         if self.elem_level is None:
             self.elem_level = np.zeros(E, dtype=np.int64)
+
+    def _frozen_keys(self, n_nodes: int) -> np.ndarray:
+        """The frozen edges' keys at n_nodes, ascending."""
+        if self.frozen_edges is None:
+            return np.zeros(0, dtype=np.int64)
+        return _pair_keys(self.frozen_edges, n_nodes)
 
     @property
     def constraints(self) -> np.ndarray:
@@ -178,21 +209,43 @@ class ConstrainedMesh:
             hkeys = _pair_keys(list(self.hanging), N)
             key_of = np.full(N, -1, dtype=np.int64)
             key_of[hang] = hkeys
+            # a hanging node on a frozen edge can never become free:
+            # refining an element that holds it would chain constraints,
+            # so the closure vetoes its flagged holders instead
+            hfrozen = np.isin(hkeys, self._frozen_keys(N))
+            frozen_of = np.zeros(N, dtype=bool)
+            frozen_of[hang] = hfrozen
+            # node -> elements, needed only to veto frozen holders
+            holders = (_SortedTable(conn.reshape(-1)) if hfrozen.any()
+                       else None)
             for _ in range(64):  # closure terminates long before this
                 corners = conn[S]
                 hs = np.unique(corners[np.isin(corners, hang)])
                 if not hs.size:
                     break
-                owners = edges.owners(key_of[hs])
-                if S[owners].all():
+                # the reference walks hs in order, each h forcing its
+                # edge's owners in or vetoing its frozen holders out:
+                # an element ends as the last h that touched it says
+                thaw = ~frozen_of[hs]
+                e1, g1 = edges.entries(key_of[hs[thaw]])
+                e2, g2 = (holders.entries(hs[~thaw]) if holders is not None
+                          else (np.zeros(0, np.int64),) * 2)
+                e = np.concatenate([e1 // 6, e2 // 4])
+                rank = np.concatenate([np.nonzero(thaw)[0][g1],
+                                       np.nonzero(~thaw)[0][g2]])
+                val = np.concatenate([np.ones(len(e1), dtype=bool),
+                                      np.zeros(len(e2), dtype=bool)])
+                if not (val != S[e]).any():
                     break
-                S[owners] = True
+                order = np.lexsort((rank, e))
+                last = np.r_[e[order][1:] != e[order][:-1], True]
+                S[e[order][last]] = val[order][last]
             # veto fixpoint: an S element may not refine while it holds a
-            # hanging node one of whose coarse edge's owners is not in S
-            # (the closure's iteration cap can leave one); vetoes only
-            # shrink S, so this terminates
+            # hanging node whose coarse edge is frozen or has an owner
+            # outside S (the closure's iteration cap can leave one);
+            # vetoes only shrink S, so this terminates
             while S.any():
-                out = edges.count(hkeys, ~S) > 0
+                out = (edges.count(hkeys, ~S) > 0) | hfrozen
                 if not out.any():
                     break
                 bad = S & np.isin(conn, hang[out]).any(axis=1)
@@ -302,7 +355,8 @@ class ConstrainedMesh:
         # unsplit element; otherwise (all owners split) it is free.
         # Constraints untouched by this pass persist as long as their
         # coarse owners remain unsplit
-        unsplit = np.unique(_edge_keys(conn[U], N))
+        unsplit = np.union1d(_edge_keys(conn[U], N),
+                             self._frozen_keys(N))
         new_hanging: Dict[Tuple[int, int], int] = {}
         for i in np.nonzero(np.isin(ukeys, unsplit))[0]:
             new_hanging[(int(uniq[i, 0]), int(uniq[i, 1]))] = int(mid_of[i])
@@ -343,7 +397,8 @@ class ConstrainedMesh:
 
         return ConstrainedAdaptResult(
             ConstrainedMesh(new_mesh, new_hanging, new_groups,
-                            elem_group_new, elem_level_new),
+                            elem_group_new, elem_level_new,
+                            self.frozen_edges, self.pinned_nodes),
             prolong, elem_map)
 
     # ------------------------------------------------------------------
@@ -381,7 +436,8 @@ class ConstrainedMesh:
             conn_act = np.concatenate([conn[~removed], parents], axis=0)
             referenced = np.zeros(N, dtype=bool)
             referenced[conn_act.reshape(-1)] = True
-            active_edges = np.unique(_edge_keys(conn_act, N))
+            active_edges = np.union1d(_edge_keys(conn_act, N),
+                                      self._frozen_keys(N))
 
             # candidate hanging set + the group(s) whose collapse each
             # entry depends on (for targeted vetoes)
@@ -448,8 +504,12 @@ class ConstrainedMesh:
             np.asarray([self.groups[g].parent_level for g in C_list],
                        dtype=np.int64)])
 
-        # orphaned mid nodes drop out; renumber the survivors
+        # orphaned mid nodes drop out; renumber the survivors (pinned
+        # nodes stay: MixedConstrained remaps its other blocks through
+        # `kept`)
         kept = np.unique(conn_new)
+        if self.pinned_nodes is not None:
+            kept = np.union1d(kept, self.pinned_nodes)
         old2new = np.full(mesh.n_nodes, -1, dtype=np.int64)
         old2new[kept] = np.arange(len(kept))
         conn_new = old2new[conn_new]
@@ -515,8 +575,11 @@ class ConstrainedMesh:
                 [out_sur, np.stack(rows)], axis=0
             ).astype(vals.dtype) if rows else out_sur
 
+        remap = lambda a: None if a is None else old2new[a]
         return (ConstrainedMesh(new_mesh, hang_new, groups_new,
-                                eg_new, lvl_new),
+                                eg_new, lvl_new,
+                                remap(self.frozen_edges),
+                                remap(self.pinned_nodes)),
                 kept, transfer_elemental)
 
     # ------------------------------------------------------------------

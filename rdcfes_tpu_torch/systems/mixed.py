@@ -23,8 +23,17 @@ element matrices instead; both compute the same operator.
 
 Elemental fields (ADPM's tracts) arrive over the block-concatenated
 element order and are sliced per block; a tuple or list field holds one
-entry per block.  A moving mesh and hanging-node constraints raise
-NotImplementedError (ROADMAP queue 1 item 13).
+entry per block (PROTEAS's dose and RIPF's rebuilt fields at each
+block's quadrature points).
+
+With `constraints=` (the rows [h, a, b] of mesh/adapt_ext.
+MixedConstrained: the TET4 block refined 1:8 against the blocks that do
+not refine) the solve runs on C^T A C as on a single-type mesh: the same
+`Constraints` object of systems/transient.py around the blocks' element
+applies and their one K4 restriction (the reference's _c_apply and
+_ct_fold, rdcfes_tpu/systems/mixed.py:123-137, :210-221; the fold an
+ordered gather-sum, no atomics).  A moving mesh raises
+NotImplementedError (ROADMAP queue 1 item 13, sub-slice 5).
 """
 
 from __future__ import annotations
@@ -35,10 +44,9 @@ import numpy as np
 
 from ..fem.kernels import KERNEL_OPS, Ops
 from ..solvers.krylov import DEFAULT_MAXITER, DEFAULT_RTOL
-from .transient import TransientRDCSystem, clamp_nonnegative
+from .transient import Constraints, TransientRDCSystem, clamp_nonnegative
 
-_ITEM13 = "ROADMAP queue 1 item 13 (the solid and HCC on mixed meshes, " \
-          "mixed-mesh AMR)"
+_ITEM13 = "ROADMAP queue 1 item 13, sub-slice 5 (HCC on mixed meshes)"
 
 
 class MixedTransientRDCSystem(TransientRDCSystem):
@@ -65,13 +73,12 @@ class MixedTransientRDCSystem(TransientRDCSystem):
                              f"got {mesh.elem_type}")
         if moving_mesh:
             raise NotImplementedError(f"a moving MixedMesh: {_ITEM13}")
-        if constraints is not None and len(constraints):
-            raise NotImplementedError(
-                f"hanging-node constraints on a MixedMesh: {_ITEM13}")
         self._setup(mesh, [(b.elem_type, b.connectivity)
                            for b in mesh.blocks], n_vars, physics_blocks,
                     clamp, rtol, maxiter, precision, precond_refresh,
                     device, ops, method)
+        if constraints is not None and len(constraints):
+            self.cons = Constraints(constraints, self.device)
         # each block's [start, start + n) in the concatenated element order
         starts = np.cumsum([0] + [b.n_elems for b in mesh.blocks])
         self._block_off = [(int(a), int(b - a))

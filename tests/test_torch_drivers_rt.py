@@ -28,8 +28,9 @@ and the models carry the gap past the bars below.  The port runs with
   within 1e-10 relative L2 of the uninterrupted run.
 
 Range errors of RIPF's deck raise ValueError, a zero dose RuntimeError;
-what the port does not run raises NotImplementedError before the first
-step, and an entry point without a card raises RuntimeError."""
+several devices raise NotImplementedError before the first step, a
+MIXED mesh runs to the end, and an entry point without a card raises
+RuntimeError."""
 
 import os
 import shutil
@@ -366,6 +367,9 @@ def test_ripf_zero_dose_raises(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("what", ["parallel", "mixed mesh"])
 def test_unported_raise_before_any_step(driver, what, tmp_path,
                                         monkeypatch, capsys):
+    """Several devices raise NotImplementedError before a step; a MIXED
+    mesh, which raised until it was ported, runs the deck to its end
+    with finite species."""
     extra = "parallel/n_devices = 2\n" if what == "parallel" else ""
     if driver == "proteas":
         _proteas_case(str(tmp_path), PROTEAS_DECK + extra)
@@ -374,12 +378,34 @@ def test_unported_raise_before_any_step(driver, what, tmp_path,
     if what == "mixed mesh":
         mesh = box_mixed_mesh(3, 1, 1)
         jgmsh.write(mesh, str(tmp_path / "input.msh"))
+        N, x = mesh.n_nodes, mesh.coords[:, 0]
+        if driver == "proteas":
+            rows = np.stack([0.3 - 0.1 * x, 0.1 + 0.1 * x, 0.02 * x,
+                             np.full(N, 0.15), 0.02 * x], axis=1)
+            np.savetxt(str(tmp_path / "input.nd"), rows)
+            np.savetxt(str(tmp_path / "input_aux.nd"),
+                       np.stack([50.0 * x, 20.0 + x], axis=1))
+        else:
+            np.savetxt(str(tmp_path / "input.nodal"),
+                       np.stack([-300.0 + 0 * x, 0.1 + 0.1 * x,
+                                 0.2 - 0.1 * x], axis=1))
+            np.savetxt(str(tmp_path / "input.rt"),
+                       np.stack([np.full(N, 56.0), 16.0 + x], axis=1))
     monkeypatch.chdir(tmp_path)
     mod = {"proteas": proteas, "ripf": ripf}[driver]
-    item = "item 14" if what == "parallel" else "item 13"
-    with pytest.raises(NotImplementedError, match=item):
-        mod.run("input.dat", device="cpu")
-    assert " ==== Step" not in capsys.readouterr().out
+    if what == "parallel":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            mod.run("input.dat", device="cpu")
+        assert " ==== Step" not in capsys.readouterr().out
+        return
+    out = _run(str(tmp_path), lambda: mod.run("input.dat", device="cpu"),
+               vtu.ParaviewWriter)
+    n = {"proteas": 2, "ripf": 6}[driver]
+    assert out.stdout.count(" ==== Step") == n
+    assert "elem_type=MIXED (" in out.stdout
+    assert out.frames[-1][0] == n
+    for _, f, _ in out.frames:
+        assert all(np.isfinite(v).all() for v in f.values())
 
 
 def test_generated_cases_run_through_the_cli(tmp_path, monkeypatch, capsys):

@@ -28,7 +28,8 @@ against rdcfes_tpu on the same seeded NumPy inputs
   at solver/linear/tolerance 1e-14 (ADPM at the taxis amplitude 50, as
   chip_smoke.py's driver runs): the checkpointed state equal to the
   system stepped directly, the CSV rows and the last VTU frame
-  byte-equal to the reference's writers on that state.
+  byte-equal to the reference's writers on that state; the PIHNA case
+  with an AMR deck adapts and runs on.
 
 The reference's mixed step program is never compiled: assemble_scipy
 and the element functions run eagerly.
@@ -435,7 +436,8 @@ def test_single_block_mixed_matches_transient_system():
 
 def test_mixed_system_options():
     """Tuple fields select their block's entry, elemental fields are
-    sliced; a moving mesh, constraints and a single-type mesh are
+    sliced; constraints build the Constraints of the single-type system
+    (empty rows none); a moving mesh and a single-type mesh are
     refused."""
     mesh = box_mixed_mesh(3, 2, 2)
     s = MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu")
@@ -450,9 +452,12 @@ def test_mixed_system_options():
     with pytest.raises(NotImplementedError, match="item 13"):
         MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
                                 moving_mesh=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
-                                constraints=np.array([[0, 1, 2]]))
+    cons = MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                                   constraints=np.array([[0, 1, 2]])).cons
+    assert cons.n_hanging == 1 and cons.hang.tolist() == [0]
+    assert s.cons is None and MixedTransientRDCSystem(
+        mesh, 5, pihna_blocks, device="cpu",
+        constraints=np.zeros((0, 3), np.int32)).cons is None
     with pytest.raises(NotImplementedError, match="item 13"):
         TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu")
     tet = mesh_from_reference(jax_box_tet_mesh(1, 1, 1))
@@ -564,6 +569,9 @@ def test_mixed_drivers_run(model, tmp_path, monkeypatch, capsys):
 
 
 def test_mixed_pihna_amr_deck_raises(tmp_path, monkeypatch, capsys):
+    """An AMR deck on the MIXED case, which raised until AMR on MIXED
+    meshes was ported, adapts the mesh after step 1 and runs on
+    (tests/test_torch_adapt_ext.py holds the step to the reference)."""
     d = _driver_case(tmp_path, "pihna", mixed=True)
     path = os.path.join(d, "input.dat")
     deck = open(path).read()
@@ -571,9 +579,12 @@ def test_mixed_pihna_amr_deck_raises(tmp_path, monkeypatch, capsys):
         f.write(deck.replace("refinement_step = 10000",
                              "refinement_step = 1"))
     monkeypatch.chdir(d)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        dpihna.run("input.dat", device="cpu")
-    assert " ==== Step" not in capsys.readouterr().out
+    out = dpihna.run("input.dat", device="cpu")
+    text = capsys.readouterr().out
+    assert "AMR step 1: adapted to " in text
+    assert text.count(" ==== Step") == 2
+    u = np.load(os.path.join(out, "checkpoint.npz"))["u"]
+    assert np.isfinite(u).all() and (u >= 0).all()
 
 
 if __name__ == "__main__":

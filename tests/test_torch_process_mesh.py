@@ -10,7 +10,8 @@ writer against rdcfes_tpu:
   dimension, variable and attribute on re-read but the title, and the
   prompts on stdout equal;
 * a failed ExodusII export prints a NOTE to stderr and the driver goes
-  on; a mesh other than TET4 or HEX8 is not exported (item 13).
+  on; a TET10 mesh exports one TETRA10 block (mixed and TET10 meshes
+  through both drivers: tests/test_torch_mixed_drivers.py).
 """
 
 import io
@@ -121,7 +122,12 @@ def test_failed_exodus_export_goes_on(tmp_path, monkeypatch, capsys):
     assert "NOTE: ExodusII export skipped (disk full)" in res.err
     assert {"out.msh", "out.config"} <= set(os.listdir(tmp_path))
     assert "out.ex2" not in os.listdir(tmp_path)
-    tet10 = m.with_coords(m.coords)
-    tet10.elem_type = "TET10"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        exodus.write_exodus(str(tmp_path / "x.ex2"), tet10)
+    # a TET10 mesh, which raised until its export was ported, writes one
+    # TETRA10 block
+    from rdcfes_tpu.mesh import tet4_to_tet10
+
+    tet10 = mesh_from_reference(tet4_to_tet10(jm))
+    exodus.write_exodus(str(tmp_path / "x.ex2"), tet10)
+    with netcdf_file(str(tmp_path / "x.ex2"), "r", mmap=False) as f:
+        assert f.variables["connect1"].elem_type == b"TETRA10"
+        assert f.variables["connect1"].shape == (tet10.n_elems, 10)

@@ -256,21 +256,17 @@ def test_generated_cases_match_reference(name, tmp_path):
 @pytest.mark.parametrize("name", ["make_pihna_case", "make_adpm_case",
                                   "make_ripf_case", "make_proteas_case"])
 def test_mixed_and_second_order_cases_raise(name, tmp_path):
-    """RIPF's and PROTEAS's mixed and second-order cases raise (item 13);
-    PIHNA's and ADPM's are written as the reference writes them."""
-    for kw in ({"mixed": True}, {"order": 2}):
-        if name in ("make_pihna_case", "make_adpm_case"):
-            a, b = tmp_path / "a", tmp_path / "b"
-            getattr(cases, name)(str(a), n=3, n_steps=2, **kw)
-            getattr(jcases, name)(str(b), n=3, n_steps=2, **kw)
-            for f in sorted(p.name for p in b.iterdir()):
-                x, y = (a / f).read_text(), (b / f).read_text()
-                assert x.replace("rdcfes_tpu_torch.cli", "rdcfes_tpu.cli") \
-                    == y, (kw, f)
-            continue
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(cases, name)(str(tmp_path / "c"), n=2, **kw)
-    assert not (tmp_path / "c").exists()
+    """The mixed and second-order cases, which raised for RIPF and
+    PROTEAS until they were ported, are written as the reference writes
+    them for all four models (the Makefile names the port's CLI)."""
+    for i, kw in enumerate(({"mixed": True}, {"order": 2})):
+        a, b = tmp_path / f"a{i}", tmp_path / f"b{i}"
+        getattr(cases, name)(str(a), n=3, n_steps=2, **kw)
+        getattr(jcases, name)(str(b), n=3, n_steps=2, **kw)
+        for f in sorted(p.name for p in b.iterdir()):
+            x, y = (a / f).read_text(), (b / f).read_text()
+            assert x.replace("rdcfes_tpu_torch.cli", "rdcfes_tpu.cli") \
+                == y, (kw, f)
 
 
 @pytest.mark.parametrize("elem", ["TET4", "HEX8"])

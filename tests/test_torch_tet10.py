@@ -14,7 +14,7 @@ seeded NumPy inputs (np.random.default_rng(0)).
   (mixed, its default rtol 1e-12) within its 1e-8 per species;
 * the PIHNA and ADPM drivers on make_*_case(n=3, n_steps=2, order=2) at
   solver/linear/tolerance 1e-14, held as in tests/test_torch_mixed.py;
-  an AMR deck on TET10 raises NotImplementedError (ROADMAP item 13).
+  an AMR deck on TET10 adapts the mesh and runs on.
 
 `python -m tests.test_torch_tet10 N STEPS` steps the TET10 PIHNA case
 make_pihna_case(N, order=2) through both packages' driver systems and
@@ -219,6 +219,9 @@ def test_tet10_drivers_run(model, tmp_path, monkeypatch, capsys):
 
 
 def test_tet10_pihna_amr_deck_raises(tmp_path, monkeypatch, capsys):
+    """An AMR deck on the TET10 case, which raised until AMR on TET10
+    meshes was ported, adapts the mesh after step 1 and runs on
+    (tests/test_torch_adapt_ext.py holds the step to the reference)."""
     d = _driver_case(tmp_path, "pihna", order=2)
     path = os.path.join(d, "input.dat")
     deck = open(path).read()
@@ -226,9 +229,12 @@ def test_tet10_pihna_amr_deck_raises(tmp_path, monkeypatch, capsys):
         f.write(deck.replace("refinement_step = 10000",
                              "refinement_step = 1"))
     monkeypatch.chdir(d)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        dpihna.run("input.dat", device="cpu")
-    assert " ==== Step" not in capsys.readouterr().out
+    out = dpihna.run("input.dat", device="cpu")
+    text = capsys.readouterr().out
+    assert "AMR step 1: adapted to " in text
+    assert text.count(" ==== Step") == 2
+    u = np.load(os.path.join(out, "checkpoint.npz"))["u"]
+    assert np.isfinite(u).all() and (u >= 0).all()
 
 
 def pihna_tet10_trajectory(package: str, n: int, steps: int, directory: str):
