@@ -107,8 +107,8 @@ Phases, one output line each (any failure raises, exit code != 0):
   13 drivers  rdcfes_tpu_torch.cli.main in process, in generated case
             directories, launch counts reset just before each run and
             read just after: `-m pihna` on cases.make_pihna_case(n=28,
-            n_steps=120) (131,712 TET4, the run/PIHNA deck; CSV header +
-            13 rows, 13 VTU, a PVD of 13 DataSets, the last frame's five
+            n_steps=40) (131,712 TET4, the run/PIHNA deck; CSV header +
+            5 rows, 5 VTU, a PVD of 5 DataSets, the last frame's five
             species finite and >= 0, K1, K2, K3 f64, K4 f64 launched and
             K3 f32 not); `-m adpm` on make_adpm_case(n=28, n_steps=40)
             with the taxis amplitude of bench.py:158-192 (outputs at 0,
@@ -153,11 +153,12 @@ Phases, one output line each (any failure raises, exit code != 0):
             times there, and its penalty residual computed three times,
             each bit-equal to the first (the penalty terms are summed in
             a fixed order, through K4); (c)
-            `-c hcc` in process on make_hcc_case(n=28, n_steps=400,
-            n_loading=40), the shipped schedule (dt 0.01), launch counts
-            reset just before and read just after: VTU frames 0, 200 and
-            400 and a PVD of 3 DataSets, every field finite, l, c, n >=
-            0, the mesh moved (max |u| > 0, Points != undeformed), 40
+            `-c hcc` in process on make_hcc_case(n=28, n_steps=100,
+            n_loading=10), the shipped schedule's first quarter (dt
+            0.01), launch counts reset just before and read just after:
+            VTU frames 0, 50 and 100 and a PVD of 3 DataSets, every field
+            finite, l, c, n >= 0, the mesh moved (max |u| > 0, Points !=
+            undeformed), 10
             converged Newton solves, K1, K2, K3 f64, K4 f64, K4 f32 and
             K5 f32 launched and K3 f32 not; its wall time, PerfLog's
             totals, RDC steps/s, s a load step, the Newton and inner
@@ -212,7 +213,7 @@ Phases, one output line each (any failure raises, exit code != 0):
             per-step relative L2 within 1e-10; (c) cli.main in process,
             every run_steps call recorded, launch counts reset just before
             each run and read just after: `-m pihna` on
-            make_pihna_case(n=28, n_steps=120, mixed=True), `-m adpm` on
+            make_pihna_case(n=28, n_steps=40, mixed=True), `-m adpm` on
             make_adpm_case(n=28, n_steps=40, mixed=True) at phase 13's
             taxis amplitude, `-m pihna` on that PIHNA case's Gmsh file
             rewritten with its hexes split into prisms (PRISM6, PYRAMID5,
@@ -249,7 +250,7 @@ Phases, one output line each (any failure raises, exit code != 0):
             recorded, launch counts reset just before each run and read
             just after: `-m proteas` on make_proteas_case(n=28,
             n_steps=40) and `-m ripf` on make_ripf_case(n=24,
-            n_steps=120), each with mixed=True and with order=2 (the
+            n_steps=60), each with mixed=True and with order=2 (the
             artifacts, the last frame's species finite and >= 0, RIPF's
             HU within [-1000, 1000] and its field rebuild's K1 / K8
             launched at least twice a step on each block); `-u
@@ -257,8 +258,8 @@ Phases, one output line each (any failure raises, exit code != 0):
             case meshes, the ExodusII file read back with scipy (one block
             per element type, their element total, the node count); `-m
             pihna` with AMR on make_pihna_case(n=28, mixed=True)
-            (refinement_step 40, two adaptations, 120 steps, an output
-            every 40) and on
+            (refinement_step 20, two adaptations, 60 steps, an output
+            every 20) and on
             make_pihna_case(n=28, order=2) (refinement_step 10, one
             bisection, 20 steps, before the runaway of 16b): elements and
             hanging nodes after each adaptation, the amr scope's seconds,
@@ -267,8 +268,12 @@ Phases, one output line each (any failure raises, exit code != 0):
             PerfLog's phases, inner iterations, residuals and launches per
             kernel instance, every residual <= the rtol
 
-Then nvidia-smi's name and power limit of the card once more, and one
-JSON line {"kernels": [...]}: one row per kernel variant with
+A kernel row's bound is the larger of the bytes its function needs over
+the HBM rate and its operations over the peak rate of their type; K4's
+and K5's bytes count the live entries of their gather tables and ELL
+rows, not the pad.  After the phases, a "walls" line: each phase's wall
+seconds.  Then nvidia-smi's name and power limit of the card once more,
+and one JSON line {"kernels": [...]}: one row per kernel variant with
 the numbers of its first shapes, the launches of every path that ran
 (zeros included) and, under "also", its rows at the other shapes; and as
 the last line
@@ -297,7 +302,7 @@ from rdcfes_tpu_torch.models import adpm
 from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions
 from rdcfes_tpu_torch.systems import TransientRDCSystem
-from rdcfes_tpu_torch.systems.solid import SolidSystem, element_kernels_cf
+from rdcfes_tpu_torch.systems.solid import SolidSystem
 from rdcfes_tpu_torch.utils.device import cuda_device
 
 F32, F64 = torch.float32, torch.float64
@@ -658,6 +663,23 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def restrict_bytes(flat, table, n_out: int) -> int:
+    """The bytes K4's function needs: the source (W, M) read once, the
+    index of each live table entry (< M) read once, the (W, n_out) sums
+    written once; the table's pad entries are storage, not work."""
+    live = int((table < flat.shape[1]).sum())
+    return (nbytes(flat) + live * table.element_size()
+            + flat.shape[0] * n_out * flat.element_size())
+
+
+def ell_bytes(nnz: int, values, cols, x) -> int:
+    """The bytes K5's function needs: each of the nnz 3x3 blocks and its
+    column index read once, x read once, y (x's shape) written once; the
+    ELL rows' pad slots are storage, not work."""
+    return (nnz * (9 * values.element_size() + cols.element_size())
+            + 2 * nbytes(x))
+
+
 def bound(n_bytes: int, flops: float, dtype) -> dict:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the operations over the peak rate of their type."""
@@ -750,8 +772,8 @@ def restrict_case(flat, s):
         tol=1e-5 if dt == F32 else 1e-13,
         library=lambda: torch.zeros((W, N), dtype=dt, device=flat.device
                                     ).index_add_(1, conn_flat, flat),
-        n_bytes=nbytes(flat, ng) + W * N * flat.element_size(),
-        flops=float(W * live), dtype=dt)
+        n_bytes=restrict_bytes(flat, ng, N), flops=float(W * live),
+        dtype=dt)
 
 
 def affine_cases(phase, s, u, blocks_of, g=None):
@@ -888,34 +910,47 @@ def phase_slice(dev):
     return counts
 
 
-def solid_cases(S, x, pt):
-    """K4's matrix assembly (f32, f64) and K5 (f32, f64; f32 also with 6
-    zero slots more) cases on solid `S` at positions x (N, 3) and
-    pseudo-time pt: the element blocks and the tangent assembled there,
-    beside index_add_ and a cuSPARSE CSR mv of the same operator.  Returns
-    (cases, what the prints need)."""
+def _flat_targets(table, n_src: int):
+    """The target (column) of every entry of a flat source buffer of
+    n_src entries, read off its K4 gather table (C, M): the inverse of
+    fem.assembly.invert_scatter, on the device."""
+    t = table.long()
+    live = t < n_src
+    out = torch.empty(n_src, dtype=torch.long, device=t.device)
+    out[t[live]] = torch.arange(t.shape[1], device=t.device).expand_as(
+        t)[live]
+    return out
+
+
+def solid_cases(S, x, pt, pad=True, residual=False):
+    """K4's matrix assembly (f32, f64) and K5 (f32, f64; with `pad` f32
+    also with 6 zero slots more) cases on solid `S` at positions x (N, 3)
+    and pseudo-time pt: the element blocks of every element block,
+    concatenated as the system's one gather table takes them, and the
+    tangent assembled there, beside index_add_ and a cuSPARSE CSR mv of
+    the same operator; with `residual` also K4 at the residual's width
+    (W = 3, f64 and f32).  Returns (cases, what the prints need)."""
     dev = x.device
     rng = np.random.default_rng(7)
     N = S.mesh.n_nodes
-    tab, tab32 = S.tables, S.tables32
     pt64 = torch.tensor(pt, dtype=F64, device=dev)
-    args = lambda t: (t["X0e_cf"], t["young"], t["poisson"], t["fibre_k"],
-                      t["rates"], t["fibres"])
-    et = S.mesh.elem_type
-    flat64 = element_kernels_cf(et, x, S.conn, *args(tab), pt64)[1]
-    flat64 = flat64.reshape(9, -1)
-    flat32 = element_kernels_cf(et, x.to(F32), S.conn, *args(tab32),
-                                pt64.to(F32))[1].reshape(9, -1)
+    fk = S._elements(x, pt64, True)
+    flat64 = S._concat([Ke for _, Ke in fk], 9)
+    fe64 = S._concat([Fe for Fe, _ in fk], 3) if residual else None
+    del fk
+    flat32 = S._concat([Ke for _, Ke in S._elements(
+        x.to(F32), pt64.to(F32), True, f32=True)], 9)
     _, values = S.assemble(x.T.contiguous(), pt)  # the system's tangent
     cols_np, slot_np = ell_structure(S.sp)
     cols = torch.as_tensor(cols_np, device=dev)
     vell = to_ell(values, torch.as_tensor(slot_np, device=dev))
     vell32, vell64 = vell.to(F32), vell.to(F64)
+    del vell
     xv64 = torch.as_tensor(rng.standard_normal((3, N)), dtype=F64,
                            device=dev)
     xv32 = xv64.to(F32)
     nnz, sg = S.sp.nnz, S.slot_gather
-    slots_flat = torch.as_tensor(S.sp.slots_flat_cf(), device=dev).long()
+    slots_flat = _flat_targets(sg, flat32.shape[1])
     # the same operator as a scalar CSR matrix (3N x 3N, node-major dofs)
     # for the library SpMV; built once, outside the timings
     rows = torch.as_tensor(S.sp.rows, device=dev).long()
@@ -928,7 +963,7 @@ def solid_cases(S, x, pt):
         values.reshape(-1).to(F64), (3 * N, 3 * N)).coalesce()
     csr64 = coo.to_sparse_csr()
     csr32 = csr64.to(F32)
-    del coo, r_idx, c_idx
+    del coo, r_idx, c_idx, values
     xi64, xi32 = xv64.T.reshape(-1), xv32.T.reshape(-1)
     mv_flops = 2.0 * 9 * nnz
 
@@ -942,52 +977,58 @@ def solid_cases(S, x, pt):
               f"b2b_ms, cold in flushed_ms")
         return dict(l2=l2, values=vell)
 
-    # the same operator at a width no mesh here gives: 6 more slots, each
-    # a zero block on a valid column
-    L = cols.shape[0]
-    vpad32 = torch.cat([vell32, vell32.new_zeros((3, 3, 6, N))], dim=2)
-    cpad = torch.cat([cols, cols[-1:].expand(6, N)]).contiguous()
+    def k4(flat, table, targets, n_out, tol):
+        W, dt = flat.shape[0], flat.dtype
+        entries = int((table < flat.shape[1]).sum())
+        return dict(
+            kern=lambda: K.restrict(flat, table),
+            plain=lambda: K.restrict_plain(flat, table), tol=tol,
+            library=lambda: torch.zeros((W, n_out), dtype=dt, device=dev
+                                        ).index_add_(1, targets, flat),
+            n_bytes=restrict_bytes(flat, table, n_out),
+            flops=float(W * entries), dtype=dt)
 
-    entries = int((sg < flat32.shape[1]).sum())
     cases = {
-        "restrict_f32": dict(
-            kern=lambda: K.restrict(flat32, sg),
-            plain=lambda: K.restrict_plain(flat32, sg), tol=1e-5,
-            library=lambda: torch.zeros((9, nnz), dtype=F32, device=dev
-                                        ).index_add_(1, slots_flat, flat32),
-            n_bytes=nbytes(flat32, sg) + 9 * nnz * 4,
-            flops=9.0 * entries, dtype=F32),
-        "restrict_f64": dict(
-            kern=lambda: K.restrict(flat64, sg),
-            plain=lambda: K.restrict_plain(flat64, sg), tol=1e-13,
-            library=lambda: torch.zeros((9, nnz), dtype=F64, device=dev
-                                        ).index_add_(1, slots_flat, flat64),
-            n_bytes=nbytes(flat64, sg) + 9 * nnz * 8,
-            flops=9.0 * entries),
+        "restrict_f32": k4(flat32, sg, slots_flat, nnz, 1e-5),
+        "restrict_f64": k4(flat64, sg, slots_flat, nnz, 1e-13),
         "ell_matvec_f32": dict(
             kern=lambda: K.ell_matvec(vell32, cols, xv32),
             plain=lambda: K.ell_matvec_plain(vell32, cols, xv32), tol=1e-5,
             library=lambda: torch.mv(csr32, xi32),
-            n_bytes=nbytes(vell32, cols, xv32, xv32), flops=mv_flops,
+            n_bytes=ell_bytes(nnz, vell32, cols, xv32), flops=mv_flops,
             dtype=F32, k5=k5(vell32, cols, xv32)),
         "ell_matvec_f64": dict(
             kern=lambda: K.ell_matvec(vell64, cols, xv64),
             plain=lambda: K.ell_matvec_plain(vell64, cols, xv64), tol=1e-13,
             library=lambda: torch.mv(csr64, xi64),
-            n_bytes=nbytes(vell64, cols, xv64, xv64), flops=mv_flops,
+            n_bytes=ell_bytes(nnz, vell64, cols, xv64), flops=mv_flops,
             k5=k5(vell64, cols, xv64)),
-        "ell_matvec_f32_pad6": dict(
+    }
+    L = cols.shape[0]
+    if pad:
+        # the same operator at a width no mesh here gives: 6 more slots,
+        # each a zero block on a valid column
+        vpad32 = torch.cat([vell32, vell32.new_zeros((3, 3, 6, N))], dim=2)
+        cpad = torch.cat([cols, cols[-1:].expand(6, N)]).contiguous()
+        cases["ell_matvec_f32_pad6"] = dict(
             kern=lambda: K.ell_matvec(vpad32, cpad, xv32),
             plain=lambda: K.ell_matvec_plain(vpad32, cpad, xv32), tol=1e-5,
             library=lambda: torch.mv(csr32, xi32),
-            n_bytes=nbytes(vpad32, cpad, xv32, xv32),
-            flops=mv_flops * (L + 6) / L, dtype=F32,
-            k5=k5(vpad32, cpad, xv32)),
-    }
+            n_bytes=ell_bytes(nnz, vpad32, cpad, xv32), flops=mv_flops,
+            dtype=F32,
+            k5=k5(vpad32, cpad, xv32))
+    if residual:
+        ng = S.node_gather
+        targets = _flat_targets(ng, fe64.shape[1])
+        cases["restrict_f64@residual"] = k4(fe64, ng, targets, N, 1e-13)
+        cases["restrict_f32@residual"] = k4(fe64.to(F32), ng, targets, N,
+                                            1e-5)
     lib_err = float((torch.mv(csr64, xi64).reshape(N, 3).T
                      - K.ell_matvec_plain(vell64, cols, xv64)).abs().max())
-    shapes = (f"E={S.mesh.n_elems} N={N} nnz={nnz} L={cols.shape[0]} "
-              f"C={sg.shape[0]} KKE={flat32.shape[1]}")
+    shapes = (f"E={S.mesh.n_elems} N={N} nnz={nnz} L={L} "
+              f"C={sg.shape[0]} KKE={flat32.shape[1]}"
+              + (f" C_res={S.node_gather.shape[0]} KE={fe64.shape[1]}"
+                 if residual else ""))
     return cases, shapes, lib_err
 
 
@@ -1562,7 +1603,9 @@ def phase_generic_slice(dev, S):
 # ----------------------------------------------------------------------
 # phase 13: the CLI drivers
 # ----------------------------------------------------------------------
-DRV_N, DRV_PIHNA_STEPS, DRV_ADPM_STEPS = 28, 120, 40
+# PIHNA 40 steps (120 until the solid's remeshing runs joined phase 18:
+# the script then took 806 s on an NVIDIA H100 80GB HBM3 at 700 W)
+DRV_N, DRV_PIHNA_STEPS, DRV_ADPM_STEPS = 28, 40, 40
 DRV_PROTEAS_STEPS = 40
 # 24^3: 15,625 nodes, the size of run/RIPF133 (15,700 nodes)
 DRV_RIPF_N, DRV_RIPF_STEPS = 24, 120
@@ -1872,7 +1915,10 @@ def phase_drivers(dev, also):
 # ----------------------------------------------------------------------
 # phase 14: the coupled HCC driver and process_mesh
 # ----------------------------------------------------------------------
-HCC_N, HCC_STEPS, HCC_LOADING = 28, 400, 40  # the shipped schedule
+# the shipped schedule's first quarter (dt 0.01, a load step every 10
+# steps; 400 steps and 40 load steps until the script's depth was cut
+# for phase 18): the state diverges from step ~24 all the same
+HCC_N, HCC_STEPS, HCC_LOADING = 28, 100, 10
 # every HCC block live (the CPU tests' live deck): 8 C, 2 D, 1 E planes
 HCC_LIVE = {"dt": 0.05, "cells_min_capacity": 0.05,
             "cells_max_capacity": 1.0, "cells_max_capacity_exponent": 3.0,
@@ -1882,7 +1928,7 @@ HCC_LIVE = {"dt": 0.05, "cells_min_capacity": 0.05,
 HCC_PHASES = ("mesh io", "initial conditions", "system setup", "rds solve",
               "solid solve", "post process", "vtu output")
 HCC_KERNELS = DRV_TRANSIENT + DRV_SOLID
-HCC_OUTPUTS = (0, 200, 400)
+HCC_OUTPUTS = (0, HCC_STEPS // 2, HCC_STEPS)
 
 
 def _moved(coords, seed, amp):
@@ -2359,7 +2405,9 @@ def phase_amr(dev, also):
 # phase 16: mixed (HEX8 + PYRAMID5 + TET4, and PRISM6) and TET10 meshes
 MIX_N = 28  # box_mixed_mesh(28, 28, 28): 25,173 nodes; 10,976 HEX8,
 #             3,920 PYRAMID5 and 62,720 TET4
-MIX_PIHNA_STEPS, MIX_ADPM_STEPS, PRISM_STEPS = 120, 40, 20
+# mixed PIHNA 40 steps (120 until the script's depth was cut for phase
+# 18)
+MIX_PIHNA_STEPS, MIX_ADPM_STEPS, PRISM_STEPS = 40, 40, 20
 # the TET10 PIHNA case runs away from step ~23 in f64, as the reference's
 # does (at n = 20: `python -m tests.test_torch_tet10 20 22`, on a machine
 # with JAX): the driver run takes the steps before it, 16b's trajectory 30
@@ -2411,8 +2459,8 @@ def _restrict_concat(label, flat, ng, conns):
         tol=1e-5 if dt == F32 else 1e-13,
         library=lambda: torch.zeros((W, N), dtype=dt, device=flat.device
                                     ).index_add_(1, conn_flat, flat),
-        n_bytes=nbytes(flat, ng) + W * N * flat.element_size(),
-        flops=float(W * live), dtype=dt)}
+        n_bytes=restrict_bytes(flat, ng, N), flops=float(W * live),
+        dtype=dt)}
 
 
 def _say_bounds(rows, names):
@@ -2748,13 +2796,15 @@ def phase_mixed(dev, also):
 # export, and AMR on mixed and TET10 meshes in the PIHNA driver
 # ----------------------------------------------------------------------
 P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 40
-P17_RIPF_N, P17_RIPF_STEPS = 24, 120
-RIPF_OUTPUTS = (0, 10, 30, 60, 90, 120)
-# mixed AMR at steps 40 and 80, an output every 40 steps (the host's
-# CSV and VTU writes of 13 frames took 31 of the run's 82 s); TET10 AMR
-# at step 10 of the 20 steps before its runaway (phase 16)
-P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 120, 40, 2
-P17_MIX_AMR_OUTPUT = 40
+# RIPF 60 steps and the mixed AMR run 60 steps with AMR at 20 and 40,
+# an output every 20 (120 steps with AMR at 40 and 80 until phase 18
+# joined the script: it then took 750 s with the GPU tests on an NVIDIA
+# H100 80GB HBM3 at 700 W); TET10 AMR at step 10 of the 20 steps before
+# its runaway (phase 16)
+P17_RIPF_N, P17_RIPF_STEPS = 24, 60
+RIPF_OUTPUTS = (0, 10, 30, 60)
+P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 60, 20, 2
+P17_MIX_AMR_OUTPUT = 20
 P17_T10_AMR_STEPS, P17_T10_AMR_EVERY = 20, 10
 PROTEAS_SPECIES = ("hos", "tum", "nec", "vsc", "oed")
 PIHNA_SPECIES = ("n", "c", "h", "v", "a")
@@ -2909,7 +2959,7 @@ def _driver_kernels(phase, tag, d, driver, dev, also, first=None):
 
 
 def _p17_transient(root, driver, kind, dev, also, first):
-    """PROTEAS (40 steps, n = 28) or RIPF (120 steps, n = 24) on the
+    """PROTEAS (40 steps, n = 28) or RIPF (60 steps, n = 24) on the
     mixed or the TET10 case: its kernels held first (_driver_kernels),
     then the driver through cli.main (_drive_mixed): the artifacts, every
     residual <= rtol, the kernels of its mesh launched; RIPF's fields
@@ -3007,8 +3057,8 @@ def _p17_export(root, msh, kind):
 
 
 def _p17_amr(root, kind, dev, also, first):
-    """`-m pihna` with AMR: on the mixed case (120 steps, the TET4 block
-    refined 1:8 with hanging nodes at steps 40 and 80) or on the TET10
+    """`-m pihna` with AMR: on the mixed case (60 steps, the TET4 block
+    refined 1:8 with hanging nodes at steps 20 and 40) or on the TET10
     case (20 steps, one skeleton bisection at step 10).  The run's checks
     (_drive_mixed), the elements and hanging nodes after each adaptation,
     the mesh of the last frame; then the kernels at the shapes of the
@@ -3151,24 +3201,453 @@ def phase_mixed_drivers(dev, also):
     return first, paths
 
 
+# ----------------------------------------------------------------------
+# phase 18: the solid on mixed and TET10 meshes, its constrained Newton
+# and remeshing, and HCC on mixed meshes with its remeshing
+# ----------------------------------------------------------------------
+# box_mixed_mesh(48): 322,560 TET4 + 55,296 HEX8 + 11,520 PYRAMID5,
+# 119,953 nodes; tet4_to_tet10(box_tet_mesh(24)): 82,944 TET10, 117,649
+# nodes: the solid at the HEX8 bench's node count
+P18_MIX_N, P18_T10_N = 48, 24
+P18_TET_N, P18_HEX_N = 28, 24
+P18_CONS_N, P18_RESUME_N = 28, 12
+P18_HCC_N, P18_HCC_STEPS, P18_HCC_LOADING, P18_HCC_REMESH = 28, 20, 2, 10
+# the solid's CLI runs: the bench deck of phase 13, two load steps, one
+# remeshing after the first (f32 tangent and mixed Krylov, the card's)
+P18_SOLID_DECK = DRV_SOLID_DECK + ("remeshing_step = 1\n"
+                                   "mesh/AMR/max_steps = 1\n")
+P18_SOLID_WANT = ("restrict_f32", "restrict_f64", "ell_matvec_f32",
+                  "ell_matvec_f64")
+P18_HCC_TET_WANT = P18_SOLID_WANT + DRV_TRANSIENT
+P18_HCC_MIX_WANT = P18_SOLID_WANT + (
+    "gather_interp_affine_f64", "rhs_affine_f64", "apply_affine_f32",
+    "apply_affine_f64", "gather_interp_generic_f64",
+    "gather_interp_generic_f64:pyramid5", "apply_generic_f32",
+    "apply_generic_f32:pyramid5", "apply_generic_f64",
+    "apply_generic_f64:pyramid5")
+
+
+def _p18_mesh(kind, n):
+    from rdcfes_tpu_torch.mesh import box_mixed_mesh, tet4_to_tet10
+
+    if kind == "mixed":
+        return box_mixed_mesh(n, n, n)
+    if kind == "tet10":
+        return tet4_to_tet10(box_tet_mesh(n, n, n))
+    return box_tet_mesh(n, n, n) if kind == "tet4" else box_hex_mesh(n, n, n)
+
+
+def _p18_solid(mesh, dev, opts, tangent_precision, ops=K.KERNEL_OPS,
+               constraints=None):
+    return SolidSystem(mesh, materials=SOLID_MATERIALS, bcs=SOLID_BCS,
+                       penalty=1.0e6, newton=opts,
+                       tangent_precision=tangent_precision,
+                       constraints=constraints, device=dev, ops=ops)
+
+
+def _p18_kernels(tag, S, x, pt, also, first):
+    """18a: K4 (W = 9 and 3, f32 and f64) and K5 (f32, f64) of solid S at
+    positions x against their plain versions, with index_add_ and the
+    cuSPARSE CSR mv beside them."""
+    cases, shapes, lib_err = solid_cases(S, x, pt, pad=False, residual=True)
+    cases = {(k if "@" in k else k + "@tangent").replace("@", f"@{tag} "):
+             c for k, c in cases.items()}
+    say("18a shapes", system=tag.replace(" ", "_"), shapes=shapes.replace(
+        " ", ","), library_spmv_max_abs_diff=f"{lib_err:.3e}")
+    run_cases("18a kernel", cases, {}, also, first=first)
+    del cases
+
+
+def _p18_paths(tag, mesh, dev, pt=SOLID_PT, constraints=None):
+    """18b: one exact-f64 load step through the kernels and through the
+    plain versions from the rest positions; the displacements within
+    1e-8 of the largest; with constraints every hanging node on its
+    masters' midpoint within 1e-12 in both."""
+    xs = []
+    for ops in (K.KERNEL_OPS, K.PLAIN_OPS):
+        s = _p18_solid(mesh, dev, SOLID_EXACT_OPTS, "f64", ops, constraints)
+        t0 = time.perf_counter()
+        r = s.run_solver(s.initial_positions(), pt)
+        torch.cuda.synchronize()
+        require(r.converged, f"18b {tag}: the load step did not converge")
+        xs.append(r.x)
+        say("18b path", system=tag.replace(" ", "_"),
+            ops="kernels" if ops is K.KERNEL_OPS else "plain",
+            seconds=f"{time.perf_counter() - t0:.4f}",
+            newton_iters=r.iters, linear_iters=r.linear_iters,
+            r_ratio=f"{r.residual_norm / r.initial_residual_norm:.3e}")
+        del s
+    X0 = torch.as_tensor(mesh.coords, dtype=F64, device=dev)
+    scale = float((xs[1] - X0).abs().max())
+    err = float((xs[0] - xs[1]).abs().max()) / scale
+    hang = 0.0
+    if constraints is not None:
+        h, a, b = (torch.as_tensor(constraints[:, i], device=dev).long()
+                   for i in range(3))
+        hang = max(float((x[h] - 0.5 * (x[a] + x[b])).abs().max()
+                         / x.abs().max()) for x in xs)
+    say("18b paths", system=tag.replace(" ", "_"), n_nodes=mesh.n_nodes,
+        n_elems=mesh.n_elems, max_rel_err_displacement=f"{err:.3e}", bar=1e-8,
+        hanging=0 if constraints is None else len(constraints),
+        hanging_max_rel_err=f"{hang:.3e}", hanging_bar=1e-12)
+    require(err <= 1e-8, f"18b {tag}: kernels vs plain {err:.3e}")
+    require(hang <= 1e-12, f"18b {tag}: x_h != (x_a + x_b) / 2")
+
+
+def _p18_adapted_mixed(n):
+    """box_mixed_mesh(n) after one constrained adaptation of the TET4
+    elements nearest the centre (30%): (mesh, hanging-node rows)."""
+    from rdcfes_tpu_torch.mesh import MixedConstrained
+
+    mm = _p18_mesh("mixed", n)
+    conn4 = np.concatenate([b.connectivity[:, :4] for b in mm.blocks])
+    r = np.linalg.norm(mm.coords[conn4].mean(axis=1)
+                       - mm.coords.mean(axis=0), axis=1)
+    out = MixedConstrained.from_mesh(mm).refine_and_coarsen(
+        r <= np.quantile(r, 0.3), np.zeros(mm.n_elems, bool))
+    require(out is not None and len(out.constraints), "18b: no adaptation")
+    return out.mesh, out.constraints
+
+
+def _p18_moving_rdc(dev, mesh, cons):
+    """18b: 3 f64 steps of the moving constrained MixedTransientRDCSystem
+    (HCC's blocks) at three displaced geometries, through the kernels and
+    through the plain versions, each from the kernel path's state;
+    per-step relative L2 within 1e-10."""
+    from rdcfes_tpu_torch.models.hcc import hcc_blocks
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    a, b = (MixedTransientRDCSystem(mesh, 3, hcc_blocks, precision="f64",
+                                    rtol=1e-13, constraints=cons,
+                                    moving_mesh=True, device=dev, ops=ops)
+            for ops in (K.KERNEL_OPS, K.PLAIN_OPS))
+    c = a.cons
+    u0 = torch.as_tensor(_hcc_state(mesh.coords / np.ptp(mesh.coords)),
+                         dtype=F64, device=dev)
+    sa = a.initial_state(c.c_apply(u0.T.contiguous()).T)
+    worst, iters = 0.0, []
+    for seed in (1, 2, 3):
+        x = torch.as_tensor(_moved(mesh.coords, seed, 0.01), dtype=F64,
+                            device=dev)
+        sb, _, rb = b.step(sa, params=HCC_LIVE, coords=x)
+        sa, ia, ra = a.step(sa, params=HCC_LIVE, coords=x)
+        iters.append(int(ia))
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+        require(max(float(ra), float(rb)) <= 1e-13,
+                f"18b: residuals {float(ra):.3e}, {float(rb):.3e}")
+    uu = sa["u"]
+    hang = float((uu[c.hang] - 0.5 * (uu[c.a] + uu[c.b])).abs().max()
+                 / uu.abs().max())
+    say("18b moving constrained rdc", n_nodes=mesh.n_nodes,
+        n_elems=mesh.n_elems, hanging=c.n_hanging, steps=3, rtol=1e-13,
+        precision="f64", iters=iters, worst_rel_l2=f"{worst:.3e}",
+        bar=1e-10, hanging_max_rel_err=f"{hang:.3e}")
+    require(worst <= 1e-10, f"18b moving rdc kernel vs plain: {worst:.3e}")
+    require(hang <= 1e-12, "18b: u_h != (u_a + u_b) / 2")
+
+
+def _p18_record(fn):
+    """Run fn() with every load step (system, Newton result) and every
+    RDC segment (steps, iterations, residuals, system) recorded."""
+    from rdcfes_tpu_torch.systems.transient import TransientRDCSystem
+
+    rec = {"newton": [], "rds": []}
+    solver, steps = SolidSystem.run_solver, TransientRDCSystem.run_steps
+
+    def rec_solver(self, x, pt):
+        r = solver(self, x, pt)
+        rec["newton"].append((self, r))
+        return r
+
+    def rec_steps(self, state, n, *a, **kw):
+        out = steps(self, state, n, *a, **kw)
+        rec["rds"].append((n, out[1].tolist(), out[2].tolist(), self))
+        return out
+
+    SolidSystem.run_solver = rec_solver
+    TransientRDCSystem.run_steps = rec_steps
+    try:
+        return fn(), rec
+    finally:
+        SolidSystem.run_solver = solver
+        TransientRDCSystem.run_steps = steps
+
+
+def _p18_cells(path):
+    import re
+
+    with open(path) as f:
+        return int(re.search(r'NumberOfCells="(\d+)"', f.read()).group(1))
+
+
+def _p18_remeshed(tag, out, before, system, step):
+    """The remeshing line of a driver's stdout against the system built
+    after it: (elements after, hanging nodes)."""
+    import re
+
+    m = re.search(rf"remeshing step {step}: adapted to (\d+) elements"
+                  r"(?: \((\d+) hanging constraints\))?", out)
+    require(m is not None, f"18c {tag}: no remeshing at step {step}")
+    after, hanging = int(m.group(1)), int(m.group(2) or 0)
+    cons = system._newton.cons
+    require(after == system.mesh.n_elems > before
+            and hanging == (cons.n_hanging if cons is not None else 0),
+            f"18c {tag}: the system after remeshing")
+    return after, hanging
+
+
+def _p18_solid_run(root, kind, n, dev, extra="", keep=None):
+    """`-s` in process on the `kind` box at n with remeshing at load step
+    1: two converged load steps, the remeshed system, the last frame's
+    cells, with constraints x_h = (x_a + x_b) / 2 within 1e-12, and the
+    launches of K4 and K5.  `keep` (a directory): a copy of the
+    checkpoint of load step 1 and its mesh goes there."""
+    import os
+    import shutil
+
+    from rdcfes_tpu_torch.drivers import solid as dsolid
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    tag = f"solid {kind}"
+    d = os.path.join(root, f"solid_{kind}_{n}" + ("_ck" if keep else ""))
+    os.makedirs(d)
+    mesh = _p18_mesh(kind, n)
+    gmsh.write(mesh, os.path.join(d, "input.msh"))
+    with open(os.path.join(d, "input.dat"), "w") as f:
+        f.write(P18_SOLID_DECK + extra)
+    save = dsolid.save_checkpoint
+
+    def keep_step_1(path, state, step, *a, **kw):
+        save(path, state, step, *a, **kw)
+        if step == 1 and keep:
+            for name in ("checkpoint.npz", "checkpoint_mesh.msh"):
+                shutil.copy(os.path.join(os.path.dirname(path), name), keep)
+
+    dsolid.save_checkpoint = keep_step_1
+    try:
+        (wall, counts, out), rec = _p18_record(
+            lambda: _drive(d, ["-s"], dev))
+    finally:
+        dsolid.save_checkpoint = save
+    newton = [r for _, r in rec["newton"]]
+    require(len(newton) == 2 and all(r.converged for r in newton),
+            f"{tag}: the load steps")
+    system = rec["newton"][-1][0]
+    after, hanging = _p18_remeshed(tag, out, mesh.n_elems, system, 1)
+    last = os.path.join(d, "simulation", "output4paraview-2.vtu")
+    cells = _p18_cells(last)
+    require(cells == after, f"{tag}: the last frame has {cells} cells")
+    hang = 0.0
+    if hanging:
+        c, x = system._newton.cons, newton[-1].x
+        hang = float((x[c.hang] - 0.5 * (x[c.a] + x[c.b])).abs().max()
+                     / x.abs().max())
+        require(hang <= 1e-12, f"{tag}: x_h != (x_a + x_b) / 2")
+    totals = _perf_totals(out)
+    say(f"18c {tag}", seconds=f"{wall:.4f}",
+        **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+           for k in DRV_SOLID_PHASES + ("remeshing",)},
+        load_steps=2, newton_iters=[int(r.iters) for r in newton],
+        linear_iters=[int(r.linear_iters) for r in newton],
+        r_ratio=[f"{r.residual_norm / r.initial_residual_norm:.3e}"
+                 for r in newton], converged=True,
+        elements_before=mesh.n_elems, elements_after=after,
+        hanging=hanging, hanging_max_rel_err=f"{hang:.3e}",
+        last_frame_cells=cells, n_nodes_after=system.mesh.n_nodes)
+    say(f"18c {tag} launches", **{k: counts[k] for k in P18_SOLID_WANT})
+    _require_launched(counts, P18_SOLID_WANT, f"the {tag} driver")
+    return counts, system, newton[-1].x, last
+
+
+def _p18_hcc_run(root, kind, dev, extra="", keep=None):
+    """`-c hcc` in process on make_hcc_case(n=28, n_steps=20,
+    n_loading=2), mixed or TET4, remeshing at step 10: every RDC residual
+    <= rtol, both load steps converged, the remeshed systems, the last
+    frame's cells, and the launches.  `keep`: a copy of the checkpoint of
+    step 10 and its mesh goes there."""
+    import os
+    import shutil
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.drivers import coupled_hcc as dhcc
+
+    tag = f"hcc {kind}"
+    d = cases.make_hcc_case(os.path.join(root, f"hcc_{kind}"), n=P18_HCC_N,
+                            n_steps=P18_HCC_STEPS,
+                            n_loading=P18_HCC_LOADING,
+                            mixed=kind == "mixed")
+    with open(os.path.join(d, "input.dat"), "a") as f:
+        f.write(f"remeshing_step = {P18_HCC_REMESH}\n" + extra)
+    save = dhcc.save_checkpoint
+
+    def keep_step(path, state, step, *a, **kw):
+        save(path, state, step, *a, **kw)
+        if step == P18_HCC_REMESH and keep:
+            for name in ("checkpoint.npz", "checkpoint_mesh.msh"):
+                shutil.copy(os.path.join(os.path.dirname(path), name), keep)
+
+    dhcc.save_checkpoint = keep_step
+    try:
+        (wall, counts, out), rec = _p18_record(
+            lambda: _drive(d, ["-c", "hcc"], dev))
+    finally:
+        dhcc.save_checkpoint = save
+    newton = [r for _, r in rec["newton"]]
+    require(len(newton) == P18_HCC_LOADING
+            and all(r.converged for r in newton), f"{tag}: the load steps")
+    ress = [r for c in rec["rds"] for r in c[2]]
+    its = [i for c in rec["rds"] for i in c[1]]
+    rds = rec["rds"][-1][3]
+    require(len(ress) == P18_HCC_STEPS and max(ress) <= rds.rtol,
+            f"{tag}: an RDC residual {max(ress):.3e} > rtol {rds.rtol}")
+    before = rec["rds"][0][3].mesh.n_elems
+    system = rec["newton"][-1][0]
+    after, hanging = _p18_remeshed(tag, out, before, system, P18_HCC_REMESH)
+    require(rds.mesh.n_elems == after
+            and (rds.cons.n_hanging if rds.cons is not None else 0)
+            == hanging, f"{tag}: the RDC system after remeshing")
+    last = os.path.join(d, "simulation", f"out-{P18_HCC_STEPS}.vtu")
+    cells = _p18_cells(last)
+    require(cells == after, f"{tag}: the last frame has {cells} cells")
+    totals = _perf_totals(out)
+    want = P18_HCC_MIX_WANT if kind == "mixed" else P18_HCC_TET_WANT
+    say(f"18c {tag}", seconds=f"{wall:.4f}",
+        **{k.replace(" ", "_") + "_s": f"{totals.get(k, 0.0):.4f}"
+           for k in HCC_PHASES + ("remeshing",)},
+        steps=P18_HCC_STEPS, load_steps=P18_HCC_LOADING,
+        rds_inner_iters=sum(its), rds_max_residual=f"{max(ress):.3e}",
+        rtol=rds.rtol, precision=rds.precision,
+        newton_iters=[int(r.iters) for r in newton],
+        linear_iters=[int(r.linear_iters) for r in newton], converged=True,
+        elements_before=before, elements_after=after, hanging=hanging,
+        last_frame_cells=cells, n_nodes_after=rds.mesh.n_nodes)
+    say(f"18c {tag} launches", **{k: counts[k] for k in want})
+    _require_launched(counts, want, f"the {tag} driver")
+    return counts, d, last
+
+
+def _p18_resume(tag, d, ck_dir, last, argv, dev):
+    """18d: the case in a new directory resumed from the checkpoint in
+    ck_dir (written after remeshing): the last frame's Float64 arrays
+    equal the uninterrupted run's (`last`) within 1e-12 of each array's
+    largest value."""
+    import os
+    import shutil
+
+    d2 = d.rstrip("/") + "_resumed"
+    shutil.copytree(d, d2, ignore=shutil.ignore_patterns("simulation"))
+    ck = os.path.join(ck_dir, "checkpoint.npz")
+    with np.load(ck) as z:
+        require(int(z["amr_done"]) == 1 and "constraints" in z.files,
+                f"18d {tag}: the checkpoint after remeshing")
+        step = int(z["__step"])
+    with open(os.path.join(d2, "input.dat"), "a") as f:
+        f.write(f"checkpoint/resume = '{ck}'\n")
+    wall, _, out = _drive(d2, argv, dev)
+    require("resumed on remeshed grid (" in out, f"18d {tag}: not resumed")
+    a = _vtu_arrays(os.path.join(d2, "simulation", os.path.basename(last)))
+    b = _vtu_arrays(last)
+    require(a.keys() == b.keys(), f"18d {tag}: the arrays")
+    errs = {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k]).max()), 1e-300) for k in b}
+    worst = max(errs.values())
+    say(f"18d {tag} resume", from_step=step, seconds=f"{wall:.4f}",
+        arrays=len(b), worst_rel_err=f"{worst:.3e}", bar=1e-12,
+        worst_array=max(errs, key=errs.get))
+    require(worst <= 1e-12, f"18d {tag}: resumed != uninterrupted")
+
+
+def phase_solid_ext(dev, also):
+    """(a) K4 and K5 at the solid's new shapes against their plain
+    versions, (b) load steps and moving constrained RDC steps through the
+    kernels and the plain versions, (c) the solid and HCC CLI runs with
+    remeshing, (d) their resumes from a checkpoint written after
+    remeshing."""
+    import os
+    import shutil
+    import tempfile
+
+    first, paths = {}, {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    for kind, n in (("tet10", P18_T10_N), ("mixed", P18_MIX_N)):
+        mesh = _p18_mesh(kind, n)
+        S = _p18_solid(mesh, dev, SOLID_EXACT_OPTS, "f64")
+        x = S.initial_positions() + torch.as_tensor(
+            0.05 / n * rng.standard_normal((mesh.n_nodes, 3)), dtype=F64,
+            device=dev)
+        _p18_kernels(f"{kind} {n}", S, x, SOLID_PT, also, first)
+        del S, x
+        torch.cuda.empty_cache()
+        _p18_paths(f"{kind} {n}", mesh, dev)
+    mesh, cons = _p18_adapted_mixed(P18_CONS_N)
+    _p18_paths(f"mixed {P18_CONS_N} adapted", mesh, dev, constraints=cons)
+    _p18_moving_rdc(dev, mesh, cons)
+    root = tempfile.mkdtemp(prefix="rdcfes_p18_")
+    try:
+        counts, S, x, _ = _p18_solid_run(root, "mixed", P18_MIX_N, dev)
+        paths["solid mixed remesh"] = counts
+        _p18_kernels(f"mixed {P18_MIX_N} adapted", S, x, 1.0, also, first)
+        del S, x
+        torch.cuda.empty_cache()
+        for kind, n in (("tet10", P18_T10_N), ("tet4", P18_TET_N),
+                        ("hex8", P18_HEX_N)):
+            paths[f"solid {kind} remesh"] = _p18_solid_run(root, kind, n,
+                                                          dev)[0]
+        for kind in ("mixed", "tet4"):
+            keep = None
+            if kind == "mixed":
+                keep = os.path.join(root, "ck_hcc")
+                os.makedirs(keep)
+            counts, d, last = _p18_hcc_run(
+                root, kind, dev,
+                f"checkpoint/step = {P18_HCC_REMESH}\n" if keep else "",
+                keep)
+            paths[f"hcc {kind} remesh"] = counts
+            if keep:
+                _p18_resume("hcc mixed", d, keep, last, ["-c", "hcc"], dev)
+        keep = os.path.join(root, "ck_solid")
+        os.makedirs(keep)
+        last = _p18_solid_run(root, "mixed", P18_RESUME_N, dev,
+                              "checkpoint/step = 1\n", keep)[3]
+        _p18_resume("solid mixed", os.path.dirname(os.path.dirname(last)),
+                    keep, last, ["-s"], dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("18 done", seconds=f"{time.perf_counter() - t0:.4f}")
+    return first, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
+                    "18",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    walls, t_lap = {}, [time.perf_counter()]
     dev, card = phase_device()
+
+    def lap(name):
+        """The wall seconds since the last lap, under the phases run."""
+        t = time.perf_counter()
+        walls[name] = round(t - t_lap[0], 1)
+        t_lap[0] = t
+
     if 1 in phases:
         phase_build()
+    lap("0-1")
     also = {}  # variant -> {shape label: row}, beside its first row
     kern = phase_kernels(dev, also) if 2 in phases else {}
+    lap("2")
     if 3 in phases:
         phase_oracle(dev)
     if 4 in phases:
         phase_paths(dev)
     paths = {"transient": phase_slice(dev) if 5 in phases else {}}
+    lap("3-5")
     S = (make_solid(SOLID_N, dev, SOLID_BENCH_OPTS, "f32")
          if phases & {6, 8} else None)
     solid_kern = phase_solid_kernels(dev, S) if 6 in phases else {}
@@ -3176,6 +3655,7 @@ def main(argv=None) -> int:
         phase_solid_paths(dev)
     paths["solid"] = phase_solid_slice(dev, S) if 8 in phases else {}
     del S
+    lap("6-8")
     H = (make_system(box_hex_mesh(HEX_N, HEX_N, HEX_N, bounds=BRAIN), dev)
          if phases & {9, 12} else None)
     gen_kern = phase_generic_kernels(dev, H, also) if 9 in phases else {}
@@ -3186,20 +3666,32 @@ def main(argv=None) -> int:
     if 12 in phases:
         paths.update(phase_generic_slice(dev, H))
     del H
+    lap("9-12")
     if 13 in phases:
         paths["drivers"] = phase_drivers(dev, also)
+    lap("13")
     if 14 in phases:
         paths["coupled"] = phase_coupled(dev, also)
+    lap("14")
     if 15 in phases:
         paths.update(phase_amr(dev, also))
+    lap("15")
     mix_kern = {}
     if 16 in phases:
         mix_kern, mix_paths = phase_mixed(dev, also)
         paths.update(mix_paths)
+    lap("16")
     p17_kern = {}
     if 17 in phases:
         p17_kern, p17_paths = phase_mixed_drivers(dev, also)
         paths.update(p17_paths)
+    lap("17")
+    p18_kern = {}
+    if 18 in phases:
+        p18_kern, p18_paths = phase_solid_ext(dev, also)
+        paths.update(p18_paths)
+    lap("18")
+    say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
@@ -3213,7 +3705,7 @@ def main(argv=None) -> int:
                "launches_by_path": by_path}
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or mix_kern.get(name)
-                 or p17_kern.get(name) or {})
+                 or p17_kern.get(name) or p18_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

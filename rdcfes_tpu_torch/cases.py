@@ -9,8 +9,7 @@ a complete case directory (Gmsh mesh, nodal/elemental IC `.dat` files,
 signatures are the reference's, so a caller switches packages unchanged.
 PIHNA, ADPM, RIPF and PROTEAS also take `mixed=True` (the box as HEX8 +
 PYRAMID5 + TET4 blocks, mesh.generators.box_mixed_mesh) and `order=2`
-(TET10, mesh.generators.tet4_to_tet10); HCC raises NotImplementedError
-for `mixed=True` (ROADMAP queue 1 item 13, sub-slice 5).
+(TET10, mesh.generators.tet4_to_tet10); HCC takes `mixed=True`.
 """
 
 from __future__ import annotations
@@ -21,15 +20,9 @@ import numpy as np
 
 from .mesh import box_mixed_mesh, box_tet_mesh, gmsh, tet4_to_tet10
 
-_ITEM13 = "ROADMAP queue 1 item 13, sub-slice 5 (HCC on mixed meshes)"
 _BRAIN = ((0, 150.0), (0, 180.0), (0, 150.0))
 _LUNG = ((0, 250.0), (0, 180.0), (0, 250.0))
 _CUBE = ((0, 100.0),) * 3
-
-
-def _first_order_tet(mixed: bool) -> None:
-    if mixed:
-        raise NotImplementedError(f"HCC case with mixed=True: {_ITEM13}")
 
 
 def _write_makefile(directory: str, args: str) -> None:
@@ -357,17 +350,26 @@ def make_hcc_case(directory: str, n: int = 8, seed: int = 4,
     host, 3001 capsule, 3002 growing tumour core: the material ids of the
     shipped deck) and the shipped boundary-condition table mapped onto
     the box: 2000 fixed at z = 0, 2002 and 2003 z-pinned on the two x
-    faces.  `seed` is unused, as in the reference."""
-    _first_order_tet(mixed)
+    faces.  `seed` is unused, as in the reference.  mixed=True meshes the
+    box with HEX8 + PYRAMID5 + TET4 blocks, the subdomains set per
+    block."""
     os.makedirs(directory, exist_ok=True)
-    mesh = box_tet_mesh(n, n, n, bounds=((0, 10.0),) * 3)
-    centers = mesh.coords[mesh.connectivity].mean(axis=1)
-    rc2 = ((centers - 5.0) ** 2).sum(axis=1)
-    mesh.subdomain_id[:] = 3000
-    mesh.subdomain_id[rc2 < 9.0] = 3001
-    mesh.subdomain_id[rc2 < 4.0] = 3002
+    if mixed:
+        mesh = box_mixed_mesh(max(n, 3), n, n, bounds=((0, 10.0),) * 3)
+        parts = [(b.connectivity, b.subdomain_id) for b in mesh.blocks]
+    else:
+        mesh = box_tet_mesh(n, n, n, bounds=((0, 10.0),) * 3)
+        parts = [(mesh.connectivity, mesh.subdomain_id)]
+    for conn, sid in parts:
+        centers = mesh.coords[conn].mean(axis=1)
+        rc2 = ((centers - 5.0) ** 2).sum(axis=1)
+        sid[:] = 3000
+        sid[rc2 < 9.0] = 3001
+        sid[rc2 < 4.0] = 3002
     bid, bf = mesh.boundary_id, mesh.boundary_faces
-    fc = mesh.coords[bf].sum(axis=1) / bf.shape[1]
+    valid = bf >= 0  # a MixedMesh pads its triangles with -1
+    fc = (np.where(valid[..., None], mesh.coords[np.maximum(bf, 0)], 0.0)
+          .sum(axis=1) / valid.sum(axis=1, keepdims=True))
     bid[:] = 0
     bid[np.isclose(fc[:, 2], 0.0)] = 2000
     bid[np.isclose(fc[:, 0], 0.0)] = 2002

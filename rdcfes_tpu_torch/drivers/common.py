@@ -1,5 +1,6 @@
 """Shared driver plumbing: output schedules, step banners, the phase log,
-the optional profiler trace, and the transient system a driver steps."""
+the optional profiler trace, the transient system a driver steps, and
+the remeshing of the solid and coupled HCC drivers."""
 
 from __future__ import annotations
 
@@ -8,15 +9,18 @@ import sys
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Callable, Optional, Set
+from typing import Callable, NamedTuple, Optional, Set
 
+import numpy as np
 import torch
 
+from ..fem.amr import flag_by_mean_stddev, kelly_error_indicator
 from ..io.getpot import export_integers
+from ..mesh import (AdaptiveMesh, MixedConstrained, Tet10Adaptive,
+                    adapt_flagged, gmsh, kelly_mixed, refine_flagged)
 from ..systems import MixedTransientRDCSystem, TransientRDCSystem
 
 _MULTI = "ROADMAP queue 1 item 14 (multi-device)"
-_ITEM13 = "ROADMAP queue 1 item 13"
 
 
 @contextmanager
@@ -98,14 +102,136 @@ def require_one_device(deck) -> None:
         raise NotImplementedError(f"parallel/n_devices = {n_dev}: {_MULTI}")
 
 
-def require_first_order_tet_or_hex(mesh, what: str) -> None:
-    """The drivers that run only on single-type TET4 and HEX8 meshes (the
-    solid and HCC) raise NotImplementedError on a MIXED or TET10 mesh,
-    before the first step."""
-    if mesh.elem_type not in ("TET4", "HEX8"):
-        raise NotImplementedError(
-            f"{what} on a {mesh.elem_type} mesh: {_ITEM13}, sub-slices 4 "
-            "and 5 (the solid and HCC on mixed and TET10 meshes)")
+class Remeshed(NamedTuple):
+    """One remeshing pass: the new mesh, the nodal prolongation and the
+    elemental transfer old -> new, and the hanging-node rows [h, a, b]
+    of the new mesh ((0, 3) unless it is a remeshed MixedMesh)."""
+
+    mesh: object
+    prolong: Callable[[np.ndarray], np.ndarray]
+    elemental: Callable[[np.ndarray], np.ndarray]
+    constraints: np.ndarray
+
+
+class Remesher:
+    """The remeshing of the solid and coupled HCC drivers (rdcfes_tpu/
+    drivers/solid.py:216-369, rdcfes_tpu/drivers/coupled_hcc.py:
+    259-385; C++ src/solid.C:330-369, src/coupled_hcc.C:733-780): the
+    Kelly indicator of two nodal fields, libMesh's mean-stddev flags,
+    then by mesh type
+
+    * MIXED: the TET4 block refined 1:8 against the frozen transition
+      blocks, with hanging nodes (mesh/adapt_ext.MixedConstrained);
+    * TET4: selective bisection refine and coarsen (mesh/adapt.py);
+    * TET10, when `tet10_bisection` (the solid's): skeleton bisection
+      with the exact quadratic transfer (adapt_ext.Tet10Adaptive);
+    * otherwise the uniform conforming refinement (mesh/refine.py),
+      which takes HEX8 and raises ValueError on TET10, as the
+      reference's does in the HCC driver.
+
+    The adaptive state (the bisection forest, the hanging set) lives
+    across passes while the mesh it adapted is the current one; its
+    hanging-node rows (`constraints`) are the ones the drivers' systems
+    take.  A checkpoint written after remeshing holds the refined mesh
+    (`checkpoint_mesh.msh` beside it, and its coordinates at full
+    precision as `mesh_coords`, which the reference's resume ignores: the
+    Gmsh file has 6 significant digits), `amr_done`, the fibres and the
+    hanging-node rows (`checkpoint_extras`, `resume`)."""
+
+    CHECKPOINT_MESH = "checkpoint_mesh.msh"
+
+    def __init__(self, refine_fraction: float, coarsen_fraction: float,
+                 max_level: int, tet10_bisection: bool):
+        self.refine_fraction = refine_fraction
+        self.coarsen_fraction = coarsen_fraction
+        self.max_level = max_level
+        self.tet10_bisection = tet10_bisection
+        self.adaptive = None
+
+    @property
+    def constraints(self) -> np.ndarray:
+        """The hanging-node rows [h, a, b] of the current mesh: those of
+        the last MixedMesh adapted, else (0, 3)."""
+        if isinstance(self.adaptive, MixedConstrained):
+            return self.adaptive.constraints
+        return np.zeros((0, 3), dtype=np.int64)
+
+    def resume(self, ckpt_path: str, extra: dict, mesh, fibres):
+        """(mesh, fibres, amr_done) to go on from a checkpoint's `extra`:
+        the refined mesh, its fibres and its pass count when it was
+        written after remeshing (a MixedMesh's hanging set restored, so
+        that a later pass refines on it), else the inputs and 0."""
+        ck_mesh = os.path.join(os.path.dirname(ckpt_path),
+                               self.CHECKPOINT_MESH)
+        if "amr_done" not in extra or not os.path.exists(ck_mesh):
+            return mesh, fibres, 0
+        mesh = gmsh.read(ck_mesh)
+        if "mesh_coords" in extra:
+            mesh.coords = np.ascontiguousarray(extra["mesh_coords"])
+        if len(extra.get("constraints", ())):
+            self.adaptive = MixedConstrained.from_mesh(mesh)
+            self.adaptive.hanging = {(int(a), int(b)): int(h)
+                                     for h, a, b in extra["constraints"]}
+        return mesh, extra["fibres"], int(extra["amr_done"])
+
+    def checkpoint_extras(self, directory: str, mesh, amr_done: int) -> dict:
+        """The arrays a checkpoint holds after `amr_done` passes beside
+        the state, the refined mesh written into `directory`; {} before
+        the first pass."""
+        if not amr_done:
+            return {}
+        gmsh.write(mesh, os.path.join(directory, self.CHECKPOINT_MESH))
+        extras = {"amr_done": np.asarray(amr_done), "mesh_coords": mesh.coords}
+        if len(self.constraints):
+            # the refined mesh is nonconforming without them
+            extras["constraints"] = self.constraints
+        return extras
+
+    def remesh(self, step: int, mesh, indicator: np.ndarray
+               ) -> Optional[Remeshed]:
+        """adapt(), with the drivers' line on what it did."""
+        r = self.adapt(mesh, indicator)
+        if r is None:
+            print(f"remeshing step {step}: nothing flagged")
+            return None
+        hanging = (f" ({len(r.constraints)} hanging constraints)"
+                   if r.mesh.elem_type == "MIXED" else "")
+        print(f"remeshing step {step}: adapted to {r.mesh.n_elems} "
+              f"elements{hanging}")
+        return r
+
+    def adapt(self, mesh, indicator: np.ndarray) -> Optional[Remeshed]:
+        """One pass on `mesh` driven by indicator (N, 2); None when
+        nothing was flagged."""
+        kelly = kelly_mixed if mesh.elem_type == "MIXED" else \
+            kelly_error_indicator
+        flags, coarsen = flag_by_mean_stddev(
+            kelly(mesh, indicator, [0, 1]), self.refine_fraction,
+            self.coarsen_fraction)
+        none = np.zeros((0, 3), dtype=np.int64)
+        make = {"MIXED": MixedConstrained.from_mesh, "TET4": AdaptiveMesh}
+        if self.tet10_bisection:
+            make["TET10"] = Tet10Adaptive.from_mesh
+        if mesh.elem_type not in make:
+            r = refine_flagged(mesh, flags)
+            return None if r is None else Remeshed(
+                r.mesh, r.prolong, r.restrict_elemental, none)
+        if getattr(self.adaptive, "mesh", None) is not mesh:
+            self.adaptive = make[mesh.elem_type](mesh)
+        if mesh.elem_type == "MIXED":
+            r = self.adaptive.refine_and_coarsen(flags, coarsen,
+                                                 max_level=self.max_level)
+            if r is None:
+                return None
+            self.adaptive = r.constrained
+            return Remeshed(r.mesh, r.prolong, r.transfer_elemental,
+                            r.constraints)
+        r = adapt_flagged(self.adaptive, flags, coarsen,
+                          max_level=self.max_level)
+        if r is None:
+            return None
+        self.adaptive = r.adaptive
+        return Remeshed(r.mesh, r.prolong, r.restrict_elemental, none)
 
 
 def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,

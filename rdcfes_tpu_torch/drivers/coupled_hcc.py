@@ -17,11 +17,24 @@ path it is the same operator as the reference's assembled one-step
 the device as in drivers/solid.py (an f32 tangent and a mixed Krylov on
 the card, f64 on the CPU; the deck keys override).
 
-Not ported, each raising NotImplementedError before the first step:
-remeshing (`remeshing_step` > 0 while `mesh/AMR/max_steps` > 0, ROADMAP
-queue 1 item 13), a checkpoint written after remeshing (item 13), MIXED
-and TET10 meshes (item 13, sub-slice 5) and `parallel/n_devices` > 1
-(item 14).
+Meshes: TET4, HEX8 and TET10 (TransientRDCSystem with moving_mesh=True)
+and MIXED (MixedTransientRDCSystem with moving_mesh=True, in mixed
+precision as the reference's), with the solid on the same mesh.
+
+Remeshing, at the `remeshing_step` schedule while `mesh/AMR/max_steps`
+allows (drivers/common.Remesher on the nodal pressure and the tumour c):
+MIXED with hanging nodes (both systems then get `constraints=`), TET4 by
+bisection, HEX8 uniformly; TET10 raises ValueError there, as the
+reference's `refine_flagged` does.  The RDC state and the positions are
+P1-prolonged, the elemental fields transferred, and both systems rebuilt
+on the refined mesh.  A checkpoint written after remeshing holds the
+refined mesh (`checkpoint_mesh.msh` beside it, and its coordinates at
+full precision as `mesh_coords`, which the reference's resume ignores:
+the Gmsh file has 6 significant digits), `amr_done`, the fibres and a
+MixedMesh's hanging-node rows, and resumes on that mesh.
+
+Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14), which
+raises NotImplementedError before the first step.
 """
 
 from __future__ import annotations
@@ -36,16 +49,11 @@ from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter, elemental_to_nodal
 from ..mesh import gmsh
 from ..models.hcc import HCC_VARS, hcc_blocks
-from ..systems import SolidSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     require_first_order_tet_or_hex, require_one_device,
-                     step_banner)
-from .solid import (load_bcs, load_fibres, load_materials,
-                    load_newton_options, load_tangent_precision)
-
-_AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
+                     require_one_device, step_banner)
+from .solid import load_fibres, load_remesher, make_solid
 
 
 def load_params(deck: Deck) -> dict:
@@ -96,16 +104,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     # reference
     rtp = set(range(rem_step, n_steps + 1, rem_step)) if rem_step else set()
     amr_max_steps = deck("mesh/AMR/max_steps", 0)
-    if amr_max_steps > 0 and rtp:
-        raise NotImplementedError(
-            f"remeshing at step {min(rtp)} (mesh/AMR/max_steps = "
-            f"{amr_max_steps}): {_AMR}")
-    # consumed as the reference consumes them; they only steer remeshing
-    for key, default in (("mesh/skip_renumber_nodes_and_elements", True),
-                         ("mesh/AMR/max_level", 3),
-                         ("mesh/AMR/refine_percentage", 0.5),
-                         ("mesh/AMR/coarsen_percentage", 0.5)):
-        deck(key, default)
+    remesher = load_remesher(deck, tet10_bisection=False)
     DIR = provenance.prepare_results_dir(
         deck("directory", "") or None, deck_path, [input_nodal], wipe=True)
     out_gmsh = os.path.join(DIR, deck("output_GMSH", "output.msh"))
@@ -113,7 +112,6 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
-        require_first_order_tet_or_hex(mesh, "the HCC driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 
@@ -126,27 +124,24 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     ckpt_step = deck("checkpoint/step", 0)
     ckpt_resume = deck("checkpoint/resume", "")
     ck_params = dict(params, loading_step=loading_step, penalty=penalty)
+    amr_done = 0
     if ckpt_resume:
         st, start_step, time_value, extra = load_checkpoint(ckpt_resume,
                                                             ck_params)
-        if "amr_done" in extra or "constraints" in extra:
-            raise NotImplementedError(
-                f"{ckpt_resume} was written after remeshing: {_AMR}")
+        mesh, fibres, amr_done = remesher.resume(ckpt_resume, extra, mesh,
+                                                 fibres)
+
+    def build(mesh, fibres):
+        """Both systems on `mesh`, with the remesher's hanging nodes: the
+        RDC transport on the moving mesh and the solid."""
+        cons = remesher.constraints
+        return (make_rdc_system(mesh, 3, hcc_blocks, deck, device=dev,
+                                moving_mesh=True, constraints=cons),
+                make_solid(deck, mesh, fibres, dev, cons))
 
     with plog.scope("system setup"):
-        rds = make_rdc_system(mesh, 3, hcc_blocks, deck, device=dev,
-                              moving_mesh=True)
-        solid = SolidSystem(
-            mesh,
-            materials=load_materials(deck),
-            bcs=load_bcs(deck),
-            penalty=penalty,
-            fibres=fibres,
-            newton=load_newton_options(deck, dev),
-            tangent_precision=load_tangent_precision(deck, dev),
-            device=dev,
-        )
-    state = rds.initial_state(u0)
+        rds, solid = build(mesh, fibres)
+    state = rds.initial_state(u0) if not ckpt_resume else None
     x = solid.initial_positions()
 
     paraview = ParaviewWriter(mesh)
@@ -182,6 +177,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             paraview.update_pvd(fields, t, coords=xs)
 
     if ckpt_resume:
+        if amr_done:
+            print(f"resumed on remeshed grid ({mesh.n_elems} elements)")
         state = rds.scatter_state(st)
         x = torch.as_tensor(extra["x"], dtype=torch.float64, device=dev)
         pseudo_time = float(extra["pseudo_time"])
@@ -229,14 +226,37 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                     p_elem = p_j.cpu().numpy()
                     vm_elem = vm_j.cpu().numpy()
                     fibre_cur = fc_j.cpu().numpy()
+            if t in rtp and amr_done < amr_max_steps:
+                amr_done += 1
+                with plog.scope("remeshing"):
+                    gstate = rds.gather_state(state)
+                    ind = np.stack([elemental_to_nodal(mesh, p_elem),
+                                    gstate["u"][:, 1]], axis=1)
+                    r = remesher.remesh(t, mesh, ind)
+                    if r is not None:
+                        mesh = r.mesh
+                        fibres = r.elemental(fibres)
+                        p_elem = r.elemental(p_elem)
+                        vm_elem = r.elemental(vm_elem)
+                        fibre_cur = r.elemental(fibre_cur)
+                        x_new = r.prolong(x.cpu().numpy())
+                        rds, solid = build(mesh, fibres)
+                        state = rds.scatter_state(
+                            {k: r.prolong(v) for k, v in gstate.items()})
+                        x = torch.as_tensor(x_new, dtype=torch.float64,
+                                            device=dev)
+                        paraview.mesh = mesh
             if ckpt_step and t % ckpt_step == 0:
                 with plog.scope("checkpoint"):
+                    extras = {"x": x, "pseudo_time": np.asarray(pseudo_time),
+                              "fibres": fibres, "p_elem": p_elem,
+                              "vm_elem": vm_elem, "fibre_cur": fibre_cur,
+                              **remesher.checkpoint_extras(DIR, mesh,
+                                                           amr_done)}
                     save_checkpoint(
                         os.path.join(DIR, "checkpoint.npz"),
                         rds.gather_state(state), t, time_value, ck_params,
-                        x=x, pseudo_time=np.asarray(pseudo_time),
-                        fibres=fibres, p_elem=p_elem, vm_elem=vm_elem,
-                        fibre_cur=fibre_cur)
+                        **extras)
             if t in otp:
                 save(t)
 

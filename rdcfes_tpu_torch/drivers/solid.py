@@ -3,9 +3,19 @@ rdcfes_tpu.drivers.solid; C++ reference src/solid.C:14-112).
 
 Flow: deck -> (wiped) results dir -> Gmsh read + processed copy ->
 optional fibre file -> pseudo-time ramp: Newton equilibrium solve, stress
-post-processing (pressure, Von Mises, fibre push-forward), VTU output
-with the current positions as Points; an optional checkpoint every
-`checkpoint/step`.
+post-processing (pressure, Von Mises, fibre push-forward), remeshing at
+the `remeshing_step` schedule while `mesh/AMR/max_steps` allows
+(drivers/common.Remesher on the pressure and Von Mises fields: MIXED
+with hanging nodes, TET4 and TET10 by bisection, HEX8 uniformly; the
+current positions P1-prolonged, the elemental fields transferred, the
+system rebuilt), VTU output with the current positions as Points; an
+optional checkpoint every `checkpoint/step`, which after remeshing also
+holds the refined mesh (`checkpoint_mesh.msh` beside it, and its
+coordinates at full precision as `mesh_coords`, which the reference's
+resume ignores: the Gmsh file has 6 significant digits), `amr_done`,
+the fibres and a MixedMesh's hanging-node rows, and resumes on that
+mesh.  A resumed MixedMesh also gets its hanging set back, so that a
+later pass refines on it (the reference rebuilds it from the mesh).
 
 Deck notes (the reference's sharp edges, kept):
   * number_of_loading_steps = int(1.0 / loading_step) (src/solid.C:153-154)
@@ -21,17 +31,15 @@ the same split between its accelerator and the CPU); the deck keys
 override.  `solver/linear/fast_gather` is read and ignored: the TPU's
 Beneš-routed SpMV has no counterpart here.
 
-Not ported, each raising NotImplementedError before the first load step:
-remeshing (a step of the `remeshing_step` schedule while
-`mesh/AMR/max_steps` > 0, ROADMAP queue 1 item 13), a checkpoint written
-after remeshing (item 13), `parallel/n_devices` > 1 (item 14), and
-meshes other than single-type TET4 or HEX8 (item 13, sub-slice 4).
+Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14), which
+raises NotImplementedError before the first load step.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,10 +52,7 @@ from ..solvers.newton import NewtonOptions
 from ..systems import SolidSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
-from .common import (PerfLog, require_first_order_tet_or_hex,
-                     require_one_device, step_banner)
-
-_AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
+from .common import PerfLog, Remesher, require_one_device, step_banner
 
 
 def load_newton_options(deck: Deck, device) -> NewtonOptions:
@@ -122,6 +127,26 @@ def load_fibres(deck: Deck, mesh) -> np.ndarray:
     return raw / norms[:, None]
 
 
+def make_solid(deck: Deck, mesh, fibres: np.ndarray, device,
+               constraints: Optional[np.ndarray] = None) -> SolidSystem:
+    """The SolidSystem of a deck on `mesh` (the drivers build it again
+    after every remeshing)."""
+    return SolidSystem(
+        mesh, materials=load_materials(deck), bcs=load_bcs(deck),
+        penalty=deck("BCs/displacement_penalty", 1.0e5), fibres=fibres,
+        newton=load_newton_options(deck, device),
+        tangent_precision=load_tangent_precision(deck, device),
+        constraints=constraints, device=device)
+
+
+def load_remesher(deck: Deck, tet10_bisection: bool) -> Remesher:
+    """mesh/AMR/* (src/solid.C:156-200)."""
+    deck("mesh/skip_renumber_nodes_and_elements", True)
+    return Remesher(deck("mesh/AMR/refine_percentage", 0.5),
+                    deck("mesh/AMR/coarsen_percentage", 0.5),
+                    deck("mesh/AMR/max_level", 3), tet10_bisection)
+
+
 def schedule(deck: Deck, n_steps: int, step_key: str, default_past_end: bool):
     """output/remeshing schedules (src/solid.C:156-200): step==0 means only
     the final step (output) or never (remeshing: 1+n_steps)."""
@@ -137,39 +162,28 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     dev = cuda_device() if device is None else torch.device(device)
     plog = PerfLog("solid")
     deck = Deck(deck_path)
+    require_one_device(deck)
 
     input_gmsh = deck("input_GMSH", "input.msh")
-    loading_step = deck("loading_step", 1.0)
-    n_load_steps = int(1.0 / loading_step)
-    rtp = schedule(deck, n_load_steps, "remeshing_step", True)
-    amr_max_steps = deck("mesh/AMR/max_steps", 0)
-    remesh = sorted(l for l in rtp if 1 <= l <= n_load_steps)
-    if amr_max_steps > 0 and remesh:
-        raise NotImplementedError(
-            f"remeshing at load step {remesh[0]} (mesh/AMR/max_steps = "
-            f"{amr_max_steps}): {_AMR}")
-    require_one_device(deck)
     DIR = provenance.prepare_results_dir(
         deck("directory", "") or None, deck_path, wipe=True
     )
     out_gmsh = os.path.join(DIR, deck("output_GMSH", "output.msh"))
     out_pv = os.path.join(DIR, deck("output_PARAVIEW", "output4paraview"))
 
+    loading_step = deck("loading_step", 1.0)
+    n_load_steps = int(1.0 / loading_step)
     otp = (set(export_integers(deck("output_time_points", "")))
            if deck.have("output_time_points")
            else schedule(deck, n_load_steps, "output_step", False))
     if deck.have("output_time_points"):
         deck("output_step", 0)
-    # consumed as the reference consumes them; they only steer remeshing
-    for key, default in (("mesh/skip_renumber_nodes_and_elements", True),
-                         ("mesh/AMR/max_level", 3),
-                         ("mesh/AMR/refine_percentage", 0.5),
-                         ("mesh/AMR/coarsen_percentage", 0.5)):
-        deck(key, default)
+    rtp = schedule(deck, n_load_steps, "remeshing_step", True)
+    amr_max_steps = deck("mesh/AMR/max_steps", 0)
+    remesher = load_remesher(deck, tet10_bisection=True)
 
     with plog.scope("mesh io"):
         mesh = gmsh.read(input_gmsh)
-        require_first_order_tet_or_hex(mesh, "the solid driver")
         print(mesh.print_info())
         gmsh.write(mesh, out_gmsh)
 
@@ -179,23 +193,14 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     fibres = load_fibres(deck, mesh)
     penalty = deck("BCs/displacement_penalty", 1.0e5)
     ck_params = {"loading_step": loading_step, "penalty": penalty}
+    amr_done = 0
     if ckpt_resume:
         st, start_step, pseudo_time, extra = load_checkpoint(ckpt_resume,
                                                              ck_params)
-        if "amr_done" in extra or "constraints" in extra:
-            raise NotImplementedError(
-                f"{ckpt_resume} was written after remeshing: {_AMR}")
+        mesh, fibres, amr_done = remesher.resume(ckpt_resume, extra, mesh,
+                                                 fibres)
     with plog.scope("system setup"):
-        system = SolidSystem(
-            mesh,
-            materials=load_materials(deck),
-            bcs=load_bcs(deck),
-            penalty=penalty,
-            fibres=fibres,
-            newton=load_newton_options(deck, dev),
-            tangent_precision=load_tangent_precision(deck, dev),
-            device=dev,
-        )
+        system = make_solid(deck, mesh, fibres, dev, remesher.constraints)
     x = system.initial_positions()
 
     paraview = ParaviewWriter(mesh)
@@ -228,6 +233,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             paraview.update_pvd(fields, t, coords=xs)
 
     if ckpt_resume:
+        if amr_done:
+            print(f"resumed on remeshed grid ({mesh.n_elems} elements)")
         x = torch.as_tensor(st["x"], dtype=torch.float64, device=dev)
         p_elem = extra.get("p_elem", p_elem)
         vm_elem = extra.get("vm_elem", vm_elem)
@@ -250,15 +257,38 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             p_elem = p_j.cpu().numpy()
             vm_elem = vm_j.cpu().numpy()
             fibre_cur = fc_j.cpu().numpy()
-        if l in rtp and amr_max_steps == 0:
+        if l in rtp and amr_done < amr_max_steps:
+            amr_done += 1
+            with plog.scope("remeshing"):
+                ind = np.stack([elemental_to_nodal(mesh, p_elem),
+                                elemental_to_nodal(mesh, vm_elem)], axis=1)
+                r = remesher.remesh(l, mesh, ind)
+                if r is not None:
+                    mesh = r.mesh
+                    # the current positions P1-prolonged: a new node
+                    # lands at the (deformed) midpoint of its parents, so
+                    # every hanging constraint holds exactly
+                    x_new = r.prolong(x.cpu().numpy())
+                    fibres = r.elemental(fibres)
+                    p_elem = r.elemental(p_elem)
+                    vm_elem = r.elemental(vm_elem)
+                    fibre_cur = r.elemental(fibre_cur)
+                    system = make_solid(deck, mesh, fibres, dev,
+                                        remesher.constraints)
+                    x = torch.as_tensor(x_new, dtype=torch.float64,
+                                        device=dev)
+                    paraview.mesh = mesh
+        elif l in rtp and amr_max_steps == 0:
             print("NOTE: remeshing step reached but mesh/AMR/max_steps = 0",
                   file=sys.stderr)
         if ckpt_step and l % ckpt_step == 0:
             with plog.scope("checkpoint"):
+                extras = {"fibres": fibres, "p_elem": p_elem,
+                          "vm_elem": vm_elem, "fibre_cur": fibre_cur,
+                          **remesher.checkpoint_extras(DIR, mesh, amr_done)}
                 save_checkpoint(
                     os.path.join(DIR, "checkpoint.npz"), {"x": x}, l,
-                    pseudo_time, ck_params, fibres=fibres, p_elem=p_elem,
-                    vm_elem=vm_elem, fibre_cur=fibre_cur)
+                    pseudo_time, ck_params, **extras)
         if l in otp:
             save(l)
 

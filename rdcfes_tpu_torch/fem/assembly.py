@@ -2,7 +2,8 @@
 (torch).
 
 Host side (NumPy copies of rdcfes_tpu.fem.assembly, bit-identical output):
-the node-pair sparsity, its ELLPACK view, and its inversion into padded
+the node-pair sparsity (of one element block, or the union over a
+MixedMesh's blocks), its ELLPACK view, and its inversion into padded
 gather tables so every element -> node (or node-pair) sum is a
 deterministic gather-sum.
 
@@ -88,6 +89,37 @@ def build_sparsity_numpy(connectivity: np.ndarray, n_nodes: int
     u_cols = (uniq % n_nodes).astype(np.int32)
     return _with_row_tables(n_nodes, nnz, u_rows, u_cols,
                             inv.reshape(E, K, K).astype(np.int32))
+
+
+def build_sparsity_mixed(blocks, n_nodes: int):
+    """Union node-pair sparsity over a MixedMesh's blocks and the
+    per-block slot tables (NumPy copy of rdcfes_tpu.fem.assembly.
+    build_sparsity_mixed, the same arrays).
+
+    Returns (sp, slots_flat_cf_list): `sp` is the union NodePairSparsity,
+    whose per-element `slots` is empty (with several K there is no one
+    (E, K, K) table); slots_flat_cf_list[b] is block b's slot table
+    flattened in (i, j, e) order, the order of its channel-first Ke."""
+    keys_all, shapes = [], []
+    for b in blocks:
+        conn = np.asarray(b.connectivity, dtype=np.int64)
+        E, K = conn.shape
+        rows = np.repeat(conn, K, axis=1).reshape(-1)
+        cols = np.tile(conn, (1, K)).reshape(-1)
+        keys_all.append(rows * np.int64(n_nodes) + cols)
+        shapes.append((E, K))
+    uniq, inv = np.unique(np.concatenate(keys_all), return_inverse=True)
+    sp = _with_row_tables(n_nodes, uniq.shape[0],
+                          (uniq // n_nodes).astype(np.int32),
+                          (uniq % n_nodes).astype(np.int32),
+                          np.zeros((0, 1, 1), dtype=np.int32))
+    slot_lists, off = [], 0
+    for E, K in shapes:
+        s = inv[off:off + E * K * K].reshape(E, K, K).astype(np.int32)
+        off += E * K * K
+        slot_lists.append(
+            np.ascontiguousarray(np.transpose(s, (1, 2, 0))).reshape(-1))
+    return sp, slot_lists
 
 
 def ell_structure(sp: NodePairSparsity) -> Tuple[np.ndarray, np.ndarray]:
@@ -206,8 +238,9 @@ def restrict(flat: torch.Tensor, node_gather: torch.Tensor) -> torch.Tensor:
 
 def assemble_matrix_gather(Ke: torch.Tensor, slot_gather: torch.Tensor,
                            restrict_op=restrict) -> torch.Tensor:
-    """Block values (V, W, nnz) from element matrices Ke (V, W, K, K, E)
-    through slot_gather (C, nnz) (pad K*K*E): the restriction of the flat
+    """Block values (V, W, nnz) from element matrices Ke (V, W, K, K, E),
+    or their flat (V, W, M) concatenation over element blocks, through
+    slot_gather (C, nnz) (pad K*K*E, or M): the restriction of the flat
     (V*W, K*K*E) buffer.  restrict_op is `restrict` or the kernel K4."""
     V, W = Ke.shape[:2]
     return restrict_op(Ke.reshape(V * W, -1), slot_gather).reshape(V, W, -1)
@@ -215,6 +248,7 @@ def assemble_matrix_gather(Ke: torch.Tensor, slot_gather: torch.Tensor,
 
 def assemble_vector_gather(Fe: torch.Tensor, node_gather: torch.Tensor,
                            restrict_op=restrict) -> torch.Tensor:
-    """Nodal vector (V, N) from element vectors Fe (V, K, E) through
-    node_gather (C, N) (pad K*E)."""
+    """Nodal vector (V, N) from element vectors Fe (V, K, E), or their
+    flat (V, M) concatenation over element blocks, through node_gather
+    (C, N) (pad K*E, or M)."""
     return restrict_op(Fe.reshape(Fe.shape[0], -1), node_gather)

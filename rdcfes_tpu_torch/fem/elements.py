@@ -1,5 +1,5 @@
 """Lagrange reference elements and their quadrature (NumPy copy of the
-TET4, HEX8, PRISM6, PYRAMID5, TET10, TRI3 and QUAD4 rows of
+TET4, HEX8, PRISM6, PYRAMID5, TET10, TRI3, TRI6 and QUAD4 rows of
 rdcfes_tpu.fem.elements).
 
 The degree-3 ("THIRD", libMesh's default for FIRST/LAGRANGE) rules:
@@ -21,13 +21,15 @@ The mixed-mesh transition types:
              basis, so mass and stiffness entries integrate exactly on
              affine pyramids.
 
-and the second-order tet:
+and the second-order tet with its face:
 
 * TET10 : Keast degree-5 14-point rule (all weights positive), exact past
           degree 4 as the P2 mass matrix needs (libMesh's FIFTH for p = 2)
+* TRI6 face : Dunavant degree-5 7-point rule (all weights positive), so
+          the P2 face integrands psi_i psi_j (degree 4) integrate exactly
 
-The 2D element types (TRI6, QUAD8/9, EDGE2/3 as volume or face types) and
-HEX20/27 come with ROADMAP queue 1 item 13.
+The 2D element types (TRI6, QUAD8/9, EDGE2/3 as volume types) and
+HEX20/27 come with ROADMAP queue 1 item 13, sub-slice 6.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Tuple
 import numpy as np
 
 _PORTED_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5", "TET10", "TRI3",
-                 "QUAD4")
+                 "TRI6", "QUAD4")
 
 _SQ3 = 1.0 / np.sqrt(3.0)
 # vertex signs in the standard HEX8 / QUAD4 orderings
@@ -75,6 +77,18 @@ def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
         wts = np.array([-27.0 / 96.0, 25.0 / 96.0, 25.0 / 96.0,
                         25.0 / 96.0])
         return pts, wts
+    if elem_type == "TRI6":
+        # Dunavant degree-5, 7 points; reference area 1/2, so the
+        # area-normalised weights halve
+        a1, w1 = 0.4701420641051151, 0.1323941527885062
+        a2, w2 = 0.1012865073234563, 0.1259391805448271
+        pts = [[1.0 / 3.0, 1.0 / 3.0]]
+        wts = [0.225]
+        for a, w in ((a1, w1), (a2, w2)):
+            c = 1.0 - 2.0 * a
+            pts += [[a, a], [c, a], [a, c]]
+            wts += [w] * 3
+        return np.asarray(pts), 0.5 * np.asarray(wts)
     if elem_type == "QUAD4":
         g = [-_SQ3, _SQ3]
         return np.array([[x, y] for y in g for x in g]), np.ones(4)
@@ -166,6 +180,14 @@ def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
     x, y = pts[:, 0], pts[:, 1]
     if elem_type == "TRI3":
         return np.stack([1.0 - x - y, x, y], axis=1)
+    if elem_type == "TRI6":
+        # quadratic Lagrange triangle, Gmsh order: vertices 0..2, then the
+        # mid-edge nodes (0,1),(1,2),(2,0): the TET10 face
+        L0, L1, L2 = 1.0 - x - y, x, y
+        return np.stack([
+            L0 * (2 * L0 - 1), L1 * (2 * L1 - 1), L2 * (2 * L2 - 1),
+            4 * L0 * L1, 4 * L1 * L2, 4 * L2 * L0,
+        ], axis=1)
     return (1 + x[:, None] * _SX4) * (1 + y[:, None] * _SY4) / 4.0  # QUAD4
 
 
@@ -187,6 +209,14 @@ def shape_gradients(elem_type: str, pts: np.ndarray) -> np.ndarray:
     if elem_type == "TRI3":
         dN = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
         return np.broadcast_to(dN, (Q, 3, 2)).copy()
+    if elem_type == "TRI6":
+        x, y = pts[:, 0], pts[:, 1]
+        L = [1.0 - x - y, x, y]
+        dL = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
+        cols = [(4 * L[i] - 1)[:, None] * dL[i] for i in range(3)]
+        for (i, j) in ((0, 1), (1, 2), (2, 0)):
+            cols.append(4 * (L[i][:, None] * dL[j] + L[j][:, None] * dL[i]))
+        return np.stack(cols, axis=1)                     # (Q, 6, 2)
     if elem_type == "PRISM6":
         x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
         L = np.stack([1.0 - x - y, x, y], axis=1)       # (Q, 3)

@@ -21,7 +21,7 @@ import torch
 from . import elements
 
 _VOLUME_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5", "TET10")
-_FACE_TYPES = ("TRI3", "QUAD4")
+_FACE_TYPES = ("TRI3", "TRI6", "QUAD4")
 
 
 def _inv3x3_cf(J: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,16 +97,16 @@ def geometry_factors(coords: torch.Tensor, connectivity: torch.Tensor,
 
 def face_geometry_factors(coords: torch.Tensor, faces: torch.Tensor,
                           face_type: str):
-    """Per-boundary-face quadrature geometry of TRI3 or QUAD4 faces of a
-    3D mesh (face-batch-leading layout, as the reference).
+    """Per-boundary-face quadrature geometry of TRI3, TRI6 or QUAD4 faces
+    of a 3D mesh (face-batch-leading layout, as the reference).
 
     coords (N, 3) float tensor; faces (F, Kf) integer tensor.  Returns
     (psi (Q, Kf), JxW (F, Q), xyz (F, Q, 3), normals (F, Q, 3)), all in
     coords' dtype and device."""
     if face_type not in _FACE_TYPES:
         raise NotImplementedError(
-            f"face_geometry_factors: {face_type} faces come with the "
-            "generic path (ROADMAP queue 1 item 8)")
+            f"face_geometry_factors: {face_type} faces: ROADMAP queue 1 "
+            "item 13 (the 2D types and HEX20/27)")
     psi_np, dN_np, w_np = elements.tabulate(face_type)
     tab = lambda a: torch.as_tensor(a, dtype=coords.dtype,
                                     device=coords.device)

@@ -14,9 +14,19 @@ with an f64 residual carry and f64 rescue (systems.transient.refine_mixed);
 `linear_method="gmres"` runs restarted GMRES in f64 on the same
 preconditioned operator instead.
 
+With `constraints=` (rows [h, a, b]: x_h = (x_a + x_b) / 2, the hanging
+nodes of a remeshed MIXED mesh) Newton iterates in the reduced space, as
+the reference's does (rdcfes_tpu/solvers/newton.py:93-107, :175-236):
+every matvec of every branch (f64 BiCGStab and GMRES, the mixed f32
+sweeps and the f64 rescue) is C^T K C, `ct_fold(K5(c_apply(y)))`; the
+right-hand side is folded; the block-Jacobi inverse is the unconstrained
+one, whose node blocks keep the hanging rows' zeros; the update is
+expanded with `c_apply`, so a constrained x0 stays constrained; and the
+stopping rules read ||C^T R||.  The constraint algebra is
+fem/constraints.Constraints (ordered gather-sums, no atomics).
+
 Not ported: the TPU's Beneš-routed SpMV (`fast_gather`,
-RDCFES_SOLID_FAST) and the hanging-node constrained operator, which
-raises NotImplementedError naming its ROADMAP item.
+RDCFES_SOLID_FAST), which has no counterpart on the card.
 """
 
 from __future__ import annotations
@@ -28,13 +38,13 @@ import torch
 
 from ..fem.assembly import NodePairSparsity, ell_structure
 from ..fem.bcsr import to_ell
+from ..fem.constraints import Constraints
 from ..fem.kernels import KERNEL_OPS, Ops
 from ..utils.device import cuda_device
 from .krylov import (apply_block_jacobi, bicgstab, block_jacobi_inverse,
                      gmres)
 
 _LINEAR = {"bicgstab": bicgstab, "gmres": gmres}
-_CONSTRAINTS = "ROADMAP queue 1 item 13 (hanging-node constraints)"
 
 
 class NewtonOptions(NamedTuple):
@@ -75,19 +85,18 @@ class NewtonResult(NamedTuple):
 class NewtonSolver:
     """Reusable Newton solver over one node-pair sparsity.
 
-    sp     : fem.assembly.NodePairSparsity of the operator
-    opts   : NewtonOptions
-    device : where the ELL tables live (the assembled values' device);
-             None is the CUDA card, and raises without one
-    ops    : fem.kernels.KERNEL_OPS or PLAIN_OPS (for ell_matvec)
+    sp          : fem.assembly.NodePairSparsity of the operator
+    opts        : NewtonOptions
+    constraints : (H, 3) hanging-node rows [h, a, b], or None
+    device      : where the ELL tables live (the assembled values'
+                  device); None is the CUDA card, and raises without one
+    ops         : fem.kernels.KERNEL_OPS or PLAIN_OPS (for ell_matvec)
     """
 
     def __init__(self, sp: NodePairSparsity,
                  opts: NewtonOptions = NewtonOptions(),
                  constraints: Optional[np.ndarray] = None, device=None,
                  ops: Ops = KERNEL_OPS):
-        if constraints is not None and len(constraints):
-            raise NotImplementedError(f"constrained Newton: {_CONSTRAINTS}")
         if opts.linear_method not in _LINEAR:
             raise ValueError(f"unknown linear_method {opts.linear_method!r}")
         if opts.linear_precision not in ("f64", "mixed"):
@@ -101,30 +110,43 @@ class NewtonSolver:
         self._ell_cols = torch.as_tensor(ell_cols, device=dev)
         self._ell_slot = torch.as_tensor(ell_slot, device=dev)
         self._diag_slots = torch.as_tensor(sp.diag_slots, device=dev)
+        self.cons = (Constraints(constraints, dev)
+                     if constraints is not None and len(constraints)
+                     else None)
+
+    def _operator(self, values_ell: torch.Tensor):
+        """y -> K y through K5, or C^T K C y with constraints."""
+        ops, cols, cons = self.ops, self._ell_cols, self.cons
+        if cons is None:
+            return lambda y: ops.ell_matvec(values_ell, cols, y)
+        return lambda y: cons.ct_fold(
+            ops.ell_matvec(values_ell, cols, cons.c_apply(y)))
 
     def _linear_solve(self, values: torch.Tensor, rhs: torch.Tensor,
                       rtol: float):
         """Solve K dx = rhs with K's block values (V, V, nnz); returns
         (dx, inner iterations, final preconditioned |r| / |b|)."""
-        opts, ops, cols = self.opts, self.ops, self._ell_cols
+        opts = self.opts
         f32, f64 = torch.float32, torch.float64
         values_ell = to_ell(values, self._ell_slot)
-        v64 = values_ell.to(f64)
+        K64 = self._operator(values_ell.to(f64))
+        # the unconstrained diagonal blocks, as the reference's: node
+        # blocks keep the hanging rows of C^T K C y zero
         Dinv = block_jacobi_inverse(values, self._diag_slots)
+        if self.cons is not None:
+            rhs = self.cons.ct_fold(rhs)
         # LEFT preconditioning, the preconditioned residual as the
         # convergence measure (PETSc's default): penalty rows dwarf the
         # material rows, so a raw-residual criterion stalls
-        pre_matvec = lambda y: apply_block_jacobi(
-            Dinv, ops.ell_matvec(v64, cols, y))
+        pre_matvec = lambda y: apply_block_jacobi(Dinv, K64(y))
         pre_b = apply_block_jacobi(Dinv, rhs)
         if (opts.linear_precision == "mixed"
                 and opts.linear_method == "bicgstab"):
             # imported here: systems/ imports this module
             from ..systems.transient import refine_mixed
 
-            v32, Dinv32 = values_ell.to(f32), Dinv.to(f32)
-            mv32 = lambda y: apply_block_jacobi(
-                Dinv32, ops.ell_matvec(v32, cols, y))
+            K32, Dinv32 = self._operator(values_ell.to(f32)), Dinv.to(f32)
+            mv32 = lambda y: apply_block_jacobi(Dinv32, K32(y))
             return refine_mixed(mv32, pre_matvec, pre_b,
                                 torch.zeros_like(pre_b), rtol,
                                 opts.max_linear_iterations)
@@ -132,8 +154,11 @@ class NewtonSolver:
             pre_matvec, pre_b, rtol=rtol, maxiter=opts.max_linear_iterations)
         return res.x, res.iters, res.residual
 
-    @staticmethod
-    def _res_norm(R: torch.Tensor) -> float:
+    def _res_norm(self, R: torch.Tensor) -> float:
+        """||R||, or the reduced-space ||C^T R|| with constraints (the
+        hanging rows' forces belong to their masters)."""
+        if self.cons is not None:
+            R = self.cons.ct_fold(R)
         return float(torch.linalg.vector_norm(R))
 
     def solve(self, assemble: Callable[[torch.Tensor],
@@ -179,6 +204,9 @@ class NewtonSolver:
                            1e-14)
             dx, lin_iters, lin_res = self._linear_solve(values, -R, lin_rtol)
             lin_total += int(lin_iters)
+            if self.cons is not None:
+                # dx_h = (dx_a + dx_b) / 2: x stays constrained
+                dx = self.cons.c_apply(dx)
 
             lam = 1.0
             if not bool(torch.isfinite(dx).all()):

@@ -32,8 +32,13 @@ not refine) the solve runs on C^T A C as on a single-type mesh: the same
 `Constraints` object of systems/transient.py around the blocks' element
 applies and their one K4 restriction (the reference's _c_apply and
 _ct_fold, rdcfes_tpu/systems/mixed.py:123-137, :210-221; the fold an
-ordered gather-sum, no atomics).  A moving mesh raises
-NotImplementedError (ROADMAP queue 1 item 13, sub-slice 5).
+ordered gather-sum, no atomics).
+
+With `moving_mesh=True` (the coupled HCC driver's deformed positions)
+every block's geometry is rebuilt from the `coords` that `step` and
+`run_steps` are given, once per call, and the block-Jacobi inverse with
+it (the reference's _step_moving_impl, rdcfes_tpu/systems/mixed.py:
+311-325); the kernels then run on those geometries.
 """
 
 from __future__ import annotations
@@ -42,11 +47,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from ..fem.constraints import Constraints
 from ..fem.kernels import KERNEL_OPS, Ops
 from ..solvers.krylov import DEFAULT_MAXITER, DEFAULT_RTOL
-from .transient import Constraints, TransientRDCSystem, clamp_nonnegative
-
-_ITEM13 = "ROADMAP queue 1 item 13, sub-slice 5 (HCC on mixed meshes)"
+from .transient import TransientRDCSystem, clamp_nonnegative
 
 
 class MixedTransientRDCSystem(TransientRDCSystem):
@@ -71,12 +75,11 @@ class MixedTransientRDCSystem(TransientRDCSystem):
         if mesh.elem_type != "MIXED":
             raise ValueError(f"MixedTransientRDCSystem takes a MixedMesh, "
                              f"got {mesh.elem_type}")
-        if moving_mesh:
-            raise NotImplementedError(f"a moving MixedMesh: {_ITEM13}")
         self._setup(mesh, [(b.elem_type, b.connectivity)
                            for b in mesh.blocks], n_vars, physics_blocks,
                     clamp, rtol, maxiter, precision, precond_refresh,
                     device, ops, method)
+        self.moving_mesh = bool(moving_mesh)
         if constraints is not None and len(constraints):
             self.cons = Constraints(constraints, self.device)
         # each block's [start, start + n) in the concatenated element order

@@ -1,5 +1,5 @@
 """Quasi-static finite-strain solid mechanics system (torch port of
-rdcfes_tpu.systems.solid for single-type TET4 / HEX8 meshes).
+rdcfes_tpu.systems.solid for TET4, HEX8, TET10 and MIXED meshes).
 
 The reference app's SolidSystem (src/solid_system.C) with libMesh's Newton
 stack, in functional form:
@@ -8,17 +8,30 @@ stack, in functional form:
   factors are re-evaluated from x at every Newton iterate;
 * element residual and tangent: internal forces B^T sigma plus geometric
   and material stiffness from the batched hyperelastic evaluation
-  (element_kernels_cf; src/solid_system.C:146-271);
-* assembly gathers the flat element buffers through the inverted scatter
-  tables (fem.assembly.assemble_*_gather): kernel K4 on the card;
-* penalty Dirichlet conditions on deformed-vs-reference positions, scaled
-  by pseudo-time * 1.000001, NaN = free axis (src/solid_system.C:273-371),
-  with the reference's inexact linearization (psi_i psi_j * penalty only),
-  their face terms summed onto nodes and blocks through the inverse
-  tables of their targets too (K4), so every sum of an assembly has a
-  fixed order and two assemblies are bit-equal;
+  (element_kernels_cf; src/solid_system.C:146-271), once per element
+  block: a single-type mesh is one block, a MixedMesh one per type (K =
+  4, 5, 6 or 8), a TET10 mesh one block of K = 10;
+* assembly: the blocks' flat element buffers, concatenated in block
+  order, are gathered through ONE inverted scatter table over the union
+  node-pair sparsity (fem.assembly.build_sparsity_mixed on a MixedMesh),
+  one K4 launch for the tangent and one for the residual whatever the
+  number of blocks.  Each slot sums its contributions block by block in
+  that order; the reference sums per-block assemblies (values + v), so
+  the two agree at machine-epsilon class;
+* penalty Dirichlet conditions on deformed-vs-reference positions,
+  scaled by pseudo-time * 1.000001, NaN = free axis (src/solid_system.C:
+  273-371), with the reference's inexact linearization (psi_i psi_j *
+  penalty only), grouped by face type (TRI3 or QUAD4, both on a
+  MixedMesh, whose boundary faces are -1-padded to 4 nodes; TRI6 on
+  TET10); their face terms are summed onto nodes and blocks through the
+  inverse tables of their targets too (K4), so every sum of an assembly
+  has a fixed order and two assemblies are bit-equal;
+* hanging-node constraints (`constraints=`, the rows [h, a, b] of a
+  remeshed MIXED mesh) go to the Newton, which solves C^T K C
+  (solvers/newton.py);
 * post-processing: per-element averaged Cauchy stress -> pressure and Von
-  Mises, and the fibre push-forward F eta (src/solid_system.C:394-538).
+  Mises, and the fibre push-forward F eta (src/solid_system.C:394-538),
+  the blocks concatenated in the global element order.
 
 tangent_precision="f32" evaluates, contracts and gathers the tangent in
 single precision (the residual the Newton rules see stays f64).  The
@@ -27,9 +40,8 @@ f64 quadrature weights promote JxW, and with it the contraction and the
 assembled values, back to f64; here the whole tangent stays f32, as the
 reference's comments intend.
 
-Not ported: MIXED meshes (ROADMAP queue 1 item 13), hanging-node
-constraints (item 13) and the multi-device halo solve (item 14); each
-raises NotImplementedError naming its item.
+Not ported: the multi-device halo solve (`device_mesh=`, ROADMAP queue 1
+item 14), which raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -40,7 +52,8 @@ import numpy as np
 import torch
 
 from ..fem.assembly import (assemble_matrix_gather, assemble_vector_gather,
-                            build_sparsity, invert_scatter)
+                            block_node_gather, build_sparsity,
+                            build_sparsity_mixed, invert_scatter)
 from ..fem.geometry import face_geometry_factors, geometry_factors
 from ..fem.kernels import KERNEL_OPS, Ops
 from ..mesh.core import FACE_TYPE, Mesh
@@ -50,9 +63,8 @@ from ..solvers.newton import NewtonOptions, NewtonResult, NewtonSolver
 from ..utils.convert import material_tables
 from ..utils.device import cuda_device
 
-_AMR = "ROADMAP queue 1 item 13 (mixed meshes and AMR)"
 _MULTI = "ROADMAP queue 1 item 14 (multi-device)"
-_GENERIC = "ROADMAP queue 1 item 8 (generic path)"
+_ELEMENT_TYPES = ("TET4", "HEX8", "TET10", "MIXED")
 
 # B-matrix slot table: (axis v, voigt a) -> gradient component, for the
 # Voigt ordering (00, 11, 22, 01, 12, 02)
@@ -133,13 +145,16 @@ def element_kernels_cf(elem_type, x, conn, X0e_cf, young, poisson,
 class SolidSystem:
     """Quasi-static hyperelastic equilibrium with load stepping.
 
-    mesh              : host Mesh, TET4 or HEX8
+    mesh              : host Mesh (TET4, HEX8 or TET10) or MixedMesh
     materials         : {subdomain id: {"young", "poisson",
                         "fibre_stiffness", "stretch_rate_0..2"}}
     bcs               : {boundary id: (ux, uy, uz)}, NaN = free axis
     penalty           : penalty factor of the Dirichlet conditions
-    fibres            : (E, 3) fibre directions, or None (no fibres)
+    fibres            : (E, 3) fibre directions in the global element
+                        order, or None (no fibres)
     newton            : solvers.newton.NewtonOptions
+    constraints       : (H, 3) hanging-node rows [h, a, b] (x_h = (x_a +
+                        x_b) / 2), or None
     tangent_precision : "f64" or "f32" (see the module docstring)
     device            : where the tables and positions live; None (the
                         default) is the CUDA card, and raises without one
@@ -153,17 +168,11 @@ class SolidSystem:
                  constraints: Optional[np.ndarray] = None,
                  tangent_precision: str = "f64", device=None,
                  ops: Ops = KERNEL_OPS):
-        if getattr(mesh, "elem_type", None) == "MIXED":
-            raise NotImplementedError(f"MIXED meshes: {_AMR}")
         if device_mesh is not None:
             raise NotImplementedError(f"device_mesh: {_MULTI}")
-        if constraints is not None and len(constraints):
-            raise NotImplementedError(f"hanging-node constraints: {_AMR}")
-        if mesh.elem_type == "TET10":
-            raise NotImplementedError(f"TET10 meshes: {_GENERIC}")
-        if mesh.elem_type not in ("TET4", "HEX8"):
-            raise ValueError(f"solid mechanics supports TET4/HEX8 element "
-                             f"types, got {mesh.elem_type}")
+        if mesh.elem_type not in _ELEMENT_TYPES:
+            raise ValueError(f"solid mechanics supports TET4/HEX8/TET10/"
+                             f"MIXED element types, got {mesh.elem_type}")
         if tangent_precision not in ("f64", "f32"):
             raise ValueError(f"tangent_precision {tangent_precision!r}")
         self.mesh = mesh
@@ -177,24 +186,40 @@ class SolidSystem:
                                               device=dev)
         idx = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-        conn = np.asarray(mesh.connectivity)
-        self.sp = build_sparsity(conn, mesh.n_nodes)
+        N = mesh.n_nodes
+        mixed = mesh.elem_type == "MIXED"
+        if mixed:
+            conns = [(b.elem_type, np.asarray(b.connectivity))
+                     for b in mesh.blocks]
+            self.sp, slot_lists = build_sparsity_mixed(mesh.blocks, N)
+        else:
+            conns = [(mesh.elem_type, np.asarray(mesh.connectivity))]
+            self.sp = build_sparsity(conns[0][1], N)
+            slot_lists = [self.sp.slots_flat_cf()]
         self.X0 = t(mesh.coords)  # undeformed configuration (N, 3)
-        self.conn = idx(conn)  # int32 tables
-        self.slot_gather = idx(invert_scatter(self.sp.slots_flat_cf(),
+        # one gather table each over the blocks' concatenated flat
+        # buffers (int32): one K4 launch per assembly
+        self.slot_gather = idx(invert_scatter(np.concatenate(slot_lists),
                                               self.sp.nnz))
-        self.node_gather = idx(invert_scatter(conn.T.reshape(-1),
-                                              mesh.n_nodes))
+        self.node_gather = idx(block_node_gather([c for _, c in conns], N))
         # per-element tables (subdomain -> element broadcast of the
-        # material deck), in f64 and, for the f32 tangent, cast once
+        # material deck) sliced per block in the global element order, in
+        # f64 and, for the f32 tangent, cast once
         tabs = material_tables(mesh.subdomain_id, materials, fibres)
-        tabs["X0e_cf"] = np.transpose(mesh.coords[conn], (1, 2, 0))
-        self.tables = {k: t(v) for k, v in tabs.items()}
-        self.tables32 = {k: v.to(torch.float32)
-                         for k, v in self.tables.items()}
+        self.blocks = []
+        off = 0
+        for et, conn in conns:
+            sel = slice(off, off + conn.shape[0])
+            off += conn.shape[0]
+            tb = {k: t(v[sel]) for k, v in tabs.items()}
+            tb["X0e_cf"] = t(np.transpose(mesh.coords[conn], (1, 2, 0)))
+            self.blocks.append({
+                "elem_type": et, "conn": idx(conn), "tables": tb,
+                "tables32": {k: v.to(torch.float32) for k, v in tb.items()},
+            })
 
-        # penalty boundary-condition face groups (static shapes)
-        self.bc_groups = []
+        # penalty boundary-condition face groups (static shapes), one per
+        # face type: a MixedMesh's -1-padded faces carry both arities
         bfaces, bmask, bdisp = [], [], []
         for bid, disp in bcs.items():
             faces = mesh.boundary_faces[mesh.boundary_id == bid]
@@ -204,27 +229,42 @@ class SolidSystem:
             bfaces.append(faces)
             bmask.append(np.broadcast_to(~np.isnan(d), (len(faces), 3)))
             bdisp.append(np.broadcast_to(np.nan_to_num(d), (len(faces), 3)))
+        self.bc_groups = []
         if bfaces:
-            fc = np.concatenate(bfaces).astype(np.int64)
+            faces = np.concatenate(bfaces).astype(np.int64)
+            mask = np.concatenate(bmask).astype(np.float64)
+            disp = np.concatenate(bdisp)
+            if mixed:
+                quad = faces[:, 3] >= 0
+                face_sets = [("QUAD4", quad, 4), ("TRI3", ~quad, 3)]
+            else:
+                face_sets = [(FACE_TYPE[mesh.elem_type],
+                              np.ones(len(faces), dtype=bool),
+                              faces.shape[1])]
             # face slots in the node-pair sparsity: the pair keys are the
             # sorted uniques, so searchsorted finds them
-            keys = self.sp.rows.astype(np.int64) * mesh.n_nodes + self.sp.cols
-            fkeys = fc[:, :, None] * mesh.n_nodes + fc[:, None, :]
-            slots = np.searchsorted(keys, fkeys)
-            # the penalty terms are summed onto nodes and blocks in a fixed
-            # order, through the inverse tables of their targets (K4 on
-            # the card), so two assemblies are bit-equal
-            self.bc_groups.append({
-                "face_type": FACE_TYPE[mesh.elem_type],
-                "faces": t(fc, torch.int64),
-                "mask": t(np.concatenate(bmask).astype(np.float64)),
-                "disp": t(np.concatenate(bdisp)),
-                "node_gather": idx(invert_scatter(fc.reshape(-1),
-                                                  mesh.n_nodes)),
-                "slot_gather": idx(invert_scatter(slots.reshape(-1),
-                                                  self.sp.nnz)),
-            })
-        self._newton = NewtonSolver(self.sp, newton, device=dev, ops=ops)
+            keys = self.sp.rows.astype(np.int64) * N + self.sp.cols
+            for ft, fsel, kf in face_sets:
+                if not fsel.any():
+                    continue
+                fc = faces[fsel][:, :kf]
+                slots = np.searchsorted(
+                    keys, fc[:, :, None] * N + fc[:, None, :])
+                # the penalty terms are summed onto nodes and blocks in a
+                # fixed order, through the inverse tables of their
+                # targets (K4 on the card), so two assemblies are
+                # bit-equal
+                self.bc_groups.append({
+                    "face_type": ft,
+                    "faces": t(fc, torch.int64),
+                    "mask": t(mask[fsel]),
+                    "disp": t(disp[fsel]),
+                    "node_gather": idx(invert_scatter(fc.reshape(-1), N)),
+                    "slot_gather": idx(invert_scatter(slots.reshape(-1),
+                                                      self.sp.nnz)),
+                })
+        self._newton = NewtonSolver(self.sp, newton, constraints=constraints,
+                                    device=dev, ops=ops)
 
     # ------------------------------------------------------------------
     def initial_positions(self) -> torch.Tensor:
@@ -233,11 +273,31 @@ class SolidSystem:
     def _pt(self, pseudo_time, dtype) -> torch.Tensor:
         return torch.as_tensor(pseudo_time, dtype=dtype, device=self.device)
 
-    def _element(self, x, tabs, pseudo_time, want_tangent):
-        return element_kernels_cf(
-            self.mesh.elem_type, x, self.conn, tabs["X0e_cf"],
-            tabs["young"], tabs["poisson"], tabs["fibre_k"], tabs["rates"],
-            tabs["fibres"], pseudo_time, want_tangent=want_tangent)
+    def _elements(self, x, pseudo_time, want_tangent, f32=False):
+        """Each block's (Fe (3, K, E_b), Ke (3, 3, K, K, E_b) or None)."""
+        key = "tables32" if f32 else "tables"
+        return [element_kernels_cf(
+            b["elem_type"], x, b["conn"], b[key]["X0e_cf"],
+            b[key]["young"], b[key]["poisson"], b[key]["fibre_k"],
+            b[key]["rates"], b[key]["fibres"], pseudo_time,
+            want_tangent=want_tangent) for b in self.blocks]
+
+    @staticmethod
+    def _concat(parts, W: int) -> torch.Tensor:
+        """The blocks' element buffers flattened to (W, ...) and
+        concatenated in block order: the source of one K4 gather."""
+        flat = [p.reshape(W, -1) for p in parts]
+        return flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+
+    def _values(self, Kes) -> torch.Tensor:
+        """Block values (3, 3, nnz) from the blocks' Ke (K4)."""
+        return assemble_matrix_gather(self._concat(Kes, 9).reshape(3, 3, -1),
+                                      self.slot_gather, self.ops.restrict)
+
+    def _residual(self, Fes) -> torch.Tensor:
+        """Nodal residual (3, N) from the blocks' Fe (K4)."""
+        return assemble_vector_gather(self._concat(Fes, 3), self.node_gather,
+                                      self.ops.restrict)
 
     # ------------------------------------------------------------------
     def assemble(self, x_T: torch.Tensor, pseudo_time
@@ -245,21 +305,21 @@ class SolidSystem:
         """Residual (3, N) f64 and block tangent values (3, 3, nnz) (f64,
         or f32 under tangent_precision="f32") at channel-first positions
         x_T (3, N)."""
-        restrict = self.ops.restrict
         x = x_T.T  # (N, 3)
         if self.tangent_precision == "f32":
             R = self.assemble_residual(x_T, pseudo_time)
             f32 = torch.float32
-            x32, pt32 = x.to(f32), self._pt(pseudo_time, f32)
-            _, Ke = self._element(x32, self.tables32, pt32, True)
-            values = assemble_matrix_gather(Ke, self.slot_gather, restrict)
+            x32 = x.to(f32)
+            values = self._values([Ke for _, Ke in self._elements(
+                x32, self._pt(pseudo_time, f32), True, f32=True)])
             if self.bc_groups:
                 values = self._penalty_bc_values(x32, values)
             return R, values
         pt = self._pt(pseudo_time, torch.float64)
-        Fe, Ke = self._element(x, self.tables, pt, True)
-        values = assemble_matrix_gather(Ke, self.slot_gather, restrict)
-        R = assemble_vector_gather(Fe, self.node_gather, restrict)
+        FKs = self._elements(x, pt, True)
+        values = self._values([Ke for _, Ke in FKs])
+        R = self._residual([Fe for Fe, _ in FKs])
+        del FKs
         if self.bc_groups:
             R = self._penalty_bc_residual(x, pt, R)
             values = self._penalty_bc_values(x, values)
@@ -271,8 +331,7 @@ class SolidSystem:
         tangent contraction (line-search trials, modified-Newton checks)."""
         x = x_T.T
         pt = self._pt(pseudo_time, torch.float64)
-        Fe, _ = self._element(x, self.tables, pt, False)
-        R = assemble_vector_gather(Fe, self.node_gather, self.ops.restrict)
+        R = self._residual([Fe for Fe, _ in self._elements(x, pt, False)])
         if self.bc_groups:
             R = self._penalty_bc_residual(x, pt, R)
         return R
@@ -328,37 +387,42 @@ class SolidSystem:
     # ------------------------------------------------------------------
     def post_process(self, x, pseudo_time: float):
         """Per-element (pressure (E,), Von Mises (E,), current fibre
-        vector (E, 3)) at positions x (N, 3) (reference post_process,
+        vector (E, 3)) at positions x (N, 3), the blocks concatenated in
+        the global element order (reference post_process,
         src/solid_system.C:394-538)."""
         x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
-        tabs = self.tables
-        phi, JxW, dphi = geometry_factors(x, self.conn, self.mesh.elem_type)
-        Q, K = phi.shape
-        X0e = tabs["X0e_cf"]
-        grad_X = [
-            [sum(dphi[:, k, r, :] * X0e[k, d, :] for k in range(K))
-             for r in range(3)]
-            for d in range(3)
-        ]
-        lam_e = 1.0 + self._pt(pseudo_time, torch.float64) * tabs["rates"]
-        fib = tabs["fibres"]
-        sigma, _, F = stress_and_tangent_cf(
-            grad_X, [lam_e[:, d] for d in range(3)],
-            [fib[:, d] for d in range(3)], tabs["young"], tabs["poisson"],
-            tabs["fibre_k"], want_tangent=False)
-        # arithmetic qp mean, as the reference
-        sigma_avg = torch.stack([
-            torch.stack([sigma[i][j].sum(dim=0) / Q for j in range(3)],
-                        dim=-1)
-            for i in range(3)
-        ], dim=-2)  # (E, 3, 3)
-        p, vm = principal_stress_invariants(sigma_avg)
-        fibre_cur = torch.stack([
-            (F[i][0] * fib[:, 0] + F[i][1] * fib[:, 1]
-             + F[i][2] * fib[:, 2]).sum(dim=0) / Q
-            for i in range(3)
-        ], dim=-1)  # (E, 3)
-        return p, vm, fibre_cur
+        ps, vms, fcs = [], [], []
+        for b in self.blocks:
+            tabs = b["tables"]
+            phi, JxW, dphi = geometry_factors(x, b["conn"], b["elem_type"])
+            Q, K = phi.shape
+            X0e = tabs["X0e_cf"]
+            grad_X = [
+                [sum(dphi[:, k, r, :] * X0e[k, d, :] for k in range(K))
+                 for r in range(3)]
+                for d in range(3)
+            ]
+            lam_e = 1.0 + self._pt(pseudo_time, torch.float64) * tabs["rates"]
+            fib = tabs["fibres"]
+            sigma, _, F = stress_and_tangent_cf(
+                grad_X, [lam_e[:, d] for d in range(3)],
+                [fib[:, d] for d in range(3)], tabs["young"],
+                tabs["poisson"], tabs["fibre_k"], want_tangent=False)
+            # arithmetic qp mean, as the reference
+            sigma_avg = torch.stack([
+                torch.stack([sigma[i][j].sum(dim=0) / Q for j in range(3)],
+                            dim=-1)
+                for i in range(3)
+            ], dim=-2)  # (E, 3, 3)
+            p, vm = principal_stress_invariants(sigma_avg)
+            ps.append(p)
+            vms.append(vm)
+            fcs.append(torch.stack([
+                (F[i][0] * fib[:, 0] + F[i][1] * fib[:, 1]
+                 + F[i][2] * fib[:, 2]).sum(dim=0) / Q
+                for i in range(3)
+            ], dim=-1))  # (E, 3)
+        return torch.cat(ps), torch.cat(vms), torch.cat(fcs)
 
     def displacement(self, x) -> torch.Tensor:
         """u = current - undeformed positions (N, 3)."""

@@ -35,10 +35,9 @@ hanging entry its masters' mean before each element apply, `ct_fold`
 folds the hanging rows onto their two masters after every restriction
 and on b, the block-Jacobi diagonal takes the folded quarter blocks and
 an identity on the hanging rows, the Krylov vectors keep zeros there,
-and the solved and the clamped u get `c_apply` again.  Both are plain
-torch index ops without atomics: `c_apply` an index_copy onto the
-hanging rows, `ct_fold` a gather-sum through the inverse table of the
-masters in a fixed order, so the step stays bit-equal from run to run.
+and the solved and the clamped u get `c_apply` again.  The algebra is
+fem/constraints.Constraints, which the solid's Newton shares (no
+atomics, so the step stays bit-equal from run to run).
 
 Every stage of a step reads one geometry record (JxW, the shape
 gradients and their f32 casts).  On a fixed mesh it is the rest
@@ -61,8 +60,8 @@ import numpy as np
 import torch
 
 from ..fem import elements
-from ..fem.assembly import block_node_gather, invert_scatter
-from ..fem.assembly import restrict as gather_sum
+from ..fem.assembly import block_node_gather
+from ..fem.constraints import Constraints  # noqa: F401 (re-exported)
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
                            stack_rhs)
@@ -91,60 +90,6 @@ class Geometry(NamedTuple):
     dphi: torch.Tensor     # f64
     JxW32: torch.Tensor    # the f32 casts of the inner matvec
     dphi32: torch.Tensor
-
-
-class Constraints:
-    """Hanging-node constraints u_h = (u_a + u_b) / 2 on channel-first
-    tensors (W, N): rows [h, a, b] (H, 3), every a and b a master dof."""
-
-    def __init__(self, rows: np.ndarray, device):
-        rows = np.asarray(rows, dtype=np.int64)
-        H = len(rows)
-        ends = np.concatenate([rows[:, 1], rows[:, 2]])  # (2H,)
-        masters, inv = np.unique(ends, return_inverse=True)
-        as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
-                                         device=device)
-        self.hang = as_t(rows[:, 0])
-        self.a = as_t(rows[:, 1])
-        self.b = as_t(rows[:, 2])
-        self.masters = as_t(masters)
-        # column c of this table: the c-th of each master's hanging
-        # contributions in [y_h of a's rows | y_h of b's rows], pad 2H
-        self.fold_table = as_t(invert_scatter(inv, len(masters)))
-        self.n_hanging = H
-
-    def c_apply(self, x: torch.Tensor) -> torch.Tensor:
-        """C: every hanging entry set to the mean of its masters."""
-        return x.index_copy(1, self.hang,
-                            0.5 * (x[:, self.a] + x[:, self.b]))
-
-    def fold(self, y: torch.Tensor, weight: float) -> torch.Tensor:
-        """weight * y_h added onto both masters of every h, summed per
-        master in a fixed order; the hanging entries are left as they
-        are."""
-        part = weight * y[:, self.hang]
-        add = gather_sum(torch.cat([part, part], dim=1), self.fold_table)
-        return y.index_copy(1, self.masters, y[:, self.masters] + add)
-
-    def ct_fold(self, y: torch.Tensor) -> torch.Tensor:
-        """C^T, embedded: the hanging rows folded onto their masters, then
-        zero."""
-        return self.pin(self.fold(y, 0.5))
-
-    def pin(self, x: torch.Tensor) -> torch.Tensor:
-        """x with zeros on the hanging entries."""
-        return x.index_fill(1, self.hang, 0.0)
-
-    def fold_diagonal(self, D: torch.Tensor) -> torch.Tensor:
-        """The block-Jacobi diagonal (V, V, N) of C^T A C: each hanging
-        block's quarter onto both masters, identity blocks on the hanging
-        rows (so iterates stay zero there)."""
-        V = D.shape[0]
-        D = self.fold(D.reshape(V * V, -1), 0.25)
-        eye = torch.eye(V, dtype=D.dtype, device=D.device).reshape(V * V, 1)
-        D = D.index_copy(1, self.hang,
-                         eye.expand(V * V, self.n_hanging).contiguous())
-        return D.reshape(V, V, -1)
 
 
 class ElementBlock:
@@ -369,15 +314,16 @@ class TransientRDCSystem:
         """The one block's geometry record at node positions coords."""
         return self._geoms_from_coords(coords)[0]
 
-    def _moving_geom(self, coords) -> Optional[Geometry]:
-        """The geometry of a step or run_steps call: built from coords on
-        a moving mesh, None (the rest geometry) on a fixed one."""
+    def _moving_geoms(self, coords):
+        """The blocks' geometries of a step or run_steps call: built from
+        coords on a moving mesh, None (the rest geometries) on a fixed
+        one."""
         if not self.moving_mesh:
             return None
         if coords is None:
             raise ValueError("a moving_mesh system needs the current "
                              "coords")
-        return self._geom_from_coords(coords)
+        return self._geoms_from_coords(coords)
 
     # ------------------------------------------------------------------
     def initial_state(self, u0) -> Dict[str, torch.Tensor]:
@@ -418,15 +364,15 @@ class TransientRDCSystem:
         y = self._restrict(Ye, self.n_vars)
         return y if self.cons is None else self.cons.ct_fold(y)
 
-    def _step_body(self, state, fields, params, Dinv, geom=None):
-        """One qp step (the reference's _qp_raw_body step_fn) on geometry
-        `geom` (None: the rest geometry).  Dinv None = build a fresh
-        block-Jacobi inverse.  Returns (new_state, inner iterations,
-        residual, Dinv)."""
+    def _step_body(self, state, fields, params, Dinv, geoms=None):
+        """One qp step (the reference's _qp_raw_body step_fn) on the
+        blocks' geometries `geoms` (None: the rest geometries).  Dinv
+        None = build a fresh block-Jacobi inverse.  Returns (new_state,
+        inner iterations, residual, Dinv)."""
         V, N = self.n_vars, self.mesh.n_nodes
         ops = self.ops
         f32 = torch.float32
-        geoms = self.geoms if geom is None else [geom]
+        geoms = self.geoms if geoms is None else geoms
         u_T = state["u"].T.contiguous()
         wfbs = []
         for bi, (blk, g) in enumerate(zip(self.blocks, geoms)):
@@ -497,12 +443,12 @@ class TransientRDCSystem:
         every call, with the geometry at `coords` (the reference's
         _step_moving, served here on the qp path with the same
         operator)."""
-        geom = self._moving_geom(coords)
+        geoms = self._moving_geoms(coords)
         fields = {**(fields or {}), **(scalars or {})}
         p = self._plain_params(params)
-        if geom is not None:
+        if geoms is not None:
             self._dinv_cache = None  # it belongs to another geometry
-            return self._step_body(state, fields, p, None, geom)[:3]
+            return self._step_body(state, fields, p, None, geoms)[:3]
         if (self.precond_refresh > 1 and self._dinv_cache is not None
                 and self._steps_since_precond < self.precond_refresh):
             self._steps_since_precond += 1
@@ -610,8 +556,8 @@ class TransientRDCSystem:
                 raise ValueError(f"scalar_traj[{k!r}] must have shape "
                                  f"({n},), got {v.shape}")
         p = self._plain_params(params)
-        geom = self._moving_geom(coords)
-        if geom is not None:
+        geoms = self._moving_geoms(coords)
+        if geoms is not None:
             self._dinv_cache = None
         refresh = max(1, self.precond_refresh)
         Dinv = None
@@ -624,7 +570,7 @@ class TransientRDCSystem:
                 fu, aux = field_update(state, aux, tr, *field_args)
                 f = {**f, **fu}
             state, it, res, Dinv = self._step_body(
-                state, f, p, None if i % refresh == 0 else Dinv, geom)
+                state, f, p, None if i % refresh == 0 else Dinv, geoms)
             its.append(it)
             ress.append(res)
         ress = (torch.stack(ress) if ress

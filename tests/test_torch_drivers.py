@@ -671,13 +671,19 @@ def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):
                 np.ones((mesh.n_nodes, 3)), np.ones((mesh.n_elems, 3)))
     with pytest.raises(NotImplementedError, match="item 14"):
         adpm.run("input.dat", device="cpu")
-    for extra, item in (("parallel/n_devices = 2\n", "item 14"),
-                        ("remeshing_step = 1\nmesh/AMR/max_steps = 1\n",
-                         "item 13")):
-        _write_case(str(tmp_path), mesh, SOLID_DECK + extra)
-        with pytest.raises(NotImplementedError, match=item):
-            solid.run("input.dat", device="cpu")
+    _write_case(str(tmp_path), mesh, SOLID_DECK + "parallel/n_devices = 2\n")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        solid.run("input.dat", device="cpu")
     assert " ==== Step" not in capsys.readouterr().out
+    # remeshing runs (held to the reference in tests/test_torch_solid_ext
+    # .py); two elements share their one interior face, so their Kelly
+    # indicators are equal and none is flagged
+    _write_case(str(tmp_path), box_hex_mesh(2, 1, 1), SOLID_DECK
+                + "remeshing_step = 1\nmesh/AMR/max_steps = 1\n")
+    solid.run("input.dat", device="cpu")
+    out = capsys.readouterr().out
+    assert "remeshing step 1: nothing flagged" in out
+    assert " ==== Step    2 out of    2" in out
     # a remeshing step without AMR steps runs on, with the reference's NOTE
     _write_case(str(tmp_path), mesh, SOLID_DECK.replace(
         "loading_step = 0.5", "loading_step = 1.0").replace(

@@ -10,7 +10,9 @@ TET10 (f32 within 1e-6) and three MixedTransientRDCSystem steps and a
 TET10 step through the kernels against the plain versions; K6 at 1 to 8 species on a mesh whose element count
 is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
 and HEX8 ELL structures and on widths and block shapes outside them, two
-launches bit-equal and one on a side stream.
+launches bit-equal and one on a side stream, also on the solid's TET10
+and mixed structures; a solid load step on a MixedMesh, on TET10 and
+with hanging nodes through K4/K5 against the plain versions.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -224,7 +226,9 @@ def _ell_case(kind, V, W, dev, dtype, seed=21):
     else:
         mesh = kind[0](*kind[1:])
         N = mesh.n_nodes
-        sp = assembly.build_sparsity(mesh.connectivity, N)
+        sp = (assembly.build_sparsity_mixed(mesh.blocks, N)[0]
+              if mesh.elem_type == "MIXED"
+              else assembly.build_sparsity(mesh.connectivity, N))
         cols, slot = assembly.ell_structure(sp)
         values = torch.as_tensor(rng.standard_normal((V, W, sp.nnz)),
                                  dtype=dtype, device=dev)
@@ -249,6 +253,11 @@ ELL_CASES = {
     "width9-V2-W8": (("random", 9, 517), 2, 8, 9),
     # 10 slots a group: passes of 4, 4 and 2
     "width37": (("random", 37, 700), 3, 3, 37),
+    # the solid's TET10 structure (65 slots a row: passes of 4 over 17
+    # slots a group) and the union structure of a MixedMesh
+    "tet10": ((lambda n: tet4_to_tet10(box_tet_mesh(n, n, n)), 4), 3, 3,
+              65),
+    "mixed": ((box_mixed_mesh, 5, 4, 3), 3, 3, 27),
 }
 
 
@@ -310,6 +319,58 @@ def test_solid_kernel_path_matches_plain_path(cuda):
                           linear_precision="mixed")
     s = SolidSystem(box_hex_mesh(4, 4, 4), newton=bench, device=cuda,
                     tangent_precision="f32", **kw)
+    kernels.reset_launch_counts()
+    r = s.run_solver(s.initial_positions(), 0.5)
+    n = kernels.launch_counts()
+    assert r.converged and all(n[v] > 0 for v in kernels.SOLID_VARIANTS)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "tet10", "constrained"])
+def test_solid_ext_kernel_path_matches_plain_path(cuda, kind):
+    """A load step on a MixedMesh, a TET10 mesh and a MixedMesh with
+    hanging nodes (its TET4 block refined 1:8 near the centre) with
+    exact-f64 options through K4/K5 and through the plain versions
+    (relative L2 within 1e-10, hanging nodes on their masters' midpoint
+    within 1e-12), then with the card's f32 tangent and mixed Krylov
+    through the kernels, which launch every solid variant."""
+    from rdcfes_tpu_torch.mesh import MixedConstrained
+
+    cons = None
+    if kind == "tet10":
+        mesh = tet4_to_tet10(box_tet_mesh(3, 3, 3))
+    else:
+        mesh = box_mixed_mesh(4, 3, 3)
+    if kind == "constrained":
+        conn4 = np.concatenate([b.connectivity[:, :4] for b in mesh.blocks])
+        r = np.linalg.norm(mesh.coords[conn4].mean(axis=1) - 0.5, axis=1)
+        out = MixedConstrained.from_mesh(mesh).refine_and_coarsen(
+            r <= np.quantile(r, 0.3), np.zeros(mesh.n_elems, bool))
+        mesh, cons = out.mesh, out.constraints
+        assert len(cons)
+    kw = dict(materials={0: {"young": 1.0e3, "poisson": 0.3}},
+              bcs={0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05)},
+              penalty=1.0e6, constraints=cons)
+    exact = NewtonOptions(max_nonlinear_iterations=20,
+                          relative_residual_tolerance=1e-10,
+                          relative_step_tolerance=1e-10,
+                          absolute_residual_tolerance=1e-10)
+    xs = []
+    for ops in (kernels.KERNEL_OPS, kernels.PLAIN_OPS):
+        s = SolidSystem(mesh, newton=exact, device=cuda, ops=ops, **kw)
+        r = s.run_solver(s.initial_positions(), 0.5)
+        assert r.converged
+        xs.append(r.x.cpu().numpy())
+    assert np.linalg.norm(xs[0] - xs[1]) / np.linalg.norm(xs[1]) < 1e-10
+    if cons is not None:
+        h, a, b = cons.T
+        for x in xs:
+            assert np.abs(x[h] - 0.5 * (x[a] + x[b])).max() <= 1e-12
+    bench = NewtonOptions(max_nonlinear_iterations=20,
+                          relative_residual_tolerance=1e-6,
+                          relative_step_tolerance=1e-6, reuse_tangent=True,
+                          linear_precision="mixed")
+    s = SolidSystem(mesh, newton=bench, device=cuda, tangent_precision="f32",
+                    **kw)
     kernels.reset_launch_counts()
     r = s.run_solver(s.initial_positions(), 0.5)
     n = kernels.launch_counts()

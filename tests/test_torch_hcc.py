@@ -45,8 +45,8 @@ from rdcfes_tpu import cases as jcases
 from rdcfes_tpu.drivers import coupled_hcc as jhcc
 from rdcfes_tpu.io import vtu as jvtu
 from rdcfes_tpu.mesh import box_hex_mesh as jax_box_hex_mesh
-from rdcfes_tpu.mesh import box_mixed_mesh
 from rdcfes_tpu.mesh import box_tet_mesh as jax_box_tet_mesh
+from rdcfes_tpu.mesh import tet4_to_tet10 as jax_tet4_to_tet10
 from rdcfes_tpu.mesh import gmsh as jgmsh
 from rdcfes_tpu.models import hcc as jmodel
 from rdcfes_tpu.systems import TransientRDCSystem as JaxSystem
@@ -247,9 +247,13 @@ def test_hcc_case_matches_reference(tmp_path):
             assert "python3 -m rdcfes_tpu_torch.cli -c hcc" in x
             x = x.replace("rdcfes_tpu_torch.cli", "rdcfes_tpu.cli")
         assert x == y, n
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cases.make_hcc_case(str(tmp_path / "m"), n=3, mixed=True)
-    assert not (tmp_path / "m").exists()
+    # mixed=True: the box in HEX8 + PYRAMID5 + TET4 blocks, each with the
+    # three subdomains (its bytes: tests/test_torch_hcc_ext.py)
+    cases.make_hcc_case(str(tmp_path / "m"), n=3, mixed=True)
+    mixed = jgmsh.read(str(tmp_path / "m" / "HCC_Model.msh"))
+    assert [b.elem_type for b in mixed.blocks] == ["HEX8", "PYRAMID5",
+                                                   "TET4"]
+    assert set(mixed.subdomain_id) == {3000, 3001, 3002}
 
 
 def _case(d, extra=TEST_DECK):
@@ -366,36 +370,36 @@ def test_hcc_checkpoint_resumes_in_the_port(hcc_runs, package, tmp_path):
 
 
 def test_unported_hcc_paths_raise(tmp_path, monkeypatch, capsys):
-    """Remeshing, a checkpoint written after remeshing, several devices
-    and a MIXED mesh raise NotImplementedError before the first step; a
-    step count that the loading steps do not divide, ValueError."""
+    """Several devices raise NotImplementedError before the first step;
+    a step count that the loading steps do not divide, ValueError; and
+    remeshing a TET10 mesh reaches the uniform refinement, which raises
+    ValueError there, as the reference's does.  Remeshing, its
+    checkpoint and a MIXED mesh run (tests/test_torch_hcc_ext.py)."""
     monkeypatch.chdir(tmp_path)
     run = lambda: coupled_hcc.run("input.dat", device="cpu")
-    for extra, item in (("remeshing_step = 2\n", "item 13"),
-                        ("parallel/n_devices = 2\n", "item 14")):
-        _case(str(tmp_path), extra)
-        with pytest.raises(NotImplementedError, match=item):
-            run()
-    ck = str(tmp_path / "amr.npz")
-    _case(str(tmp_path), f"checkpoint/resume = '{ck}'\n")
-    deck = (tmp_path / "input.dat").read_text()
-    p = coupled_hcc.load_params(coupled_hcc.Deck("input.dat"))
-    jutils.save_checkpoint(ck, {"u": np.zeros((64, 3))}, 2, 0.02,
-                           dict(p, loading_step=0.02, penalty=1e8),
-                           amr_done=np.asarray(1))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    _case(str(tmp_path), "parallel/n_devices = 2\n")
+    with pytest.raises(NotImplementedError, match="item 14"):
         run()
+    _case(str(tmp_path), "")
+    deck = (tmp_path / "input.dat").read_text()
     (tmp_path / "input.dat").write_text(
         deck.replace("number_of_loading_steps = 2",
                      "number_of_loading_steps = 3"))
     with pytest.raises(ValueError, match="multiple"):
         run()
-    mixed = box_mixed_mesh(3, 2, 2)
-    _case(str(tmp_path), "")
-    jgmsh.write(mixed, str(tmp_path / "HCC_Model.msh"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run()
     assert " ==== Step" not in capsys.readouterr().out
+    # the case on its mesh upgraded to TET10, the IC sampled at every node
+    _case(str(tmp_path), "remeshing_step = 2\n")
+    m10 = jax_tet4_to_tet10(jgmsh.read(str(tmp_path / "HCC_Model.msh")))
+    jgmsh.write(m10, str(tmp_path / "HCC_Model.msh"))
+    r2 = ((m10.coords - 5.0) ** 2).sum(axis=1)
+    np.savetxt(str(tmp_path / "HCC_Initial_Nodal_Field.dat"), np.stack(
+        [0.6 - 0.4 * np.exp(-r2 / 4.0), 0.4 * np.exp(-r2 / 4.0),
+         0.05 * np.exp(-r2 / 2.0)], axis=1))
+    with pytest.raises(ValueError, match="TET10"):
+        run()
+    out = capsys.readouterr().out
+    assert " ==== Step    2 out of    4" in out and "remeshing step" not in out
 
 
 def test_shipped_hcc_schedule_diverges_in_both_packages(tmp_path,

@@ -437,8 +437,8 @@ def test_single_block_mixed_matches_transient_system():
 def test_mixed_system_options():
     """Tuple fields select their block's entry, elemental fields are
     sliced; constraints build the Constraints of the single-type system
-    (empty rows none); a moving mesh and a single-type mesh are
-    refused."""
+    (empty rows none); a moving mesh asks for coords; a single-type mesh
+    is refused."""
     mesh = box_mixed_mesh(3, 2, 2)
     s = MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu")
     E = mesh.n_elems
@@ -449,9 +449,14 @@ def test_mixed_system_options():
     assert torch.equal(f["t"], el[nb[0]:nb[0] + nb[1]])
     assert f["q"] == "b" and f["x"] == 2.0
     assert f["nodal"].shape == (mesh.n_nodes,)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
-                                moving_mesh=True)
+    # a moving mesh needs the coords of every step (its step is held to
+    # the reference in tests/test_torch_hcc_ext.py)
+    moving = MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                                     moving_mesh=True)
+    assert moving.moving_mesh and not s.moving_mesh
+    with pytest.raises(ValueError, match="coords"):
+        moving.step(moving.initial_state(np.ones((mesh.n_nodes, 5))),
+                    params=_pihna_params())
     cons = MixedTransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
                                    constraints=np.array([[0, 1, 2]])).cons
     assert cons.n_hanging == 1 and cons.hang.tolist() == [0]

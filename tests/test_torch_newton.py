@@ -122,7 +122,13 @@ def test_unported_newton_options_raise():
     s = SolidSystem(box_hex_mesh(1, 1, 1), device="cpu", **KW)
     with pytest.raises(ValueError, match="linear_method"):
         NewtonSolver(s.sp, NewtonOptions(linear_method="cg"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NewtonSolver(s.sp, NewtonOptions(), constraints=np.array([[0, 1, 2]]))
+    # hanging-node constraints build the shared Constraints (the
+    # constrained solve is held to the reference in
+    # tests/test_torch_solid_ext.py); empty rows build none
+    c = NewtonSolver(s.sp, NewtonOptions(), constraints=np.array([[0, 1, 2]]),
+                     device="cpu").cons
+    assert c.n_hanging == 1 and c.masters.tolist() == [1, 2]
+    assert NewtonSolver(s.sp, NewtonOptions(), device="cpu",
+                        constraints=np.zeros((0, 3), np.int32)).cons is None
     with pytest.raises(ValueError):
         NewtonSolver(s.sp, NewtonOptions(linear_precision="f16"))

@@ -20,6 +20,7 @@ from rdcfes_tpu.fem import bcsr as jbcsr
 from rdcfes_tpu.fem import elements as jel
 from rdcfes_tpu.fem import geometry as jgeo
 from rdcfes_tpu.mesh import box_hex_mesh as jax_box_hex_mesh
+from rdcfes_tpu.mesh import box_mixed_mesh as jax_box_mixed_mesh
 from rdcfes_tpu.mesh import box_tet_mesh as jax_box_tet_mesh
 from rdcfes_tpu.mesh.core import FACE_TYPE as JAX_FACE_TYPE
 from rdcfes_tpu.models import eig3 as jeig3
@@ -402,20 +403,26 @@ def test_assembly_matches_numpy_oracle():
 
 
 def test_unported_solid_options_raise(case):
+    """Only the multi-device solve (item 14) is refused; a MixedMesh and
+    hanging-node constraints build (their solves are held to the
+    reference in tests/test_torch_solid_ext.py); element types the
+    reference refuses and unknown precisions raise ValueError."""
     tm, mats = case["tm"], case["mats"]
-
-    class Mixed:
-        elem_type = "MIXED"
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solid.SolidSystem(Mixed(), mats, BCS, device="cpu")
-    for kw in ({"device_mesh": object()},
-               {"constraints": np.array([[0, 1, 2]])}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solid.SolidSystem(tm, mats, BCS, device="cpu", **kw)
-    with pytest.raises(ValueError):
-        solid.SolidSystem(tm, mats, BCS, device="cpu",
-                          tangent_precision="bf16")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        solid.SolidSystem(tm, mats, BCS, device="cpu", device_mesh=object())
+    mixed = solid.SolidSystem(mesh_from_reference(jax_box_mixed_mesh(3, 2, 2)),
+                              mats, BCS, device="cpu")
+    assert [g["face_type"] for g in mixed.bc_groups] == ["QUAD4", "TRI3"]
+    assert len(mixed.blocks) == 3
+    cons = solid.SolidSystem(tm, mats, BCS, device="cpu",
+                             constraints=np.array([[0, 1, 2]]))._newton.cons
+    assert cons.n_hanging == 1
+    prism = mesh_from_reference(jax_box_tet_mesh(1, 1, 1))
+    prism.elem_type = "PRISM6"
+    for kw in ({"tangent_precision": "bf16"}, {}):
+        with pytest.raises(ValueError):
+            solid.SolidSystem(tm if kw else prism, mats, BCS, device="cpu",
+                              **kw)
 
 
 def test_tet4_solid_assemble():
