@@ -6,9 +6,11 @@ PIHNA and ADPM plus the launch-cost calibration (phases 9-12), the CLI
 with its PIHNA, ADPM, PROTEAS, RIPF and solid drivers (phase 13), and
 the coupled HCC driver on the moving mesh with process_mesh (phase 14),
 the PIHNA driver with AMR and the native Gmsh parser (phase 15), the
-mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16), and
+mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16),
 PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
-17).
+17), the solid on mixed and TET10 meshes with remeshing (phase 18), and 2D
+(TRI3, QUAD4, QUAD8, QUAD9), HEX20 and HEX27 meshes and the dense
+element-matrix path (phase 19).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -20,6 +22,8 @@ PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
     python3 chip_smoke.py --phases 0,1,15          # AMR, the native parser
     python3 chip_smoke.py --phases 0,1,16          # mixed and TET10 meshes
     python3 chip_smoke.py --phases 0,1,17          # PROTEAS, RIPF, AMR on them
+    python3 chip_smoke.py --phases 0,1,18          # the solid on them
+    python3 chip_smoke.py --phases 0,1,19          # 2D, HEX20/27, dense path
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -176,10 +180,9 @@ Phases, one output line each (any failure raises, exit code != 0):
   15 amr    (a) make_pihna_case(n=28)'s mesh (24,389 nodes, 131,712 TET4)
             read by the native meshkit parser and by the NumPy parser:
             equal arrays, both parse times; (b) `-m pihna` in process on
-            make_pihna_case(n=28, n_steps=60), the shipped deck with
-            refinement_step = 20 and mesh/AMR/max_steps = 2 (AMR at steps
-            20 and 40; 120 steps with AMR at 40 and 80 until phase 17
-            came), once with mesh/AMR/strategy = bisection and once with
+            make_pihna_case(n=28, n_steps=30), the shipped deck with
+            refinement_step = 10 and mesh/AMR/max_steps = 2 (AMR at steps
+            10 and 20), once with mesh/AMR/strategy = bisection and once with
             1to8, launch counts reset just before and read
             just after: the element count before and after each AMR step
             and the hanging-node count, the amr scope's seconds and the
@@ -249,8 +252,8 @@ Phases, one output line each (any failure raises, exit code != 0):
             1e-10; (c) cli.main in process, every run_steps call
             recorded, launch counts reset just before each run and read
             just after: `-m proteas` on make_proteas_case(n=28,
-            n_steps=40) and `-m ripf` on make_ripf_case(n=24,
-            n_steps=60), each with mixed=True and with order=2 (the
+            n_steps=20) and `-m ripf` on make_ripf_case(n=24,
+            n_steps=30), each with mixed=True and with order=2 (the
             artifacts, the last frame's species finite and >= 0, RIPF's
             HU within [-1000, 1000] and its field rebuild's K1 / K8
             launched at least twice a step on each block); `-u
@@ -258,8 +261,8 @@ Phases, one output line each (any failure raises, exit code != 0):
             case meshes, the ExodusII file read back with scipy (one block
             per element type, their element total, the node count); `-m
             pihna` with AMR on make_pihna_case(n=28, mixed=True)
-            (refinement_step 20, two adaptations, 60 steps, an output
-            every 20) and on
+            (refinement_step 10, two adaptations, 30 steps, an output
+            every 10) and on
             make_pihna_case(n=28, order=2) (refinement_step 10, one
             bisection, 20 steps, before the runaway of 16b): elements and
             hanging nodes after each adaptation, the amr scope's seconds,
@@ -267,6 +270,30 @@ Phases, one output line each (any failure raises, exit code != 0):
             u_h = (u_a + u_b) / 2 within 1e-12; each run's wall time,
             PerfLog's phases, inner iterations, residuals and launches per
             kernel instance, every residual <= the rtol
+
+  19 slice 6 and the dense path  (a) the K1-K3 instances of TRI3 on
+            box_tri_mesh(512, 512) (524,288 elements, 263,169 nodes) and
+            the K8 and K6 instances of QUAD4 on box_quad_mesh(512, 512),
+            QUAD9 and QUAD8 raised from box_quad_mesh(256, 256) (65,536
+            elements), HEX27 and HEX20 raised from box_hex_mesh(24, 24, 24)
+            (13,824 elements), all in the brain box, with PIHNA's bench
+            blocks at each mesh's bench state, and K4 at their tables
+            (f32, f64, the block-Jacobi diagonal), against their plain
+            versions (f64 within 1e-13, f32 within 1e-5), timed as in
+            phase 2; K4 at the dense path's W = 25 over the slot table of
+            box_tet_mesh(28), index_add_ beside it; (b) 3 PIHNA steps on
+            each of the six meshes, mixed precision at rtol 1e-12, kernels
+            vs plain versions from a common state, per-step relative L2
+            within 1e-10, every instance of the type launched; (c) `-m
+            pihna` in process, 20 steps at the driver's settings (an
+            output at the first and the last), on Gmsh files of QUAD4
+            512^2, TRI3 512^2 and HEX27 24^3: the artifacts, every
+            residual <= the rtol, PerfLog's phases, steps/s and the
+            launches; (d) TransientRDCSystem(box_tet_mesh(28), 5,
+            physics=pihna_physics), mixed precision, precond_refresh 20,
+            10 steps at rtol 1e-14, each within 1e-10 relative L2 of the
+            qp path's step from the same state, its steps/s; `assemble`
+            through the kernels and the plain versions within 1e-13
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -325,9 +352,9 @@ KERNELS = {
                        "rdcfes_tpu/fem/bcsr.py:60"),
     "ell_matvec_f64": (CSRC + "ell_matvec.cu",
                        "rdcfes_tpu/fem/bcsr.py:60"),
-    "apply_generic_f32": (CSRC + "apply_generic.cu",
+    "apply_generic_f32": (CSRC + "apply_generic.cuh",
                           "rdcfes_tpu/fem/pallas_apply.py:263"),
-    "apply_generic_f64": (CSRC + "apply_generic.cu",
+    "apply_generic_f64": (CSRC + "apply_generic.cuh",
                           "rdcfes_tpu/fem/pallas_apply.py:263"),
     "take_along_f32": (CSRC + "take_along.cu",
                        "scripts/microbench_calib.py:84"),
@@ -339,7 +366,12 @@ KERNELS = {
 KERNELS.update({f"{v}:{e}": KERNELS[v]
                 for v in ("gather_interp_generic_f64", "apply_generic_f32",
                           "apply_generic_f64")
-                for e in ("pyramid5", "prism6", "tet10")})
+                for e in ("pyramid5", "prism6", "tet10", "quad4", "quad8",
+                          "quad9", "hex20", "hex27")})
+# the K1-K3 instances of TRI3 (TET4's are their variants' rows)
+KERNELS.update({f"{v}:tri3": KERNELS[v]
+                for v in ("gather_interp_affine_f64", "rhs_affine_f64",
+                          "apply_affine_f32", "apply_affine_f64")})
 BENCH_STEPS = 120
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense f32 and f64 rates outside
 # the tensor cores (the kernels here use the CUDA cores)
@@ -2205,11 +2237,11 @@ def phase_coupled(dev, also):
 # ----------------------------------------------------------------------
 # phase 15: the PIHNA driver with AMR, and the native Gmsh parser
 # ----------------------------------------------------------------------
-# two adaptations, at steps 20 and 40 of 60: only the second can
+# two adaptations, at steps 10 and 20 of 30: only the second can
 # coarsen, and the 1to8 run's second mesh is the largest K1-K4 shape of
-# the script (the depth was 120 steps with AMR at 40 and 80 until phase
-# 17 came; the steps on the twice-refined mesh took most of each run)
-AMR_N, AMR_STEPS, AMR_EVERY, AMR_PASSES = 28, 60, 20, 2
+# the script; the depth is what the script's time limit leaves (PERF.md
+# §4 lists each cut)
+AMR_N, AMR_STEPS, AMR_EVERY, AMR_PASSES = 28, 30, 10, 2
 AMR_OUTPUTS = tuple(range(0, AMR_STEPS + 1, 10))
 # the resume run: AMR at step 4, a checkpoint at step 6 (12^3 with brain
 # bounds: its refined nodes are exact in the Gmsh writer's 6 digits)
@@ -2274,7 +2306,7 @@ def _parsers(path):
 
 
 def _amr_run(root, strategy, dev, also):
-    """`-m pihna` with AMR at steps 20 and 40 by `strategy`, its checks,
+    """`-m pihna` with AMR at steps 10 and 20 by `strategy`, its checks,
     and K1-K4 at the shapes of the mesh after the second adaptation."""
     import os
     import re
@@ -2795,16 +2827,15 @@ def phase_mixed(dev, also):
 # phase 17: PROTEAS and RIPF on mixed and TET10 meshes, their ExodusII
 # export, and AMR on mixed and TET10 meshes in the PIHNA driver
 # ----------------------------------------------------------------------
-P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 40
-# RIPF 60 steps and the mixed AMR run 60 steps with AMR at 20 and 40,
-# an output every 20 (120 steps with AMR at 40 and 80 until phase 18
-# joined the script: it then took 750 s with the GPU tests on an NVIDIA
-# H100 80GB HBM3 at 700 W); TET10 AMR at step 10 of the 20 steps before
-# its runaway (phase 16)
-P17_RIPF_N, P17_RIPF_STEPS = 24, 60
-RIPF_OUTPUTS = (0, 10, 30, 60)
-P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 60, 20, 2
-P17_MIX_AMR_OUTPUT = 20
+P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 20
+# RIPF 30 steps and the mixed AMR run 30 steps with AMR at 10 and 20,
+# an output every 10: the depth the script's time limit leaves (PERF.md
+# §4); TET10 AMR at step 10 of the 20 steps before its runaway (phase
+# 16)
+P17_RIPF_N, P17_RIPF_STEPS = 24, 30
+RIPF_OUTPUTS = (0, 10, 30)  # the case deck's points up to P17_RIPF_STEPS
+P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 30, 10, 2
+P17_MIX_AMR_OUTPUT = 10
 P17_T10_AMR_STEPS, P17_T10_AMR_EVERY = 20, 10
 PROTEAS_SPECIES = ("hos", "tum", "nec", "vsc", "oed")
 PIHNA_SPECIES = ("n", "c", "h", "v", "a")
@@ -2959,7 +2990,7 @@ def _driver_kernels(phase, tag, d, driver, dev, also, first=None):
 
 
 def _p17_transient(root, driver, kind, dev, also, first):
-    """PROTEAS (40 steps, n = 28) or RIPF (60 steps, n = 24) on the
+    """PROTEAS (20 steps, n = 28) or RIPF (30 steps, n = 24) on the
     mixed or the TET10 case: its kernels held first (_driver_kernels),
     then the driver through cli.main (_drive_mixed): the artifacts, every
     residual <= rtol, the kernels of its mesh launched; RIPF's fields
@@ -3057,8 +3088,8 @@ def _p17_export(root, msh, kind):
 
 
 def _p17_amr(root, kind, dev, also, first):
-    """`-m pihna` with AMR: on the mixed case (60 steps, the TET4 block
-    refined 1:8 with hanging nodes at steps 20 and 40) or on the TET10
+    """`-m pihna` with AMR: on the mixed case (30 steps, the TET4 block
+    refined 1:8 with hanging nodes at steps 10 and 20) or on the TET10
     case (20 steps, one skeleton bisection at step 10).  The run's checks
     (_drive_mixed), the elements and hanging nodes after each adaptation,
     the mesh of the last frame; then the kernels at the shapes of the
@@ -3211,7 +3242,9 @@ def phase_mixed_drivers(dev, also):
 P18_MIX_N, P18_T10_N = 48, 24
 P18_TET_N, P18_HEX_N = 28, 24
 P18_CONS_N, P18_RESUME_N = 28, 12
-P18_HCC_N, P18_HCC_STEPS, P18_HCC_LOADING, P18_HCC_REMESH = 28, 20, 2, 10
+# 10 HCC steps remeshed at step 5: the depth the script's time limit
+# leaves (PERF.md §4)
+P18_HCC_N, P18_HCC_STEPS, P18_HCC_LOADING, P18_HCC_REMESH = 28, 10, 2, 5
 # the solid's CLI runs: the bench deck of phase 13, two load steps, one
 # remeshing after the first (f32 tangent and mixed Krylov, the card's)
 P18_SOLID_DECK = DRV_SOLID_DECK + ("remeshing_step = 1\n"
@@ -3460,11 +3493,11 @@ def _p18_solid_run(root, kind, n, dev, extra="", keep=None):
 
 
 def _p18_hcc_run(root, kind, dev, extra="", keep=None):
-    """`-c hcc` in process on make_hcc_case(n=28, n_steps=20,
-    n_loading=2), mixed or TET4, remeshing at step 10: every RDC residual
+    """`-c hcc` in process on make_hcc_case(n=28, n_steps=10,
+    n_loading=2), mixed or TET4, remeshing at step 5: every RDC residual
     <= rtol, both load steps converged, the remeshed systems, the last
     frame's cells, and the launches.  `keep`: a copy of the checkpoint of
-    step 10 and its mesh goes there."""
+    step 5 and its mesh goes there."""
     import os
     import shutil
 
@@ -3618,11 +3651,339 @@ def phase_solid_ext(dev, also):
     return first, paths
 
 
+# ----------------------------------------------------------------------
+# phase 19: 2D meshes, HEX20 / HEX27 and the dense element-matrix path
+# ----------------------------------------------------------------------
+# 2D: box_tri_mesh(512, 512) (524,288 TRI3) and box_quad_mesh(512, 512)
+# (262,144 QUAD4), 263,169 nodes each; QUAD9 / QUAD8 from
+# box_quad_mesh(256, 256) (65,536 elements; 263,169 / 197,633 nodes);
+# HEX27 / HEX20 from box_hex_mesh(24, 24, 24) (13,824 elements; 117,649 /
+# 60,625 nodes); all in the brain box (the 2D ones in its x-y rectangle)
+P19_TRI_N, P19_QUAD_N, P19_QUAD2_N, P19_HEX_N = 512, 512, 256, 24
+P19_PATH_STEPS, P19_DRV_STEPS, P19_DENSE_STEPS = 3, 20, 10
+P19_DENSE_N = 28  # the dense path on box_tet_mesh(28, 28, 28)
+P19_TYPES = {"TRI3": "tri3", "QUAD4": "quad4", "QUAD8": "quad8",
+             "QUAD9": "quad9", "HEX20": "hex20", "HEX27": "hex27"}
+_P19_HEX_EDGES = [(0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (2, 3),
+                  (2, 6), (3, 7), (4, 5), (4, 7), (5, 6), (6, 7)]
+_P19_HEX_FACES = [(0, 3, 2, 1), (0, 1, 5, 4), (0, 4, 7, 3),
+                  (1, 2, 6, 5), (2, 3, 7, 6), (4, 5, 6, 7)]
+_P19_QUAD_EDGES = [(0, 1), (1, 2), (2, 3), (3, 0)]
+
+
+def _elevate(mesh, elem_type):
+    """A QUAD4 or HEX8 mesh raised to QUAD8 / QUAD9 or HEX20 / HEX27: a
+    node per edge (and per face and at the centre) in Gmsh order, each
+    shared node once, in first-seen order (a copy of
+    tests/test_quadratic_io.py's _elevate_hex, for quads too)."""
+    from rdcfes_tpu_torch.mesh.core import Mesh
+
+    quad = elem_type.startswith("QUAD")
+    full = elem_type in ("QUAD9", "HEX27")
+    edges = _P19_QUAD_EDGES if quad else _P19_HEX_EDGES
+    faces = _P19_HEX_FACES if full and not quad else []
+    coords = mesh.coords
+    new, key2id, rows = [coords], {}, []
+
+    def node_at(key, pt):
+        if key not in key2id:
+            key2id[key] = len(coords) + len(key2id)
+            new.append(pt[None])
+        return key2id[key]
+
+    for e in mesh.connectivity.tolist():
+        row = list(e)
+        for a, b in edges:
+            row.append(node_at(tuple(sorted((e[a], e[b]))),
+                               (coords[e[a]] + coords[e[b]]) / 2))
+        for f in faces:
+            row.append(node_at(tuple(sorted(e[i] for i in f)),
+                               coords[[e[i] for i in f]].mean(0)))
+        if full:
+            row.append(node_at(tuple(sorted(e)), coords[e].mean(0)))
+        rows.append(row)
+    return Mesh(np.concatenate(new), np.asarray(rows, np.int32), elem_type,
+                mesh.subdomain_id.copy())
+
+
+def _p19_mesh(elem_type):
+    from rdcfes_tpu_torch.mesh import box_quad_mesh, box_tri_mesh
+
+    b2 = BRAIN[:2]
+    if elem_type == "TRI3":
+        return box_tri_mesh(P19_TRI_N, P19_TRI_N, bounds=b2)
+    if elem_type == "QUAD4":
+        return box_quad_mesh(P19_QUAD_N, P19_QUAD_N, bounds=b2)
+    if elem_type.startswith("QUAD"):
+        return _elevate(box_quad_mesh(P19_QUAD2_N, P19_QUAD2_N, bounds=b2),
+                        elem_type)
+    return _elevate(box_hex_mesh(P19_HEX_N, P19_HEX_N, P19_HEX_N,
+                                 bounds=BRAIN), elem_type)
+
+
+def _p19_kernels(dev, results, also):
+    """(a) K1-K3 at TRI3 and K8 / K6 at QUAD4, QUAD8, QUAD9, HEX20 and
+    HEX27 against their plain versions with PIHNA's bench blocks at each
+    mesh's bench state, K4 at the new tables (f32, f64 and the
+    block-Jacobi diagonal); K4 at the dense path's W = 25 over the slot
+    table of box_tet_mesh(28)."""
+    from rdcfes_tpu_torch.fem.assembly import build_sparsity, invert_scatter
+
+    for elem_type, tag in P19_TYPES.items():
+        mesh = _p19_mesh(elem_type)
+        _, params, u0 = bench_case(mesh)
+        s = make_system(mesh, dev)
+        u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F64,
+                            device=dev)
+        blocks_of = lambda uq, gq: pihna_blocks(uq, gq, {}, params)
+        if elem_type == "TRI3":
+            rename = {"restrict_f32": "restrict_f32@tri3",
+                      "restrict_f64": "restrict_f64@tri3",
+                      "restrict_f64@diagonal": "restrict_f64@tri3 diagonal"}
+            cases = {rename.get(k, f"{k}:{tag}"): c
+                     for k, c in affine_cases("19a tri3", s, u,
+                                              blocks_of).items()}
+        else:
+            cases = {f"{k}:{tag}": c for k, c in generic_cases(
+                tag, s, u, blocks_of, with_restrict=False).items()}
+            blk, g = s.blocks[0], s.geom
+            u_qp, gq = K.gather_interp_generic_plain(u, blk.conn_T, blk.phi,
+                                                     g.dphi)
+            wfb = blocks_of(u_qp, gq)
+            del u_qp, gq
+            V = s.n_vars
+            flat32 = blk.apply(K.PLAIN_OPS, u.to(F32),
+                               blk.stacks(wfb.cast(F32), g.JxW32), g.JxW32,
+                               g.dphi32).reshape(V, -1)
+            flat64 = blk.rhs(K.PLAIN_OPS, wfb, g).reshape(V, -1)
+            diag64 = blk.diag(wfb, g).reshape(V * V, -1)
+            cases[f"restrict_f32@{tag}"] = restrict_case(flat32, s)
+            cases[f"restrict_f64@{tag}"] = restrict_case(flat64, s)
+            cases[f"restrict_f64@{tag} diagonal"] = restrict_case(diag64, s)
+        run_cases(f"19a {tag} kernel", cases, results, also)
+        say(f"19a {tag} shapes", E=mesh.n_elems, N=mesh.n_nodes,
+            K=s.conn_T.shape[0], Q=s.geom.JxW.shape[0],
+            C=s.node_gather.shape[0])
+        del s, u, cases
+        torch.cuda.empty_cache()
+    # K4 over assemble's slot table: Ke (25, 16 E) onto the nnz node pairs
+    mesh = box_tet_mesh(P19_DENSE_N, P19_DENSE_N, P19_DENSE_N, bounds=BRAIN)
+    sp = build_sparsity(mesh.connectivity, mesh.n_nodes)
+    slots = sp.slots_flat_cf()
+    table = torch.as_tensor(invert_scatter(slots, sp.nnz), device=dev)
+    rng = np.random.default_rng(19)
+    W, M = 25, slots.shape[0]
+    flat = torch.as_tensor(rng.standard_normal((W, M)), device=dev)
+    idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    live = int((table < M).sum())
+    run_cases("19a dense kernel", {"restrict_f64@dense assemble": dict(
+        kern=lambda: K.restrict(flat, table),
+        plain=lambda: K.restrict_plain(flat, table), tol=1e-13,
+        library=lambda: torch.zeros((W, sp.nnz), dtype=F64, device=dev
+                                    ).index_add_(1, idx, flat),
+        n_bytes=restrict_bytes(flat, table, sp.nnz), flops=float(W * live),
+        dtype=F64)}, results, also)
+    say("19a dense shapes", W=W, KKE=M, nnz=sp.nnz, C=table.shape[0])
+
+
+def _p19_paths(dev):
+    """(b) 3 PIHNA steps (the bench deck) on each new element type,
+    mixed precision at rtol 1e-12, through the kernels and through the
+    plain versions from a common state: per-step relative L2 within
+    1e-10; every new instance of the type launched."""
+    counts = {}
+    for elem_type, tag in P19_TYPES.items():
+        mesh = _p19_mesh(elem_type)
+        _, params, u0 = bench_case(mesh)
+        a, b = (make_system(mesh, dev, ops=ops, precond_refresh=1,
+                            rtol=1e-12)
+                for ops in (K.KERNEL_OPS, K.PLAIN_OPS))
+        sa = a.initial_state(u0)
+        worst, iters = 0.0, []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for _ in range(P19_PATH_STEPS):
+            sb, _, rb = b.step(sa, params=params)
+            sa, ia, ra = a.step(sa, params=params)
+            iters.append(int(ia))
+            worst = max(worst, rel_l2(sa["u"], sb["u"]))
+            require(max(float(ra), float(rb)) <= 1e-12,
+                    f"19b {tag}: residuals {float(ra):.3e}, {float(rb):.3e}")
+        torch.cuda.synchronize()
+        c = counts[f"19b {tag}"] = K.launch_counts()
+        want = ([f"{v}:{tag}" for v in ("gather_interp_affine_f64",
+                                        "rhs_affine_f64", "apply_affine_f32",
+                                        "apply_affine_f64")]
+                if elem_type == "TRI3" else
+                [f"{v}:{tag}" for v in ("gather_interp_generic_f64",
+                                        "apply_generic_f32",
+                                        "apply_generic_f64")])
+        want += ["restrict_f32", "restrict_f64"]
+        say(f"19b {tag} paths", E=mesh.n_elems, N=mesh.n_nodes,
+            steps=P19_PATH_STEPS, rtol=1e-12, precision="mixed",
+            iters=iters, worst_rel_l2=f"{worst:.3e}", bar=1e-10,
+            launches=" ".join(f"{k}:{c[k]}" for k in want))
+        require(worst <= 1e-10, f"19b {tag} kernel vs plain: {worst:.3e}")
+        _require_launched(c, want, f"19b {tag}")
+        del a, b, sa, sb
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _p19_case(root, elem_type, dev):
+    """A PIHNA case for `-m pihna` on a Gmsh file of elem_type: the
+    shipped deck of make_pihna_case at P19_DRV_STEPS steps with an output
+    at the first and the last, the mesh file and the initial nodal and
+    elemental fields written the way make_pihna_case writes them (on the
+    mesh's own coordinates, so the data stays in its plane)."""
+    import os
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    d = cases.make_pihna_case(os.path.join(root, elem_type.lower()), n=2,
+                              n_steps=P19_DRV_STEPS)
+    mesh = _p19_mesh(elem_type)
+    gmsh.write(mesh, os.path.join(d, "Brain_Model.msh"))
+    rng = np.random.default_rng(0)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    u0 = np.zeros((mesh.n_nodes, 5))
+    u0[:, 1] = 2000.0 * np.exp(-r2 / (2 * 25.0**2))
+    u0[:, 2] = 500.0 * np.exp(-r2 / (2 * 30.0**2))
+    u0[:, 3] = 7200.0 * (1.0 + 0.1 * rng.random(mesh.n_nodes))
+    u0[:, 4] = 1e-10
+    np.savetxt(os.path.join(d, "Brain_Model_Initial_Nodal_Field.dat"), u0)
+    structure = np.zeros((mesh.n_elems, 2))
+    structure[:, 0] = 40.0 + 5.0 * rng.random(mesh.n_elems)
+    np.savetxt(os.path.join(d, "Brain_Model_Initial_Elemental_Field.dat"),
+               structure)
+    deck = os.path.join(d, "input.dat")
+    with open(deck) as f:
+        text = f.read().replace("output_step = 10",
+                                f"output_step = {P19_DRV_STEPS}")
+    with open(deck, "w") as f:
+        f.write(text)
+    return d, mesh
+
+
+def _p19_drivers(dev):
+    """(c) cli.main(["-m", "pihna"]) in process, P19_DRV_STEPS steps at
+    the driver's settings, on Gmsh files of QUAD4 512^2, TRI3 512^2 and
+    HEX27 24^3: the artifacts, every residual <= the rtol, PerfLog's
+    split, steps/s and the launches of the type's instances."""
+    import shutil
+    import tempfile
+
+    counts = {}
+    root = tempfile.mkdtemp(prefix="rdcfes_p19_")
+    try:
+        for elem_type in ("QUAD4", "TRI3", "HEX27"):
+            tag = P19_TYPES[elem_type]
+            d, mesh = _p19_case(root, elem_type, dev)
+            want = ((f"gather_interp_affine_f64:{tag}",
+                     f"rhs_affine_f64:{tag}", f"apply_affine_f64:{tag}")
+                    if elem_type == "TRI3" else
+                    (f"gather_interp_generic_f64:{tag}",
+                     f"apply_generic_f64:{tag}")) + ("restrict_f64",)
+            c, _, _, _ = _drive_mixed(
+                f"pihna {tag}", d, ["-m", "pihna"], dev, P19_DRV_STEPS,
+                ("n", "c", "h", "v", "a"), (0, P19_DRV_STEPS),
+                "PIHNA_simulation", want, phase="19c")
+            counts[f"19c pihna {tag}"] = c
+            shutil.rmtree(d, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def _p19_dense(dev):
+    """(d) the dense path: TransientRDCSystem(box_tet_mesh(28), 5,
+    physics=pihna_physics), mixed precision, precond_refresh 20, 10 steps
+    at rtol 1e-14 (steps/s), each step held to the qp path's step (the
+    bench deck's blocks, same settings) from the same state within 1e-10
+    relative L2; `assemble` through the kernels and the plain versions,
+    values and right-hand side within 1e-13."""
+    from rdcfes_tpu_torch.models.pihna import pihna_physics
+
+    mesh, params, u0 = bench_case(box_tet_mesh(P19_DENSE_N, P19_DENSE_N,
+                                               P19_DENSE_N, bounds=BRAIN))
+    kw = dict(rtol=1e-14, precision="mixed", precond_refresh=20, device=dev)
+    dense = TransientRDCSystem(mesh, 5, physics=pihna_physics, **kw)
+    qp = TransientRDCSystem(mesh, 5, pihna_blocks, **kw)
+    st = dense.initial_state(u0)
+    worst, iters, t_dense = 0.0, [], 0.0
+    # the dense steps' own launches: the counts set to 0 just before each
+    # dense step and read just after it (the qp steps between them, which
+    # it is held to, launch K1-K4 too)
+    c = {}
+    for _ in range(P19_DENSE_STEPS):
+        sq, _, _ = qp.step(st, params=params)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, it, res = dense.step(st, params=params)
+        torch.cuda.synchronize()
+        t_dense += time.perf_counter() - t0
+        for k, n in K.launch_counts().items():
+            c[k] = c.get(k, 0) + n
+        iters.append(int(it))
+        require(float(res) <= 1e-14, f"19d dense residual {float(res):.3e}")
+        worst = max(worst, rel_l2(st["u"], sq["u"]))
+    counts = {"19d dense": c}
+    want = ["gather_interp_affine_f64", "restrict_f32", "restrict_f64"]
+    say("19d dense steps", E=mesh.n_elems, N=mesh.n_nodes,
+        steps=P19_DENSE_STEPS, precision="mixed", rtol=1e-14,
+        precond_refresh=20, iters=iters,
+        dense_steps_per_s=f"{P19_DENSE_STEPS / t_dense:.4f}",
+        worst_rel_l2_vs_qp=f"{worst:.3e}", bar=1e-10,
+        ke_gb=f"{25 * 16 * mesh.n_elems * 8 / 1e9:.4f}",
+        launches=" ".join(f"{k}:{n}" for k, n in sorted(c.items()) if n))
+    require(worst <= 1e-10, f"19d dense vs qp path: {worst:.3e}")
+    _require_launched(c, want, "19d dense")
+    for k in ("rhs_affine_f64", "apply_affine_f32", "apply_affine_f64"):
+        require(c.get(k, 0) == 0, f"19d dense launched {k}: {c.get(k)}")
+    plain = TransientRDCSystem(mesh, 5, physics=pihna_physics,
+                               ops=K.PLAIN_OPS, **kw)
+    u_T = st["u"].T.contiguous()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    vk, bk = dense.assemble(u_T, {}, params)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    c = counts["19d assemble"] = K.launch_counts()
+    vp, bp = plain.assemble(u_T, {}, params)
+    ev = float((vk - vp).abs().max() / vp.abs().max())
+    eb = float((bk - bp).abs().max() / bp.abs().max())
+    say("19d assemble", nnz=dense.sp.nnz, seconds=f"{t_asm:.4f}",
+        values_rel_err=f"{ev:.3e}", rhs_rel_err=f"{eb:.3e}", bar=1e-13,
+        restrict_f64=c["restrict_f64"],
+        gather_interp_affine_f64=c["gather_interp_affine_f64"])
+    require(max(ev, eb) <= 1e-13, f"19d assemble: {ev:.3e}, {eb:.3e}")
+    _require_launched(c, ["restrict_f64", "gather_interp_affine_f64"],
+                      "19d assemble")
+    return counts
+
+
+def phase_slice6(dev, also):
+    """(a) the new kernel instances against their plain versions, (b)
+    kernel vs plain paths on each new element type, (c) the PIHNA driver
+    on 2D and HEX27 Gmsh files, (d) the dense element-matrix path."""
+    t0 = time.perf_counter()
+    results = {}
+    _p19_kernels(dev, results, also)
+    paths = _p19_paths(dev)
+    paths.update(_p19_drivers(dev))
+    paths.update(_p19_dense(dev))
+    say("19 done", seconds=f"{time.perf_counter() - t0:.4f}")
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18",
+                    "18,19",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3691,6 +4052,11 @@ def main(argv=None) -> int:
         p18_kern, p18_paths = phase_solid_ext(dev, also)
         paths.update(p18_paths)
     lap("18")
+    p19_kern = {}
+    if 19 in phases:
+        p19_kern, p19_paths = phase_slice6(dev, also)
+        paths.update(p19_paths)
+    lap("19")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -3705,7 +4071,8 @@ def main(argv=None) -> int:
                "launches_by_path": by_path}
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or mix_kern.get(name)
-                 or p17_kern.get(name) or p18_kern.get(name) or {})
+                 or p17_kern.get(name) or p18_kern.get(name)
+                 or p19_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

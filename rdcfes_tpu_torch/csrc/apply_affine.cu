@@ -1,5 +1,8 @@
 // K3 apply_affine (f32 and f64): the matrix-free element apply of the
-// Krylov matvec on TET4, with the corner gather fused into its prologue.
+// Krylov matvec on affine elements, with the corner gather fused into its
+// prologue.  One instance per affine type, <K, Q> = TET4 (4, 5) and TRI3
+// (3, 4); TRI3's gradients have a zero z and its centroid weight is
+// negative, neither of which the arithmetic distinguishes.
 //
 // Replaces rdcfes_tpu/fem/pallas_apply.py:qp_apply_affine_fused (:150, body
 // _apply_affine_kernel :105-147) and the Beneš corner gathers in front of
@@ -39,15 +42,13 @@ struct ApplySlots {
   int e[rdc::kMaxV * rdc::kMaxV];
 };
 
-template <typename T, int V>
+template <typename T, int V, int K, int Q>
 __global__ void __launch_bounds__(rdc::kThreads) apply_affine_kernel(
     const T* __restrict__ x, const int* __restrict__ conn_T,
     const T* __restrict__ JxW, const T* __restrict__ dphi0,
     const T* __restrict__ C, const T* __restrict__ D,
     const T* __restrict__ Ep, T* __restrict__ Ye, ApplySlots s,
     rdc::PhiTable phi, int N, int E) {
-  constexpr int K = rdc::kK;
-  constexpr int Q = rdc::kQ;
   constexpr int M = rdc::kMaxV;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
@@ -151,25 +152,20 @@ struct AffinePlan {
   const void* Ep;
   ApplySlots slots;
   rdc::PhiTable phi;
-  int V, N, E, elem_bytes, device;
+  int V, N, K, Q, E, elem_bytes, device;
 };
 
-template <typename T>
-int launch_apply(const void* plan, const T* x, T* Ye, void* stream) {
-  const AffinePlan& p = *static_cast<const AffinePlan*>(plan);
-  if (p.elem_bytes != static_cast<int>(sizeof(T))) return cudaErrorInvalidValue;
-  if (p.E == 0) return cudaSuccess;
+template <typename T, int K, int Q>
+int launch_kq(const AffinePlan& p, const T* x, T* Ye, cudaStream_t st) {
   const T* JxW = static_cast<const T*>(p.JxW);
   const T* dphi0 = static_cast<const T*>(p.dphi0);
   const T* C = static_cast<const T*>(p.C);
   const T* D = static_cast<const T*>(p.D);
   const T* Ep = static_cast<const T*>(p.Ep);
   const unsigned grid = rdc::blocks_for(p.E);
-  const rdc::DeviceGuard guard(p.device);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RDC_APPLY_CASE(NV)                                               \
   case NV:                                                               \
-    apply_affine_kernel<T, NV><<<grid, rdc::kThreads, 0, st>>>(          \
+    apply_affine_kernel<T, NV, K, Q><<<grid, rdc::kThreads, 0, st>>>(    \
         x, p.conn_T, JxW, dphi0, C, D, Ep, Ye, p.slots, p.phi, p.N, p.E); \
     break;
   switch (p.V) {
@@ -188,6 +184,18 @@ int launch_apply(const void* plan, const T* x, T* Ye, void* stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_apply(const void* plan, const T* x, T* Ye, void* stream) {
+  const AffinePlan& p = *static_cast<const AffinePlan*>(plan);
+  if (p.elem_bytes != static_cast<int>(sizeof(T))) return cudaErrorInvalidValue;
+  if (p.E == 0) return cudaSuccess;
+  const rdc::DeviceGuard guard(p.device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.K == 4 && p.Q == 5) return launch_kq<T, 4, 5>(p, x, Ye, st);
+  if (p.K == 3 && p.Q == 4) return launch_kq<T, 3, 4>(p, x, Ye, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The launch plan of one set of stacks (C (nC, Q, E), D (nD, Q, 3, E), Ep
@@ -202,7 +210,7 @@ extern "C" int rdc_apply_affine_plan(
     const int* slots_host, const double* phi_host, int V, int N, int K,
     int Q, int E, int elem_bytes, int device) {
   AffinePlan* p = rdc::plan_cast<AffinePlan>(plan, plan_bytes);
-  if (p == nullptr || K != rdc::kK || Q != rdc::kQ || V < 1 ||
+  if (p == nullptr || !rdc::affine_kq(K, Q) || V < 1 ||
       V > rdc::kMaxV || N < 0 || E < 0 || (elem_bytes != 4 && elem_bytes != 8))
     return cudaErrorInvalidValue;
   constexpr int MM = rdc::kMaxV * rdc::kMaxV;
@@ -212,7 +220,7 @@ extern "C" int rdc_apply_affine_plan(
     p->slots.d[i] = slots_host[MM + i];
     p->slots.e[i] = slots_host[2 * MM + i];
   }
-  p->phi = rdc::phi_table(phi_host);
+  p->phi = rdc::phi_table(phi_host, K, Q);
   p->conn_T = conn_T;
   p->JxW = JxW;
   p->dphi0 = dphi0;
@@ -221,6 +229,8 @@ extern "C" int rdc_apply_affine_plan(
   p->Ep = Ep;
   p->V = V;
   p->N = N;
+  p->K = K;
+  p->Q = Q;
   p->E = E;
   p->elem_bytes = elem_bytes;
   p->device = device;

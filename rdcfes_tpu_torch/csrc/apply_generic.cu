@@ -1,381 +1,21 @@
-// K6 apply_generic (f32 and f64): the matrix-free element apply of the
-// Krylov matvec for elements whose shape gradients differ per quadrature
-// point, with the corner gather fused into its prologue.  One instance
-// per element type, (K, Q) = HEX8 (8, 8), PRISM6 (6, 8), PYRAMID5 (5, 8)
-// and TET10 (10, 14).
-//
-// Replaces rdcfes_tpu/fem/pallas_apply.py:qp_apply_fused (:263, body
-// _apply_kernel :209-260) and the Beneš corner gathers in front of it
-// (pallas_perm.py:gather_corners :244, gather_corners_f64 :274).  One
-// template serves the f32 inner and the f64 outer matvec.  It is the
-// counterpart of interpolate_ue(x[:, conn_T]) + qp_apply.
-//
-// Per element e (live blocks only), with n_k = conn_T[k, e]:
-//   x_qp[w, q]  = sum_k phi[q, k] x[w, n_k]
-//   gx[w, q, d] = sum_k dphi[q, k, d, e] x[w, n_k]
-//   a[v, q]     = sum_w C[v,w][q, e] x_qp[w, q]
-//   b[v, q, d]  = sum_w D[v,w][q, d, e] x_qp[w, q]
-//               + sum_w E[v,w][q, e] gx[w, q, d]
-//   Ye[v, k, e] = sum_q JxW[q, e] (phi[q, k] a[v, q]
-//                                  + sum_d dphi[q, k, d, e] b[v, q, d])
-//
-// Bound: device-memory bandwidth (under 1 flop per byte).  dphi is
-// Q*K*3*E values and is read once; each C or E plane is Q*E, each D plane
-// 3*Q*E.  On 110,592 HEX8 with the PIHNA deck's 20 C, 4 D and 1 E plane an
-// f32 call streams dphi 84.9 MB + C 70.8 MB + D 42.5 MB + E 3.5 MB + JxW
-// 3.5 MB + conn_T 3.5 MB and writes Ye 17.7 MB: ~226 MB, ~68 us at
-// 3.35 TB/s; f64 moves twice the float bytes.  The other types move
-// the same planes at their own K and Q: TET10's dphi is 30 rows a
-// q-slice and 14 slices, 2.2x HEX8's per element.
-//
-// Design.  A block takes a tile of TE elements (32, or 16 when the planes
-// are many) with one thread per (species v, element): thread (v, e)
-// gathers species v at the corners of e, interpolates species v at each q,
-// and owns the K accumulators of Ye[v, :, e], so no thread holds anything
-// of size V*K.  The q loop is outermost.  Every row a q-slice of the tile
-// needs (dphi's K*3 rows, JxW, the live C, D and E rows: all contiguous
-// along e) is staged into shared memory with cp.async, 2 or 3 q-slices
-// deep, so the bytes in flight do not depend on how many warps the
-// registers allow; 16-byte copies where every row is 16-byte aligned, one
-// element per copy otherwise (E odd in f32), zero-filled past E; a block
-// first writes each row's source and q-stride into shared memory, so a
-// copy costs a few instructions.  Per q: wait for the slice, start the
-// copy of slice q + stages - 1, interpolate species v into a small
-// exchange buffer, barrier, then the responses of v from every species'
-// interpolated values and the projection back into the accumulators.
-// Warps share v when TE >= 32, so the (v, w) slot branches are warp-
-// uniform; the slot and phi tables ride in the kernel parameters (at
-// TET10's (10, 14) the f64 phi table is 1,120 B, the whole parameter
-// struct under 2 KB of the 4 KB limit).  The staged rows of a q-slice
-// grow with K only (3 K of them for dphi), so Q changes the loop count
-// and not the shared memory: TET10 with PIHNA's live planes takes 55 KB
-// in f64 at TE = 32 and 3 stages, above the 48 KB default, which the
-// plan raises with cudaFuncSetAttribute.
-#include "common.cuh"
+// K6 apply_generic: the launch plan and the C entry points (the kernel
+// and its design: apply_generic.cuh; its instances: apply_generic_*.cu).
+#include "apply_generic.cuh"
+
+namespace rdc_generic {
+
+RDC_GENERIC_KQ(RDC_GENERIC_EXTERN)
 
 namespace {
 
-constexpr int M = rdc::kMaxV;
-constexpr int kMaxQK = 14 * 10;  // phi entries of the largest element built
-constexpr int kSmemTwoBlocks = 113 * 1024;  // leaves room for 2 blocks/SM
-constexpr int kSmemMax = 227 * 1024;
-constexpr int kRowBytes = 16;  // shared memory of a row's source and stride
-
-struct GenericSlots {
-  int c[M * M];
-  int d[M * M];
-  int e[M * M];
-};
-
-struct GenericPlan {
-  const int* conn_T;
-  const void* JxW;
-  const void* dphi;
-  const void* C;
-  const void* D;
-  const void* Es;
-  GenericSlots slots;
-  double phi[kMaxQK];
-  int V, N, K, Q, E, nC, nD, nE;
-  int elem_bytes, device;
-  int te, stages, vec, smem;
-};
-
-// phi[q][k] in the kernel's own type, sized by the element's K and Q
-template <typename T, int K, int Q>
-struct PhiKQ {
-  T v[Q * K];
-};
-
-template <typename T, int K, int Q>
-struct GenericArgs {
-  const T* x;
-  const int* conn_T;
-  const T* JxW;
-  const T* dphi;
-  const T* C;
-  const T* D;
-  const T* Es;
-  T* Ye;
-  GenericSlots s;
-  PhiKQ<T, K, Q> phi;
-  int N, E, nC, nD, nE, te, stages, vec;
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, of which src_bytes are read and the rest zero-filled
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-template <int B>
-__device__ __forceinline__ void cp_async_elem(void* dst, const void* src,
-                                              int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "n"(B), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Row r of q-slice q: dphi (k, d) at r = 3k + d, then JxW, the C planes,
-// the D planes (s, d) at 3s + d and the E planes; each is E values long.
-template <typename T, int K, int Q>
-__device__ __forceinline__ const T* row_src(const GenericArgs<T, K, Q>& a,
-                                            int r, int q) {
-  const size_t sE = static_cast<size_t>(a.E);
-  if (r < 3 * K) return a.dphi + (static_cast<size_t>(q) * 3 * K + r) * sE;
-  r -= 3 * K;
-  if (r == 0) return a.JxW + q * sE;
-  r -= 1;
-  if (r < a.nC) return a.C + (static_cast<size_t>(r) * Q + q) * sE;
-  r -= a.nC;
-  if (r < 3 * a.nD) {
-    const int s = r / 3;
-    return a.D + ((static_cast<size_t>(s) * Q + q) * 3 + (r - 3 * s)) * sE;
-  }
-  r -= 3 * a.nD;
-  return a.Es + (static_cast<size_t>(r) * Q + q) * sE;
-}
-
-// Start the copy of q-slice q of the tile at e0 into stage[R][te]; row r
-// of slice q starts at rows[r] + q * qstride[r].
-template <typename T, int K, int Q>
-__device__ __forceinline__ void stage_copy(const GenericArgs<T, K, Q>& a,
-                                           T* stage, const T* const* rows,
-                                           const long long* qstride, int R,
-                                           int q, int e0) {
-  const int te = a.te;
-  if (a.vec) {
-    constexpr int epc = 16 / sizeof(T);  // elements per 16-byte copy
-    const int lg = 31 - __clz(te / epc);  // chunks per row, a power of 2
-    for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
-      const int r = i >> lg;
-      const int e = e0 + (i - (r << lg)) * epc;
-      const int valid = min(max(a.E - e, 0), epc);
-      const T* row = rows[r] + q * qstride[r];
-      cp_async_16(stage + r * te + (e - e0), valid > 0 ? row + e : row,
-                  valid * static_cast<int>(sizeof(T)));
-    }
-  } else {
-    const int lg = 31 - __clz(te);
-    for (int i = threadIdx.x; i < (R << lg); i += blockDim.x) {
-      const int r = i >> lg;
-      const int e = e0 + (i - (r << lg));
-      const T* row = rows[r] + q * qstride[r];
-      const bool in = e < a.E;
-      cp_async_elem<sizeof(T)>(stage + i, in ? row + e : row,
-                               in ? static_cast<int>(sizeof(T)) : 0);
-    }
-  }
-}
-
-template <typename T, int V, int K, int Q>
-__global__ void __launch_bounds__(32 * M) apply_generic_kernel(
-    const __grid_constant__ GenericArgs<T, K, Q> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int te = a.te;
-  const int S = a.stages;
-  const int R = 3 * K + 1 + a.nC + 3 * a.nD + a.nE;
-  // [R] row sources and q-strides, [S][R][te] stages, [V][4][te] exchange
-  const T** rows = reinterpret_cast<const T**>(smem_raw);
-  long long* qstride = reinterpret_cast<long long*>(rows + R);
-  T* stages = reinterpret_cast<T*>(qstride + R);
-  T* xqb = stages + S * R * te;
-  const int v = threadIdx.x / te;
-  const int el = threadIdx.x - v * te;
-  const int e0 = blockIdx.x * te;
-  const int e = e0 + el;
-  const size_t sE = static_cast<size_t>(a.E);
-
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    rows[r] = row_src(a, r, 0);
-    qstride[r] = row_src(a, r, 1) - rows[r];
-  }
-  __syncthreads();
-  for (int s = 0; s + 1 < S; ++s) {
-    if (s < Q) stage_copy(a, stages + s * R * te, rows, qstride, R, s, e0);
-    cp_async_commit();
-  }
-
-  // corner gather of species v, while the first slices are in flight
-  T ue[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) ue[k] = T(0);
-  if (e < a.E) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      ue[k] = __ldg(a.x + static_cast<size_t>(v) * a.N +
-                    __ldg(a.conn_T + k * sE + e));
-  }
-  bool live = false;
-#pragma unroll
-  for (int w = 0; w < V; ++w)
-    live = live || a.s.c[v * M + w] >= 0 || a.s.d[v * M + w] >= 0 ||
-           a.s.e[v * M + w] >= 0;
-  const int rJ = 3 * K, rC = rJ + 1, rD = rC + a.nC, rE = rD + 3 * a.nD;
-
-  T acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = T(0);
-
-#pragma unroll 1
-  for (int q = 0; q < Q; ++q) {
-    // slice q has landed (the S - 2 later ones may still fly) and every
-    // thread is done with slice q - 1 and with the exchange buffer
-    if (S == 3)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    const int qn = q + S - 1;
-    if (qn < Q)
-      stage_copy(a, stages + (qn % S) * R * te, rows, qstride, R, qn, e0);
-    cp_async_commit();
-
-    const T* sg = stages + (q % S) * R * te + el;  // row r at sg[r * te]
-    T g[K][3];
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int d = 0; d < 3; ++d) g[k][d] = sg[(3 * k + d) * te];
-    T ph[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) ph[k] = a.phi.v[q * K + k];
-
-    // interpolation of species v at q, for every thread of the element
-    T xv = ph[0] * ue[0];
-    T g0 = g[0][0] * ue[0], g1 = g[0][1] * ue[0], g2 = g[0][2] * ue[0];
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      xv += ph[k] * ue[k];
-      g0 += g[k][0] * ue[k];
-      g1 += g[k][1] * ue[k];
-      g2 += g[k][2] * ue[k];
-    }
-    T* xo = xqb + v * 4 * te + el;
-    xo[0] = xv;
-    xo[te] = g0;
-    xo[2 * te] = g1;
-    xo[3 * te] = g2;
-    __syncthreads();
-
-    // the response of species v, projected back
-    if (live) {
-      T av = T(0);
-      T b0 = T(0), b1 = T(0), b2 = T(0);
-#pragma unroll
-      for (int w = 0; w < V; ++w) {
-        const T* xw = xqb + w * 4 * te + el;
-        const int sc = a.s.c[v * M + w];
-        if (sc >= 0) av += sg[(rC + sc) * te] * xw[0];
-        const int sd = a.s.d[v * M + w];
-        if (sd >= 0) {
-          const T* Dp = sg + (rD + 3 * sd) * te;
-          const T xq = xw[0];
-          b0 += Dp[0] * xq;
-          b1 += Dp[te] * xq;
-          b2 += Dp[2 * te] * xq;
-        }
-        const int se = a.s.e[v * M + w];
-        if (se >= 0) {
-          const T ev = sg[(rE + se) * te];
-          b0 += ev * xw[te];
-          b1 += ev * xw[2 * te];
-          b2 += ev * xw[3 * te];
-        }
-      }
-      const T jw = sg[rJ * te];
-      av *= jw;
-      b0 *= jw;
-      b1 *= jw;
-      b2 *= jw;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        acc[k] += ph[k] * av + (g[k][0] * b0 + g[k][1] * b1 + g[k][2] * b2);
-    }
-  }
-  cp_async_wait<0>();
-
-  if (e < a.E) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      a.Ye[(static_cast<size_t>(v) * K + k) * sE + e] = acc[k];
-  }
-}
-
-template <typename T, int K, int Q>
-using GenericKernel = void (*)(const GenericArgs<T, K, Q>);
-
-template <typename T, int K, int Q>
-GenericKernel<T, K, Q> kernel_for(int V) {
-  switch (V) {
-    case 1: return apply_generic_kernel<T, 1, K, Q>;
-    case 2: return apply_generic_kernel<T, 2, K, Q>;
-    case 3: return apply_generic_kernel<T, 3, K, Q>;
-    case 4: return apply_generic_kernel<T, 4, K, Q>;
-    case 5: return apply_generic_kernel<T, 5, K, Q>;
-    case 6: return apply_generic_kernel<T, 6, K, Q>;
-    case 7: return apply_generic_kernel<T, 7, K, Q>;
-    case 8: return apply_generic_kernel<T, 8, K, Q>;
-    default: return nullptr;
-  }
-}
-
-// one line per element type: (K, Q) = HEX8 (8, 8), PRISM6 (6, 8),
-// PYRAMID5 (5, 8), TET10 (10, 14)
 template <typename T>
 const void* kernel_ptr(int V, int K, int Q) {
-  if (K == 8 && Q == 8)
-    return reinterpret_cast<const void*>(kernel_for<T, 8, 8>(V));
-  if (K == 6 && Q == 8)
-    return reinterpret_cast<const void*>(kernel_for<T, 6, 8>(V));
-  if (K == 5 && Q == 8)
-    return reinterpret_cast<const void*>(kernel_for<T, 5, 8>(V));
-  if (K == 10 && Q == 14)
-    return reinterpret_cast<const void*>(kernel_for<T, 10, 14>(V));
+#define RDC_KERNEL_PTR(KK, QQ) \
+  if (K == KK && Q == QQ)      \
+    return reinterpret_cast<const void*>(kernel_for<T, KK, QQ>(V));
+  RDC_GENERIC_KQ(RDC_KERNEL_PTR)
+#undef RDC_KERNEL_PTR
   return nullptr;
-}
-
-template <typename T, int K, int Q>
-int launch_kq(const GenericPlan& p, const T* x, T* Ye, cudaStream_t st) {
-  GenericArgs<T, K, Q> a;
-  a.x = x;
-  a.conn_T = p.conn_T;
-  a.JxW = static_cast<const T*>(p.JxW);
-  a.dphi = static_cast<const T*>(p.dphi);
-  a.C = static_cast<const T*>(p.C);
-  a.D = static_cast<const T*>(p.D);
-  a.Es = static_cast<const T*>(p.Es);
-  a.Ye = Ye;
-  a.s = p.slots;
-  for (int i = 0; i < Q * K; ++i) a.phi.v[i] = static_cast<T>(p.phi[i]);
-  a.N = p.N;
-  a.E = p.E;
-  a.nC = p.nC;
-  a.nD = p.nD;
-  a.nE = p.nE;
-  a.te = p.te;
-  a.stages = p.stages;
-  a.vec = p.vec;
-  const unsigned grid = static_cast<unsigned>((p.E + p.te - 1) / p.te);
-  kernel_for<T, K, Q>(p.V)<<<grid, p.te * p.V, p.smem, st>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -385,10 +25,10 @@ int launch_generic(const void* plan, const T* x, T* Ye, void* stream) {
   if (p.E == 0) return cudaSuccess;
   const rdc::DeviceGuard guard(p.device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.K == 8 && p.Q == 8) return launch_kq<T, 8, 8>(p, x, Ye, st);
-  if (p.K == 6 && p.Q == 8) return launch_kq<T, 6, 8>(p, x, Ye, st);
-  if (p.K == 5 && p.Q == 8) return launch_kq<T, 5, 8>(p, x, Ye, st);
-  if (p.K == 10 && p.Q == 14) return launch_kq<T, 10, 14>(p, x, Ye, st);
+#define RDC_LAUNCH_KQ(KK, QQ) \
+  if (p.K == KK && p.Q == QQ) return launch_kq<T, KK, QQ>(p, x, Ye, st);
+  RDC_GENERIC_KQ(RDC_LAUNCH_KQ)
+#undef RDC_LAUNCH_KQ
   return cudaErrorInvalidValue;
 }
 
@@ -397,23 +37,29 @@ bool aligned16(const void* ptr) {
 }
 
 }  // namespace
+}  // namespace rdc_generic
+
+using namespace rdc_generic;
 
 // The launch plan of one set of stacks (C (nC, Q, E), D (nD, Q, 3, E), Es
 // (nE, Q, E)) with the element tables conn_T (K, E), JxW (Q, E) and dphi
 // (Q, K, 3, E) on `device`, for x (V, N), in elements of elem_bytes (4 or
 // 8).  slots_host: int32[3 * kMaxV * kMaxV] on the host, the C, D and E
 // tables in turn, each row-major (v, w) -> plane index or -1.  phi_host:
-// double[Q * K] on the host, row-major.  Chooses the tile and the stage
+// double[Q * K] on the host, row-major; phi_dev: the same table in the
+// plan's type on `device` (read by the instances whose K * Q exceeds
+// kMaxQK; it must outlive the plan).  Chooses the tile and the stage
 // depth, and raises the kernel's shared-memory limit where it needs to.
 extern "C" int rdc_apply_generic_plan(
     void* plan, int plan_bytes, const int* conn_T, const void* JxW,
     const void* dphi, const void* C, const void* D, const void* Es,
-    const int* slots_host, const double* phi_host, int V, int N, int K,
-    int Q, int E, int nC, int nD, int nE, int elem_bytes, int device) {
+    const int* slots_host, const double* phi_host, const void* phi_dev,
+    int V, int N, int K, int Q, int E, int nC, int nD, int nE,
+    int elem_bytes, int device) {
   GenericPlan* p = rdc::plan_cast<GenericPlan>(plan, plan_bytes);
   if (p == nullptr || V < 1 || V > M || N < 0 || E < 0 || nC < 0 ||
       nD < 0 || nE < 0 || (elem_bytes != 4 && elem_bytes != 8) ||
-      K * Q > kMaxQK)
+      (K * Q > kMaxQK && phi_dev == nullptr))
     return cudaErrorInvalidValue;
   const void* kern = elem_bytes == 4 ? kernel_ptr<float>(V, K, Q)
                                      : kernel_ptr<double>(V, K, Q);
@@ -431,7 +77,9 @@ extern "C" int rdc_apply_generic_plan(
     p->slots.d[i] = slots_host[MM + i];
     p->slots.e[i] = slots_host[2 * MM + i];
   }
-  for (int i = 0; i < Q * K; ++i) p->phi[i] = phi_host[i];
+  if (K * Q <= kMaxQK)
+    for (int i = 0; i < Q * K; ++i) p->phi[i] = phi_host[i];
+  p->phi_dev = phi_dev;
   p->V = V;
   p->N = N;
   p->K = K;
@@ -445,6 +93,8 @@ extern "C" int rdc_apply_generic_plan(
   // the deepest staging of the widest tile that leaves room for two
   // blocks an SM, else for one
   const int R = 3 * K + 1 + nC + 3 * nD + nE;
+  const long long phi_bytes =
+      K > kRegRows ? static_cast<long long>(Q) * K * elem_bytes : 0;
   const int configs[4][2] = {{32, 3}, {32, 2}, {16, 3}, {16, 2}};
   const int limits[2] = {kSmemTwoBlocks, kSmemMax};
   p->te = 0;
@@ -452,7 +102,7 @@ extern "C" int rdc_apply_generic_plan(
     for (const auto& c : configs) {
       const long long smem =
           static_cast<long long>(c[1] * R + 4 * V) * c[0] * elem_bytes +
-          R * kRowBytes;
+          R * kRowBytes + phi_bytes;
       if (smem <= limit) {
         p->te = c[0];
         p->stages = c[1];

@@ -1,9 +1,11 @@
 // Shared definitions of the kernels of csrc/ (sm_90a): the transient
-// qp-path kernels (TET4 affine, and the generic ones for HEX8, PRISM6,
-// PYRAMID5 and TET10), the solid path's block-ELL SpMV and the
-// calibration lookup.  kK, kQ and PhiTable
-// are TET4's and serve K1-K3 only; apply_generic.cu carries its own K, Q
-// and phi table as template parameters.
+// qp-path kernels (the affine ones for TET4 and TRI3, the generic ones for
+// HEX8, PRISM6, PYRAMID5, TET10, QUAD4, QUAD8, QUAD9, HEX20 and HEX27),
+// the solid path's block-ELL SpMV and the calibration lookup.  K1-K3 take
+// the element's corner count K and quadrature count Q as template
+// parameters, one instance per affine type (AFFINE_KQ in fem/kernels.py:
+// TET4 (4, 5), TRI3 (3, 4)), with PhiTable sized for the largest;
+// apply_generic.cu and gather_interp_generic.cu carry their own tables.
 //
 // Every kernel here is built by fem/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -23,9 +25,15 @@
 namespace rdc {
 
 constexpr int kMaxV = 8;      // species one launch can carry
-constexpr int kK = 4;         // TET4 corners
-constexpr int kQ = 5;         // Keast degree-3 quadrature points
+constexpr int kMaxAffineQK = 5 * 4;  // phi entries of the largest affine
+                                     // type built, TET4
 constexpr int kThreads = 128; // threads per block (one element or node each)
+// K6 and K8 (apply_generic.cuh, gather_interp_generic.cu): the largest
+// phi table (K * Q entries) that rides in the kernel parameters, larger
+// ones are read from a device copy; and the largest K whose gradient rows
+// a thread keeps in registers (fem/kernels.py REG_ROWS mirrors it)
+constexpr int kMaxQK = 14 * 10;
+constexpr int kRegRows = 10;
 constexpr int kPlanBytes = 2048;  // fem/kernels.py PLAN_BYTES: any plan fits
 
 // The plan struct P in a caller's buffer of `bytes`, or nullptr if it does
@@ -58,16 +66,22 @@ class DeviceGuard {
   int prev_ = -1;
 };
 
-// phi[q][k] (row-major), small enough to ride in the kernel parameters
-// (constant bank) instead of device memory.
+// phi[q][k] (row-major) of an affine element, K * Q <= kMaxAffineQK
+// entries, small enough to ride in the kernel parameters (constant bank)
+// instead of device memory.
 struct PhiTable {
-  double v[kQ * kK];
+  double v[kMaxAffineQK];
 };
 
-inline PhiTable phi_table(const double* host_phi) {
-  PhiTable t;
-  for (int i = 0; i < kQ * kK; ++i) t.v[i] = host_phi[i];
+inline PhiTable phi_table(const double* host_phi, int K, int Q) {
+  PhiTable t = {};
+  for (int i = 0; i < Q * K; ++i) t.v[i] = host_phi[i];
   return t;
+}
+
+// The affine (K, Q) instances K1-K3 are built for: TET4, TRI3.
+inline bool affine_kq(int K, int Q) {
+  return (K == 4 && Q == 5) || (K == 3 && Q == 4);
 }
 
 inline unsigned blocks_for(int n) {

@@ -11,6 +11,9 @@
 //   u_qp[v, q, e] = sum_k phi[q, k]       u[v, conn_T[k, e]]
 //   gx[v, d, e]   = sum_k dphi0[k, d, e]  u[v, conn_T[k, e]]
 //
+// One instance per affine element type, <K, Q> = TET4 (4, 5) and TRI3
+// (3, 4); a TRI3 gradient's z is zero and is computed like the others.
+//
 // Bound: device-memory bandwidth (~0.2 flop per byte).  Bytes per call at
 // bench shapes (V=5, K=4, Q=5, E=131,712, N=24,389): conn_T 2.1 MB and
 // dphi0 12.6 MB read, u_qp 26.3 MB and gx 15.8 MB written, u 1.0 MB read
@@ -23,12 +26,11 @@
 
 namespace {
 
+template <int K, int Q>
 __global__ void __launch_bounds__(rdc::kThreads) gather_interp_affine_kernel(
     const double* __restrict__ u, const int* __restrict__ conn_T,
     const double* __restrict__ dphi0, double* __restrict__ u_qp,
     double* __restrict__ gx, rdc::PhiTable phi, int V, int N, int E) {
-  constexpr int K = rdc::kK;
-  constexpr int Q = rdc::kQ;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t sE = static_cast<size_t>(E);
@@ -68,10 +70,17 @@ extern "C" int rdc_gather_interp_affine_f64(
     const double* u, const int* conn_T, const double* phi_host,
     const double* dphi0, double* u_qp, double* gx, int V, int N, int K,
     int Q, int E, void* stream) {
-  if (K != rdc::kK || Q != rdc::kQ || V < 1) return cudaErrorInvalidValue;
+  if (!rdc::affine_kq(K, Q) || V < 1) return cudaErrorInvalidValue;
   if (E == 0) return cudaSuccess;
-  gather_interp_affine_kernel<<<rdc::blocks_for(E), rdc::kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      u, conn_T, dphi0, u_qp, gx, rdc::phi_table(phi_host), V, N, E);
+  const rdc::PhiTable phi = rdc::phi_table(phi_host, K, Q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 4)
+    gather_interp_affine_kernel<4, 5><<<rdc::blocks_for(E), rdc::kThreads, 0,
+                                        st>>>(u, conn_T, dphi0, u_qp, gx, phi,
+                                              V, N, E);
+  else
+    gather_interp_affine_kernel<3, 4><<<rdc::blocks_for(E), rdc::kThreads, 0,
+                                        st>>>(u, conn_T, dphi0, u_qp, gx, phi,
+                                              V, N, E);
   return cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // K8 gather_interp_generic (f64): corner gather + interpolation with
 // per-q shape gradients, K1's counterpart for non-affine elements: one
 // instance per element type, (K, Q) = HEX8 (8, 8), PRISM6 (6, 8),
-// PYRAMID5 (5, 8) and TET10 (10, 14).
+// PYRAMID5 (5, 8), TET10 (10, 14), QUAD4 (4, 4), QUAD8 (8, 9), QUAD9
+// (9, 9), HEX20 (20, 27) and HEX27 (27, 27).
 //
 // Replaces the corner gather in front of the generic coefficient build,
 // rdcfes_tpu/fem/pallas_perm.py:gather_corners_f64 (:274) as
@@ -26,13 +27,37 @@
 // once; the element's node ids stay in registers and the corner values
 // are re-read per q through L1/L2 (u is small and stays resident).  Every
 // plane access is coalesced along e; phi rides in the kernel parameters.
+// Above K = 10 (HEX20, HEX27) the 3 K gradient values of a q would take
+// 120-162 f64 registers, and the few elements of a mesh (13,824 HEX27 at
+// 24^3: 108 blocks of one thread an element, under one an SM) would
+// leave the card idle; so there a thread takes one (element, q), q the
+// grid's y index (27 times the threads), and walks k in a rolled loop:
+// each gradient row is read once into three registers and added into
+// every species' four sums (kMaxV of each, in registers), in the same
+// order over k, the corner's node id read through L1; phi (540 or 729
+// entries, past the parameters' room) is read from a device copy, with
+// warp-uniform loads.
 #include "common.cuh"
 
 namespace {
 
-template <int K, int Q>
+using rdc::kMaxQK;
+using rdc::kRegRows;
+
+template <int K, int Q, bool InParams = (Q * K <= kMaxQK)>
 struct PhiKQ {
   double v[Q * K];
+  __device__ __forceinline__ double at(int i) const { return v[i]; }
+  void set(const double* host, const double*) {
+    for (int i = 0; i < Q * K; ++i) v[i] = host[i];
+  }
+};
+
+template <int K, int Q>
+struct PhiKQ<K, Q, false> {
+  const double* v;
+  __device__ __forceinline__ double at(int i) const { return __ldg(v + i); }
+  void set(const double*, const double* dev) { v = dev; }
 };
 
 template <int K, int Q>
@@ -43,6 +68,45 @@ __global__ void __launch_bounds__(rdc::kThreads) gather_interp_generic_kernel(
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t sE = static_cast<size_t>(E);
+
+  if constexpr (K > kRegRows) {
+    // one thread per (element, q): q is the grid's y index
+    constexpr int M = rdc::kMaxV;
+    const int q = blockIdx.y;
+    double ax[M], a0[M], a1[M], a2[M];
+#pragma unroll
+    for (int v = 0; v < M; ++v) ax[v] = a0[v] = a1[v] = a2[v] = 0.0;
+    const double* gq = dphi + static_cast<size_t>(q) * K * 3 * sE + e;
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const double g0 = gq[3 * k * sE], g1 = gq[(3 * k + 1) * sE],
+                   g2 = gq[(3 * k + 2) * sE];
+      const double p = phi.at(q * K + k);
+      const int n = __ldg(conn_T + k * sE + e);
+#pragma unroll
+      for (int v = 0; v < M; ++v) {
+        if (v < V) {
+          const double c = __ldg(u + static_cast<size_t>(v) * N + n);
+          ax[v] += p * c;
+          a0[v] += g0 * c;
+          a1[v] += g1 * c;
+          a2[v] += g2 * c;
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < M; ++v) {
+      if (v < V) {
+        const size_t vq = static_cast<size_t>(v) * Q + q;
+        u_qp[vq * sE + e] = ax[v];
+        gx[(vq * 3 + 0) * sE + e] = a0[v];
+        gx[(vq * 3 + 1) * sE + e] = a1[v];
+        gx[(vq * 3 + 2) * sE + e] = a2[v];
+      }
+    }
+    return;
+  }
+
   int node[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) node[k] = conn_T[k * sE + e];
@@ -59,12 +123,12 @@ __global__ void __launch_bounds__(rdc::kThreads) gather_interp_generic_kernel(
     for (int v = 0; v < V; ++v) {
       const double* uv = u + static_cast<size_t>(v) * N;
       double c = __ldg(uv + node[0]);
-      double ax = phi.v[q * K] * c;
+      double ax = phi.at(q * K) * c;
       double a0 = g[0][0] * c, a1 = g[0][1] * c, a2 = g[0][2] * c;
 #pragma unroll
       for (int k = 1; k < K; ++k) {
         c = __ldg(uv + node[k]);
-        ax += phi.v[q * K + k] * c;
+        ax += phi.at(q * K + k) * c;
         a0 += g[k][0] * c;
         a1 += g[k][1] * c;
         a2 += g[k][2] * c;
@@ -80,36 +144,47 @@ __global__ void __launch_bounds__(rdc::kThreads) gather_interp_generic_kernel(
 
 template <int K, int Q>
 cudaError_t launch_kq(const double* u, const int* conn_T,
-                      const double* phi_host, const double* dphi,
-                      double* u_qp, double* gx, int V, int N, int E,
-                      cudaStream_t st) {
+                      const double* phi_host, const double* phi_dev,
+                      const double* dphi, double* u_qp, double* gx, int V,
+                      int N, int E, cudaStream_t st) {
+  if ((Q * K > kMaxQK && phi_dev == nullptr) ||
+      (K > kRegRows && V > rdc::kMaxV))
+    return cudaErrorInvalidValue;
   PhiKQ<K, Q> ph;
-  for (int i = 0; i < Q * K; ++i) ph.v[i] = phi_host[i];
+  ph.set(phi_host, phi_dev);
+  // above kRegRows a thread takes one (element, q): Q blocks along y
+  const dim3 grid(rdc::blocks_for(E), K > kRegRows ? Q : 1);
   gather_interp_generic_kernel<K, Q>
-      <<<rdc::blocks_for(E), rdc::kThreads, 0, st>>>(u, conn_T, dphi, u_qp,
-                                                     gx, ph, V, N, E);
+      <<<grid, rdc::kThreads, 0, st>>>(u, conn_T, dphi, u_qp, gx, ph, V, N,
+                                       E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// phi_host: double[Q * K] on the host, row-major.
+// phi_host: double[Q * K] on the host, row-major; phi_dev: the same
+// table on the device, read by the instances whose K * Q exceeds kMaxQK.
 extern "C" int rdc_gather_interp_generic_f64(
     const double* u, const int* conn_T, const double* phi_host,
-    const double* dphi, double* u_qp, double* gx, int V, int N, int K,
-    int Q, int E, void* stream) {
+    const double* phi_dev, const double* dphi, double* u_qp, double* gx,
+    int V, int N, int K, int Q, int E, void* stream) {
   if (V < 1) return cudaErrorInvalidValue;
   if (E == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // one line per element type, as csrc/apply_generic.cu
-  if (K == 8 && Q == 8)
-    return launch_kq<8, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
-  if (K == 6 && Q == 8)
-    return launch_kq<6, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
-  if (K == 5 && Q == 8)
-    return launch_kq<5, 8>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E, st);
-  if (K == 10 && Q == 14)
-    return launch_kq<10, 14>(u, conn_T, phi_host, dphi, u_qp, gx, V, N, E,
-                             st);
+#define RDC_GATHER_KQ(KK, QQ)                                             \
+  if (K == KK && Q == QQ)                                                 \
+    return launch_kq<KK, QQ>(u, conn_T, phi_host, phi_dev, dphi, u_qp, gx, \
+                             V, N, E, st);
+  RDC_GATHER_KQ(8, 8)
+  RDC_GATHER_KQ(6, 8)
+  RDC_GATHER_KQ(5, 8)
+  RDC_GATHER_KQ(10, 14)
+  RDC_GATHER_KQ(4, 4)
+  RDC_GATHER_KQ(8, 9)
+  RDC_GATHER_KQ(9, 9)
+  RDC_GATHER_KQ(20, 27)
+  RDC_GATHER_KQ(27, 27)
+#undef RDC_GATHER_KQ
   return cudaErrorInvalidValue;
 }

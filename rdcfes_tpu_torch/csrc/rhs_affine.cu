@@ -12,6 +12,10 @@
 // species to its plane (-1 = structurally absent, contributes nothing; a
 // species with neither block gets zeros).
 //
+// One instance per affine element type, <K, Q> = TET4 (4, 5) and TRI3
+// (3, 4); TRI3's negative centroid weight (-27/96) enters JxW like any
+// other, so nothing here assumes JxW > 0.
+//
 // Bound: device-memory bandwidth (~0.3 flop per byte).  Bytes per call at
 // bench shapes (PIHNA deck: nA=5, nB=1, E=131,712): A 26.3 MB, B 15.8 MB,
 // JxW 5.3 MB, dphi0 12.6 MB read, Fe 21.1 MB written: ~81 MB, ~24 us at
@@ -28,12 +32,11 @@ struct RhsSlots {
   int b[rdc::kMaxV];
 };
 
+template <int K, int Q>
 __global__ void __launch_bounds__(rdc::kThreads) rhs_affine_kernel(
     const double* __restrict__ A, const double* __restrict__ B,
     const double* __restrict__ JxW, const double* __restrict__ dphi0,
     double* __restrict__ Fe, RhsSlots s, rdc::PhiTable phi, int V, int E) {
-  constexpr int K = rdc::kK;
-  constexpr int Q = rdc::kQ;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t sE = static_cast<size_t>(E);
@@ -83,7 +86,7 @@ extern "C" int rdc_rhs_affine_f64(
     const double* A, const double* B, const int* slots_host,
     const double* JxW, const double* phi_host, const double* dphi0,
     double* Fe, int V, int K, int Q, int E, void* stream) {
-  if (K != rdc::kK || Q != rdc::kQ || V < 1 || V > rdc::kMaxV)
+  if (!rdc::affine_kq(K, Q) || V < 1 || V > rdc::kMaxV)
     return cudaErrorInvalidValue;
   if (E == 0) return cudaSuccess;
   RhsSlots s;
@@ -91,8 +94,13 @@ extern "C" int rdc_rhs_affine_f64(
     s.a[i] = slots_host[i];
     s.b[i] = slots_host[rdc::kMaxV + i];
   }
-  rhs_affine_kernel<<<rdc::blocks_for(E), rdc::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      A, B, JxW, dphi0, Fe, s, rdc::phi_table(phi_host), V, E);
+  const rdc::PhiTable phi = rdc::phi_table(phi_host, K, Q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 4)
+    rhs_affine_kernel<4, 5><<<rdc::blocks_for(E), rdc::kThreads, 0, st>>>(
+        A, B, JxW, dphi0, Fe, s, phi, V, E);
+  else
+    rhs_affine_kernel<3, 4><<<rdc::blocks_for(E), rdc::kThreads, 0, st>>>(
+        A, B, JxW, dphi0, Fe, s, phi, V, E);
   return cudaGetLastError();
 }

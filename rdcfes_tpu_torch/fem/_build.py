@@ -49,11 +49,11 @@ SIGNATURES = {
     "rdc_restrict_f64": [_P] * 3 + [_I] * 2 + [_P],
     "rdc_ell_matvec_f32": [_P] * 4 + [_I] * 4 + [_P],
     "rdc_ell_matvec_f64": [_P] * 4 + [_I] * 4 + [_P],
-    "rdc_apply_generic_plan": [_P, _I] + [_P] * 8 + [_I] * 10,
+    "rdc_apply_generic_plan": [_P, _I] + [_P] * 9 + [_I] * 10,
     "rdc_apply_generic_f32": [_P] * 4,
     "rdc_apply_generic_f64": [_P] * 4,
     "rdc_take_along_f32": [_P] * 3 + [_I] * 3 + [_P],
-    "rdc_gather_interp_generic_f64": [_P] * 6 + [_I] * 5 + [_P],
+    "rdc_gather_interp_generic_f64": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -108,11 +108,18 @@ def kelly_error_indicator(mesh: Mesh, u: np.ndarray,
     center from BOTH adjacent elements — exact for P1 TET4 (constant
     gradients) and first-order-correct for trilinear HEX8 and quadratic
     TET10 (a MixedMesh goes through mesh/adapt_ext.kelly_mixed)."""
-    if mesh.elem_type not in ("TET4", "HEX8", "TET10"):
-        # the reference refuses 2D meshes too
+    if mesh.dim == 2:
+        # the reference's refusal (rdcfes_tpu/fem/amr.py:117-123); its
+        # face-centre gradients take 3x3 Jacobians
         raise NotImplementedError(
-            f"Kelly error indicator on {mesh.elem_type} meshes: ROADMAP "
-            f"queue 1 item 13, sub-slice 6 (2D meshes)")
+            "Kelly error indicator supports 3D volume meshes only "
+            "(TET4/TET10/HEX8); AMR is not wired for 2D TRI3/QUAD4 meshes")
+    if mesh.elem_type not in ("TET4", "HEX8", "TET10"):
+        # the reference's face-centre table has no quadratic hex nodes
+        # and fails there with an IndexError
+        raise NotImplementedError(
+            f"Kelly error indicator supports TET4/TET10/HEX8 volume "
+            f"meshes, not {mesh.elem_type}")
     ea, eb, area, normal, h, sa, sb = interior_face_table(mesh,
                                                           return_sides=True)
     grad = _face_center_gradients(mesh, np.asarray(u))  # (E, S, V, 3)

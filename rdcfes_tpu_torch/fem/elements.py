@@ -1,6 +1,5 @@
-"""Lagrange reference elements and their quadrature (NumPy copy of the
-TET4, HEX8, PRISM6, PYRAMID5, TET10, TRI3, TRI6 and QUAD4 rows of
-rdcfes_tpu.fem.elements).
+"""Lagrange reference elements and their quadrature (NumPy copy of
+rdcfes_tpu.fem.elements: the same tables, bit for bit).
 
 The degree-3 ("THIRD", libMesh's default for FIRST/LAGRANGE) rules:
 
@@ -28,8 +27,11 @@ and the second-order tet with its face:
 * TRI6 face : Dunavant degree-5 7-point rule (all weights positive), so
           the P2 face integrands psi_i psi_j (degree 4) integrate exactly
 
-The 2D element types (TRI6, QUAD8/9, EDGE2/3 as volume types) and
-HEX20/27 come with ROADMAP queue 1 item 13, sub-slice 6.
+TRI3 and QUAD4 are also the volume types of 2D meshes, whose boundary
+sides are EDGE2 (2-point Gauss).  The quadratic types EDGE3, QUAD8, QUAD9,
+HEX20 and HEX27 take the 3-point Gauss rule per direction and a nodal
+basis from a Vandermonde solve over their Gmsh reference nodes
+(`_NODAL_TYPES`).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from typing import Tuple
 
 import numpy as np
 
-_PORTED_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5", "TET10", "TRI3",
-                 "TRI6", "QUAD4")
+_G3 = (-np.sqrt(0.6), 0.0, np.sqrt(0.6))
+_W3 = (5.0 / 9.0, 8.0 / 9.0, 5.0 / 9.0)
 
 _SQ3 = 1.0 / np.sqrt(3.0)
 # vertex signs in the standard HEX8 / QUAD4 orderings
@@ -51,15 +53,9 @@ _SX4 = np.array([-1, 1, 1, -1])
 _SY4 = np.array([-1, -1, 1, 1])
 
 
-def _require_ported(elem_type: str) -> None:
-    if elem_type not in _PORTED_TYPES:
-        raise ValueError(f"unsupported element type {elem_type!r}")
-
-
 @lru_cache(maxsize=None)
 def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
     """Return (points [Q, d], weights [Q]) on the reference element."""
-    _require_ported(elem_type)
     if elem_type == "TET4":
         a, b = 1.0 / 6.0, 0.5
         pts = np.array([[0.25, 0.25, 0.25], [a, a, a], [a, a, b], [a, b, a],
@@ -92,6 +88,19 @@ def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
     if elem_type == "QUAD4":
         g = [-_SQ3, _SQ3]
         return np.array([[x, y] for y in g for x in g]), np.ones(4)
+    if elem_type == "EDGE2":
+        return np.array([[-_SQ3], [_SQ3]]), np.ones(2)
+    if elem_type == "EDGE3":
+        return np.array([[g] for g in _G3]), np.array(_W3)
+    if elem_type in ("QUAD8", "QUAD9"):
+        pts = np.array([[x, y] for y in _G3 for x in _G3])
+        wts = np.array([wy * wx for wy in _W3 for wx in _W3])
+        return pts, wts
+    if elem_type in ("HEX20", "HEX27"):
+        pts = np.array([[x, y, z] for z in _G3 for y in _G3 for x in _G3])
+        wts = np.array([wz * wy * wx for wz in _W3 for wy in _W3
+                        for wx in _W3])
+        return pts, wts
     if elem_type == "PRISM6":
         # triangle degree-3 rule x 2-point Gauss on z in [-1, 1]
         tpts, twts = quadrature("TRI3")
@@ -121,6 +130,8 @@ def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
                 pts.append(bl[1:])
                 wts.append(w3)
         return np.array(pts), np.array(wts)
+    if elem_type != "PYRAMID5":
+        raise ValueError(f"unsupported element type {elem_type!r}")
     # PYRAMID5.  z: 2-point Gauss-Jacobi for int_0^1 (1-z)^2 f(z) dz (the
     # moment equations of the weight t^2, t = 1 - z: p2(t) = t^2 - 4/3 t
     # + 2/5); the base points scale with (1 - z), the conical (Duffy) map
@@ -138,9 +149,10 @@ def quadrature(elem_type: str) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
-    """phi [Q, K]: P1 Lagrange shape functions at reference points."""
-    _require_ported(elem_type)
+    """phi [Q, K]: Lagrange shape functions at reference points."""
     pts = np.atleast_2d(pts)
+    if elem_type in _NODAL_TYPES:
+        return _nodal_shape(elem_type, pts)
     if elem_type == "TET4":
         x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
         return np.stack([1.0 - x - y - z, x, y, z], axis=1)
@@ -177,6 +189,9 @@ def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
         N2 = (s + x) * (s + y) / s4
         N3 = (s - x) * (s + y) / s4
         return np.stack([N0, N1, N2, N3, z], axis=1)
+    if elem_type == "EDGE2":
+        x = pts[:, 0]
+        return np.stack([(1.0 - x) / 2.0, (1.0 + x) / 2.0], axis=1)
     x, y = pts[:, 0], pts[:, 1]
     if elem_type == "TRI3":
         return np.stack([1.0 - x - y, x, y], axis=1)
@@ -188,13 +203,16 @@ def shape_functions(elem_type: str, pts: np.ndarray) -> np.ndarray:
             L0 * (2 * L0 - 1), L1 * (2 * L1 - 1), L2 * (2 * L2 - 1),
             4 * L0 * L1, 4 * L1 * L2, 4 * L2 * L0,
         ], axis=1)
-    return (1 + x[:, None] * _SX4) * (1 + y[:, None] * _SY4) / 4.0  # QUAD4
+    if elem_type != "QUAD4":
+        raise ValueError(f"unsupported element type {elem_type!r}")
+    return (1 + x[:, None] * _SX4) * (1 + y[:, None] * _SY4) / 4.0
 
 
 def shape_gradients(elem_type: str, pts: np.ndarray) -> np.ndarray:
     """dN [Q, K, d]: reference-coordinate gradients of the shape functions."""
-    _require_ported(elem_type)
     pts = np.atleast_2d(pts)
+    if elem_type in _NODAL_TYPES:
+        return _nodal_grads(elem_type, pts)
     Q = pts.shape[0]
     if elem_type == "TET4":
         dN = np.array([[-1.0, -1.0, -1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
@@ -209,6 +227,9 @@ def shape_gradients(elem_type: str, pts: np.ndarray) -> np.ndarray:
     if elem_type == "TRI3":
         dN = np.array([[-1.0, -1.0], [1.0, 0.0], [0.0, 1.0]])
         return np.broadcast_to(dN, (Q, 3, 2)).copy()
+    if elem_type == "EDGE2":
+        dN = np.array([[-0.5], [0.5]])
+        return np.broadcast_to(dN, (Q, 2, 1)).copy()
     if elem_type == "TRI6":
         x, y = pts[:, 0], pts[:, 1]
         L = [1.0 - x - y, x, y]
@@ -253,10 +274,103 @@ def shape_gradients(elem_type: str, pts: np.ndarray) -> np.ndarray:
         gz = np.stack([-0.25 + q, -0.25 - q, -0.25 + q, -0.25 - q,
                        np.ones_like(s)], axis=1)
         return np.stack([gx, gy, gz], axis=2)
-    x, y = pts[:, 0], pts[:, 1]  # QUAD4
+    if elem_type != "QUAD4":
+        raise ValueError(f"unsupported element type {elem_type!r}")
+    x, y = pts[:, 0], pts[:, 1]
     gx = _SX4 * (1 + y[:, None] * _SY4) / 4.0
     gy = (1 + x[:, None] * _SX4) * _SY4 / 4.0
     return np.stack([gx, gy], axis=2)
+
+
+# The quadratic types EDGE3, QUAD8, QUAD9, HEX20 and HEX27: for each, the
+# reference node coordinates in Gmsh node order and a monomial exponent
+# set spanning its polynomial space; the nodal basis coefficients are the
+# rows of V^-T (V the Vandermonde matrix of the monomials at the nodes),
+# and the gradients come from differentiating the monomials.
+def _hex_ref_nodes(n20: bool):
+    corners = [(-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1),
+               (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)]
+    # Gmsh hex edge order (lower-index-first pairs)
+    edges = [(0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (2, 3),
+             (2, 6), (3, 7), (4, 5), (4, 7), (5, 6), (6, 7)]
+    nodes = list(corners)
+    for a, b in edges:
+        nodes.append(tuple((np.array(corners[a]) + corners[b]) / 2.0))
+    if n20:
+        return nodes
+    # Gmsh hex face order, then the body centre
+    faces = [(0, 3, 2, 1), (0, 1, 5, 4), (0, 4, 7, 3),
+             (1, 2, 6, 5), (2, 3, 7, 6), (4, 5, 6, 7)]
+    for f in faces:
+        nodes.append(tuple(np.mean([corners[i] for i in f], axis=0)))
+    nodes.append((0.0, 0.0, 0.0))
+    return nodes
+
+
+def _serendipity3d_exps():
+    """The 20-monomial serendipity space: complete quadratics plus the
+    {a^2 b} and {a^2 b c} mixed terms."""
+    exps = [(i, j, k) for i in range(2) for j in range(2) for k in range(2)]
+    exps += [(2, 0, 0), (0, 2, 0), (0, 0, 2),
+             (2, 1, 0), (2, 0, 1), (1, 2, 0), (0, 2, 1), (1, 0, 2),
+             (0, 1, 2), (2, 1, 1), (1, 2, 1), (1, 1, 2)]
+    return exps
+
+
+_NODAL_TYPES = {
+    "EDGE3": (
+        [(-1.0,), (1.0,), (0.0,)],
+        [(0,), (1,), (2,)],
+    ),
+    "QUAD8": (
+        [(-1, -1), (1, -1), (1, 1), (-1, 1),
+         (0, -1), (1, 0), (0, 1), (-1, 0)],
+        [(0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (0, 2), (2, 1), (1, 2)],
+    ),
+    "QUAD9": (
+        [(-1, -1), (1, -1), (1, 1), (-1, 1),
+         (0, -1), (1, 0), (0, 1), (-1, 0), (0, 0)],
+        [(i, j) for i in range(3) for j in range(3)],
+    ),
+    "HEX20": (_hex_ref_nodes(True), _serendipity3d_exps()),
+    "HEX27": (
+        _hex_ref_nodes(False),
+        [(i, j, k) for i in range(3) for j in range(3) for k in range(3)],
+    ),
+}
+
+
+@lru_cache(maxsize=None)
+def _nodal_coeffs(elem_type: str):
+    nodes, exps = _NODAL_TYPES[elem_type]
+    nodes = np.asarray(nodes, dtype=np.float64)
+    V = np.stack([
+        np.prod(nodes ** np.asarray(e, dtype=np.float64), axis=1)
+        for e in exps
+    ], axis=1)  # (K nodes, K monomials)
+    return np.linalg.inv(V), nodes, [np.asarray(e) for e in exps]
+
+
+def _nodal_shape(elem_type: str, pts: np.ndarray) -> np.ndarray:
+    C, _, exps = _nodal_coeffs(elem_type)
+    mono = np.stack([np.prod(pts ** e, axis=1) for e in exps], axis=1)
+    return mono @ C  # (Q, K)
+
+
+def _nodal_grads(elem_type: str, pts: np.ndarray) -> np.ndarray:
+    C, _, exps = _nodal_coeffs(elem_type)
+    out = []
+    for r in range(pts.shape[1]):
+        dm = []
+        for e in exps:
+            if e[r] == 0:
+                dm.append(np.zeros(len(pts)))
+                continue
+            e2 = np.array(e, dtype=np.float64)
+            e2[r] -= 1
+            dm.append(e[r] * np.prod(pts ** e2, axis=1))
+        out.append(np.stack(dm, axis=1) @ C)
+    return np.stack(out, axis=2)  # (Q, K, d)
 
 
 @lru_cache(maxsize=None)

@@ -10,11 +10,13 @@ versions and their launch counts.
   K7 take_along            csrc/take_along.cu             f32        calibration
   K8 gather_interp_generic csrc/gather_interp_generic.cu  f64        transient
 
-K1-K3 serve affine elements (TET4); K8 and K6 are K1's and K3's
-counterparts for elements whose shape gradients differ per quadrature
-point, one instance per element type (GENERIC_KQ: HEX8, PRISM6,
-PYRAMID5, TET10), each launch counted under its variant and under its
-instance, "<variant>:<element type>".  K7 is the
+K1-K3 serve affine elements, one instance per type (AFFINE_KQ: TET4,
+TRI3); K8 and K6 are K1's and K3's counterparts for elements whose shape
+gradients differ per quadrature point, one instance per element type
+(GENERIC_KQ: HEX8, PRISM6, PYRAMID5, TET10, QUAD4, QUAD8, QUAD9, HEX20,
+HEX27).  Each launch of K1-K3, K6 and K8 is counted under its variant and
+under its instance, "<variant>:<element type>".  A CUDA tensor at a
+(K, Q) with no instance raises ValueError.  K7 is the
 `take_along_axis(axis=0)` lookup of the launch-cost calibration.  K4 is
 every element -> node (or node-pair) gather-sum: the transient
 restriction and the solid path's vector and matrix assembly
@@ -76,21 +78,32 @@ KERNEL_VARIANTS = (TRANSIENT_VARIANTS
                       "apply_generic_f32", "apply_generic_f64",
                       "take_along_f32", "gather_interp_generic_f64"))
 
+# (K, Q) -> the element type K1-K3 are instantiated for
+AFFINE_KQ = {(4, 5): "tet4", (3, 4): "tri3"}
 # (K, Q) -> the element type K6 and K8 are instantiated for
 GENERIC_KQ = {(8, 8): "hex8", (6, 8): "prism6", (5, 8): "pyramid5",
-              (10, 14): "tet10"}
+              (10, 14): "tet10", (4, 4): "quad4", (8, 9): "quad8",
+              (9, 9): "quad9", (20, 27): "hex20", (27, 27): "hex27"}
+AFFINE_INSTANCES = tuple(
+    f"{v}:{elem}" for v in ("gather_interp_affine_f64", "rhs_affine_f64",
+                            "apply_affine_f32", "apply_affine_f64")
+    for elem in AFFINE_KQ.values())
 GENERIC_INSTANCES = tuple(
     f"{v}:{elem}" for v in ("gather_interp_generic_f64", "apply_generic_f32",
                             "apply_generic_f64")
     for elem in GENERIC_KQ.values())
+# csrc/common.cuh kRegRows: the largest K whose gradient rows K6 and K8
+# keep in registers; above it K8 holds a species' sums in registers, so it
+# takes at most MAX_V species
+REG_ROWS = 10
 
 _launches: Dict[str, int] = {name: 0 for name in KERNEL_VARIANTS
-                             + GENERIC_INSTANCES}
+                             + AFFINE_INSTANCES + GENERIC_INSTANCES}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per variant, and per K6/K8 instance, since the last
-    reset."""
+    """Kernel launches per variant, and per K1-K3, K6 and K8 instance,
+    since the last reset."""
     return dict(_launches)
 
 
@@ -306,6 +319,22 @@ def _phi_host(phi, Q: int, K: int) -> np.ndarray:
     return p
 
 
+_phi_tables: Dict[tuple, torch.Tensor] = {}
+
+
+def _phi_dev(ph: np.ndarray, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A (Q, K) phi table on the device in `dtype`, made once per table,
+    type and device: the copy K6 and K8 read where the table is too large
+    for the kernel parameters (K * Q > csrc/common.cuh kMaxQK)."""
+    key = (ph.tobytes(), ph.shape, dtype, device)
+    t = _phi_tables.get(key)
+    if t is None:
+        t = _phi_tables[key] = torch.as_tensor(ph, dtype=dtype,
+                                               device=device)
+    return t
+
+
 def _launch(variant: str, fn: Callable, *args, instance: str = "") -> None:
     rc = fn(*args)
     if rc != 0:
@@ -360,6 +389,15 @@ def _apply_slots(st) -> np.ndarray:
     return slots
 
 
+def _check_affine_kq(name: str, K: int, Q: int) -> str:
+    """The instance tag of K1's, K2's or K3's (K, Q); ValueError if not
+    built."""
+    if (K, Q) not in AFFINE_KQ:
+        raise ValueError(f"{name}: no kernel for K={K}, Q={Q} "
+                         f"(built for {tuple(AFFINE_KQ)})")
+    return AFFINE_KQ[(K, Q)]
+
+
 def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
                          dphi0: torch.Tensor):
     """K1: u (V, N) f64, conn_T (K, E) int32, phi (Q, K) host table,
@@ -370,6 +408,7 @@ def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
     K, E = conn_T.shape
     Q = np.shape(phi)[0]
     dev, f64 = u.device, torch.float64
+    elem = _check_affine_kq("gather_interp_affine", K, Q)
     _check("u", u, dev, f64, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
     _check("dphi0", dphi0, dev, f64, (K, 3, E))
@@ -380,7 +419,7 @@ def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
         _launch("gather_interp_affine_f64",
                 _fn("gather_interp_affine_f64"), _ptr(u), _ptr(conn_T),
                 _host(ph), _ptr(dphi0), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
-                _stream(dev))
+                _stream(dev), instance=f"gather_interp_affine_f64:{elem}")
     return u_qp, gx
 
 
@@ -403,16 +442,21 @@ def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
     Q = np.shape(phi)[0]
     dev, f64 = u.device, torch.float64
     elem = _check_kq("gather_interp_generic", K, Q)
+    if K > REG_ROWS and V > MAX_V:
+        raise ValueError(f"gather_interp_generic: {V} species at K={K}, "
+                         f"kernel takes 1..{MAX_V}")
     _check("u", u, dev, f64, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
     _check("dphi", dphi, dev, f64, (Q, K, 3, E))
     ph = _phi_host(phi, Q, K)
+    ph_dev = _phi_dev(ph, f64, dev)
     u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
     gx = torch.empty((V, Q, 3, E), dtype=f64, device=dev)
     with _on_device(dev):
         _launch("gather_interp_generic_f64",
                 _fn("gather_interp_generic_f64"), _ptr(u), _ptr(conn_T),
-                _host(ph), _ptr(dphi), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
+                _host(ph), _ptr(ph_dev), _ptr(dphi), _ptr(u_qp), _ptr(gx),
+                V, N, K, Q, E,
                 _stream(dev), instance=f"gather_interp_generic_f64:{elem}")
     return u_qp, gx
 
@@ -428,6 +472,7 @@ def rhs_affine(st: RhsStacks, JxW: torch.Tensor, phi, dphi0: torch.Tensor):
     dev, f64 = JxW.device, torch.float64
     if not 1 <= V <= MAX_V:
         raise ValueError(f"rhs_affine: {V} species, kernel takes 1..{MAX_V}")
+    elem = _check_affine_kq("rhs_affine", K, Q)
     _check("JxW", JxW, dev, f64, (Q, E))
     _check("dphi0", dphi0, dev, f64, (K, 3, E))
     _check("A", st.A, dev, f64, (len(st.idxA), Q, E))
@@ -440,7 +485,8 @@ def rhs_affine(st: RhsStacks, JxW: torch.Tensor, phi, dphi0: torch.Tensor):
     with _on_device(dev):
         _launch("rhs_affine_f64", _fn("rhs_affine_f64"), _ptr(st.A),
                 _ptr(st.B), _host(slots), _ptr(JxW), _host(ph), _ptr(dphi0),
-                _ptr(Fe), V, K, Q, E, _stream(dev))
+                _ptr(Fe), V, K, Q, E, _stream(dev),
+                instance=f"rhs_affine_f64:{elem}")
     return Fe
 
 
@@ -483,6 +529,8 @@ def apply_launch_data(kind: str, conn_T: torch.Tensor, phi,
     Q = JxW.shape[0]
     if generic:
         _check_kq(name, K, Q)
+    else:
+        _check_affine_kq(name, K, Q)
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
     _check("JxW", JxW, dev, dt, (Q, E))
     _check("dphi", dphi, dev, dt, (Q, K, 3, E) if generic else (K, 3, E))
@@ -498,7 +546,7 @@ def apply_launch_data(kind: str, conn_T: torch.Tensor, phi,
 
 class _ApplyPlan(NamedTuple):
     variant: str
-    instance: str  # "<variant>:<element type>" for K6, "" for K3
+    instance: str  # "<variant>:<element type>"
     fn: Callable
     ptr: int
     buf: ctypes.Array
@@ -520,19 +568,22 @@ def _apply_plan(kind: str, x: torch.Tensor, conn_T, phi, JxW, dphi,
         return p
     d = apply_launch_data(kind, conn_T, phi, JxW, dphi, st, x.shape[-1])
     tag = "f32" if d.dtype == torch.float32 else "f64"
-    extra = ((len(st.idxC), len(st.idxD), len(st.idxE))
-             if kind == "generic" else ())
-    Ep = st.E if kind == "generic" else st.Epre
+    generic = kind == "generic"
+    extra = ((len(st.idxC), len(st.idxD), len(st.idxE)) if generic else ())
+    Ep = st.E if generic else st.Epre
+    # K6 reads a device copy of phi where it is too large to ride in the
+    # kernel parameters
+    ph_dev = _phi_dev(d.phi, d.dtype, d.device) if generic else None
     buf, ptr = _plan(f"apply_{kind}_plan", _ptr(conn_T), _ptr(JxW),
                      _ptr(dphi), _ptr(st.C), _ptr(st.D), _ptr(Ep),
-                     _host(d.slots), _host(d.phi), d.V, d.N, d.K, d.Q, d.E,
-                     *extra, JxW.element_size(), d.device.index)
+                     _host(d.slots), _host(d.phi),
+                     *((_ptr(ph_dev),) if generic else ()), d.V, d.N, d.K,
+                     d.Q, d.E, *extra, JxW.element_size(), d.device.index)
     variant = f"apply_{kind}_{tag}"
-    instance = (f"{variant}:{GENERIC_KQ[(d.K, d.Q)]}" if kind == "generic"
-                else "")
-    p = _ApplyPlan(variant, instance, _fn(variant), ptr, buf,
+    elem = (GENERIC_KQ if generic else AFFINE_KQ)[(d.K, d.Q)]
+    p = _ApplyPlan(variant, f"{variant}:{elem}", _fn(variant), ptr, buf,
                    d.device, d.dtype, (d.V, d.N), (d.V, d.K, d.E),
-                   (conn_T, phi, JxW, dphi))
+                   (conn_T, phi, JxW, dphi, ph_dev))
     plans[key] = p
     return p
 

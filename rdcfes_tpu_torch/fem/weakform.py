@@ -1,5 +1,6 @@
-"""Block-sparse weak form and the matrix-free element functions, generic
-(per-q gradients, e.g. HEX8) and affine (TET4), in torch (counterparts of
+"""Weak forms (dense and block-sparse), the element vectors and matrices of
+the dense path, and the matrix-free element functions, generic (per-q
+gradients, e.g. HEX8) and affine (TET4, TRI3), in torch (counterparts of
 rdcfes_tpu.fem.weakform).
 
 Per quadrature point, every RDC model contributes
@@ -9,9 +10,14 @@ Per quadrature point, every RDC model contributes
                               + (D_vw . dphi_i) phi_j
                               + E_vw * (dphi_j . dphi_i) )
 
-`WeakFormBlocks` keeps each block as a tensor or the Python float 0.0
-("structurally absent"), so a deck that turns an operator off drops its
-blocks from every loop below and from the kernels' live-block lists.
+`WeakForm` stacks the five coefficient fields densely (any field may be
+None); `element_vectors` and `element_matrices` build Fe (V, K, E) and
+Ke (V, W, K, K, E) from it, the dense path of systems/transient.py
+(plain torch, as the reference leaves them to XLA).  `WeakFormBlocks`
+keeps each block as a tensor or the Python float 0.0 ("structurally
+absent"), so a deck that turns an operator off drops its blocks from
+every loop below and from the kernels' live-block lists; `to_dense`
+gives its WeakForm.
 The Krylov matvec applies the blocks straight from the coefficients:
 (A x)_i = sum_q JxW [phi_qi C.x_qp + dphi_qi . (D x_qp + E gx_qp)].
 
@@ -26,7 +32,7 @@ to f64 reassociation.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +40,93 @@ import torch
 
 def _is_zero(x) -> bool:
     return isinstance(x, (int, float)) and x == 0.0
+
+
+class WeakForm(NamedTuple):
+    """Per-quadrature-point weak-form coefficients, stacked densely.
+
+      A : (V, Q, E)        rhs mass coefficient
+      B : (V, Q, 3, E)     rhs flux coefficient (dotted with dphi_i)
+      C : (V, V, Q, E)     jacobian mass block  (phi_j phi_i)
+      D : (V, V, Q, 3, E)  jacobian taxis block ((D . dphi_i) phi_j)
+      E : (V, V, Q, E)     jacobian diffusion block (dphi_j . dphi_i)
+
+    Any field may be None, meaning identically zero."""
+
+    A: Optional[torch.Tensor] = None
+    B: Optional[torch.Tensor] = None
+    C: Optional[torch.Tensor] = None
+    D: Optional[torch.Tensor] = None
+    E: Optional[torch.Tensor] = None
+
+
+def element_vectors(wf: WeakForm, phi, JxW: torch.Tensor,
+                    dphi: torch.Tensor) -> torch.Tensor:
+    """Fe (V, K, E) = sum_q JxW[q] (phi[q, k] A[v, q]
+    + sum_d dphi[q, k, d] B[v, q, d]) (the reference's element_vectors,
+    rdcfes_tpu/fem/weakform.py:52-78, as broadcast multiply-reduces).
+    phi (Q, K) host table; JxW (Q, E); dphi (Q, K, 3, E)."""
+    if wf.A is None and wf.B is None:
+        raise ValueError("empty weak form rhs")
+    ph = _phi_tensor(phi, JxW)
+    out = None
+    if wf.A is not None:
+        out = torch.einsum("qk,vqe->vke", ph, JxW * wf.A)
+    if wf.B is not None:
+        flux = torch.einsum("qkde,vqde->vke", dphi,
+                            JxW[:, None, :] * wf.B)
+        out = flux if out is None else out + flux
+    return out
+
+
+def element_matrices(wf: WeakForm, phi, JxW: torch.Tensor,
+                     dphi: torch.Tensor, grad_const: bool = False,
+                     return_diag: bool = False):
+    """Ke (V, W, K_i, K_j, E), i the test (row) index, j the trial one:
+
+      Ke[v, w, i, j] = sum_q JxW[q] (C[v, w, q] phi[q, i] phi[q, j]
+                       + (D[v, w, q] . dphi[q, i]) phi[q, j]
+                       + E[v, w, q] (dphi[q, i] . dphi[q, j]))
+
+    (the reference's element_matrices, rdcfes_tpu/fem/weakform.py:81-180).
+    grad_const=True is the affine-element route (TET4, TRI3): the shape
+    gradients are dphi[0] at every q, so the diffusion term is
+    (sum_q JxW E) (dphi_i . dphi_j) and the taxis term contracts D with
+    phi over q before the gradients, as the reference reassociates them.
+    return_diag=True also returns diag_e (V, W, K, E), the (i, i) entries
+    the block-Jacobi preconditioner takes."""
+    if wf.C is None and wf.D is None and wf.E is None:
+        raise ValueError("empty weak form matrix")
+    ph = _phi_tensor(phi, JxW)
+    Ke = None
+
+    def add(t):
+        nonlocal Ke
+        Ke = t if Ke is None else Ke + t
+
+    if wf.C is not None:
+        add(torch.einsum("vwqe,qij->vwije", wf.C * JxW,
+                         ph[:, :, None] * ph[:, None, :]))
+    Dq = None if wf.D is None else wf.D * JxW[:, None, :]
+    if grad_const:
+        dphi0 = dphi[0]  # (K, 3, E)
+        if Dq is not None:
+            Dphi = torch.einsum("vwqde,qj->vwjde", Dq, ph)
+            add(torch.einsum("vwjde,ide->vwije", Dphi, dphi0))
+        if wf.E is not None:
+            esum = (wf.E * JxW).sum(dim=2)  # (V, W, E)
+            gg = torch.einsum("ide,jde->ije", dphi0, dphi0)
+            add(esum[:, :, None, None, :] * gg)
+    else:
+        if Dq is not None:
+            t1 = torch.einsum("vwqde,qide->vwqie", Dq, dphi)
+            add(torch.einsum("vwqie,qj->vwije", t1, ph))
+        if wf.E is not None:
+            gg = torch.einsum("qide,qjde->qije", dphi, dphi)
+            add(torch.einsum("vwqe,qije->vwije", wf.E * JxW, gg))
+    if return_diag:
+        return Ke, torch.diagonal(Ke, dim1=2, dim2=3).movedim(-1, 2)
+    return Ke
 
 
 class WeakFormBlocks(NamedTuple):
@@ -55,6 +148,24 @@ class WeakFormBlocks(NamedTuple):
     @property
     def n_vars(self) -> int:
         return len(self.A)
+
+    def to_dense(self) -> WeakForm:
+        """The WeakForm of the same values, structural zeros materialised
+        (the reference's to_dense, rdcfes_tpu/fem/weakform.py:237-257)."""
+        ref = next(a for a in self.A if not _is_zero(a))
+        zero = torch.zeros_like(ref)
+        zero3 = ref.new_zeros(ref.shape[:1] + (3,) + ref.shape[1:])
+        fill = lambda x, z: z if _is_zero(x) else x.expand_as(z)
+        return WeakForm(
+            A=torch.stack([fill(a, zero) for a in self.A]),
+            B=torch.stack([fill(b, zero3) for b in self.B]),
+            C=torch.stack([torch.stack([fill(c, zero) for c in row])
+                           for row in self.C]),
+            D=torch.stack([torch.stack([fill(d, zero3) for d in row])
+                           for row in self.D]),
+            E=torch.stack([torch.stack([fill(e, zero) for e in row])
+                           for row in self.E]),
+        )
 
     def cast(self, dtype: torch.dtype) -> "WeakFormBlocks":
         f = lambda x: x if _is_zero(x) else x.to(dtype)

@@ -1,5 +1,5 @@
-"""ParaView VTU / PVD writers for TET4, HEX8, TET10 and mixed meshes (the
-files of rdcfes_tpu.io.vtu, byte for byte).
+"""ParaView VTU / PVD writers for single-type 3D and 2D meshes and mixed
+meshes (the files of rdcfes_tpu.io.vtu, byte for byte).
 
 Output format of the C++ reference's Paraview_IO (src/paraview.h:12-248):
 * ASCII .vtu: Points ("position"), PointData (node_ID, then every field
@@ -14,7 +14,9 @@ values (`elemental_to_nodal`), libMesh's nodal projection of CONSTANT
 MONOMIAL variables.  Arrays come in as NumPy (the drivers move tensors
 to the host first).  A MixedMesh's cells are its blocks' in block order,
 each with its own VTK type; a TET10's last two mid-edge nodes are swapped
-into VTK_QUADRATIC_TETRA's order.
+into VTK_QUADRATIC_TETRA's order, and a HEX20's or HEX27's nodes are
+permuted from Gmsh's edge and face order into VTK's (QUAD8 and QUAD9 share
+Gmsh's order).
 """
 
 from __future__ import annotations
@@ -28,11 +30,37 @@ from ..mesh.core import Mesh, element_blocks
 
 SMALLEST_NUMBER = 1.0e-24
 
-_VTK_TYPE = {"TET4": 10, "HEX8": 12, "PRISM6": 13, "PYRAMID5": 14,
-             "TET10": 24}
+_VTK_TYPE = {"TET4": 10, "HEX8": 12, "TRI3": 5, "QUAD4": 9,
+             "PRISM6": 13, "PYRAMID5": 14, "TET10": 24,
+             # VTK_QUADRATIC_QUAD, VTK_BIQUADRATIC_QUAD,
+             # VTK_QUADRATIC_HEXAHEDRON, VTK_TRIQUADRATIC_HEXAHEDRON
+             "QUAD8": 23, "QUAD9": 28, "HEX20": 25, "HEX27": 29}
 # VTK_QUADRATIC_TETRA orders the mid-edge nodes (0,1),(1,2),(0,2),(0,3),
 # (1,3),(2,3); Gmsh swaps the last two
 _TET10_TO_VTK = [0, 1, 2, 3, 4, 5, 6, 7, 9, 8]
+# Gmsh -> VTK node order of the quadratic hexes, by matching each edge's
+# (node pair's) and face's (corner set's) role: Gmsh's hexahedron edges
+# and faces, VTK's edges of vtkQuadraticHexahedron (bottom ring, top
+# ring, verticals) and faces of vtkHexahedron::GetFace
+_GMSH_HEX_EDGES = [(0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (2, 3),
+                   (2, 6), (3, 7), (4, 5), (4, 7), (5, 6), (6, 7)]
+_VTK_HEX_EDGES = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6),
+                  (6, 7), (7, 4), (0, 4), (1, 5), (2, 6), (3, 7)]
+_GMSH_HEX_FACES = [(0, 3, 2, 1), (0, 1, 5, 4), (0, 4, 7, 3),
+                   (1, 2, 6, 5), (2, 3, 7, 6), (4, 5, 6, 7)]
+_VTK_HEX_FACES = [(0, 4, 7, 3), (1, 2, 6, 5), (0, 1, 5, 4),
+                  (3, 7, 6, 2), (0, 3, 2, 1), (4, 5, 6, 7)]
+
+
+def _hex_perm(n27: bool):
+    """Column permutation taking a Gmsh-ordered HEX20/27 row to VTK's."""
+    ge = {frozenset(e): 8 + i for i, e in enumerate(_GMSH_HEX_EDGES)}
+    perm = list(range(8)) + [ge[frozenset(e)] for e in _VTK_HEX_EDGES]
+    if n27:
+        gf = {frozenset(f): 20 + i for i, f in enumerate(_GMSH_HEX_FACES)}
+        perm += [gf[frozenset(f)] for f in _VTK_HEX_FACES]
+        perm.append(26)
+    return perm
 
 
 def elemental_to_nodal(mesh, values: np.ndarray) -> np.ndarray:
@@ -57,6 +85,8 @@ def _cell_arrays(mesh) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     for elem_type, conn in element_blocks(mesh):
         if elem_type == "TET10":
             conn = conn[:, _TET10_TO_VTK]
+        elif elem_type in ("HEX20", "HEX27"):
+            conn = conn[:, _hex_perm(elem_type == "HEX27")]
         conns.append(conn.ravel())
         sizes.append(np.full(len(conn), conn.shape[1]))
         types.append(np.full(len(conn), _VTK_TYPE[elem_type]))
@@ -94,9 +124,6 @@ def write_vtu(
     fields with `elemental_to_nodal` first); cell_fields: extra
     (name, (E,) array) CellData after element_ID/region_ID/processor_ID;
     coords: the Points (default: the mesh's coordinates)."""
-    if mesh.elem_type != "MIXED" and mesh.elem_type not in _VTK_TYPE:
-        raise NotImplementedError(
-            f"{mesh.elem_type} meshes: ROADMAP queue 1 item 13")
     coords = mesh.coords if coords is None else np.asarray(coords)
     E, N = mesh.n_elems, mesh.n_nodes
     cells, offsets, types = _cell_arrays(mesh)

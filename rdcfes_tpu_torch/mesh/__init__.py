@@ -7,8 +7,8 @@ from .adapt_ext import (MixedAdaptOutcome, MixedConstrained, Tet10Adaptive,
 from .constrain import ConstrainedAdaptResult, ConstrainedMesh
 from .core import (ELEMENT_FACES, Mesh, MeshBlock, MixedMesh,
                    element_blocks, extract_boundary_faces)
-from .generators import (box_hex_mesh, box_mixed_mesh, box_tet_mesh,
-                         tet4_to_tet10)
+from .generators import (box_hex_mesh, box_mixed_mesh, box_quad_mesh,
+                         box_tet_mesh, box_tri_mesh, tet4_to_tet10)
 from .refine import Refinement, refine_flagged, refine_uniform
 
 __all__ = [
@@ -21,6 +21,8 @@ __all__ = [
     "box_hex_mesh",
     "box_tet_mesh",
     "box_mixed_mesh",
+    "box_quad_mesh",
+    "box_tri_mesh",
     "tet4_to_tet10",
     "refine_uniform",
     "refine_flagged",

@@ -3,10 +3,12 @@ rdcfes_tpu.mesh.core).
 
 The mesh lives on the host as plain NumPy struct-of-arrays; the device only
 sees the tables built from it (coordinates, connectivity, gather tables).
-`Mesh` carries one volume element type (TET4, HEX8, TET10, or TRI3/QUAD4
-as face meshes); `MixedMesh` carries several first-order types (TET4,
-HEX8, PRISM6, PYRAMID5) as `MeshBlock`s over one node set, its elements
-in block-concatenated order.
+`Mesh` carries one volume element type: TET4, HEX8, TET10, HEX20 or HEX27
+in 3D, TRI3, QUAD4, QUAD8 or QUAD9 in 2D (a 2D mesh's boundary sides are
+EDGE2 or EDGE3 rows; its nodes keep three coordinates, z constant);
+`MixedMesh` carries several first-order types (TET4, HEX8, PRISM6,
+PYRAMID5) as `MeshBlock`s over one node set, its elements in
+block-concatenated order.
 """
 
 from __future__ import annotations
@@ -50,19 +52,50 @@ ELEMENT_FACES: Dict[str, Tuple[Tuple[int, ...], ...]] = {
         (1, 2, 3, 5, 8, 9),
         (2, 0, 3, 6, 7, 8),
     ),
+    # 2D volume elements (counter-clockwise vertices): the sides are the
+    # boundary edges, listed in the counter-clockwise traversal, so the
+    # outward normal is the right rotation of the edge tangent
+    # (fem.geometry's EDGE2 and EDGE3 branch)
     "TRI3": ((0, 1), (1, 2), (2, 0)),
     "QUAD4": ((0, 1), (1, 2), (2, 3), (3, 0)),
+    # quadratic types: a side is its corner tuple followed by its Gmsh
+    # mid-edge (and face-centre) nodes
+    "HEX20": (
+        (0, 3, 2, 1, 9, 13, 11, 8),
+        (0, 1, 5, 4, 8, 12, 16, 10),
+        (1, 2, 6, 5, 11, 14, 18, 12),
+        (2, 3, 7, 6, 13, 15, 19, 14),
+        (3, 0, 4, 7, 9, 10, 17, 15),
+        (4, 5, 6, 7, 16, 18, 19, 17),
+    ),
+    "HEX27": (
+        (0, 3, 2, 1, 9, 13, 11, 8, 20),
+        (0, 1, 5, 4, 8, 12, 16, 10, 21),
+        (1, 2, 6, 5, 11, 14, 18, 12, 23),
+        (2, 3, 7, 6, 13, 15, 19, 14, 24),
+        (3, 0, 4, 7, 9, 10, 17, 15, 22),
+        (4, 5, 6, 7, 16, 18, 19, 17, 25),
+    ),
+    "QUAD8": ((0, 1, 4), (1, 2, 5), (2, 3, 6), (3, 0, 7)),
+    "QUAD9": ((0, 1, 4), (1, 2, 5), (2, 3, 6), (3, 0, 7)),
 }
 
 NODES_PER_ELEM = {"TET4": 4, "HEX8": 8, "PRISM6": 6, "PYRAMID5": 5,
-                  "TET10": 10, "TRI3": 3, "QUAD4": 4}
-# the element types of a single-type Mesh; PRISM6 and PYRAMID5 come only
-# as MixedMesh blocks, and a MixedMesh block is first-order
-_SINGLE_TYPES = ("TET4", "HEX8", "TET10", "TRI3", "QUAD4")
-_BLOCK_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5")
+                  "TET10": 10, "TRI3": 3, "QUAD4": 4, "EDGE2": 2,
+                  "TRI6": 6, "EDGE3": 3, "QUAD8": 8, "QUAD9": 9,
+                  "HEX20": 20, "HEX27": 27}
 # boundary-face element type of each volume type
 FACE_TYPE = {"TET4": "TRI3", "HEX8": "QUAD4", "TET10": "TRI6",
-             "TRI3": "EDGE2", "QUAD4": "EDGE2"}
+             "TRI3": "EDGE2", "QUAD4": "EDGE2",
+             "HEX20": "QUAD8", "HEX27": "QUAD9",
+             "QUAD8": "EDGE3", "QUAD9": "EDGE3"}
+# the element types of a single-type Mesh; PRISM6 and PYRAMID5 come only
+# as MixedMesh blocks, and a MixedMesh block is first-order
+_SINGLE_TYPES = ("TET4", "HEX8", "TET10", "TRI3", "QUAD4",
+                 "HEX20", "HEX27", "QUAD8", "QUAD9")
+_BLOCK_TYPES = ("TET4", "HEX8", "PRISM6", "PYRAMID5")
+# the volume types of 2D meshes
+_2D_TYPES = ("TRI3", "QUAD4", "QUAD8", "QUAD9")
 
 
 @dataclasses.dataclass
@@ -122,13 +155,17 @@ class Mesh:
     def nodes_per_elem(self) -> int:
         return NODES_PER_ELEM[self.elem_type]
 
+    @property
+    def dim(self) -> int:
+        return 2 if self.elem_type in _2D_TYPES else 3
+
     def with_coords(self, coords: np.ndarray) -> "Mesh":
         """The same mesh at other node positions."""
         return dataclasses.replace(self, coords=np.asarray(coords,
                                                            dtype=np.float64))
 
     def element_volumes(self) -> np.ndarray:
-        """Exact element volumes (areas on TRI3/QUAD4): TET4 |det J| / 6,
+        """Exact element volumes (areas on a 2D mesh): TET4 |det J| / 6,
         the other types the integral of det J at the default quadrature,
         exact for trilinear hexes (rdcfes_tpu.mesh.core.element_volumes,
         bit-equal)."""
@@ -142,7 +179,7 @@ class Mesh:
 
         qp, qw = elements.quadrature(self.elem_type)
         dN = elements.shape_gradients(self.elem_type, qp)  # (Q, K, d)
-        if self.elem_type in ("TRI3", "QUAD4"):
+        if self.dim == 2:
             X = X[..., :2]  # areas from the in-plane 2x2 Jacobian
         J = np.einsum("ekd,qkr->eqdr", X, dN)
         return np.einsum("eq,q->e", np.linalg.det(J), qw)

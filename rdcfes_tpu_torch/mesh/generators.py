@@ -1,9 +1,10 @@
 """Synthetic structured box meshes (NumPy copies of
-rdcfes_tpu.mesh.generators.box_tet_mesh, box_hex_mesh, box_mixed_mesh and
-tet4_to_tet10, bit-identical output).
+rdcfes_tpu.mesh.generators.box_tet_mesh, box_hex_mesh, box_mixed_mesh,
+box_quad_mesh, box_tri_mesh and tet4_to_tet10, bit-identical output).
 
 Boundary ids by cube face follow the vendored cube.msh side sets:
-0..5 = z-min, y-min, x-max, y-max, x-min, z-max.
+0..5 = z-min, y-min, x-max, y-max, x-min, z-max; a rectangle's edges take
+the in-plane subset (y-min 1, x-max 2, y-max 3, x-min 4).
 """
 
 from __future__ import annotations
@@ -175,6 +176,60 @@ def box_mixed_mesh(nx: int, ny: int, nz: int,
     mesh = MixedMesh(coords=coords, blocks=blocks)
     _assign_box_boundary_ids(mesh, bounds)
     return mesh
+
+
+def _grid2d(nx: int, ny: int, bounds):
+    """Nodes of an (nx + 1) x (ny + 1) grid at z = 0, x fastest, and the
+    (ny, nx) grid of each cell's lower-left node id."""
+    (x0, x1), (y0, y1) = bounds
+    xs = np.linspace(x0, x1, nx + 1)
+    ys = np.linspace(y0, y1, ny + 1)
+    Y, X = np.meshgrid(ys, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], axis=1)
+    j, i = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    return coords, (j * (nx + 1) + i).reshape(-1)
+
+
+def box_quad_mesh(nx: int, ny: int,
+                  bounds=((0.0, 1.0), (0.0, 1.0))) -> Mesh:
+    """Structured QUAD4 rectangle mesh (2D volume elements, z = 0), cells
+    x fastest, each counter-clockwise from its lower-left node."""
+    coords, v00 = _grid2d(nx, ny, bounds)
+    w = nx + 1
+    conn = np.stack([v00, v00 + 1, v00 + w + 1, v00 + w], axis=1)
+    mesh = Mesh(coords=coords, connectivity=conn.astype(np.int32),
+                elem_type="QUAD4",
+                subdomain_id=np.zeros(len(conn), dtype=np.int32))
+    _assign_rect_boundary_ids(mesh, bounds)
+    return mesh
+
+
+def box_tri_mesh(nx: int, ny: int,
+                 bounds=((0.0, 1.0), (0.0, 1.0))) -> Mesh:
+    """Structured TRI3 rectangle mesh: each quad cell split along its
+    (i, j) -> (i+1, j+1) diagonal into two counter-clockwise triangles,
+    the lower one first."""
+    coords, v00 = _grid2d(nx, ny, bounds)
+    w = nx + 1
+    lower = np.stack([v00, v00 + 1, v00 + w + 1], axis=1)
+    upper = np.stack([v00, v00 + w + 1, v00 + w], axis=1)
+    conn = np.stack([lower, upper], axis=1).reshape(-1, 3)
+    mesh = Mesh(coords=coords, connectivity=conn.astype(np.int32),
+                elem_type="TRI3",
+                subdomain_id=np.zeros(len(conn), dtype=np.int32))
+    _assign_rect_boundary_ids(mesh, bounds)
+    return mesh
+
+
+def _assign_rect_boundary_ids(mesh: Mesh, bounds) -> None:
+    (x0, x1), (y0, y1) = bounds
+    tol = 1e-10 * max(x1 - x0, y1 - y0, 1.0)
+    fc = mesh.coords[mesh.boundary_faces].mean(axis=1)  # edge midpoints
+    bid = mesh.boundary_id
+    bid[np.abs(fc[:, 1] - y0) < tol] = _FACE_IDS["ymin"]
+    bid[np.abs(fc[:, 0] - x1) < tol] = _FACE_IDS["xmax"]
+    bid[np.abs(fc[:, 1] - y1) < tol] = _FACE_IDS["ymax"]
+    bid[np.abs(fc[:, 0] - x0) < tol] = _FACE_IDS["xmin"]
 
 
 def tet4_to_tet10(mesh: Mesh) -> Mesh:

@@ -1,26 +1,31 @@
-"""Gmsh 2.x ASCII mesh reader and writer for TET4, HEX8 and TET10 meshes
-and for mixed meshes of TET4, HEX8, PRISM6 and PYRAMID5 (the NumPy parser
-of rdcfes_tpu.mesh.gmsh: the same arrays from a file, the same bytes
+"""Gmsh 2.x ASCII mesh reader and writer for single-type 3D meshes (TET4,
+HEX8, TET10, HEX20, HEX27), 2D meshes (TRI3, QUAD4, QUAD8, QUAD9) and
+mixed meshes of TET4, HEX8, PRISM6 and PYRAMID5 (the NumPy parser of
+rdcfes_tpu.mesh.gmsh: the same arrays from a file, the same bytes
 written).
 
 Format as the C++ reference's writer gives it (src/process_mesh.C:22-83):
 `$MeshFormat 2.2 0 8`, 1-based node ids, two integer tags per element
 (physical id, 0), boundary side elements (TRI3 / QUAD4, physical tag =
-boundary-condition id) before the volume elements (physical tag =
-subdomain id).  Node and element ids are compacted to 0-based indices in
+boundary-condition id; EDGE2 / EDGE3 on a 2D mesh, QUAD8 / QUAD9 on
+HEX20 / HEX27) before the volume elements (physical tag = subdomain id).  Node and element ids are compacted to 0-based indices in
 FILE ORDER: the initial-condition files are read in that order
 (src/pihna.C:287-310).
 
 A file path goes through the native meshkit parser (native/, built with
 the host C++ compiler at first use), as the reference's does
 (rdcfes_tpu/mesh/gmsh.py:66-83); a file it does not take (several volume
-types, TET10), and a text stream, go through the NumPy parser below, the
-plain version, which gives the same arrays.
+types, TET10, a 2D file it cannot classify), and a text stream, go
+through the NumPy parser below, the plain version, which gives the same
+arrays.
 
-Volume elements of one type (TET4, HEX8, TET10) make a Mesh; several
-types make a MixedMesh, one MeshBlock per type in first-seen order, its
-boundary ids from the TRI3 and QUAD4 rows.  HEX20/27 and 2D meshes raise
-NotImplementedError: ROADMAP queue 1 item 13.
+3D volume elements of one type make a Mesh; several types make a
+MixedMesh, one MeshBlock per type in first-seen order, its boundary ids
+from the TRI3 and QUAD4 rows.  A file without 3D volume elements is a 2D
+mesh: its TRI3, QUAD4, QUAD8 or QUAD9 rows are the volume elements (one
+type, else ValueError; TRI6 rows raise ValueError) and its EDGE2 / EDGE3
+rows carry the boundary ids, as the reference classifies them
+(rdcfes_tpu/mesh/gmsh.py:151-190).
 """
 
 from __future__ import annotations
@@ -32,15 +37,21 @@ import numpy as np
 
 from .core import Mesh, MeshBlock, MixedMesh
 
-_ITEM13 = "ROADMAP queue 1 item 13 (the 2D element types and HEX20/27)"
 # Gmsh element type codes
 _VOLUME = {4: ("TET4", 4), 5: ("HEX8", 8), 6: ("PRISM6", 6),
-           7: ("PYRAMID5", 5), 11: ("TET10", 10)}
-_OTHER_VOLUME = {12: "HEX27", 17: "HEX20"}
-_SURFACE = {2: 3, 3: 4, 9: 6}  # boundary rows: TRI3, QUAD4, TRI6
-_SINGLE = ("TET4", "HEX8", "TET10")  # a file of one of these is a Mesh
+           7: ("PYRAMID5", 5), 11: ("TET10", 10), 17: ("HEX20", 20),
+           12: ("HEX27", 27)}
+# boundary rows of a 3D mesh, the volume rows of a 2D one: TRI3, QUAD4,
+# TRI6, QUAD8, QUAD9
+_SURFACE = {2: 3, 3: 4, 9: 6, 16: 8, 10: 9}
+_EDGE = {1: 2, 8: 3}  # EDGE2, EDGE3: the boundary rows of a 2D mesh
+_2D = {3: "TRI3", 4: "QUAD4", 8: "QUAD8", 9: "QUAD9"}  # by node count
+# a file of one of these is a Mesh
+_SINGLE = ("TET4", "HEX8", "TET10", "HEX20", "HEX27")
 _CODE = {name: code for code, (name, _) in _VOLUME.items()}
-_FACE_CODE = {"TET4": 2, "HEX8": 3, "TET10": 9}
+_CODE.update({"TRI3": 2, "QUAD4": 3, "QUAD8": 16, "QUAD9": 10})
+_FACE_CODE = {"TET4": 2, "HEX8": 3, "TET10": 9, "HEX20": 16, "HEX27": 10,
+              "TRI3": 1, "QUAD4": 1, "QUAD8": 8, "QUAD9": 8}
 
 
 def read(path_or_file: Union[str, TextIO]) -> Mesh:
@@ -105,6 +116,7 @@ def _read_lines(lines) -> Mesh:
     kinds = []  # volume element types in first-seen order
     by_type: Dict[str, list] = {}  # type -> [(nodes, physical)]
     surf_conn, surf_bcid = [], []
+    edge_conn, edge_bcid = [], []
     for _ in range(n_elems_total):
         parts = next(lines).split()
         etype = int(parts[1])
@@ -112,30 +124,28 @@ def _read_lines(lines) -> Mesh:
         tags = [int(t) for t in parts[3:3 + ntags]]
         nodes = [id_map[int(g)] for g in parts[3 + ntags:]]
         physical = tags[0] if tags else 0
-        if etype in _VOLUME or etype in _OTHER_VOLUME:
-            name = _VOLUME[etype][0] if etype in _VOLUME \
-                else _OTHER_VOLUME[etype]
+        if etype in _VOLUME:
+            name, k = _VOLUME[etype]
+            if len(nodes) != k:
+                raise ValueError(f"{name} element with {len(nodes)} nodes")
             if name not in kinds:
                 kinds.append(name)
                 by_type[name] = []
-            if etype in _VOLUME:
-                if len(nodes) != _VOLUME[etype][1]:
-                    raise ValueError(f"{name} element with {len(nodes)} "
-                                     "nodes")
-                by_type[name].append((nodes, physical))
+            by_type[name].append((nodes, physical))
         elif etype in _SURFACE:
             if len(nodes) != _SURFACE[etype]:
                 raise ValueError(f"surface element type {etype} with "
                                  f"{len(nodes)} nodes")
             surf_conn.append(nodes)
             surf_bcid.append(physical)
-        # points, edges and other faces carry nothing a 3D mesh uses
+        elif etype in _EDGE:
+            # the boundary of a 2D mesh (unused when the file has 3D
+            # volume elements)
+            edge_conn.append(nodes)
+            edge_bcid.append(physical)
+        # points carry nothing a mesh uses
     if not kinds:
-        raise NotImplementedError(
-            f"mesh without 3D volume elements (a 2D mesh): {_ITEM13}")
-    other = [k for k in kinds if k in _OTHER_VOLUME.values()]
-    if other:
-        raise NotImplementedError(f"volume element types {other}: {_ITEM13}")
+        return _mesh_2d(coords, surf_conn, surf_bcid, edge_conn, edge_bcid)
     arrays = lambda name: (
         np.asarray([r[0] for r in by_type[name]], dtype=np.int32),
         np.asarray([r[1] for r in by_type[name]], dtype=np.int32))
@@ -150,6 +160,30 @@ def _read_lines(lines) -> Mesh:
                                             for name in kinds])
     if surf_conn:
         _attach_boundary_ids_mixed(mesh, surf_conn, surf_bcid)
+    return mesh
+
+
+def _mesh_2d(coords, surf_conn, surf_bcid, edge_conn, edge_bcid) -> Mesh:
+    """A file without 3D volume elements: its TRI3, QUAD4, QUAD8 or QUAD9
+    rows are the volume elements (their physical tags the subdomain ids)
+    and its EDGE2 / EDGE3 rows the boundary, with the reference's errors
+    (rdcfes_tpu/mesh/gmsh.py:151-177)."""
+    bad = sorted({len(f) for f in surf_conn} - set(_2D))
+    if bad:
+        raise ValueError(
+            f"unsupported 2D volume element ({bad[0]}-node surface row; "
+            "TRI3/QUAD4/QUAD8/QUAD9 2D meshes are supported)")
+    kinds = sorted({_2D[len(f)] for f in surf_conn})
+    if not kinds:
+        raise ValueError("mesh contains no supported volume elements")
+    if len(kinds) > 1:
+        raise ValueError("mixed-type 2D meshes are not supported")
+    mesh = Mesh(coords=coords,
+                connectivity=np.asarray(surf_conn, dtype=np.int32),
+                elem_type=kinds[0],
+                subdomain_id=np.asarray(surf_bcid, dtype=np.int32))
+    if edge_conn:
+        _attach_boundary_ids(mesh, edge_conn, edge_bcid)
     return mesh
 
 
@@ -183,8 +217,6 @@ def write(mesh, path_or_file: Union[str, TextIO]) -> None:
     """Write Gmsh 2.2 ASCII: boundary faces first (physical tag = boundary
     id), then the volume elements (physical tag = subdomain id), a
     MixedMesh's block by block."""
-    if mesh.elem_type != "MIXED" and mesh.elem_type not in _FACE_CODE:
-        raise NotImplementedError(f"{mesh.elem_type} meshes: {_ITEM13}")
     if isinstance(path_or_file, str):
         with open(path_or_file, "w") as out:
             _write(mesh, out)

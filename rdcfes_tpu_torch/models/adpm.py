@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fem.weakform import WeakFormBlocks
+from ..fem.weakform import WeakForm, WeakFormBlocks
 from . import response as rf
 
 ADPM_VARS = ("PrP", "A_b", "Tau")
@@ -217,6 +217,13 @@ def adpm_blocks(u_qp, grad_qp, fields, params) -> WeakFormBlocks:
     D = ((z, z, z), (z, D11, z), (z, z, D22))
     Emat = ((z, z, z), (z, E11, z), (z, z, E22))
     return WeakFormBlocks(A=A, B=B, C=C, D=D, E=Emat)
+
+
+def adpm_physics(u_qp, grad_qp, fields, params) -> WeakForm:
+    """The dense WeakForm of adpm_blocks, its structural zeros materialised:
+    the `physics=` form of TransientRDCSystem's dense path
+    (rdcfes_tpu/models/adpm.py:220-223)."""
+    return adpm_blocks(u_qp, grad_qp, fields, params).to_dense()
 
 
 def default_params():

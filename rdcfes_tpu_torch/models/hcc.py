@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fem.weakform import WeakFormBlocks
+from ..fem.weakform import WeakForm, WeakFormBlocks
 from .pihna import _add, _bvec, _gate, _mul, _neg, crowding_factor
 
 HCC_VARS = ("l", "c", "n")
@@ -112,6 +112,13 @@ def hcc_blocks(u_qp: torch.Tensor, grad_qp: torch.Tensor, fields, params
         D=((0.0, 0.0, 0.0), (Dtau_c, D11, 0.0), (0.0, 0.0, 0.0)),
         E=((0.0, 0.0, 0.0), (0.0, E11, 0.0), (0.0, 0.0, 0.0)),
     )
+
+
+def hcc_physics(u_qp, grad_qp, fields, params) -> WeakForm:
+    """The dense WeakForm of hcc_blocks, its structural zeros materialised:
+    the `physics=` form of TransientRDCSystem's dense path
+    (rdcfes_tpu/models/hcc.py:52-132, a dense form of the same formulas)."""
+    return hcc_blocks(u_qp, grad_qp, fields, params).to_dense()
 
 
 def default_params():

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fem.weakform import WeakFormBlocks
+from ..fem.weakform import WeakForm, WeakFormBlocks
 
 PIHNA_VARS = ("n", "c", "h", "v", "a")
 
@@ -284,6 +284,13 @@ def pihna_blocks(u_qp: torch.Tensor, grad_qp: torch.Tensor, fields, params
         (z, z, z, z, z),
     )
     return WeakFormBlocks(A=A, B=B, C=C, D=D, E=E)
+
+
+def pihna_physics(u_qp, grad_qp, fields, params) -> WeakForm:
+    """The dense WeakForm of pihna_blocks, its structural zeros materialised:
+    the `physics=` form of TransientRDCSystem's dense path
+    (rdcfes_tpu/models/pihna.py:299-302)."""
+    return pihna_blocks(u_qp, grad_qp, fields, params).to_dense()
 
 
 def default_params():

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fem.weakform import WeakFormBlocks
+from ..fem.weakform import WeakForm, WeakFormBlocks
 from .response import heaviside
 
 PROTEAS_VARS = ("hos", "tum", "nec", "vsc", "oed")
@@ -179,6 +179,13 @@ def proteas_blocks(u_qp: torch.Tensor, grad_qp: torch.Tensor, fields,
     D = (zr, (D10, D11, Dkap_tum, Dkap_tum, z), zr, zr, zr)
     E = (zr, (E10, E11, z, z, z), zr, zr, (z, z, z, z, E44))
     return WeakFormBlocks(A=A, B=B, C=C, D=D, E=E)
+
+
+def proteas_physics(u_qp, grad_qp, fields, params) -> WeakForm:
+    """The dense WeakForm of proteas_blocks, its structural zeros materialised:
+    the `physics=` form of TransientRDCSystem's dense path
+    (rdcfes_tpu/models/proteas.py:196-198)."""
+    return proteas_blocks(u_qp, grad_qp, fields, params).to_dense()
 
 
 def default_params():

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..fem.weakform import WeakFormBlocks
+from ..fem.weakform import WeakForm, WeakFormBlocks
 
 RIPF_VARS = ("HU", "cc", "fb")
 
@@ -181,6 +181,13 @@ def ripf_blocks(u_qp: torch.Tensor, grad_qp: torch.Tensor, fields,
     D = ((z, z, z), (z, z, z), (z, Dtau_fb, D22))
     E = ((z, z, z), (z, z, z), (E20, z, E22))
     return WeakFormBlocks(A=A, B=B, C=C, D=D, E=E)
+
+
+def ripf_physics(u_qp, grad_qp, fields, params) -> WeakForm:
+    """The dense WeakForm of ripf_blocks, its structural zeros materialised:
+    the `physics=` form of TransientRDCSystem's dense path
+    (rdcfes_tpu/models/ripf.py:184-186)."""
+    return ripf_blocks(u_qp, grad_qp, fields, params).to_dense()
 
 
 def rt_dose_schedule(RT_broad, RT_focus, time, broad_fractions,

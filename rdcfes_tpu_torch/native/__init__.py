@@ -12,7 +12,8 @@ one loads the library already built.  A failed build raises RuntimeError
 with the compiler's output.  Nothing here runs at import time.
 
 `read_gmsh_native` gives the arrays of mesh/gmsh.py's NumPy parser for a
-single-type TET4 or HEX8 Gmsh 2.x file; `build_sparsity_native` those of
+single-type TET4, HEX8, HEX20 or HEX27 Gmsh 2.x file, or a 2D one of
+TRI3, QUAD4, QUAD8 or QUAD9 elements; `build_sparsity_native` those of
 fem/assembly's NumPy sparsity builder.
 """
 
@@ -101,14 +102,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-_GMSH_VOL = {4: ("TET4", 4), 5: ("HEX8", 8)}
-_GMSH_SURF = {2: 3, 3: 4}
+_GMSH_VOL = {4: ("TET4", 4), 5: ("HEX8", 8), 17: ("HEX20", 20),
+             12: ("HEX27", 27), 2: ("TRI3", 3), 3: ("QUAD4", 4),
+             16: ("QUAD8", 8), 10: ("QUAD9", 9)}
+# boundary rows: TRI3, QUAD4, QUAD8, QUAD9 faces, EDGE2, EDGE3 sides
+_GMSH_SURF = {2: 3, 3: 4, 16: 8, 10: 9, 1: 2, 8: 3}
 
 
 def read_gmsh_native(path: str):
     """Parse a Gmsh 2.x ASCII file into a Mesh; ValueError (with the
-    parser's code) on a file it does not take: mixed or other volume
-    types, unknown element codes, a truncated or corrupt file."""
+    parser's code) on a file it does not take: several volume or
+    boundary types, PRISM6, PYRAMID5, TET10, a TRI6 2D file, unknown
+    element codes, a truncated or corrupt file."""
     from ..mesh.core import Mesh
     from ..mesh.gmsh import _attach_boundary_ids
 

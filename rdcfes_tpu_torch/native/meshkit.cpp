@@ -29,15 +29,24 @@ extern "C" {
 // Parses the $Nodes and $Elements sections.  Returns 0 on success.
 // Outputs are allocated with malloc and owned by the caller (free via
 // meshkit_free).
+//
+// A 3D file has one volume type, TET4, HEX8, HEX20 or HEX27 (gmsh 4, 5,
+// 17, 12), and boundary rows of one face type (TRI3, QUAD4, QUAD8, QUAD9:
+// 2, 3, 16, 10).  A file without 3D volume elements is a 2D mesh: its
+// TRI3, QUAD4, QUAD8 or QUAD9 rows are the volume elements and its EDGE2
+// or EDGE3 rows (1, 8) the boundary (mesh/gmsh.py's classification).
+// Anything else (several volume or boundary types, PRISM6, PYRAMID5,
+// TET10, a TRI6 2D file) returns a nonzero code, and mesh/gmsh.py's NumPy
+// parser reads the file or raises the reference's error.
 struct GmshMesh {
   int64_t n_nodes;
   double* coords;        // [n_nodes * 3]
   int64_t n_vol;         // volume elements
-  int32_t vol_type;      // gmsh code: 4 = TET4, 5 = HEX8
+  int32_t vol_type;      // gmsh code of the volume elements
   int32_t* vol_conn;     // [n_vol * k]
   int32_t* vol_phys;     // [n_vol]
   int64_t n_surf;
-  int32_t surf_type;     // 2 = TRI3, 3 = QUAD4
+  int32_t surf_type;     // gmsh code of the boundary rows
   int32_t* surf_conn;    // [n_surf * kf]
   int32_t* surf_phys;    // [n_surf]
 };
@@ -46,9 +55,20 @@ static int gmsh_nnodes(int t) {
   switch (t) {
     case 1: return 2; case 2: return 3; case 3: return 4;
     case 4: return 4; case 5: return 8; case 6: return 6;
-    case 7: return 5; case 15: return 1; default: return -1;
+    case 7: return 5; case 8: return 3; case 9: return 6;
+    case 10: return 9; case 11: return 10; case 12: return 27;
+    case 15: return 1; case 16: return 8; case 17: return 20;
+    default: return -1;
   }
 }
+
+static bool is_volume3d(int t) {
+  return t == 4 || t == 5 || t == 12 || t == 17;
+}
+static bool is_face(int t) {  // 3D boundary rows, 2D volume rows
+  return t == 2 || t == 3 || t == 9 || t == 10 || t == 16;
+}
+static bool is_edge(int t) { return t == 1 || t == 8; }
 
 void meshkit_free(void* p) { free(p); }
 
@@ -117,7 +137,8 @@ int meshkit_read_gmsh(const char* path, GmshMesh* out) {
   };
 
   std::vector<int32_t> vol_conn, vol_phys, surf_conn, surf_phys;
-  int vol_type = -1, surf_type = -1;
+  std::vector<int32_t> edge_conn, edge_phys;
+  int vol_type = -1, surf_type = -1, edge_type = -1;
   for (int64_t e = 0; e < n_elems; ++e) {
     strtoll(s, &end, 10); s = end;              // element id
     int etype = (int)strtol(s, &end, 10); s = end;
@@ -129,38 +150,47 @@ int meshkit_read_gmsh(const char* path, GmshMesh* out) {
     }
     int k = gmsh_nnodes(etype);
     if (k < 0) return fail(5);
-    if (etype == 4 || etype == 5) {             // TET4 / HEX8
-      if (vol_type == -1) vol_type = etype;
-      else if (vol_type != etype) return fail(6);  // mixed volume types
-      for (int i = 0; i < k; ++i) {
-        int64_t g = strtoll(s, &end, 10);
-        if (end == s) return fail(8);
-        s = end;
-        int32_t idx = lookup(g);
-        if (idx < 0) return fail(8);           // unknown/out-of-range node id
-        vol_conn.push_back(idx);
-      }
-      vol_phys.push_back(phys);
-    } else if (etype == 2 || etype == 3) {      // TRI3 / QUAD4
-      if (surf_type == -1) surf_type = etype;
-      for (int i = 0; i < k; ++i) {
-        int64_t g = strtoll(s, &end, 10);
-        if (end == s) return fail(8);
-        s = end;
-        int32_t idx = lookup(g);
-        if (idx < 0) return fail(8);           // unknown/out-of-range node id
-        surf_conn.push_back(idx);
-      }
-      surf_phys.push_back(phys);
-    } else if (etype == 6 || etype == 7) {      // PRISM6 / PYRAMID5
-      // mixed-element meshes take the Python MixedMesh path; bailing out
-      // (instead of skipping) prevents silently dropping volume elements
+    std::vector<int32_t>* conn = nullptr;
+    std::vector<int32_t>* phys_out = nullptr;
+    int* type_slot = nullptr;
+    if (is_volume3d(etype)) {
+      conn = &vol_conn; phys_out = &vol_phys; type_slot = &vol_type;
+    } else if (is_face(etype)) {
+      conn = &surf_conn; phys_out = &surf_phys; type_slot = &surf_type;
+    } else if (is_edge(etype)) {
+      conn = &edge_conn; phys_out = &edge_phys; type_slot = &edge_type;
+    } else if (etype != 15) {
+      // PRISM6, PYRAMID5 (mixed meshes) and TET10 take the NumPy path;
+      // bailing out (instead of skipping) never drops volume elements
       return fail(6);
-    } else {                                    // points / edges: skip
-      for (int i = 0; i < k; ++i) { strtoll(s, &end, 10); s = end; }
     }
+    if (conn == nullptr) {                      // points: skip
+      for (int i = 0; i < k; ++i) { strtoll(s, &end, 10); s = end; }
+      continue;
+    }
+    if (*type_slot == -1) *type_slot = etype;
+    else if (*type_slot != etype) return fail(6);  // mixed types
+    for (int i = 0; i < k; ++i) {
+      int64_t g = strtoll(s, &end, 10);
+      if (end == s) return fail(8);
+      s = end;
+      int32_t idx = lookup(g);
+      if (idx < 0) return fail(8);             // unknown/out-of-range node id
+      conn->push_back(idx);
+    }
+    phys_out->push_back(phys);
   }
-  if (vol_type == -1) return fail(7);
+  if (vol_type == -1) {
+    // a 2D mesh: the face rows are its volume elements (TRI6 ones are
+    // refused), the edge rows its boundary
+    if (surf_type == -1 || surf_type == 9) return fail(7);
+    vol_type = surf_type;
+    vol_conn.swap(surf_conn);
+    vol_phys.swap(surf_phys);
+    surf_type = edge_type;
+    surf_conn.swap(edge_conn);
+    surf_phys.swap(edge_phys);
+  }
 
   out->vol_type = vol_type;
   out->n_vol = (int64_t)vol_phys.size();

@@ -39,6 +39,12 @@ every block's geometry is rebuilt from the `coords` that `step` and
 `run_steps` are given, once per call, and the block-Jacobi inverse with
 it (the reference's _step_moving_impl, rdcfes_tpu/systems/mixed.py:
 311-325); the kernels then run on those geometries.
+
+A dense `physics=` WeakForm runs TransientRDCSystem's dense path over the
+blocks (one Ke per block, their applies restricted by the one K4 table),
+the reference's own path on a MixedMesh; `assemble_scipy` gives the
+global operator and right-hand side as scipy objects, the reference's
+oracle surface (rdcfes_tpu/systems/mixed.py:364-398).
 """
 
 from __future__ import annotations
@@ -64,21 +70,23 @@ class MixedTransientRDCSystem(TransientRDCSystem):
     # (the reference's settings)
     _refine_kw = {"inner_rtol": 1e-7, "adaptive_tol": False}
 
-    def __init__(self, mesh, n_vars: int, physics_blocks: Callable,
+    def __init__(self, mesh, n_vars: int,
+                 physics_blocks: Optional[Callable] = None,
                  clamp: Callable = clamp_nonnegative,
                  rtol: float = DEFAULT_RTOL,
                  maxiter: int = DEFAULT_MAXITER, precision: str = "f64",
                  precond_refresh: int = 1,
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
-                 ops: Ops = KERNEL_OPS, method: str = "bicgstab"):
+                 ops: Ops = KERNEL_OPS, method: str = "bicgstab",
+                 physics: Optional[Callable] = None):
         if mesh.elem_type != "MIXED":
             raise ValueError(f"MixedTransientRDCSystem takes a MixedMesh, "
                              f"got {mesh.elem_type}")
         self._setup(mesh, [(b.elem_type, b.connectivity)
                            for b in mesh.blocks], n_vars, physics_blocks,
                     clamp, rtol, maxiter, precision, precond_refresh,
-                    device, ops, method)
+                    device, ops, method, physics)
         self.moving_mesh = bool(moving_mesh)
         if constraints is not None and len(constraints):
             self.cons = Constraints(constraints, self.device)
@@ -103,3 +111,20 @@ class MixedTransientRDCSystem(TransientRDCSystem):
             else:
                 out[k] = v
         return out
+
+    def assemble_scipy(self, u_T, fields: Optional[Dict] = None,
+                       params: Optional[Dict] = None):
+        """(A, b): the global block-CSR operator as a scipy CSR matrix
+        (V N, V N), species-major, and the right-hand side (V N,), on the
+        host: `assemble`'s values on the node-pair sparsity of the blocks
+        (the reference's assemble_scipy, rdcfes_tpu/systems/
+        mixed.py:364-398, which sums per-block scipy matrices)."""
+        import scipy.sparse as sps
+
+        values, b = self.assemble(u_T, fields, params)
+        values = values.cpu().numpy()
+        V, N, sp = self.n_vars, self.mesh.n_nodes, self.sp
+        A = sps.bmat([[sps.csr_matrix((values[v, w], (sp.rows, sp.cols)),
+                                      shape=(N, N)) for w in range(V)]
+                      for v in range(V)], format="csr")
+        return A, b.cpu().numpy().reshape(V * N)

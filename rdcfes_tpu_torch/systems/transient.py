@@ -1,6 +1,10 @@
-"""Transient linearized-Crank-Nicolson RDC system, matrix-free qp path
-(port of rdcfes_tpu.systems.transient for single-type TET4, HEX8 and
-TET10 meshes; systems/mixed.py runs the same step on a MixedMesh).
+"""Transient linearized-Crank-Nicolson RDC system (port of
+rdcfes_tpu.systems.transient for single-type meshes: TET4, HEX8, TET10,
+HEX20, HEX27 and the 2D TRI3, QUAD4, QUAD8, QUAD9; systems/mixed.py runs
+the same step on a MixedMesh).  Two paths, the reference's: the
+matrix-free qp path of a block form (`physics_blocks`), described first,
+and the dense element-matrix path of a `physics=` WeakForm, described
+at the end.
 
 Per time step, as in the reference app's TransientLinearImplicitSystem
 use (src/pihna.C:66-93):
@@ -49,6 +53,25 @@ moved mesh (src/coupled_hcc.C:114).
 Layouts are channel-first inside (u is (V, N)); the public state keeps the
 reference's (N, V) arrays.  PyTorch runs eagerly, so the step is plain
 Python: the reference's jit/scan machinery has no counterpart here.
+
+The dense path (rdcfes_tpu/systems/transient.py:435-561) serves a
+`physics` callable that returns a dense fem.weakform.WeakForm: `step`
+takes it when the system has no block form or a param is not a plain
+number, as the reference's dispatch does (:1245-1272).  Per step each
+block's u is gathered and interpolated (K1 or K8), the physics gives the
+WeakForm, fem.weakform.element_vectors and element_matrices (plain
+torch, as the reference leaves them to XLA) give Fe (V, K, E), the
+element matrices Ke (V, V, K, K, E) and their (i, i) blocks; K4
+restricts Fe to b and the diagonal blocks to the block-Jacobi diagonal,
+and every matvec applies Ke per element (one batched product) and
+restricts the result with K4.  `assemble` restricts Ke onto the
+(V, V, nnz) values of the node-pair sparsity with K4 over its slot table
+(W = V * V), as the solid's tangent is assembled.  On a moving mesh the
+dense step rebuilds the geometry and the inverse from `coords` every
+call (the reference's _step_moving).  The reference's dense path applies
+no hanging-node constraints (its _solve_clamped ignores them), and
+neither does this one: `constraints=` acts on the qp path only.
+`run_steps` needs the block form, as the reference's does.
 """
 
 from __future__ import annotations
@@ -60,13 +83,15 @@ import numpy as np
 import torch
 
 from ..fem import elements
-from ..fem.assembly import block_node_gather
+from ..fem.assembly import (block_node_gather, build_sparsity,
+                            build_sparsity_mixed, invert_scatter)
 from ..fem.constraints import Constraints  # noqa: F401 (re-exported)
 from ..fem.geometry import geometry_factors
 from ..fem.kernels import (KERNEL_OPS, Ops, stack_apply, stack_apply_generic,
                            stack_rhs)
 from ..fem.weakform import (block_diag, block_diag_affine, block_rhs,
-                            diffusion_presum)
+                            diffusion_presum, element_matrices,
+                            element_vectors)
 from ..mesh.core import Mesh
 from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
                               apply_block_jacobi, bicgstab, gmres,
@@ -74,18 +99,19 @@ from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
 from ..utils.convert import state_from_numpy, state_to_numpy
 from ..utils.device import cuda_device
 
-# where the unported element types land (ROADMAP.md, queue 1)
-_ITEM13 = "ROADMAP queue 1 item 13 (the 2D element types and HEX20/27)"
-# TET4 affine (K1-K3); the others generic (K8, K6 at their (K, Q))
-_ELEMENT_TYPES = ("TET4", "HEX8", "TET10")
+# TET4 and TRI3 affine (K1-K3); the others generic (K8, K6 at their
+# (K, Q))
+_AFFINE_TYPES = ("TET4", "TRI3")
+_ELEMENT_TYPES = ("TET4", "HEX8", "TET10", "HEX20", "HEX27", "TRI3",
+                  "QUAD4", "QUAD8", "QUAD9")
 _METHODS = {"bicgstab": bicgstab, "gmres": gmres}
 
 
 class Geometry(NamedTuple):
     """The coordinate-dependent tables of a step.  dphi is what the
     kernels take: one gradient per element, dphi[0] (K, 3, E), on the
-    affine TET4 path (q-invariant there), the per-q tables (Q, K, 3, E)
-    on the other types."""
+    affine (TET4, TRI3) path (q-invariant there), the per-q tables
+    (Q, K, 3, E) on the other types."""
     JxW: torch.Tensor      # (Q, E) f64
     dphi: torch.Tensor     # f64
     JxW32: torch.Tensor    # the f32 casts of the inner matvec
@@ -94,13 +120,14 @@ class Geometry(NamedTuple):
 
 class ElementBlock:
     """The elements of one type in a system: connectivity, phi and the
-    kernel calls of a step's element stages.  TET4 is affine: K1, K2, K3,
-    with dphi one gradient per element (K, 3, E); the other types run K8,
-    fem.weakform.block_rhs and K6 on the per-q dphi (Q, K, 3, E)."""
+    kernel calls of a step's element stages.  TET4 and TRI3 are affine:
+    K1, K2, K3, with dphi one gradient per element (K, 3, E); the other
+    types run K8, fem.weakform.block_rhs and K6 on the per-q dphi
+    (Q, K, 3, E)."""
 
     def __init__(self, elem_type: str, conn: np.ndarray, device):
         self.elem_type = elem_type
-        self.affine = elem_type == "TET4"
+        self.affine = elem_type in _AFFINE_TYPES
         self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
                                       device=device)
         self.phi = elements.tabulate(elem_type)[0]  # coordinate-free
@@ -150,6 +177,38 @@ class ElementBlock:
         """The gather + element apply of x (V, N) -> Ye (V, K, E)."""
         fn = ops.apply_affine if self.affine else ops.apply_generic
         return fn(x, self.conn_T, self.phi, JxW, dphi, st)
+
+    # the dense path
+    def element_kernels(self, wf, g: Geometry):
+        """(Fe (V, K, E), Ke (V, V, K, K, E), diag_e (V, V, K, E)) of a
+        dense WeakForm (the reference's _element_kernels: the affine types
+        take element_matrices' grad_const route)."""
+        dphi = g.dphi
+        if self.affine:
+            dphi = dphi[None].expand((len(self.phi),) + tuple(dphi.shape))
+        Fe = element_vectors(wf, self.phi, g.JxW, dphi)
+        Ke, diag_e = element_matrices(wf, self.phi, g.JxW, dphi,
+                                      grad_const=self.affine,
+                                      return_diag=True)
+        return Fe, Ke, diag_e
+
+    @staticmethod
+    def batched(Ke: torch.Tensor) -> torch.Tensor:
+        """Ke (V, W, K, K, E) as (E, V K, W K): one matrix per element,
+        rows (v, i), columns (w, j), the layout `dense_apply` multiplies."""
+        V, W, K, _, E = Ke.shape
+        return Ke.permute(4, 0, 2, 1, 3).reshape(E, V * K, W * K)
+
+    def dense_apply(self, KeB: torch.Tensor, x: torch.Tensor
+                    ) -> torch.Tensor:
+        """Ye[v, i, e] = sum_{w, j} Ke[v, w, i, j, e] x[w, conn[e, j]]:
+        the gather and one batched product (the reference's
+        _elem_matvec), x (W, N) in KeB's dtype -> Ye (V, K, E)."""
+        W = x.shape[0]
+        K, E = self.conn_T.shape
+        ue = x[:, self.conn_T].permute(2, 0, 1).reshape(E, W * K, 1)
+        ye = torch.bmm(KeB, ue)  # (E, V K, 1)
+        return ye.reshape(E, -1, K).permute(1, 2, 0)
 
 
 def clamp_nonnegative(u: torch.Tensor) -> torch.Tensor:
@@ -207,15 +266,21 @@ def refine_mixed(mv32: Callable, pre_matvec64: Callable,
 
 
 class TransientRDCSystem:
-    """A transient multi-species RDC system on a single-type TET4, HEX8 or
-    TET10 mesh, fixed or moving, stepped on the matrix-free qp path.
+    """A transient multi-species RDC system on a single-type mesh (TET4,
+    HEX8, TET10, HEX20, HEX27, or the 2D TRI3, QUAD4, QUAD8, QUAD9), fixed
+    or moving, stepped on the matrix-free qp path or the dense
+    element-matrix path.
 
-    mesh            : host Mesh (TET4: the affine path; HEX8 and TET10:
-                      the generic path with per-q shape gradients)
+    mesh            : host Mesh (TET4 and TRI3: the affine path; the
+                      others the generic path with per-q shape gradients)
     n_vars          : number of coupled nodal variables V
     physics_blocks  : callable(u_qp (V,Q,E), grad_qp (V,Q,3,E), fields,
                       params) -> WeakFormBlocks (e.g. models.pihna,
-                      models.adpm)
+                      models.adpm), the qp path's form; or None
+    physics         : callable of the same arguments -> a dense WeakForm
+                      (e.g. models.pihna.pihna_physics), the dense path's
+                      form (keyword; the reference's third argument); at
+                      least one of the two is required
     clamp           : callable(u (V,N)) -> (V,N), applied after each solve
     rtol, maxiter   : linear tolerance on the preconditioned residual, and
                       the iteration cap of the f64 solve or rescue
@@ -238,27 +303,31 @@ class TransientRDCSystem:
                       plain torch versions of the same operations
 
     `fields` of step/run_steps: tensors on the system's device (ADPM's
-    "tracts" (E, 3)) and Python floats ("time").
+    "tracts" (E, 3)) and Python floats ("time").  `step` takes the qp
+    path when physics_blocks is given and every param is a plain number,
+    the dense path otherwise.
     """
 
     # refine_mixed's inner-pass settings (its defaults here)
     _refine_kw: Dict = {}
 
-    def __init__(self, mesh: Mesh, n_vars: int, physics_blocks: Callable,
+    def __init__(self, mesh: Mesh, n_vars: int,
+                 physics_blocks: Optional[Callable] = None,
                  clamp: Callable = clamp_nonnegative,
                  rtol: float = DEFAULT_RTOL,
                  maxiter: int = DEFAULT_MAXITER, precision: str = "f64",
                  precond_refresh: int = 1,
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
-                 ops: Ops = KERNEL_OPS, method: str = "bicgstab"):
+                 ops: Ops = KERNEL_OPS, method: str = "bicgstab",
+                 physics: Optional[Callable] = None):
         if mesh.elem_type not in _ELEMENT_TYPES:
-            raise NotImplementedError(
+            raise ValueError(
                 f"{mesh.elem_type} meshes in TransientRDCSystem (a "
-                f"MixedMesh goes to systems.mixed): {_ITEM13}")
+                f"MixedMesh goes to systems.mixed.MixedTransientRDCSystem)")
         self._setup(mesh, [(mesh.elem_type, mesh.connectivity)], n_vars,
                     physics_blocks, clamp, rtol, maxiter, precision,
-                    precond_refresh, device, ops, method)
+                    precond_refresh, device, ops, method, physics)
         dev = self.device
         self.moving_mesh = bool(moving_mesh)
         self.cons = (Constraints(constraints, dev)
@@ -270,10 +339,14 @@ class TransientRDCSystem:
 
     def _setup(self, mesh, element_blocks, n_vars, physics_blocks, clamp,
                rtol, maxiter, precision, precond_refresh, device, ops,
-               method) -> None:
+               method, physics) -> None:
         """What every system keeps: the settings, one ElementBlock per
         (elem_type, connectivity) in the global element order, their
         rest geometries and the one K4 table over their corners."""
+        if physics_blocks is None and physics is None:
+            raise ValueError("a transient system needs physics_blocks (a "
+                             "WeakFormBlocks callable) or physics= (a "
+                             "WeakForm callable)")
         if precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         if method not in _METHODS:
@@ -282,6 +355,7 @@ class TransientRDCSystem:
         self.method = method
         self.n_vars = n_vars
         self.physics_blocks = physics_blocks
+        self.physics = physics
         self.clamp = clamp
         self.rtol = rtol
         self.maxiter = maxiter
@@ -293,6 +367,7 @@ class TransientRDCSystem:
         self.cons = None
         self._dinv_cache = None
         self._steps_since_precond = 0
+        self._slot_gather = None  # assemble's K4 table, made at first use
         dev = self.device
         self.blocks = [ElementBlock(t, conn, dev) for t, conn in element_blocks]
         self.node_gather = torch.as_tensor(
@@ -345,12 +420,14 @@ class TransientRDCSystem:
         """The fields block bi's physics sees: on one block, `fields`."""
         return fields
 
-    def _restrict(self, parts, W: int) -> torch.Tensor:
+    def _restrict(self, parts, W: int, table=None) -> torch.Tensor:
         """K4 of the blocks' corner values parts[b] (..., K_b, E_b),
-        flattened to (W, K_b E_b) and concatenated in block order."""
+        flattened to (W, K_b E_b) and concatenated in block order, through
+        `table` (default the node table)."""
         flat = [p.reshape(W, -1) for p in parts]
         flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
-        return self.ops.restrict(flat, self.node_gather)
+        return self.ops.restrict(flat, self.node_gather if table is None
+                                 else table)
 
     def _matvec(self, x, stacks, geoms, f32: bool):
         """Matrix-free operator: each block's gather + element apply (K3
@@ -426,11 +503,119 @@ class TransientRDCSystem:
                      "u_older": state["u_old"], "u_raw": u_raw.T}
         return new_state, iters, resid, Dinv
 
+    # ------------------------------------------------------------------
+    # the dense element-matrix path
+    # ------------------------------------------------------------------
+    def _element_kernels(self, u_T, fields, params, geoms=None,
+                         physics=None):
+        """Per block (Fe, Ke, diag_e) of the dense WeakForm `physics`
+        (default self.physics) at the channel-first u_T (V, N) (the
+        reference's _element_kernels, rdcfes_tpu/systems/
+        transient.py:452-470)."""
+        physics = physics or self.physics
+        if physics is None:
+            raise ValueError("the dense path needs physics= (a WeakForm "
+                             "callable); the block form's qp path needs "
+                             "plain-scalar params")
+        geoms = self.geoms if geoms is None else geoms
+        out = []
+        for bi, (blk, g) in enumerate(zip(self.blocks, geoms)):
+            u_qp, grad_qp = blk.interp(self.ops, u_T, g)
+            wf = physics(u_qp, grad_qp, self._fields_for_block(bi, fields),
+                         params)
+            out.append(blk.element_kernels(wf, g))
+        return out
+
+    def _dense_matvec(self, x, KeBs):
+        """The dense operator: each block's batched element apply, then
+        K4 (the reference's _elem_matvec)."""
+        return self._restrict([blk.dense_apply(KB, x)
+                               for blk, KB in zip(self.blocks, KeBs)],
+                              self.n_vars)
+
+    def _dense_body(self, state, fields, params, Dinv, geoms=None):
+        """One dense step (the reference's _step_impl, _step_reuse_impl and
+        _step_moving_impl with _solve_clamped and _solve_mixed).  Dinv
+        None = build a fresh block-Jacobi inverse.  Returns (new_state,
+        inner iterations, residual, Dinv)."""
+        V, N = self.n_vars, self.mesh.n_nodes
+        kern = self._element_kernels(state["u"].T.contiguous(), fields,
+                                     params, geoms)
+        b = self._restrict([Fe for Fe, _, _ in kern], V)
+        if Dinv is None:
+            D = self._restrict([d for _, _, d in kern],
+                               V * V).reshape(V, V, N)
+            Dinv = small_block_inverse(D, pivot=False)
+        KeBs = [ElementBlock.batched(Ke) for _, Ke, _ in kern]
+        del kern
+        pre_matvec = lambda x: apply_block_jacobi(
+            Dinv, self._dense_matvec(x, KeBs))
+        pre_b = apply_block_jacobi(Dinv, b)
+        x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
+        if self.precision == "mixed":
+            f32 = torch.float32
+            KeB32 = [KB.to(f32) for KB in KeBs]
+            Dinv32 = Dinv.to(f32)
+            mv32 = lambda x: apply_block_jacobi(
+                Dinv32, self._dense_matvec(x, KeB32))
+            u_raw, iters, resid = refine_mixed(mv32, pre_matvec, pre_b, x0,
+                                               self.rtol, self.maxiter,
+                                               **self._refine_kw)
+        else:
+            r = _METHODS[self.method](pre_matvec, pre_b, x0=x0,
+                                      rtol=self.rtol, maxiter=self.maxiter)
+            u_raw, iters, resid = r.x, r.iters, r.residual
+        u_new = self.clamp(u_raw)
+        new_state = {"u": u_new.T, "u_old": state["u"],
+                     "u_older": state["u_old"], "u_raw": u_raw.T}
+        return new_state, iters, resid, Dinv
+
+    def _assembly_tables(self):
+        """The node-pair sparsity and the K4 table (C, nnz) int32 that
+        gathers the blocks' concatenated flat Ke buffers onto its slots,
+        made at the first `assemble`."""
+        if self._slot_gather is None:
+            N = self.mesh.n_nodes
+            if self.mesh.elem_type == "MIXED":
+                self.sp, slot_lists = build_sparsity_mixed(self.mesh.blocks,
+                                                           N)
+            else:
+                self.sp = build_sparsity(self.mesh.connectivity, N)
+                slot_lists = [self.sp.slots_flat_cf()]
+            self._slot_gather = torch.as_tensor(
+                invert_scatter(np.concatenate(slot_lists), self.sp.nnz),
+                device=self.device)
+        return self.sp, self._slot_gather
+
+    def assemble(self, u_T, fields: Optional[Dict] = None,
+                 params: Optional[Dict] = None, geom=None):
+        """(values (V, V, nnz), rhs (V, N)) of one linearized-CN step from
+        the channel-first u_T (V, N): the dense WeakForm's element
+        matrices gathered onto the slots of the node-pair sparsity
+        `self.sp` (pairs sorted by (row, col)) and its element vectors
+        onto the nodes, both by K4 (the reference's assemble,
+        rdcfes_tpu/systems/transient.py:435-450).  The WeakForm is
+        `physics`, or the block form's to_dense() on a system without one.
+        geom: the blocks' Geometry records (default the rest geometry)."""
+        V = self.n_vars
+        _, slot_gather = self._assembly_tables()
+        u_T = torch.as_tensor(u_T, dtype=torch.float64, device=self.device)
+        physics = self.physics or (lambda *a: self.physics_blocks(*a)
+                                   .to_dense())
+        kern = self._element_kernels(u_T.contiguous(), fields or {},
+                                     params or {}, geom, physics)
+        values = self._restrict([Ke for _, Ke, _ in kern], V * V,
+                                slot_gather).reshape(V, V, -1)
+        b = self._restrict([Fe for Fe, _, _ in kern], V)
+        return values, b
+
     @staticmethod
-    def _plain_params(params) -> Dict[str, float]:
+    def _plain_params(params) -> Optional[Dict[str, float]]:
+        """params as floats when every one is a plain number (what the qp
+        path takes), else None."""
         if not params or not all(isinstance(v, (int, float))
                                  for v in params.values()):
-            raise ValueError("the qp path needs plain-scalar params")
+            return None
         return {k: float(v) for k, v in params.items()}
 
     # ------------------------------------------------------------------
@@ -438,24 +623,30 @@ class TransientRDCSystem:
              params: Optional[Dict] = None, coords=None,
              scalars: Optional[Dict] = None):
         """Advance one time step.  Returns (new_state, lin_iters,
-        lin_residual).  The block-Jacobi inverse is rebuilt on the first
-        call and then every `precond_refresh` calls; on a moving mesh, on
-        every call, with the geometry at `coords` (the reference's
-        _step_moving, served here on the qp path with the same
-        operator)."""
+        lin_residual).  The qp path when the system has physics_blocks and
+        every param is a plain number, else the dense path (the
+        reference's dispatch).  The block-Jacobi inverse is rebuilt on the
+        first call and then every `precond_refresh` calls; on a moving
+        mesh, on every call, with the geometry at `coords` (the
+        reference's _step_moving, served on the qp path with the same
+        operator when there is a block form)."""
         geoms = self._moving_geoms(coords)
         fields = {**(fields or {}), **(scalars or {})}
         p = self._plain_params(params)
+        if self.physics_blocks is not None and p is not None:
+            body = self._step_body
+        else:
+            body, p = self._dense_body, dict(params or {})
         if geoms is not None:
             self._dinv_cache = None  # it belongs to another geometry
-            return self._step_body(state, fields, p, None, geoms)[:3]
+            return body(state, fields, p, None, geoms)[:3]
         if (self.precond_refresh > 1 and self._dinv_cache is not None
                 and self._steps_since_precond < self.precond_refresh):
             self._steps_since_precond += 1
-            new_state, iters, res, _ = self._step_body(state, fields, p,
-                                                       self._dinv_cache)
+            new_state, iters, res, _ = body(state, fields, p,
+                                            self._dinv_cache)
             return new_state, iters, res
-        new_state, iters, res, Dinv = self._step_body(state, fields, p, None)
+        new_state, iters, res, Dinv = body(state, fields, p, None)
         self._dinv_cache = Dinv
         self._steps_since_precond = 1
         return new_state, iters, res
@@ -529,6 +720,9 @@ class TransientRDCSystem:
         calls), and the block-Jacobi inverse cached by `step` is dropped
         (the reference's run_steps(coords=), rdcfes_tpu/systems/
         transient.py:1124-1130)."""
+        if self.physics_blocks is None:
+            raise ValueError("run_steps needs physics_blocks (the qp "
+                             "path), as the reference's does")
         n = int(n)
         if subcycle not in (None, 1):
             k = (self.choose_subcycle(state, fields=fields, params=params,
@@ -556,6 +750,8 @@ class TransientRDCSystem:
                 raise ValueError(f"scalar_traj[{k!r}] must have shape "
                                  f"({n},), got {v.shape}")
         p = self._plain_params(params)
+        if p is None:
+            raise ValueError("the qp path needs plain-scalar params")
         geoms = self._moving_geoms(coords)
         if geoms is not None:
             self._dinv_cache = None

@@ -1,1 +1,6 @@
-"""Scalar helpers, device selection and NumPy conversion."""
+"""Scalar helpers, device selection, NumPy conversion and inverse-distance
+interpolation."""
+
+from .ida import inverse_distance_interpolate
+
+__all__ = ["inverse_distance_interpolate"]

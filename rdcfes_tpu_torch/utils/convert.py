@@ -1,6 +1,6 @@
-"""Move meshes (single-type and mixed), coefficient blocks, material
-tables, positions, step fields and solver state between NumPy and the
-port, so both packages can be fed identical data.
+"""Move meshes (single-type and mixed), weak forms (block and dense),
+material tables, positions, step fields and solver state between NumPy
+and the port, so both packages can be fed identical data.
 
 The state dict is the one rdcfes_tpu's TransientRDCSystem.gather_state
 returns: keys u, u_old, u_older, u_raw, each (N, V) float64.  Solid
@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..fem.weakform import WeakFormBlocks, _is_zero
+from ..fem.weakform import WeakForm, WeakFormBlocks, _is_zero
 from ..mesh.core import Mesh, MeshBlock, MixedMesh
 
 
@@ -132,3 +132,12 @@ def blocks_from_numpy(A, B, C, D, E, device,
         D=tuple(tuple(f(d) for d in row) for row in D),
         E=tuple(tuple(f(e) for e in row) for row in E),
     )
+
+
+def weakform_from_numpy(wf, device,
+                        dtype: torch.dtype = torch.float64) -> WeakForm:
+    """The port's WeakForm from any object with fields A..E of NumPy-
+    convertible arrays or None (e.g. an rdcfes_tpu WeakForm)."""
+    f = lambda x: None if x is None else torch.as_tensor(
+        np.asarray(x), dtype=dtype, device=device)
+    return WeakForm(A=f(wf.A), B=f(wf.B), C=f(wf.C), D=f(wf.D), E=f(wf.E))

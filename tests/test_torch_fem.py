@@ -90,9 +90,22 @@ def test_geometry_factors_match(case):
     assert np.array_equal(phi, case["phi"])
     assert rel(JxW, case["JxW"]) < TOL
     assert rel(dphi, case["dphi"]) < TOL
-    with pytest.raises(NotImplementedError):  # HEX20: ROADMAP item 13
+    # HEX20 runs the general route, as the reference's does
+    from rdcfes_tpu.mesh import box_hex_mesh as jax_box_hex_mesh
+    from tests.elevate import elevate_hex
+
+    hm = jax_box_hex_mesh(2, 1, 1)
+    x20, conn20 = elevate_hex(hm.coords, hm.connectivity, False)
+    x20 = x20 + 0.02 * case["rng"].standard_normal(x20.shape)
+    ref = jgeo.geometry_factors(jnp.asarray(x20), jnp.asarray(conn20),
+                                "HEX20")
+    out = geometry.geometry_factors(_t(x20), torch.as_tensor(conn20),
+                                    "HEX20")
+    assert np.array_equal(out[0], ref[0])
+    assert rel(out[1], ref[1]) < TOL and rel(out[2], ref[2]) < TOL
+    with pytest.raises(ValueError, match="no volume element"):
         geometry.geometry_factors(_t(m.coords), torch.as_tensor(
-            m.connectivity), "HEX20")
+            m.connectivity), "EDGE2")
 
 
 def test_interpolate_ue_affine_matches(case):

@@ -7,8 +7,11 @@ through the kernels against the same runs through the plain versions; K6
 generic gather + interpolation) the same way, and ADPM steps on HEX8
 through K8, K6 and K4; the K6 and K8 instances of PRISM6, PYRAMID5 and
 TET10 (f32 within 1e-6) and three MixedTransientRDCSystem steps and a
-TET10 step through the kernels against the plain versions; K6 at 1 to 8 species on a mesh whose element count
-is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
+TET10 step through the kernels against the plain versions; the K1-K3
+instances of TRI3 and the K6 and K8 instances of QUAD4, QUAD8, QUAD9,
+HEX20 and HEX27, PIHNA steps on TRI3, QUAD9 and HEX27 and a dense-path
+step and `assemble` through the kernels against the plain versions; K6
+at 1 to 8 species on a mesh whose element count is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
 and HEX8 ELL structures and on widths and block shapes outside them, two
 launches bit-equal and one on a side stream, also on the solid's TET10
 and mixed structures; a solid load step on a MixedMesh, on TET10 and
@@ -27,14 +30,18 @@ import torch
 from rdcfes_tpu_torch.fem import assembly, bcsr, kernels, weakform
 from rdcfes_tpu_torch.fem.geometry import geometry_factors
 from rdcfes_tpu_torch.mesh import (box_hex_mesh, box_mixed_mesh,
-                                   box_tet_mesh, tet4_to_tet10)
+                                   box_quad_mesh, box_tet_mesh, box_tri_mesh,
+                                   tet4_to_tet10)
+from rdcfes_tpu_torch.mesh.core import Mesh
 from rdcfes_tpu_torch.models import adpm
-from rdcfes_tpu_torch.models.pihna import default_params, pihna_blocks
+from rdcfes_tpu_torch.models.pihna import (default_params, pihna_blocks,
+                                           pihna_physics)
 from rdcfes_tpu_torch.solvers.newton import NewtonOptions
 from rdcfes_tpu_torch.systems import (MixedTransientRDCSystem,
                                       TransientRDCSystem)
 from rdcfes_tpu_torch.systems.solid import SolidSystem
 from rdcfes_tpu_torch.utils.convert import blocks_from_numpy
+from elevate import elevate_hex, elevate_quad  # tests/elevate.py
 
 pytestmark = pytest.mark.gpu
 V = 5
@@ -569,6 +576,14 @@ def _prism_block(n):
 
 def _block(elem_type):
     """(coords, conn) of a small block of one element type."""
+    if elem_type in ("QUAD4", "QUAD8", "QUAD9"):
+        m = box_quad_mesh(7, 5)
+        if elem_type == "QUAD4":
+            return m.coords, m.connectivity
+        return elevate_quad(m.coords, m.connectivity, elem_type == "QUAD9")
+    if elem_type in ("HEX20", "HEX27"):
+        m = box_hex_mesh(3, 3, 2)
+        return elevate_hex(m.coords, m.connectivity, elem_type == "HEX27")
     if elem_type == "PRISM6":
         return _prism_block(3)
     if elem_type == "TET10":
@@ -579,7 +594,9 @@ def _block(elem_type):
     return m.coords, b.connectivity
 
 
-NEW_TYPES = {"PYRAMID5": "pyramid5", "PRISM6": "prism6", "TET10": "tet10"}
+NEW_TYPES = {"PYRAMID5": "pyramid5", "PRISM6": "prism6", "TET10": "tet10",
+             "QUAD4": "quad4", "QUAD8": "quad8", "QUAD9": "quad9",
+             "HEX20": "hex20", "HEX27": "hex27"}
 
 
 def _elem_case(dev, elem_type, n_vars=V):
@@ -610,8 +627,9 @@ def _elem_case(dev, elem_type, n_vars=V):
                                        (torch.float32, 1e-6)])
 def test_apply_generic_new_instances_match_plain(cuda, elem_type, dtype,
                                                  tol):
-    """K6 at PYRAMID5 (5, 8), PRISM6 (6, 8) and TET10 (10, 14): one launch
-    counted under the variant and under the instance."""
+    """K6 at PYRAMID5 (5, 8), PRISM6 (6, 8), TET10 (10, 14), QUAD4 (4, 4),
+    QUAD8 (8, 9), QUAD9 (9, 9), HEX20 (20, 27) and HEX27 (27, 27): one
+    launch counted under the variant and under the instance."""
     c = _elem_case(cuda, elem_type)
     wfb = blocks_from_numpy(*c["blocks"], cuda, dtype=dtype)
     JxW, dphi, x = c["JxW"].to(dtype), c["dphi"].to(dtype), c["x"].to(dtype)
@@ -632,8 +650,8 @@ def test_apply_generic_new_instances_match_plain(cuda, elem_type, dtype,
 
 @pytest.mark.parametrize("elem_type", list(NEW_TYPES))
 def test_gather_interp_generic_new_instances_match_plain(cuda, elem_type):
-    """K8 at PYRAMID5, PRISM6 and TET10, within 1e-13 of its plain
-    version."""
+    """K8 at PYRAMID5, PRISM6, TET10, QUAD4, QUAD8, QUAD9, HEX20 and
+    HEX27, within 1e-13 of its plain version."""
     c = _elem_case(cuda, elem_type)
     inst = f"gather_interp_generic_f64:{NEW_TYPES[elem_type]}"
     before = kernels.launch_counts()[inst]
@@ -695,3 +713,138 @@ def test_mixed_and_tet10_kernel_path_matches_plain_path(cuda, mesh_kind):
         assert np.linalg.norm(ua - ub) / np.linalg.norm(ub) < 1e-10
     n = kernels.launch_counts()
     assert all(n[k] > 0 for k in want), {k: n[k] for k in want}
+
+
+def _pihna_live_params():
+    p = default_params()
+    Kk = 2.39e5
+    p.update(dt=0.1, cells_min_capacity=1.0, cells_max_capacity=Kk,
+             cells_max_capacity_exponent=3.0, cytokines_max_capacity=1e-8,
+             necrosis_c=500 / Kk, necrosis_h=200 / Kk, necrosis_v=300 / Kk,
+             produce_c=-2.5, switch_c2h=1.0, switch_h2c=1.82,
+             switch_h2n=0.5, diffuse_c=0.5, taxis_c=2e-5, diffuse_h=1.0,
+             taxis_h=4e-5, diffuse_v=0.5, taxis_v=1e-4, produce_v=10.0,
+             secrete_a_c=2.77e-13, secrete_a_h=5.22e-10, uptake_a_v=1e-3,
+             decay_a=5678.4)
+    return {k: float(v) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_affine_tri3_instances_match_plain(cuda, dtype, tol):
+    """K1, K2 and K3 at TRI3's (K, Q) = (3, 4), each launch counted under
+    the instance; an affine (K, Q) with no instance raises."""
+    m = box_tri_mesh(9, 7, bounds=((0, 2.0), (0, 3.0)))
+    rng = np.random.default_rng(13)
+    coords = m.coords.copy()
+    coords[:, :2] += 0.02 * rng.standard_normal((m.n_nodes, 2))
+    phi, JxW, dphi = geometry_factors(torch.as_tensor(coords, device=cuda),
+                                      torch.as_tensor(m.connectivity,
+                                                      device=cuda), "TRI3")
+    Q, E = JxW.shape
+    on = lambda v, w: (v + 2 * w) % 3 != 1
+    blk = lambda tail, s: [[rng.standard_normal(tail) if on(v, w + s)
+                            else 0.0 for w in range(V)] for v in range(V)]
+    blocks = ([rng.standard_normal((Q, E)) for _ in range(V)],
+              [rng.standard_normal((Q, 3, E)) if v % 2 else 0.0
+               for v in range(V)],
+              blk((Q, E), 0), blk((Q, 3, E), 1), blk((Q, E), 2))
+    conn_T = torch.as_tensor(np.ascontiguousarray(m.connectivity.T),
+                             device=cuda)
+    x = torch.as_tensor(rng.standard_normal((V, m.n_nodes)), device=cuda)
+    dphi0 = dphi[0].contiguous()
+    before = kernels.launch_counts()
+    if dtype == torch.float64:
+        wfb = blocks_from_numpy(*blocks, cuda)
+        out = kernels.gather_interp_affine(x, conn_T, phi, dphi0)
+        ref = kernels.gather_interp_affine_plain(x, conn_T, phi, dphi0)
+        assert all(rel(o, r) < tol for o, r in zip(out, ref))
+        rhs = kernels.stack_rhs(wfb)
+        Fe = kernels.rhs_affine(rhs, JxW, phi, dphi0)
+        assert rel(Fe, kernels.rhs_affine_plain(rhs, JxW, phi, dphi0)) < tol
+    wfb = blocks_from_numpy(*blocks, cuda, dtype=dtype)
+    J, d0, xx = JxW.to(dtype), dphi0.to(dtype), x.to(dtype)
+    st = kernels.stack_apply(wfb, weakform.diffusion_presum(wfb, J))
+    Ye = kernels.apply_affine(xx, conn_T, phi, J, d0, st)
+    torch.cuda.synchronize()
+    assert rel(Ye, kernels.apply_affine_plain(xx, conn_T, phi, J, d0,
+                                              st)) < tol
+    tag = "f32" if dtype == torch.float32 else "f64"
+    after = kernels.launch_counts()
+    names = [f"apply_affine_{tag}:tri3"] + (
+        ["gather_interp_affine_f64:tri3", "rhs_affine_f64:tri3"]
+        if dtype == torch.float64 else [])
+    assert all(after[n] == before[n] + 1 for n in names)
+    with pytest.raises(ValueError, match="no kernel for K=3, Q=5"):
+        kernels.gather_interp_affine(x, conn_T, np.ones((5, 3)), dphi0)
+
+
+def _slice6_mesh(kind):
+    b = ((0, 30.0), (0, 30.0))
+    if kind == "TRI3":
+        return box_tri_mesh(6, 5, bounds=b)
+    if kind == "QUAD9":
+        q = box_quad_mesh(5, 4, bounds=b)
+        return Mesh(*elevate_quad(q.coords, q.connectivity, True), "QUAD9")
+    h = box_hex_mesh(2, 2, 2, bounds=b + ((0, 30.0),))
+    return Mesh(*elevate_hex(h.coords, h.connectivity, True), "HEX27")
+
+
+@pytest.mark.parametrize("kind", ["TRI3", "QUAD9", "HEX27"])
+def test_slice6_kernel_path_matches_plain_path(cuda, kind):
+    """3 PIHNA steps on TRI3, QUAD9 and HEX27 through the kernels and the
+    plain versions, mixed precision, each from a common state; every
+    kernel of the path launched."""
+    mesh = _slice6_mesh(kind)
+    if kind == "TRI3":
+        want = ["gather_interp_affine_f64:tri3", "rhs_affine_f64:tri3",
+                "apply_affine_f32:tri3", "apply_affine_f64:tri3"]
+    else:
+        e = kind.lower()
+        want = [f"gather_interp_generic_f64:{e}", f"apply_generic_f64:{e}",
+                f"apply_generic_f32:{e}"]
+    p = _pihna_live_params()
+    rng = np.random.default_rng(0)
+    u0 = np.abs(rng.random((mesh.n_nodes, 5))) * np.array(
+        [1., 100., 50., 500., 1e-10])
+    a = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=1e-12,
+                           precision="mixed", device=cuda)
+    b = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=1e-12,
+                           precision="mixed", device=cuda,
+                           ops=kernels.PLAIN_OPS)
+    kernels.reset_launch_counts()
+    sa = a.initial_state(u0)
+    for _ in range(3):
+        sb, _, _ = b.step(sa, params=p)
+        sa, _, res = a.step(sa, params=p)
+        assert float(res) <= 1e-12
+        ua, ub = sa["u"].cpu().numpy(), sb["u"].cpu().numpy()
+        assert np.linalg.norm(ua - ub) / np.linalg.norm(ub) < 1e-10
+    n = kernels.launch_counts()
+    assert all(n[k] > 0 for k in want + ["restrict_f64"]), n
+
+
+def test_dense_path_kernels_match_plain(cuda):
+    """The dense path (physics=pihna_physics) on a TET4 box: 2 mixed-
+    precision steps and `assemble` through K1 and K4 against the plain
+    versions."""
+    mesh = box_tet_mesh(4, 4, 3, bounds=((0, 30.0),) * 3)
+    p = _pihna_live_params()
+    rng = np.random.default_rng(1)
+    u0 = np.abs(rng.random((mesh.n_nodes, 5))) * np.array(
+        [1., 100., 50., 500., 1e-10])
+    a, b = (TransientRDCSystem(mesh, 5, physics=pihna_physics, rtol=1e-12,
+                               precision="mixed", device=cuda, ops=ops)
+            for ops in (kernels.KERNEL_OPS, kernels.PLAIN_OPS))
+    kernels.reset_launch_counts()
+    sa = a.initial_state(u0)
+    for _ in range(2):
+        sb, _, _ = b.step(sa, params=p)
+        sa, _, res = a.step(sa, params=p)
+        assert float(res) <= 1e-12
+        assert rel(sa["u"], sb["u"]) < 1e-10
+    n = kernels.launch_counts()
+    assert n["gather_interp_affine_f64"] > 0 and n["restrict_f32"] > 0
+    u_T = sa["u"].T.contiguous()
+    (va, ba), (vb, bb) = (s.assemble(u_T, {}, p) for s in (a, b))
+    assert rel(va, vb) < 1e-13 and rel(ba, bb) < 1e-13

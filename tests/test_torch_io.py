@@ -226,21 +226,31 @@ def test_native_gmsh_parser_matches_numpy_and_reference(kind, tmp_path):
 
 
 def test_gmsh_unsupported_meshes_raise():
-    """2D meshes and HEX20 raise NotImplementedError (item 13); mixed and
-    TET10 meshes read as the reference reads them; malformed files raise
-    ValueError."""
+    """2D, HEX20, mixed and TET10 meshes read as the reference reads them;
+    a TRI6-only and a mixed-type 2D file raise the reference's
+    ValueError; malformed files raise ValueError."""
     from rdcfes_tpu.mesh import Mesh as JaxMesh
     from rdcfes_tpu.mesh.generators import box_quad_mesh
 
     mixed = jgmsh.dumps(jax_box_mixed_mesh(3, 2, 2))
     tet10 = jgmsh.dumps(jax_tet4_to_tet10(jax_box_tet_mesh(1, 1, 1)))
-    for text in (mixed, tet10):
-        assert gmsh.dumps(gmsh.read(io.StringIO(text))) == text
     hex20 = JaxMesh(coords=np.random.default_rng(0).random((20, 3)),
                     connectivity=np.arange(20)[None], elem_type="HEX20",
                     subdomain_id=None)
-    for text in (jgmsh.dumps(box_quad_mesh(2, 2)), jgmsh.dumps(hex20)):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    for text in (mixed, tet10, jgmsh.dumps(box_quad_mesh(2, 2)),
+                 jgmsh.dumps(hex20)):
+        assert gmsh.dumps(gmsh.read(io.StringIO(text))) == text
+    head = ("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n6\n1 0 0 0\n"
+            "2 1 0 0\n3 0 1 0\n4 0.5 0 0\n5 0.5 0.5 0\n6 0 0.5 0\n"
+            "$EndNodes\n$Elements\n")
+    tri6 = head + "1\n1 9 2 1 1 1 2 3 4 5 6\n$EndElements\n"
+    mixed2d = head + ("2\n1 2 2 1 1 1 2 6\n2 3 2 1 1 2 5 3 6\n"
+                      "$EndElements\n")
+    for text, match in ((tri6, "unsupported 2D volume element"),
+                        (mixed2d, "mixed-type 2D meshes")):
+        with pytest.raises(ValueError, match=match):
+            jgmsh.read(io.StringIO(text))
+        with pytest.raises(ValueError, match=match):
             gmsh.read(io.StringIO(text))
     for text in ("", "$MeshFormat\n4.1 0 8\n$EndMeshFormat\n",
                  "$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n3\n"):

@@ -35,6 +35,7 @@ The reference's mixed step program is never compiled: assemble_scipy
 and the element functions run eagerly.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -334,10 +335,12 @@ def _per_species(u, u_ref):
     return float(_species_errors(u, u_ref).max())
 
 
-def _step_case(model):
-    """The one-step case of `model` on box_mixed_mesh(5,3,3) (0-30 mm):
-    (ref_mesh, mesh, params, u0, reference fields, port fields, the
-    reference's physics, the port's blocks, the dense solve u_ref)."""
+@functools.lru_cache(maxsize=None)
+def _reference_operator(model):
+    """The step case of `model` and the reference's eager assemble_scipy
+    there, made once a module run: (ref_mesh, mesh, params, u0, reference
+    fields, port fields, the reference's physics, the port's blocks, A,
+    rhs)."""
     ref_mesh = jax_box_mixed_mesh(5, 3, 3, bounds=B30)
     mesh = mesh_from_reference(ref_mesh)
     if model == "pihna":
@@ -353,8 +356,16 @@ def _step_case(model):
         phys, blocks = adpm_physics, adpm_blocks
     V = u0.shape[1]
     A, rhs = JaxMixed(ref_mesh, V, phys).assemble_scipy(u0.T, jfields, p)
-    return (ref_mesh, mesh, p, u0, jfields, fields, phys, blocks,
-            _dense_solve(A, rhs, u0))
+    return ref_mesh, mesh, p, u0, jfields, fields, phys, blocks, A, rhs
+
+
+def _step_case(model):
+    """The one-step case of `model` on box_mixed_mesh(5,3,3) (0-30 mm):
+    (ref_mesh, mesh, params, u0, reference fields, port fields, the
+    reference's physics, the port's blocks, the dense solve u_ref)."""
+    case = _reference_operator(model)
+    A, rhs, u0 = case[8], case[9], case[3]
+    return case[:8] + (_dense_solve(A, rhs, u0),)
 
 
 @pytest.mark.parametrize("model", ["pihna", "adpm"])
@@ -403,6 +414,50 @@ def test_mixed_step_matches_dense_solve(model):
     assert its.shape == (2,) and ress.shape == (2,)
     assert torch.equal(a["u"], b["u"]) and torch.equal(a["u_old"],
                                                        b["u_old"])
+
+
+@pytest.mark.parametrize("model", ["pihna", "adpm"])
+def test_mixed_dense_step_matches_dense_solve(model):
+    """One MixedTransientRDCSystem step on the dense path (physics=, the
+    port's own pihna_physics / adpm_physics: one Ke per block, their
+    applies restricted by the one table) against the same dense solve of
+    the reference's assemble_scipy, at the qp step's bars: f64 at rtol
+    1e-14 within 1e-8 per species and 1e-10 relative L2, mixed at rtol
+    1e-12 within 1e-8 (PIHNA) and 4e-8 (ADPM) per species."""
+    from rdcfes_tpu_torch.models.adpm import adpm_physics as port_adpm
+    from rdcfes_tpu_torch.models.pihna import pihna_physics as port_pihna
+
+    (_, mesh, p, u0, _, fields, _, _, u_ref) = _step_case(model)
+    physics = port_pihna if model == "pihna" else port_adpm
+    species_bar = {("pihna", "f64"): 1e-8, ("pihna", "mixed"): 1e-8,
+                   ("adpm", "f64"): 1e-8, ("adpm", "mixed"): 4e-8}
+    for precision, rtol in (("f64", 1e-14), ("mixed", 1e-12)):
+        s = MixedTransientRDCSystem(mesh, u0.shape[1], physics=physics,
+                                    precision=precision, rtol=rtol,
+                                    device="cpu")
+        st, _, res = s.step(s.initial_state(u0), fields=fields, params=p)
+        assert float(res) <= rtol
+        u = st["u_raw"].numpy()
+        err = _per_species(u, u_ref)
+        assert err <= species_bar[model, precision], (precision, err)
+        if precision == "f64":
+            assert rel_l2(u, u_ref) <= 1e-10
+
+
+@pytest.mark.parametrize("model", ["pihna", "adpm"])
+def test_assemble_scipy_matches_reference(model):
+    """The port's MixedTransientRDCSystem.assemble_scipy (its blocks'
+    dense element matrices, from the block form's to_dense) against the
+    reference's on the same box_mixed_mesh(5,3,3) case (HEX8, PYRAMID5
+    and TET4 blocks), within 1e-13 of the largest entry."""
+    (_, mesh, p, u0, _, fields, _, blocks, A_ref,
+     rhs_ref) = _reference_operator(model)
+    A, rhs = MixedTransientRDCSystem(
+        mesh, u0.shape[1], blocks, device="cpu").assemble_scipy(
+            u0.T, fields, p)
+    assert A.shape == A_ref.shape
+    assert abs(A - A_ref).max() <= 1e-13 * abs(A_ref).max()
+    assert np.abs(rhs - rhs_ref).max() <= 1e-13 * np.abs(rhs_ref).max()
 
 
 def test_single_block_mixed_matches_transient_system():
@@ -463,7 +518,7 @@ def test_mixed_system_options():
     assert s.cons is None and MixedTransientRDCSystem(
         mesh, 5, pihna_blocks, device="cpu",
         constraints=np.zeros((0, 3), np.int32)).cons is None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="MixedTransientRDCSystem"):
         TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu")
     tet = mesh_from_reference(jax_box_tet_mesh(1, 1, 1))
     with pytest.raises(ValueError):

@@ -153,15 +153,17 @@ def test_constraints_hold_in_a_step():
 
 def test_unported_paths_raise():
     mesh, p, u0 = _case()
-    # HEX8 and TET10 run (the generic path); the 2D element types wait
-    # for their tables
+    # HEX8 runs the generic path, TRI3 the affine one; a system needs a
+    # block form or a dense one
     hexm = jax_box_hex_mesh(1, 1, 1)
     TransientRDCSystem(mesh_from_arrays(hexm.coords, hexm.connectivity,
                                         "HEX8"), 5, pihna_blocks,
                        device="cpu")
     tri3 = mesh_from_arrays(np.eye(3), np.arange(3)[None], "TRI3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransientRDCSystem(tri3, 5, pihna_blocks, device="cpu")
+    assert TransientRDCSystem(tri3, 5, pihna_blocks,
+                              device="cpu").blocks[0].affine
+    with pytest.raises(ValueError, match="physics"):
+        TransientRDCSystem(tri3, 5, None, device="cpu")
     for kw in ({"precision": "f16"}, {"method": "cg"}):
         with pytest.raises(ValueError):
             TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu", **kw)

@@ -112,8 +112,11 @@ def case():
 def test_element_tables_bit_equal(elem_type):
     for a, b in zip(elements.tabulate(elem_type), jel.tabulate(elem_type)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+    # HEX20 is a type of both packages now; a type of neither raises
+    for a, b in zip(elements.tabulate("HEX20"), jel.tabulate("HEX20")):
+        assert np.array_equal(a, b)
     with pytest.raises(ValueError):
-        elements.tabulate("HEX20")
+        elements.tabulate("PRISM15")
 
 
 @pytest.mark.parametrize("shape,bounds", [
@@ -144,9 +147,18 @@ def test_geometry_factors_non_affine_hex(case, dtype, tol):
     assert np.array_equal(tphi, phi)
     assert tJxW.dtype == tdphi.dtype == dtype
     assert rel(tJxW, JxW) < tol and rel(tdphi, dphi) < tol
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the same jittered hexes as HEX20 take the same route
+    from tests.elevate import elevate_hex
+
+    x20, conn20 = elevate_hex(x, jm.connectivity, False)
+    _, JxW20, dphi20 = jgeo.geometry_factors(
+        jnp.asarray(x20), jnp.asarray(conn20), "HEX20")
+    _, tJxW20, tdphi20 = geometry.geometry_factors(
+        _t(x20, dtype), torch.as_tensor(conn20), "HEX20")
+    assert rel(tJxW20, JxW20) < tol and rel(tdphi20, dphi20) < tol
+    with pytest.raises(ValueError, match="no volume element"):
         geometry.geometry_factors(_t(x), torch.as_tensor(jm.connectivity),
-                                  "HEX20")
+                                  "EDGE3")
 
 
 @pytest.mark.parametrize("mesh_fn,face_type", [

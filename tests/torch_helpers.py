@@ -132,3 +132,30 @@ def adpm_state(mesh, kind):
     tracts = rng.standard_normal((mesh.n_elems, 3))
     tracts /= np.linalg.norm(tracts, axis=1, keepdims=True)
     return u0, tracts
+
+
+
+def assembled_solve(values, b, rows, cols, n_nodes):
+    """The unclamped solution (N, V) of the block system values (V, V, nnz)
+    on the node pairs (rows, cols), right-hand side b (V, N), by LAPACK
+    with row equilibration (the species' scales span many orders)."""
+    values, b = np.asarray(values), np.asarray(b)
+    V, N = b.shape[0], n_nodes
+    A = np.zeros((V, N, V, N))
+    for v in range(V):
+        for w in range(V):
+            A[v, rows, w, cols] = values[v, w]
+    A = A.reshape(V * N, V * N)
+    s = 1.0 / np.abs(A).max(axis=1)
+    return np.linalg.solve(A * s[:, None], b.reshape(-1) * s).reshape(V, N).T
+
+
+def reference_assembled_step(jsys, u, fields, params):
+    """One linearized-CN step of the reference system `jsys` (built with a
+    dense `physics`) from the nodal state u (N, V), solved directly: its
+    own eager `assemble` (rdcfes_tpu/systems/transient.py:435-450), the
+    element-matrix path, and a dense solve.  Returns the unclamped
+    solution (N, V): what the reference's Krylov solve converges to."""
+    values, b = jsys.assemble(jnp.asarray(np.asarray(u).T), fields, params)
+    return assembled_solve(values, b, jsys.sp.rows, jsys.sp.cols,
+                           jsys.mesh.n_nodes)
