@@ -8,9 +8,11 @@ the coupled HCC driver on the moving mesh with process_mesh (phase 14),
 the PIHNA driver with AMR and the native Gmsh parser (phase 15), the
 mixed (HEX8 + PYRAMID5 + TET4, PRISM6) and TET10 meshes (phase 16),
 PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
-17), the solid on mixed and TET10 meshes with remeshing (phase 18), and 2D
+17), the solid on mixed and TET10 meshes with remeshing (phase 18), 2D
 (TRI3, QUAD4, QUAD8, QUAD9), HEX20 and HEX27 meshes and the dense
-element-matrix path (phase 19).
+element-matrix path (phase 19), and the transient systems'
+dtype=float32 serving mode with ADPM's local parity at its shipped rtol
+(phase 20).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -24,6 +26,7 @@ element-matrix path (phase 19).
     python3 chip_smoke.py --phases 0,1,17          # PROTEAS, RIPF, AMR on them
     python3 chip_smoke.py --phases 0,1,18          # the solid on them
     python3 chip_smoke.py --phases 0,1,19          # 2D, HEX20/27, dense path
+    python3 chip_smoke.py --phases 0,1,20          # f32 mode, ADPM parity
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -294,6 +297,33 @@ Phases, one output line each (any failure raises, exit code != 0):
             10 steps at rtol 1e-14, each within 1e-10 relative L2 of the
             qp path's step from the same state, its steps/s; `assemble`
             through the kernels and the plain versions within 1e-13
+  20 the f32 serving mode and ADPM's local parity  (a) K1 f32 and K2
+            f32 at TET4 28^3 and TRI3 512^2, K8 f32 at every instance on
+            the meshes of phases 9, 16 and 19, against their plain f32
+            versions within 1e-5 of the largest value, timed as in phase
+            2 (bound: the f32 bytes over the HBM rate); (b) the PIHNA
+            bench in dtype=torch.float32 (rtol 3e-11 floored to 1e-6,
+            precond_refresh 20, 120 steps of run_steps after 5 warm-up
+            steps): steps/s, inner iterations, every residual <= 1e-6, a
+            finite non-negative f32 state, only f32 kernel instances
+            launched (K1-K4), each step's relative L2 to the port's f64
+            run of the same case, and 3 kernel steps against 3 plain
+            steps within 1e-5; (c) the same for HEX8 PIHNA on
+            box_hex_mesh(48) (40 steps; K8, K6, K4) and the mixed case
+            make_pihna_case(n=28, mixed=True) (20 steps); (d) 10 dense f32
+            steps on TET4 28^3 (Ke in f32), each within 1e-5 of the f32
+            qp path's step from the same state, `assemble` within 1e-5 of
+            its plain version; (e) PARITY.md section 10's local parity:
+            AdpmOracle's 60-step trajectory on TET4 28^3 (computed in a
+            spawned process from the end of the build, on one host CPU
+            at the lowest priority; its assembly, and
+            Jacobi-BiCGStab to 1e-13 of |F|, held first to the oracle's
+            direct solve on 12^3 within 1e-12), the ADPM taxis-active
+            system re-seeded from each state for one step at rtol 1e-9,
+            worst relative L2 to the oracle's next state <= 1e-8; (f) 3
+            f32 PIHNA steps on 20a's TRI3, PRISM6, TET10, QUAD4, QUAD8,
+            QUAD9, HEX20 and HEX27 meshes: residuals <= 1e-6, the type's
+            f32 instances launched and no f64 kernel
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -311,6 +341,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -368,10 +399,25 @@ KERNELS.update({f"{v}:{e}": KERNELS[v]
                           "apply_generic_f64")
                 for e in ("pyramid5", "prism6", "tet10", "quad4", "quad8",
                           "quad9", "hex20", "hex27")})
+# the f32 instances of K1, K2 and K8 (the dtype=float32 mode): the gather
+# of the reference's f32 mode (pallas_perm.py:244) and the f32
+# counterpart of its right-hand side kernel
+KERNELS.update({
+    "gather_interp_affine_f32": (CSRC + "gather_interp_affine.cu",
+                                 "rdcfes_tpu/fem/pallas_perm.py:244"),
+    "rhs_affine_f32": (CSRC + "rhs_affine.cu",
+                       "rdcfes_tpu/fem/pallas_df64.py:240"),
+    "gather_interp_generic_f32": (CSRC + "gather_interp_generic.cu",
+                                  "rdcfes_tpu/fem/pallas_perm.py:244")})
+KERNELS.update({f"gather_interp_generic_f32:{e}":
+                KERNELS["gather_interp_generic_f32"]
+                for e in ("pyramid5", "prism6", "tet10", "quad4", "quad8",
+                          "quad9", "hex20", "hex27")})
 # the K1-K3 instances of TRI3 (TET4's are their variants' rows)
 KERNELS.update({f"{v}:tri3": KERNELS[v]
                 for v in ("gather_interp_affine_f64", "rhs_affine_f64",
-                          "apply_affine_f32", "apply_affine_f64")})
+                          "apply_affine_f32", "apply_affine_f64",
+                          "gather_interp_affine_f32", "rhs_affine_f32")})
 BENCH_STEPS = 120
 # NVIDIA H100 SXM data sheet: HBM3 rate; dense f32 and f64 rates outside
 # the tensor cores (the kernels here use the CUDA cores)
@@ -2830,8 +2876,9 @@ def phase_mixed(dev, also):
 P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 20
 # RIPF 30 steps and the mixed AMR run 30 steps with AMR at 10 and 20,
 # an output every 10: the depth the script's time limit leaves (PERF.md
-# §4); TET10 AMR at step 10 of the 20 steps before its runaway (phase
-# 16)
+# §4); the second adaptation refines a MixedMesh that already has hanging
+# nodes and is the one that can coarsen.  TET10 AMR at step 10 of the 20
+# steps before its runaway (phase 16)
 P17_RIPF_N, P17_RIPF_STEPS = 24, 30
 RIPF_OUTPUTS = (0, 10, 30)  # the case deck's points up to P17_RIPF_STEPS
 P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 30, 10, 2
@@ -3706,7 +3753,9 @@ def _elevate(mesh, elem_type):
                 mesh.subdomain_id.copy())
 
 
+@functools.lru_cache(maxsize=None)
 def _p19_mesh(elem_type):
+    """Phase 19's mesh of elem_type, built once for phases 19 and 20."""
     from rdcfes_tpu_torch.mesh import box_quad_mesh, box_tri_mesh
 
     b2 = BRAIN[:2]
@@ -3979,17 +4028,534 @@ def phase_slice6(dev, also):
     return results, paths
 
 
+# ----------------------------------------------------------------------
+# phase 20: the transient systems' dtype=float32 serving mode, and ADPM's
+# local parity at its shipped rtol
+# ----------------------------------------------------------------------
+# 20b the PIHNA bench in f32 (BENCH_STEPS), 20c HEX8 PIHNA (HEX_STEPS) and
+# the mixed PIHNA case, 20d the dense path on TET4 28^3, 20e ADPM's local
+# parity along an oracle trajectory on the bench mesh
+P20_MIX_STEPS, P20_DENSE_STEPS, P20_PATH_STEPS = 20, 10, 3
+P20_ADPM_STEPS, P20_ADPM_CHECK_N = 60, 12
+P20_F32_TOL = 1e-5   # f32 kernels and f32 paths against their plain runs
+# 20a's meshes: K1 and K2 f32 on TET4 and TRI3, K8 f32 on the others
+P20_MESHES = ("TET4", "TRI3", "HEX8", "PYRAMID5", "PRISM6", "TET10", "QUAD4",
+              "QUAD8", "QUAD9", "HEX20", "HEX27")
+
+
+@functools.lru_cache(maxsize=None)
+def _p20_mesh(kind):
+    """Phase 20's mesh `kind`, built once for 20a and 20f: TET4 28^3 (the
+    PIHNA bench's), HEX8 48^3 (phase 9's), box_mixed_mesh(28) ("PYRAMID5",
+    phase 16's), a MixedMesh of one PRISM6 block (box_hex_mesh(28)'s
+    cells split in two, 43,904 elements), TET10 28^3, and phase 19's TRI3,
+    QUAD4, QUAD8, QUAD9, HEX20, HEX27."""
+    from rdcfes_tpu_torch.mesh import (MeshBlock, MixedMesh, box_mixed_mesh,
+                                       tet4_to_tet10)
+
+    if kind == "TET4":
+        return box_tet_mesh(28, 28, 28, bounds=BRAIN)
+    if kind == "HEX8":
+        return box_hex_mesh(HEX_N, HEX_N, HEX_N, bounds=BRAIN)
+    if kind == "TET10":
+        return tet4_to_tet10(box_tet_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN))
+    if kind == "PRISM6":
+        hexm = box_hex_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN)
+        return MixedMesh(coords=hexm.coords, blocks=[
+            MeshBlock("PRISM6", _prism_conn(hexm.connectivity))])
+    if kind == "PYRAMID5":
+        return box_mixed_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN)
+    return _p19_mesh(kind)
+
+
+def _f32_blocks(kind, dev):
+    """[(ElementBlock, its mesh)] of the phase-20a mesh `kind` (the mixed
+    box: its HEX8 and PYRAMID5 blocks)."""
+    from rdcfes_tpu_torch.systems.transient import ElementBlock
+
+    mesh = _p20_mesh(kind)
+    if mesh.elem_type != "MIXED":
+        return [(ElementBlock(mesh.elem_type, mesh.connectivity, dev), mesh)]
+    return [(ElementBlock(b.elem_type, b.connectivity, dev), mesh)
+            for b in mesh.blocks if b.elem_type != "TET4"]
+
+
+def _f32_cases(blk, mesh, label, dev):
+    """K1 f32 and K2 f32 (an affine block) or K8 f32 (a generic one) at
+    the block's shapes with its f32 geometry, the bench state cast to f32
+    and PIHNA's bench blocks built at it in f32: what an f32 system's
+    step launches, against the plain f32 versions."""
+    g = blk.geometry(torch.as_tensor(mesh.coords, dtype=F64, device=dev),
+                     F32)
+    _, params, u0 = bench_case(mesh)
+    u = torch.as_tensor(np.ascontiguousarray(u0.T), dtype=F32, device=dev)
+    V = u.shape[0]
+    Kc, E = blk.conn_T.shape
+    Q = g.JxW.shape[0]
+    suffix = lambda v: v + label
+    if blk.affine:
+        u_qp, gx1 = K.gather_interp_affine_plain(u, blk.conn_T, blk.phi,
+                                                 g.dphi)
+        gq = gx1[:, None].expand(V, Q, 3, E)
+        rhs = K.stack_rhs(pihna_blocks(u_qp, gq, {}, params))
+        fe = K.rhs_affine_plain(rhs, g.JxW, blk.phi, g.dphi)
+        return {
+            suffix("gather_interp_affine_f32"): dict(
+                kern=lambda: K.gather_interp_affine(u, blk.conn_T, blk.phi,
+                                                    g.dphi),
+                plain=lambda: K.gather_interp_affine_plain(
+                    u, blk.conn_T, blk.phi, g.dphi), tol=P20_F32_TOL,
+                n_bytes=nbytes(u, blk.conn_T, g.dphi, u_qp, gx1),
+                flops=2.0 * V * Kc * E * (Q + 3), dtype=F32),
+            suffix("rhs_affine_f32"): dict(
+                kern=lambda: K.rhs_affine(rhs, g.JxW, blk.phi, g.dphi),
+                plain=lambda: K.rhs_affine_plain(rhs, g.JxW, blk.phi,
+                                                 g.dphi), tol=P20_F32_TOL,
+                n_bytes=nbytes(rhs.A, rhs.B, g.JxW, g.dphi, fe),
+                flops=2.0 * Kc * Q * E * (len(rhs.idxA)
+                                          + 3 * len(rhs.idxB)),
+                dtype=F32)}
+    u_qp, gq = K.gather_interp_generic_plain(u, blk.conn_T, blk.phi, g.dphi)
+    return {suffix("gather_interp_generic_f32"): dict(
+        kern=lambda: K.gather_interp_generic(u, blk.conn_T, blk.phi,
+                                             g.dphi),
+        plain=lambda: K.gather_interp_generic_plain(u, blk.conn_T, blk.phi,
+                                                    g.dphi),
+        tol=P20_F32_TOL, n_bytes=nbytes(u, blk.conn_T, g.dphi, u_qp, gq),
+        flops=2.0 * 4 * V * Q * Kc * E, dtype=F32)}
+
+
+def _p20_kernels(dev, results, also):
+    """(a) K1 f32 and K2 f32 at TET4 28^3 and TRI3 512^2, K8 f32 at every
+    GENERIC_KQ instance on the meshes of phases 9, 16 and 19, each within
+    P20_F32_TOL of its plain f32 version; a row's bound is its f32 bytes
+    over the HBM rate."""
+    for kind in P20_MESHES:
+        for blk, mesh in _f32_blocks(kind, dev):
+            elem = blk.elem_type.lower()
+            if kind == "PYRAMID5":  # the mixed box's blocks
+                label = "@mixed hex8" if elem == "hex8" else ":pyramid5"
+            else:
+                label = "" if kind in ("TET4", "HEX8") else f":{elem}"
+            cases = _f32_cases(blk, mesh, label, dev)
+            run_cases(f"20a {elem} kernel", cases, results, also)
+            for key in cases:
+                variant, _, sub = key.partition("@")
+                r = (results.get(variant) if not sub
+                     else also[variant][sub])
+                say("20a bound", name=key, E=blk.conn_T.shape[1],
+                    ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                    pct_of_bound=f"{100.0 * r['bound_ms'] / r['ms']:.1f}",
+                    plain_ms=f"{r['plain_ms']:.4f}")
+            del cases
+        torch.cuda.empty_cache()
+
+
+def _pihna_f32(cls, mesh, dev):
+    """make(ops, dt): phase 20's PIHNA system of class `cls` on `mesh`, the
+    bench settings (rtol 3e-11, floored to 1e-6 in f32; "mixed",
+    precond_refresh 20), f32 unless dt says otherwise."""
+    return lambda ops=K.KERNEL_OPS, dt=F32: cls(
+        mesh, 5, pihna_blocks, rtol=3e-11, precision="mixed",
+        precond_refresh=20, device=dev, ops=ops, dtype=dt)
+
+
+def _f32_paths(tag, make, params, u0):
+    """P20_PATH_STEPS steps of an f32 system through the kernels and
+    through the plain versions from a common state: per-step relative L2
+    within P20_F32_TOL, every residual <= the f32 floor."""
+    a, b = make(K.KERNEL_OPS), make(K.PLAIN_OPS)
+    sa = a.initial_state(u0)
+    worst = 0.0
+    for _ in range(P20_PATH_STEPS):
+        sb, _, rb = b.step(sa, params=params)
+        sa, _, ra = a.step(sa, params=params)
+        worst = max(worst, rel_l2(sa["u"], sb["u"]))
+        require(max(float(ra), float(rb)) <= 1e-6,
+                f"{tag}: residuals {float(ra):.3e}, {float(rb):.3e}")
+    say(f"{tag} paths", steps=P20_PATH_STEPS, worst_rel_l2=f"{worst:.3e}",
+        bar=P20_F32_TOL)
+    require(worst <= P20_F32_TOL, f"{tag} kernel vs plain: {worst:.3e}")
+
+
+def _f32_vs_f64(s32, s64, u0, params, steps):
+    """The f32 and the f64 system stepped side by side with step() (the
+    same block-Jacobi schedule as run_steps) from u0: each step's
+    relative L2 of the f32 state to the f64 one."""
+    a, b = s32.initial_state(u0), s64.initial_state(u0)
+    gaps = []
+    for _ in range(steps):
+        a, _, _ = s32.step(a, params=params)
+        b, _, _ = s64.step(b, params=params)
+        gaps.append(rel_l2(a["u"].double(), b["u"]))
+    return gaps
+
+
+def _f32_run(tag, make, u0, params, steps, want):
+    """(b, c) the f32 system's run_steps: steps/s, inner iterations,
+    every residual <= the f32 floor, a finite non-negative f32 state, the
+    kernels of `want` launched and no f64 instance; the per-step gap to
+    the f64 system's run of the same case; then _f32_paths."""
+    s32, s64 = make(), make(dt=F64)
+    s32.run_steps(s32.initial_state(u0), 5, params=params)  # warm-up
+    u, its, ress, wall, counts = _timed_run(s32, s32.initial_state(u0),
+                                            steps, params=params)
+    gaps = _f32_vs_f64(s32, s64, u0, params, steps)
+    f64_used = {k: n for k, n in counts.items() if "f64" in k and n}
+    say(tag, steps=steps, seconds=f"{wall:.4f}",
+        steps_per_s=f"{steps / wall:.4f}", rtol=s32.rtol,
+        precision=f"{s32.precision} (f32: plain solve)",
+        inner_iters_total=int(its.sum()),
+        max_residual=f"{float(ress.max()):.3e}", n_nodes=s32.mesh.n_nodes,
+        n_elems=s32.mesh.n_elems, dtype=str(u.dtype))
+    say(f"{tag} vs f64", first=f"{gaps[0]:.3e}", worst=f"{max(gaps):.3e}",
+        last=f"{gaps[-1]:.3e}",
+        per_step=" ".join(f"{x:.2e}" for x in gaps))
+    say(f"{tag} launches", **{k: counts[k] for k in want})
+    require(u.dtype == np.float32, f"{tag}: state {u.dtype}")
+    require(np.isfinite(u).all(), f"{tag}: non-finite state")
+    require((u >= 0).all(), f"{tag}: negative state after the clamp")
+    require(float(ress.max()) <= 1e-6,
+            f"{tag}: residual {float(ress.max()):.3e} > 1e-6")
+    _require_launched(counts, want, tag)
+    require(not f64_used, f"{tag}: f64 kernels launched: {f64_used}")
+    _f32_paths(tag, make, params, u0)
+    return counts
+
+
+def _p20_bench(dev):
+    """(b) the PIHNA bench in f32: BENCH_STEPS steps, rtol 3e-11 floored
+    to 1e-6, precond_refresh 20; 3 kernel steps against 3 plain steps."""
+    mesh, params, u0 = bench_case()
+    return _f32_run("20b pihna f32", _pihna_f32(TransientRDCSystem, mesh,
+                                                 dev),
+                    u0, params, BENCH_STEPS, K.TRANSIENT_F32_VARIANTS)
+
+
+def _p20_generic(dev):
+    """(c) HEX8 PIHNA on box_hex_mesh(48) (HEX_STEPS) and the mixed PIHNA
+    case make_pihna_case(n=28, mixed=True) (P20_MIX_STEPS) in f32."""
+    import os
+    import shutil
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.mesh import gmsh
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    counts = {}
+    mesh, params, u0 = bench_case(box_hex_mesh(HEX_N, HEX_N, HEX_N,
+                                               bounds=BRAIN))
+    counts["20c hex8 f32"] = _f32_run(
+        "20c hex8 pihna f32", _pihna_f32(TransientRDCSystem, mesh, dev), u0,
+        params, HEX_STEPS, K.GENERIC_F32_VARIANTS)
+    root = tempfile.mkdtemp(prefix="rdcfes_p20_")
+    try:
+        d = cases.make_pihna_case(os.path.join(root, "m"), n=MIX_N,
+                                  mixed=True)
+        mesh = gmsh.read(os.path.join(d, "Brain_Model.msh"))
+        params = _pihna_deck_params(d)
+        u0 = np.loadtxt(os.path.join(d,
+                                     "Brain_Model_Initial_Nodal_Field.dat"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts["20c mixed f32"] = _f32_run(
+        "20c mixed pihna f32", _pihna_f32(MixedTransientRDCSystem, mesh, dev),
+        u0, params, P20_MIX_STEPS,
+        K.TRANSIENT_F32_VARIANTS + K.GENERIC_F32_VARIANTS
+        + ("gather_interp_generic_f32:pyramid5",
+           "apply_generic_f32:pyramid5"))
+    return counts
+
+
+def _p20_dense(dev):
+    """(d) TransientRDCSystem(box_tet_mesh(28), 5, physics=pihna_physics,
+    dtype=f32), P20_DENSE_STEPS steps, each held to the f32 qp path's
+    step from the same state; `assemble` through the kernels and the
+    plain versions."""
+    from rdcfes_tpu_torch.models.pihna import pihna_physics
+
+    mesh, params, u0 = bench_case()
+    kw = dict(rtol=3e-11, precision="mixed", precond_refresh=20, device=dev,
+              dtype=F32)
+    dense = TransientRDCSystem(mesh, 5, physics=pihna_physics, **kw)
+    qp = TransientRDCSystem(mesh, 5, pihna_blocks, **kw)
+    st = dense.initial_state(u0)
+    worst, iters, t_dense, c = 0.0, [], 0.0, {}
+    for _ in range(P20_DENSE_STEPS):
+        sq, _, _ = qp.step(st, params=params)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, it, res = dense.step(st, params=params)
+        torch.cuda.synchronize()
+        t_dense += time.perf_counter() - t0
+        for k, n in K.launch_counts().items():
+            c[k] = c.get(k, 0) + n
+        iters.append(int(it))
+        require(float(res) <= 1e-6, f"20d dense residual {float(res):.3e}")
+        worst = max(worst, rel_l2(st["u"], sq["u"]))
+    f64_used = {k: n for k, n in c.items() if "f64" in k and n}
+    say("20d dense f32 steps", E=mesh.n_elems, N=mesh.n_nodes,
+        steps=P20_DENSE_STEPS, rtol=dense.rtol, precond_refresh=20,
+        iters=iters, dense_steps_per_s=f"{P20_DENSE_STEPS / t_dense:.4f}",
+        worst_rel_l2_vs_qp=f"{worst:.3e}", bar=P20_F32_TOL,
+        ke_gb=f"{25 * 16 * mesh.n_elems * 4 / 1e9:.4f}",
+        launches=" ".join(f"{k}:{n}" for k, n in sorted(c.items()) if n))
+    require(worst <= P20_F32_TOL, f"20d dense vs qp path: {worst:.3e}")
+    _require_launched(c, ["gather_interp_affine_f32", "restrict_f32"],
+                      "20d dense")
+    require(not f64_used, f"20d dense launched f64 kernels: {f64_used}")
+    require(st["u"].dtype == F32, "20d: the state left f32")
+    plain = TransientRDCSystem(mesh, 5, physics=pihna_physics,
+                               ops=K.PLAIN_OPS, **kw)
+    u_T = st["u"].T.contiguous()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    vk, bk = dense.assemble(u_T, {}, params)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    ca = K.launch_counts()
+    vp, bp = plain.assemble(u_T, {}, params)
+    ev = float((vk - vp).abs().max() / vp.abs().max())
+    eb = float((bk - bp).abs().max() / bp.abs().max())
+    say("20d assemble f32", nnz=dense.sp.nnz, seconds=f"{t_asm:.4f}",
+        dtype=str(vk.dtype), values_rel_err=f"{ev:.3e}",
+        rhs_rel_err=f"{eb:.3e}", bar=P20_F32_TOL,
+        restrict_f32=ca["restrict_f32"],
+        gather_interp_affine_f32=ca["gather_interp_affine_f32"])
+    require(vk.dtype == F32 and max(ev, eb) <= P20_F32_TOL,
+            f"20d assemble: {vk.dtype} {ev:.3e}, {eb:.3e}")
+    _require_launched(ca, ["restrict_f32", "gather_interp_affine_f32"],
+                      "20d assemble")
+    return {"20d dense f32": c, "20d assemble f32": ca}
+
+
+def _oracle_step(orc, u):
+    """One AdpmOracle step (its own assembly, src/adpm.C's scheme) solved
+    by Jacobi-preconditioned BiCGStab to 1e-13 of |F|: SuperLU's fill on
+    the 73,167 unknowns of TET4 28^3 takes minutes a step, so the direct
+    solve is held to this one at P20_ADPM_CHECK_N^3 (20e)."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spla
+
+    Kmat, F = orc.assemble(u, 1.0)
+    M = sps.diags(1.0 / Kmat.diagonal())
+    x, info = spla.bicgstab(Kmat, F, x0=u.T.reshape(-1), M=M, rtol=1e-13,
+                            atol=0.0, maxiter=2000)
+    if info != 0:
+        raise RuntimeError(f"oracle BiCGStab: info {info}")
+    return np.maximum(x.reshape(3, orc.N).T, 0.0)
+
+
+def _adpm_parity_case(n):
+    """The taxis-active ADPM leg's deck, state and tracts on a box of the
+    bench's element size (bounds scaled by n / 28)."""
+    s = n / 28.0
+    mesh = box_tet_mesh(n, n, n, bounds=tuple((0, hi * s)
+                                              for _, hi in BRAIN))
+    pa, u0, tracts = adpm_case(mesh, 50.0)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    u0[:, 1] = 1e-3 * np.exp(-r2 / (2 * (20.0 * s) ** 2))
+    u0[:, 2] = 1e-4 * np.exp(-r2 / (2 * (15.0 * s) ** 2))
+    return mesh, pa, u0, tracts
+
+
+def _adpm_oracle_trajectory(path, cpu):
+    """The oracle's P20_ADPM_STEPS-step trajectory on the bench mesh, run
+    in a process of its own while the card works on the other phases, on
+    host CPU `cpu` alone at the lowest priority, so that the host-timed
+    phases keep the host; saved to `path` (.npy, (steps + 1, N, 3))."""
+    import os
+
+    from oracle.adpm_numpy import AdpmOracle
+
+    os.sched_setaffinity(0, {cpu})
+    os.nice(19)
+    mesh, pa, u0, tracts = _adpm_parity_case(28)
+    orc = AdpmOracle(mesh.coords, mesh.connectivity, tracts, pa)
+    traj = [u0]
+    for _ in range(P20_ADPM_STEPS):
+        traj.append(_oracle_step(orc, traj[-1]))
+    np.save(path, np.stack(traj))
+
+
+def start_adpm_oracle():
+    """The 20e oracle trajectory, started in a spawned process: (process,
+    its output path, its directory)."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="rdcfes_p20_oracle_")
+    path = os.path.join(d, "traj.npy")
+    cpu = max(os.sched_getaffinity(0))
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_adpm_oracle_trajectory, args=(path, cpu), daemon=True)
+    # one thread in the child: its BLAS and OpenMP pools are sized from
+    # the environment it starts with
+    one = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in one}
+    os.environ.update({k: "1" for k in one})
+    try:
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return proc, path, d
+
+
+def _p20_types(dev):
+    """(f) P20_PATH_STEPS steps of the PIHNA bench deck in f32 (run_steps,
+    rtol floored to 1e-6) on each element type 20b and 20c do not step:
+    every residual <= 1e-6, a finite non-negative f32 state, the type's
+    f32 instances launched and no f64 kernel."""
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    counts = {}
+    for kind in ("TRI3", "PRISM6", "TET10", "QUAD4", "QUAD8", "QUAD9",
+                 "HEX20", "HEX27"):
+        mesh = _p20_mesh(kind)
+        _, params, u0 = bench_case(mesh)
+        s = _pihna_f32(MixedTransientRDCSystem if mesh.elem_type == "MIXED"
+                       else TransientRDCSystem, mesh, dev)()
+        tag = kind.lower()
+        want = ([f"{v}:{tag}" for v in ("gather_interp_affine_f32",
+                                        "rhs_affine_f32", "apply_affine_f32")]
+                if kind == "TRI3" else
+                [f"{v}:{tag}" for v in ("gather_interp_generic_f32",
+                                        "apply_generic_f32")])
+        u, its, ress, wall, c = _timed_run(s, s.initial_state(u0),
+                                           P20_PATH_STEPS, params=params)
+        f64_used = {k: n for k, n in c.items() if "f64" in k and n}
+        say(f"20f {tag} f32", E=mesh.n_elems, N=mesh.n_nodes,
+            steps=P20_PATH_STEPS, seconds=f"{wall:.4f}",
+            iters=its.tolist(), max_residual=f"{float(ress.max()):.3e}",
+            launches=" ".join(f"{k}:{c[k]}" for k in want))
+        require(u.dtype == np.float32 and np.isfinite(u).all()
+                and (u >= 0).all(), f"20f {tag}: state")
+        require(float(ress.max()) <= 1e-6,
+                f"20f {tag}: residual {float(ress.max()):.3e}")
+        _require_launched(c, want + ["restrict_f32"], f"20f {tag}")
+        require(not f64_used, f"20f {tag}: f64 kernels launched: {f64_used}")
+        counts[f"20f {tag} f32"] = c
+        del s
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _p20_adpm(dev, oracle):
+    """(e) PARITY.md section 10's local parity at the taxis-active leg's
+    shipped rtol 1e-9: the port re-seeded from each state of the oracle's
+    trajectory on TET4 28^3 takes one step (amplitude 50, dt 0.05,
+    "mixed", precond_refresh 10); worst relative L2 to the oracle's next
+    state <= 1e-8.  First the oracle's iterative solve is held to its
+    direct one on the P20_ADPM_CHECK_N^3 box."""
+    import shutil
+
+    from oracle.adpm_numpy import AdpmOracle
+
+    mesh, pa, u0, tracts = _adpm_parity_case(P20_ADPM_CHECK_N)
+    orc = AdpmOracle(mesh.coords, mesh.connectivity, tracts, pa)
+    u, worst_solve = u0, 0.0
+    for _ in range(3):
+        ud, _ = orc.step(u, time=1.0)
+        worst_solve = max(worst_solve, float(
+            np.linalg.norm(_oracle_step(orc, u) - ud) / np.linalg.norm(ud)))
+        u = ud
+    say("20e oracle solve", n=P20_ADPM_CHECK_N, steps=3,
+        iterative_vs_direct=f"{worst_solve:.3e}", bar=1e-12)
+    require(worst_solve <= 1e-12,
+            f"20e oracle: iterative vs direct {worst_solve:.3e}")
+    proc, path, d = oracle
+    t0 = time.perf_counter()
+    proc.join(timeout=900)
+    waited = time.perf_counter() - t0
+    require(proc.exitcode == 0, f"20e oracle process: exit {proc.exitcode}")
+    traj = np.load(path)
+    shutil.rmtree(d, ignore_errors=True)
+    mesh, pa, u0, tracts = _adpm_parity_case(28)
+    require(np.array_equal(traj[0], u0), "20e: the oracle's initial state")
+    s = make_adpm(mesh, dev, 1e-9)
+    f = adpm_fields(tracts, dev)
+    worst, iters, rels = 0.0, 0, []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for k in range(P20_ADPM_STEPS):
+        st, it, res = s.step(s.initial_state(traj[k]), fields=f, params=pa)
+        require(float(res) <= 1e-9, f"20e step {k}: residual {float(res)}")
+        iters += int(it)
+        rels.append(rel_l2(st["u"], traj[k + 1]))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    worst = max(rels)
+    say("20e adpm local parity", mesh="box_tet_mesh(28)", n_nodes=mesh.n_nodes,
+        steps=P20_ADPM_STEPS, rtol=1e-9, precision="mixed",
+        precond_refresh=10, worst_rel_l2=f"{worst:.3e}", bar=1e-8,
+        margin=f"{1e-8 / worst:.2f}",
+        mean_inner_iters=f"{iters / P20_ADPM_STEPS:.2f}",
+        oracle_wait_s=f"{waited:.1f}",
+        per_step=" ".join(f"{x:.2e}" for x in rels))
+    require(worst <= 1e-8, f"20e: worst local rel L2 {worst:.3e} > 1e-8")
+    _require_launched(counts, K.TRANSIENT_VARIANTS, "20e")
+    return {"20e adpm": counts}
+
+
+def phase_f32(dev, also, oracle):
+    """(a) the f32 instances of K1, K2 and K8 against their plain
+    versions, (b) the PIHNA bench in f32, (c) HEX8 and mixed PIHNA in
+    f32, (d) the dense path in f32, (e) ADPM's local parity at rtol
+    1e-9, (f) f32 steps on every other element type."""
+    laps = [time.perf_counter()]
+    lap = lambda: laps.append(time.perf_counter())
+    results, paths = {}, {}
+    _p20_kernels(dev, results, also)
+    lap()
+    paths["20b pihna f32"] = _p20_bench(dev)
+    lap()
+    paths.update(_p20_generic(dev))
+    lap()
+    paths.update(_p20_dense(dev))
+    lap()
+    paths.update(_p20_adpm(dev, oracle))
+    lap()
+    paths.update(_p20_types(dev))
+    lap()
+    say("20 done", seconds=f"{laps[-1] - laps[0]:.4f}",
+        **{f"{sub}_s": f"{b - a:.4f}"
+           for sub, a, b in zip("abcdef", laps, laps[1:])})
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18,19",
+                    "18,19,20",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     walls, t_lap = {}, [time.perf_counter()]
     dev, card = phase_device()
+    oracle = []  # 20e's oracle process, started after the build
+    try:
+        return _run(phases, dev, card, walls, t_lap, oracle)
+    finally:
+        for proc, _, _ in oracle:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def _run(phases, dev, card, walls, t_lap, oracle) -> int:
+    """The phases of `phases`, then the walls, the card and the JSON
+    lines; `oracle` receives 20e's oracle process, which runs on the
+    host beside phases 2-20."""
 
     def lap(name):
         """The wall seconds since the last lap, under the phases run."""
@@ -3999,6 +4565,8 @@ def main(argv=None) -> int:
 
     if 1 in phases:
         phase_build()
+    if 20 in phases:
+        oracle.append(start_adpm_oracle())
     lap("0-1")
     also = {}  # variant -> {shape label: row}, beside its first row
     kern = phase_kernels(dev, also) if 2 in phases else {}
@@ -4057,6 +4625,11 @@ def main(argv=None) -> int:
         p19_kern, p19_paths = phase_slice6(dev, also)
         paths.update(p19_paths)
     lap("19")
+    p20_kern = {}
+    if 20 in phases:
+        p20_kern, p20_paths = phase_f32(dev, also, oracle[0])
+        paths.update(p20_paths)
+    lap("20")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -4072,7 +4645,7 @@ def main(argv=None) -> int:
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or mix_kern.get(name)
                  or p17_kern.get(name) or p18_kern.get(name)
-                 or p19_kern.get(name) or {})
+                 or p19_kern.get(name) or p20_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

@@ -40,7 +40,9 @@ _I = ctypes.c_int
 # their *_plan entry point writes once.
 SIGNATURES = {
     "rdc_gather_interp_affine_f64": [_P] * 6 + [_I] * 5 + [_P],
+    "rdc_gather_interp_affine_f32": [_P] * 6 + [_I] * 5 + [_P],
     "rdc_rhs_affine_f64": [_P] * 7 + [_I] * 4 + [_P],
+    "rdc_rhs_affine_f32": [_P] * 7 + [_I] * 4 + [_P],
     "rdc_apply_affine_plan": [_P, _I] + [_P] * 8 + [_I] * 7,
     "rdc_apply_affine_f32": [_P] * 4,
     "rdc_apply_affine_f64": [_P] * 4,
@@ -54,6 +56,7 @@ SIGNATURES = {
     "rdc_apply_generic_f64": [_P] * 4,
     "rdc_take_along_f32": [_P] * 3 + [_I] * 3 + [_P],
     "rdc_gather_interp_generic_f64": [_P] * 7 + [_I] * 5 + [_P],
+    "rdc_gather_interp_generic_f32": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -1,14 +1,19 @@
 """The hand-written Hopper kernels, their wrappers, their plain PyTorch
 versions and their launch counts.
 
-  K1 gather_interp_affine  csrc/gather_interp_affine.cu   f64        transient
-  K2 rhs_affine            csrc/rhs_affine.cu             f64        transient
+  K1 gather_interp_affine  csrc/gather_interp_affine.cu   f32, f64   transient
+  K2 rhs_affine            csrc/rhs_affine.cu             f32, f64   transient
   K3 apply_affine          csrc/apply_affine.cu           f32, f64   transient
   K4 restrict              csrc/restrict.cu               f32, f64   both
   K5 ell_matvec            csrc/ell_matvec.cu             f32, f64   solid
   K6 apply_generic         csrc/apply_generic.cu          f32, f64   transient
   K7 take_along            csrc/take_along.cu             f32        calibration
-  K8 gather_interp_generic csrc/gather_interp_generic.cu  f64        transient
+  K8 gather_interp_generic csrc/gather_interp_generic.cu  f32, f64   transient
+
+The f32 instances of K1, K2 and K8 serve the transient systems'
+dtype=float32 mode (a step's state, geometry and blocks in f32); the f64
+ones every f64 system.  Each wrapper picks the instance from its input's
+dtype, as K3, K4 and K6 do.
 
 K1-K3 serve affine elements, one instance per type (AFFINE_KQ: TET4,
 TRI3); K8 and K6 are K1's and K3's counterparts for elements whose shape
@@ -66,17 +71,24 @@ from .weakform import (WeakFormBlocks, _is_zero, block_rhs_affine, qp_apply,
 MAX_V = 8  # csrc/common.cuh kMaxV
 PLAN_BYTES = 2048  # csrc/common.cuh kPlanBytes: room for any launch plan
 
+# the launches of a mixed-precision (f64) step, and of an f32 system's step
 TRANSIENT_VARIANTS = ("gather_interp_affine_f64", "rhs_affine_f64",
                       "apply_affine_f32", "apply_affine_f64",
                       "restrict_f32", "restrict_f64")
+TRANSIENT_F32_VARIANTS = ("gather_interp_affine_f32", "rhs_affine_f32",
+                          "apply_affine_f32", "restrict_f32")
 SOLID_VARIANTS = ("restrict_f32", "restrict_f64", "ell_matvec_f32",
                   "ell_matvec_f64")
 GENERIC_VARIANTS = ("gather_interp_generic_f64", "apply_generic_f32",
                     "apply_generic_f64", "restrict_f32", "restrict_f64")
+GENERIC_F32_VARIANTS = ("gather_interp_generic_f32", "apply_generic_f32",
+                        "restrict_f32")
 KERNEL_VARIANTS = (TRANSIENT_VARIANTS
                    + ("ell_matvec_f32", "ell_matvec_f64",
                       "apply_generic_f32", "apply_generic_f64",
-                      "take_along_f32", "gather_interp_generic_f64"))
+                      "take_along_f32", "gather_interp_generic_f64",
+                      "gather_interp_affine_f32", "rhs_affine_f32",
+                      "gather_interp_generic_f32"))
 
 # (K, Q) -> the element type K1-K3 are instantiated for
 AFFINE_KQ = {(4, 5): "tet4", (3, 4): "tri3"}
@@ -85,11 +97,14 @@ GENERIC_KQ = {(8, 8): "hex8", (6, 8): "prism6", (5, 8): "pyramid5",
               (10, 14): "tet10", (4, 4): "quad4", (8, 9): "quad8",
               (9, 9): "quad9", (20, 27): "hex20", (27, 27): "hex27"}
 AFFINE_INSTANCES = tuple(
-    f"{v}:{elem}" for v in ("gather_interp_affine_f64", "rhs_affine_f64",
-                            "apply_affine_f32", "apply_affine_f64")
+    f"{v}:{elem}" for v in ("gather_interp_affine_f64",
+                            "gather_interp_affine_f32", "rhs_affine_f64",
+                            "rhs_affine_f32", "apply_affine_f32",
+                            "apply_affine_f64")
     for elem in AFFINE_KQ.values())
 GENERIC_INSTANCES = tuple(
-    f"{v}:{elem}" for v in ("gather_interp_generic_f64", "apply_generic_f32",
+    f"{v}:{elem}" for v in ("gather_interp_generic_f64",
+                            "gather_interp_generic_f32", "apply_generic_f32",
                             "apply_generic_f64")
     for elem in GENERIC_KQ.values())
 # csrc/common.cuh kRegRows: the largest K whose gradient rows K6 and K8
@@ -304,6 +319,17 @@ def _check_fast(name: str, t: torch.Tensor, device, dtype, shape) -> None:
         _check(name, t, device, dtype, shape)
 
 
+_TAG = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _float_tag(name: str, dt: torch.dtype) -> str:
+    """"f32" or "f64", the tag of a kernel's instance for dtype dt;
+    TypeError for a dtype no kernel takes."""
+    if dt not in _TAG:
+        raise TypeError(f"{name}: no kernel for {dt}")
+    return _TAG[dt]
+
+
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr() if t.numel() else 0
 
@@ -400,26 +426,26 @@ def _check_affine_kq(name: str, K: int, Q: int) -> str:
 
 def gather_interp_affine(u: torch.Tensor, conn_T: torch.Tensor, phi,
                          dphi0: torch.Tensor):
-    """K1: u (V, N) f64, conn_T (K, E) int32, phi (Q, K) host table,
-    dphi0 (K, 3, E) f64 -> (u_qp (V, Q, E), gx (V, 3, E))."""
+    """K1: u (V, N) f32 or f64, conn_T (K, E) int32, phi (Q, K) host table,
+    dphi0 (K, 3, E) in u's dtype -> (u_qp (V, Q, E), gx (V, 3, E))."""
     if _on_cpu(u):
         return gather_interp_affine_plain(u, conn_T, phi, dphi0)
     V, N = u.shape
     K, E = conn_T.shape
     Q = np.shape(phi)[0]
-    dev, f64 = u.device, torch.float64
+    dev, dt = u.device, u.dtype
+    variant = "gather_interp_affine_" + _float_tag("gather_interp_affine", dt)
     elem = _check_affine_kq("gather_interp_affine", K, Q)
-    _check("u", u, dev, f64, (V, N))
+    _check("u", u, dev, dt, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
-    _check("dphi0", dphi0, dev, f64, (K, 3, E))
+    _check("dphi0", dphi0, dev, dt, (K, 3, E))
     ph = _phi_host(phi, Q, K)
-    u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
-    gx = torch.empty((V, 3, E), dtype=f64, device=dev)
+    u_qp = torch.empty((V, Q, E), dtype=dt, device=dev)
+    gx = torch.empty((V, 3, E), dtype=dt, device=dev)
     with _on_device(dev):
-        _launch("gather_interp_affine_f64",
-                _fn("gather_interp_affine_f64"), _ptr(u), _ptr(conn_T),
-                _host(ph), _ptr(dphi0), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
-                _stream(dev), instance=f"gather_interp_affine_f64:{elem}")
+        _launch(variant, _fn(variant), _ptr(u), _ptr(conn_T), _host(ph),
+                _ptr(dphi0), _ptr(u_qp), _ptr(gx), V, N, K, Q, E,
+                _stream(dev), instance=f"{variant}:{elem}")
     return u_qp, gx
 
 
@@ -433,60 +459,60 @@ def _check_kq(name: str, K: int, Q: int) -> str:
 
 def gather_interp_generic(u: torch.Tensor, conn_T: torch.Tensor, phi,
                           dphi: torch.Tensor):
-    """K8: u (V, N) f64, conn_T (K, E) int32, phi (Q, K) host table,
-    dphi (Q, K, 3, E) f64 -> (u_qp (V, Q, E), gx (V, Q, 3, E))."""
+    """K8: u (V, N) f32 or f64, conn_T (K, E) int32, phi (Q, K) host table,
+    dphi (Q, K, 3, E) in u's dtype -> (u_qp (V, Q, E), gx (V, Q, 3, E))."""
     if _on_cpu(u):
         return gather_interp_generic_plain(u, conn_T, phi, dphi)
     V, N = u.shape
     K, E = conn_T.shape
     Q = np.shape(phi)[0]
-    dev, f64 = u.device, torch.float64
+    dev, dt = u.device, u.dtype
+    variant = "gather_interp_generic_" + _float_tag("gather_interp_generic",
+                                                    dt)
     elem = _check_kq("gather_interp_generic", K, Q)
     if K > REG_ROWS and V > MAX_V:
         raise ValueError(f"gather_interp_generic: {V} species at K={K}, "
                          f"kernel takes 1..{MAX_V}")
-    _check("u", u, dev, f64, (V, N))
+    _check("u", u, dev, dt, (V, N))
     _check("conn_T", conn_T, dev, torch.int32, (K, E))
-    _check("dphi", dphi, dev, f64, (Q, K, 3, E))
+    _check("dphi", dphi, dev, dt, (Q, K, 3, E))
     ph = _phi_host(phi, Q, K)
-    ph_dev = _phi_dev(ph, f64, dev)
-    u_qp = torch.empty((V, Q, E), dtype=f64, device=dev)
-    gx = torch.empty((V, Q, 3, E), dtype=f64, device=dev)
+    ph_dev = _phi_dev(ph, dt, dev)
+    u_qp = torch.empty((V, Q, E), dtype=dt, device=dev)
+    gx = torch.empty((V, Q, 3, E), dtype=dt, device=dev)
     with _on_device(dev):
-        _launch("gather_interp_generic_f64",
-                _fn("gather_interp_generic_f64"), _ptr(u), _ptr(conn_T),
-                _host(ph), _ptr(ph_dev), _ptr(dphi), _ptr(u_qp), _ptr(gx),
-                V, N, K, Q, E,
-                _stream(dev), instance=f"gather_interp_generic_f64:{elem}")
+        _launch(variant, _fn(variant), _ptr(u), _ptr(conn_T), _host(ph),
+                _ptr(ph_dev), _ptr(dphi), _ptr(u_qp), _ptr(gx), V, N, K, Q,
+                E, _stream(dev), instance=f"{variant}:{elem}")
     return u_qp, gx
 
 
 def rhs_affine(st: RhsStacks, JxW: torch.Tensor, phi, dphi0: torch.Tensor):
-    """K2: stacked A/B blocks, JxW (Q, E) f64, phi (Q, K) host table,
-    dphi0 (K, 3, E) f64 -> Fe (V, K, E) f64."""
+    """K2: stacked A/B blocks, JxW (Q, E) f32 or f64, phi (Q, K) host
+    table, dphi0 (K, 3, E) and the blocks in JxW's dtype -> Fe (V, K, E)."""
     if _on_cpu(JxW):
         return rhs_affine_plain(st, JxW, phi, dphi0)
     V = st.n_vars
     Q, E = JxW.shape
     K = dphi0.shape[0]
-    dev, f64 = JxW.device, torch.float64
+    dev, dt = JxW.device, JxW.dtype
+    variant = "rhs_affine_" + _float_tag("rhs_affine", dt)
     if not 1 <= V <= MAX_V:
         raise ValueError(f"rhs_affine: {V} species, kernel takes 1..{MAX_V}")
     elem = _check_affine_kq("rhs_affine", K, Q)
-    _check("JxW", JxW, dev, f64, (Q, E))
-    _check("dphi0", dphi0, dev, f64, (K, 3, E))
-    _check("A", st.A, dev, f64, (len(st.idxA), Q, E))
-    _check("B", st.B, dev, f64, (len(st.idxB), Q, 3, E))
+    _check("JxW", JxW, dev, dt, (Q, E))
+    _check("dphi0", dphi0, dev, dt, (K, 3, E))
+    _check("A", st.A, dev, dt, (len(st.idxA), Q, E))
+    _check("B", st.B, dev, dt, (len(st.idxB), Q, 3, E))
     slots = np.full((2, MAX_V), -1, np.int32)
     slots[0, st.idxA] = np.arange(len(st.idxA))
     slots[1, st.idxB] = np.arange(len(st.idxB))
     ph = _phi_host(phi, Q, K)
-    Fe = torch.empty((V, K, E), dtype=f64, device=dev)
+    Fe = torch.empty((V, K, E), dtype=dt, device=dev)
     with _on_device(dev):
-        _launch("rhs_affine_f64", _fn("rhs_affine_f64"), _ptr(st.A),
-                _ptr(st.B), _host(slots), _ptr(JxW), _host(ph), _ptr(dphi0),
-                _ptr(Fe), V, K, Q, E, _stream(dev),
-                instance=f"rhs_affine_f64:{elem}")
+        _launch(variant, _fn(variant), _ptr(st.A), _ptr(st.B), _host(slots),
+                _ptr(JxW), _host(ph), _ptr(dphi0), _ptr(Fe), V, K, Q, E,
+                _stream(dev), instance=f"{variant}:{elem}")
     return Fe
 
 
@@ -518,8 +544,7 @@ def apply_launch_data(kind: str, conn_T: torch.Tensor, phi,
     generic = kind == "generic"
     name = "apply_generic" if generic else "apply_affine"
     V, dev, dt = st.n_vars, JxW.device, JxW.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: no kernel for {dt}")
+    _float_tag(name, dt)
     if not 1 <= V <= MAX_V:
         raise ValueError(f"{name}: {V} species, kernel takes 1..{MAX_V}")
     if conn_T.dim() != 2 or JxW.dim() != 2:
@@ -567,7 +592,7 @@ def _apply_plan(kind: str, x: torch.Tensor, conn_T, phi, JxW, dphi,
     if p is not None:
         return p
     d = apply_launch_data(kind, conn_T, phi, JxW, dphi, st, x.shape[-1])
-    tag = "f32" if d.dtype == torch.float32 else "f64"
+    tag = _TAG[d.dtype]
     generic = kind == "generic"
     extra = ((len(st.idxC), len(st.idxD), len(st.idxE)) if generic else ())
     Ep = st.E if generic else st.Epre
@@ -659,7 +684,7 @@ class _TablePlan(NamedTuple):
     device: torch.device
 
 
-_RESTRICT = {torch.float32: "restrict_f32", torch.float64: "restrict_f64"}
+_RESTRICT = {dt: f"restrict_{tag}" for dt, tag in _TAG.items()}
 _table_plans: Dict[int, _TablePlan] = {}
 
 
@@ -711,8 +736,7 @@ def ell_matvec(values_ell: torch.Tensor, ell_cols: torch.Tensor,
         return ell_matvec_plain(values_ell, ell_cols, x)
     V, W, L, N = values_ell.shape
     dev, dt = values_ell.device, values_ell.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"ell_matvec: no kernel for {dt}")
+    variant = "ell_matvec_" + _float_tag("ell_matvec", dt)
     if not 1 <= W <= MAX_V:
         raise ValueError(f"ell_matvec: {W} columns per block, kernel takes "
                          f"1..{MAX_V}")
@@ -720,7 +744,6 @@ def ell_matvec(values_ell: torch.Tensor, ell_cols: torch.Tensor,
     _check("ell_cols", ell_cols, dev, torch.int32, (L, N))
     _check_fast("x", x, dev, dt, (W, N))
     y = values_ell.new_empty((V, N))
-    variant = "ell_matvec_f32" if dt == torch.float32 else "ell_matvec_f64"
     with _on_device(dev):
         _launch(variant, _fn(variant), _ptr(values_ell),
                 _ptr(ell_cols), _ptr(x), _ptr(y), V, W, L, N, _stream(dev))

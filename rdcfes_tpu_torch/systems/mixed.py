@@ -52,6 +52,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..fem.constraints import Constraints
 from ..fem.kernels import KERNEL_OPS, Ops
@@ -63,7 +64,9 @@ class MixedTransientRDCSystem(TransientRDCSystem):
     """TransientRDCSystem's surface on a MixedMesh: initial_state,
     gather_state, scatter_state, step and run_steps with the same state
     dict (u, u_old, u_older, u_raw) and the same (state, iters, residual)
-    results.  The arguments are TransientRDCSystem's."""
+    results.  The arguments are TransientRDCSystem's, dtype too (the
+    reference's rules, rdcfes_tpu/systems/mixed.py:71-84: f32 floors the
+    rtol at 1e-6 and never refines against f64)."""
 
     # mixed-mesh transition elements amplify the residual into the
     # solution error by ~1e5, so each refinement pass runs to 1e-7
@@ -79,14 +82,15 @@ class MixedTransientRDCSystem(TransientRDCSystem):
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
                  ops: Ops = KERNEL_OPS, method: str = "bicgstab",
-                 physics: Optional[Callable] = None):
+                 physics: Optional[Callable] = None,
+                 dtype: torch.dtype = torch.float64):
         if mesh.elem_type != "MIXED":
             raise ValueError(f"MixedTransientRDCSystem takes a MixedMesh, "
                              f"got {mesh.elem_type}")
         self._setup(mesh, [(b.elem_type, b.connectivity)
                            for b in mesh.blocks], n_vars, physics_blocks,
                     clamp, rtol, maxiter, precision, precond_refresh,
-                    device, ops, method, physics)
+                    device, ops, method, physics, dtype)
         self.moving_mesh = bool(moving_mesh)
         if constraints is not None and len(constraints):
             self.cons = Constraints(constraints, self.device)
@@ -122,9 +126,9 @@ class MixedTransientRDCSystem(TransientRDCSystem):
         import scipy.sparse as sps
 
         values, b = self.assemble(u_T, fields, params)
-        values = values.cpu().numpy()
+        values = values.cpu().numpy().astype(np.float64)
         V, N, sp = self.n_vars, self.mesh.n_nodes, self.sp
         A = sps.bmat([[sps.csr_matrix((values[v, w], (sp.rows, sp.cols)),
                                       shape=(N, N)) for w in range(V)]
                       for v in range(V)], format="csr")
-        return A, b.cpu().numpy().reshape(V * N)
+        return A, b.cpu().numpy().astype(np.float64).reshape(V * N)

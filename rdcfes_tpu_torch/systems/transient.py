@@ -50,6 +50,15 @@ build it from the coords they are given (the coupled HCC driver's
 deformed positions), the role of the reference app's fe->reinit on the
 moved mesh (src/coupled_hcc.C:114).
 
+dtype=torch.float32 is the reference's serving mode (rdcfes_tpu/systems/
+transient.py:231-238): the state, the geometry (computed in f64, then
+cast), the coefficient blocks, the block-Jacobi inverse, the Krylov
+solve, the constraints and the dense path's Fe, Ke and diagonal are all
+f32, through the f32 instances of K1, K2 and K8 and the f32 K3, K4 and
+K6.  The rtol is floored at 1e-6, and precision="mixed" runs the plain
+Krylov solve (refine_mixed refines an f32 solve against f64, which an
+f32 system does not have).
+
 Layouts are channel-first inside (u is (V, N)); the public state keeps the
 reference's (N, V) arrays.  PyTorch runs eagerly, so the step is plain
 Python: the reference's jit/scan machinery has no counterpart here.
@@ -112,10 +121,10 @@ class Geometry(NamedTuple):
     kernels take: one gradient per element, dphi[0] (K, 3, E), on the
     affine (TET4, TRI3) path (q-invariant there), the per-q tables
     (Q, K, 3, E) on the other types."""
-    JxW: torch.Tensor      # (Q, E) f64
-    dphi: torch.Tensor     # f64
-    JxW32: torch.Tensor    # the f32 casts of the inner matvec
-    dphi32: torch.Tensor
+    JxW: torch.Tensor      # (Q, E) in the system's dtype
+    dphi: torch.Tensor     # in the system's dtype
+    JxW32: torch.Tensor    # the f32 casts of the inner matvec (the same
+    dphi32: torch.Tensor   # tensors in an f32 system)
 
 
 class ElementBlock:
@@ -132,12 +141,16 @@ class ElementBlock:
                                       device=device)
         self.phi = elements.tabulate(elem_type)[0]  # coordinate-free
 
-    def geometry(self, coords: torch.Tensor) -> Geometry:
-        """The block's Geometry at node positions coords (N, 3) f64."""
+    def geometry(self, coords: torch.Tensor,
+                 dtype: torch.dtype = torch.float64) -> Geometry:
+        """The block's Geometry at node positions coords (N, 3) f64,
+        computed in f64 and cast to dtype (the reference's JxW.astype,
+        rdcfes_tpu/systems/transient.py:275-276)."""
         _, JxW, dphi = geometry_factors(coords, self.conn_T.T,
                                         self.elem_type)
         if self.affine:
             dphi = dphi[0].clone()  # one gradient per element
+        JxW, dphi = JxW.to(dtype), dphi.to(dtype)
         return Geometry(JxW, dphi, JxW.to(torch.float32),
                         dphi.to(torch.float32))
 
@@ -190,7 +203,10 @@ class ElementBlock:
         Ke, diag_e = element_matrices(wf, self.phi, g.JxW, dphi,
                                       grad_const=self.affine,
                                       return_diag=True)
-        return Fe, Ke, diag_e
+        dt = g.JxW.dtype
+        # physics code may build f64 constants (the reference's comment,
+        # rdcfes_tpu/systems/transient.py:466-467): the system's dtype wins
+        return Fe.to(dt), Ke.to(dt), diag_e.to(dt)
 
     @staticmethod
     def batched(Ke: torch.Tensor) -> torch.Tensor:
@@ -282,11 +298,15 @@ class TransientRDCSystem:
                       form (keyword; the reference's third argument); at
                       least one of the two is required
     clamp           : callable(u (V,N)) -> (V,N), applied after each solve
-    rtol, maxiter   : linear tolerance on the preconditioned residual, and
-                      the iteration cap of the f64 solve or rescue
-    precision       : "f64" (the default: one f64 Krylov solve with
-                      `method`) or "mixed" (f32 BiCGStab passes, f64
-                      refinement)
+    rtol, maxiter   : linear tolerance on the preconditioned residual
+                      (floored at 1e-6 in f32), and the iteration cap of
+                      the f64 solve or rescue
+    precision       : "f64" (the default: one Krylov solve with `method`)
+                      or "mixed" (f32 BiCGStab passes, f64 refinement; an
+                      f32 system runs the plain solve)
+    dtype           : torch.float64 (the default) or torch.float32, the
+                      reference's serving mode: state, geometry, blocks,
+                      operators and the solve in f32
     method          : "bicgstab" or "gmres", the f64 solver of
                       precision="f64"
     precond_refresh : recompute the block-Jacobi inverse every k steps
@@ -320,14 +340,15 @@ class TransientRDCSystem:
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
                  ops: Ops = KERNEL_OPS, method: str = "bicgstab",
-                 physics: Optional[Callable] = None):
+                 physics: Optional[Callable] = None,
+                 dtype: torch.dtype = torch.float64):
         if mesh.elem_type not in _ELEMENT_TYPES:
             raise ValueError(
                 f"{mesh.elem_type} meshes in TransientRDCSystem (a "
                 f"MixedMesh goes to systems.mixed.MixedTransientRDCSystem)")
         self._setup(mesh, [(mesh.elem_type, mesh.connectivity)], n_vars,
                     physics_blocks, clamp, rtol, maxiter, precision,
-                    precond_refresh, device, ops, method, physics)
+                    precond_refresh, device, ops, method, physics, dtype)
         dev = self.device
         self.moving_mesh = bool(moving_mesh)
         self.cons = (Constraints(constraints, dev)
@@ -339,7 +360,7 @@ class TransientRDCSystem:
 
     def _setup(self, mesh, element_blocks, n_vars, physics_blocks, clamp,
                rtol, maxiter, precision, precond_refresh, device, ops,
-               method, physics) -> None:
+               method, physics, dtype) -> None:
         """What every system keeps: the settings, one ElementBlock per
         (elem_type, connectivity) in the global element order, their
         rest geometries and the one K4 table over their corners."""
@@ -351,6 +372,13 @@ class TransientRDCSystem:
             raise ValueError(f"unknown precision {precision!r}")
         if method not in _METHODS:
             raise ValueError(f"unknown method {method!r}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype!r}: a transient system runs in "
+                             f"torch.float32 or torch.float64")
+        if dtype == torch.float32:
+            # f32 limits the reachable relative residual to ~1e-6
+            rtol = max(rtol, 1e-6)
+        self.dtype = dtype
         self.mesh = mesh
         self.method = method
         self.n_vars = n_vars
@@ -383,7 +411,7 @@ class TransientRDCSystem:
         transient.py:1202-1222); phi does not depend on them."""
         coords = torch.as_tensor(coords, dtype=torch.float64,
                                  device=self.device)
-        return [blk.geometry(coords) for blk in self.blocks]
+        return [blk.geometry(coords, self.dtype) for blk in self.blocks]
 
     def _geom_from_coords(self, coords) -> Geometry:
         """The one block's geometry record at node positions coords."""
@@ -402,7 +430,7 @@ class TransientRDCSystem:
 
     # ------------------------------------------------------------------
     def initial_state(self, u0) -> Dict[str, torch.Tensor]:
-        u0 = torch.as_tensor(u0, dtype=torch.float64, device=self.device)
+        u0 = torch.as_tensor(u0, dtype=self.dtype, device=self.device)
         if tuple(u0.shape) != (self.mesh.n_nodes, self.n_vars):
             raise ValueError(f"u0 shape {tuple(u0.shape)}, expected "
                              f"{(self.mesh.n_nodes, self.n_vars)}")
@@ -413,7 +441,7 @@ class TransientRDCSystem:
         return state_to_numpy(state)
 
     def scatter_state(self, gstate: Dict) -> Dict[str, torch.Tensor]:
-        return state_from_numpy(gstate, self.device)
+        return state_from_numpy(gstate, self.device, self.dtype)
 
     # ------------------------------------------------------------------
     def _fields_for_block(self, bi: int, fields: Dict) -> Dict:
@@ -454,8 +482,11 @@ class TransientRDCSystem:
         wfbs = []
         for bi, (blk, g) in enumerate(zip(self.blocks, geoms)):
             u_qp, grad_qp = blk.interp(ops, u_T, g)
+            # blocks that met f64 fields or constants come back in the
+            # system's dtype (a no-op where they are already)
             wfbs.append(self.physics_blocks(
-                u_qp, grad_qp, self._fields_for_block(bi, fields), params))
+                u_qp, grad_qp, self._fields_for_block(bi, fields),
+                params).cast(self.dtype))
         b = self._restrict([blk.rhs(ops, wfb, g) for blk, wfb, g
                             in zip(self.blocks, wfbs, geoms)], V)
         cons = self.cons
@@ -477,7 +508,7 @@ class TransientRDCSystem:
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
         if cons is not None:
             x0 = cons.pin(x0)  # iterate on the masters: hanging entries 0
-        if self.precision == "mixed":
+        if self._refines():
             # the f32 operator is built from f32 casts of the f64 blocks,
             # its diffusion q-sum taken in f32 (the reference's wfb.cast)
             st32 = [blk.stacks(wfb.cast(f32), g.JxW32)
@@ -502,6 +533,12 @@ class TransientRDCSystem:
         new_state = {"u": u_new.T, "u_old": state["u"],
                      "u_older": state["u_old"], "u_raw": u_raw.T}
         return new_state, iters, resid, Dinv
+
+    def _refines(self) -> bool:
+        """Whether the solve is refine_mixed: precision="mixed" in f64 (an
+        f32 system runs the plain Krylov solve, rdcfes_tpu/systems/
+        transient.py:521)."""
+        return self.precision == "mixed" and self.dtype == torch.float64
 
     # ------------------------------------------------------------------
     # the dense element-matrix path
@@ -552,7 +589,7 @@ class TransientRDCSystem:
             Dinv, self._dense_matvec(x, KeBs))
         pre_b = apply_block_jacobi(Dinv, b)
         x0 = (2.0 * state["u"] - state["u_old"]).T.contiguous()
-        if self.precision == "mixed":
+        if self._refines():
             f32 = torch.float32
             KeB32 = [KB.to(f32) for KB in KeBs]
             Dinv32 = Dinv.to(f32)
@@ -599,7 +636,7 @@ class TransientRDCSystem:
         geom: the blocks' Geometry records (default the rest geometry)."""
         V = self.n_vars
         _, slot_gather = self._assembly_tables()
-        u_T = torch.as_tensor(u_T, dtype=torch.float64, device=self.device)
+        u_T = torch.as_tensor(u_T, dtype=self.dtype, device=self.device)
         physics = self.physics or (lambda *a: self.physics_blocks(*a)
                                    .to_dense())
         kern = self._element_kernels(u_T.contiguous(), fields or {},
@@ -770,6 +807,6 @@ class TransientRDCSystem:
             its.append(it)
             ress.append(res)
         ress = (torch.stack(ress) if ress
-                else torch.empty(0, dtype=torch.float64, device=self.device))
+                else torch.empty(0, dtype=self.dtype, device=self.device))
         out = (state, torch.tensor(its, dtype=torch.int64), ress)
         return out + ((aux,) if field_update is not None else ())

@@ -3,8 +3,9 @@ material tables, positions, step fields and solver state between NumPy
 and the port, so both packages can be fed identical data.
 
 The state dict is the one rdcfes_tpu's TransientRDCSystem.gather_state
-returns: keys u, u_old, u_older, u_raw, each (N, V) float64.  Solid
-positions are (N, 3) float64.
+returns: keys u, u_old, u_older, u_raw, each (N, V) in the system's
+dtype (float64, or float32 in the serving mode: pass dtype= so that both
+packages step the same f32 values).  Solid positions are (N, 3) float64.
 """
 
 from __future__ import annotations

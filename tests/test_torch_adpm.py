@@ -19,7 +19,13 @@ both sides.
   of the port as plain steps at dt/2; one step() against the reference's
   step(); choose_subcycle against the reference's from k0=2;
 * the port's probe ladder from k0=1, subcycle="auto" and another
-  field_update hook, on box_tet_mesh(2,2,2), against its own runs.
+  field_update hook, on box_tet_mesh(2,2,2), against its own runs;
+* ADPM's shipped rtol of 1e-9 for the taxis-active leg, pinned by
+  PARITY.md section 10's local parity: along a 10-step trajectory of
+  oracle/adpm_numpy.AdpmOracle (scipy direct solves) on a bench-matched
+  box_tet_mesh(6,6,6), the port re-seeded from each oracle state takes one
+  step whose relative L2 to the oracle's next state stays within 1e-8
+  (no JAX).
 
 The HEX8 steps of ADPM are in tests/test_torch_generic.py.
 """
@@ -304,3 +310,40 @@ def test_choose_subcycle_and_field_update():
     ref = s.run_steps(st0, 2, fields=tracts_only, params=p,
                       scalar_traj={"time": np.array([1.0, 1.25])})
     assert torch.equal(out[0]["u"], ref[0]["u"])
+
+
+def test_adpm_local_parity_at_shipped_rtol():
+    """The taxis-active leg's settings (amplitude 50, dt 0.05, rtol 1e-9,
+    precision "mixed", precond_refresh 10) re-seeded from each state of a
+    10-step oracle trajectory: every step within 1e-8 relative L2 of the
+    oracle's next state.  The box keeps the bench's element size (bounds
+    scaled by n / 28, scripts/calibrate_adpm_rtol.py:35-40), so the taxis
+    CFL and the conditioning are the bench's; the reference measured
+    1.8e-9 worst at 28^3 over 60 steps (PARITY.md section 10)."""
+    from oracle.adpm_numpy import AdpmOracle
+
+    n, steps = 6, 10
+    s = n / 28.0
+    mesh = box_tet_mesh(n, n, n, bounds=((0, 150.0 * s), (0, 180.0 * s),
+                                         (0, 150.0 * s)))
+    p = adpm_params("taxis")
+    rng = np.random.default_rng(0)
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    u = np.zeros((mesh.n_nodes, 3))
+    u[:, 0] = 1.0
+    u[:, 1] = 1e-3 * np.exp(-r2 / (2 * (20.0 * s) ** 2))
+    u[:, 2] = 1e-4 * np.exp(-r2 / (2 * (15.0 * s) ** 2))
+    tracts = rng.standard_normal((mesh.n_elems, 3))
+    tracts /= np.linalg.norm(tracts, axis=1, keepdims=True)
+    orc = AdpmOracle(mesh.coords, mesh.connectivity, tracts, p)
+    sys_ = TransientRDCSystem(mesh, 3, adpm.adpm_blocks, rtol=1e-9,
+                              precision="mixed", precond_refresh=10,
+                              device="cpu")
+    f = fields_from_numpy({"tracts": tracts, "time": 1.0}, sys_.device)
+    worst = 0.0
+    for _ in range(steps):
+        st, _, res = sys_.step(sys_.initial_state(u), fields=f, params=p)
+        u, _ = orc.step(u, time=1.0)
+        assert float(res) <= 1e-9
+        worst = max(worst, rel_l2(st["u"].numpy(), u))
+    assert worst <= 1e-8

@@ -7,7 +7,10 @@ through the kernels against the same runs through the plain versions; K6
 generic gather + interpolation) the same way, and ADPM steps on HEX8
 through K8, K6 and K4; the K6 and K8 instances of PRISM6, PYRAMID5 and
 TET10 (f32 within 1e-6) and three MixedTransientRDCSystem steps and a
-TET10 step through the kernels against the plain versions; the K1-K3
+TET10 step through the kernels against the plain versions; the f32
+instances of K1 and K2 (TET4, TRI3) and of K8 (every element type) within
+1e-5, and f32 systems (TET4, HEX8, mixed) through the kernels against the
+plain versions, only f32 instances launched; the K1-K3
 instances of TRI3 and the K6 and K8 instances of QUAD4, QUAD8, QUAD9,
 HEX20 and HEX27, PIHNA steps on TRI3, QUAD9 and HEX27 and a dense-path
 step and `assemble` through the kernels against the plain versions; K6
@@ -848,3 +851,137 @@ def test_dense_path_kernels_match_plain(cuda):
     u_T = sa["u"].T.contiguous()
     (va, ba), (vb, bb) = (s.assemble(u_T, {}, p) for s in (a, b))
     assert rel(va, vb) < 1e-13 and rel(ba, bb) < 1e-13
+
+
+# ----------------------------------------------------------------------
+# the f32 instances of K1, K2 and K8 (the dtype=float32 mode)
+# ----------------------------------------------------------------------
+F32_BAR = 1e-5
+
+
+def _affine_case(dev, elem_type):
+    """Seeded f32 inputs of K1 and K2 on a jittered TET4 or TRI3 box."""
+    if elem_type == "TET4":
+        m = box_tet_mesh(5, 4, 3, bounds=((0, 2.0), (0, 3.0), (0, 2.5)))
+    else:
+        m = box_tri_mesh(9, 7, bounds=((0, 2.0), (0, 3.0)))
+    rng = np.random.default_rng(17)
+    dim = 3 if elem_type == "TET4" else 2  # TRI3 stays in its plane
+    coords = m.coords.copy()
+    coords[:, :dim] += 0.02 * rng.standard_normal((m.n_nodes, dim))
+    phi, JxW, dphi = geometry_factors(torch.as_tensor(coords, device=dev),
+                                      torch.as_tensor(m.connectivity,
+                                                      device=dev), elem_type)
+    Q, E = JxW.shape
+    blocks = ([rng.standard_normal((Q, E)) if v != 2 else 0.0
+               for v in range(V)],
+              [rng.standard_normal((Q, 3, E)) if v % 2 else 0.0
+               for v in range(V)], [[0.0] * V] * V, [[0.0] * V] * V,
+              [[0.0] * V] * V)
+    f32 = torch.float32
+    return dict(
+        phi=phi, JxW=JxW.to(f32), dphi0=dphi[0].to(f32).contiguous(),
+        wfb=blocks_from_numpy(*blocks, dev, dtype=f32),
+        conn_T=torch.as_tensor(np.ascontiguousarray(m.connectivity.T),
+                               device=dev),
+        x=torch.as_tensor(rng.standard_normal((V, m.n_nodes)), dtype=f32,
+                          device=dev))
+
+
+@pytest.mark.parametrize("elem_type", ["TET4", "TRI3"])
+def test_affine_f32_instances_match_plain(cuda, elem_type):
+    """K1 f32 and K2 f32 at TET4 (4, 5) and TRI3 (3, 4) within 1e-5 of
+    their plain f32 versions, f32 out, each launch counted under the f32
+    variant and its instance; an f64 table under f32 values raises."""
+    c = _affine_case(cuda, elem_type)
+    tag = "tet4" if elem_type == "TET4" else "tri3"
+    names = [f"gather_interp_affine_f32:{tag}", f"rhs_affine_f32:{tag}",
+             "gather_interp_affine_f32", "rhs_affine_f32"]
+    before = kernels.launch_counts()
+    out = kernels.gather_interp_affine(c["x"], c["conn_T"], c["phi"],
+                                       c["dphi0"])
+    ref = kernels.gather_interp_affine_plain(c["x"], c["conn_T"], c["phi"],
+                                             c["dphi0"])
+    rhs = kernels.stack_rhs(c["wfb"])
+    Fe = kernels.rhs_affine(rhs, c["JxW"], c["phi"], c["dphi0"])
+    Fr = kernels.rhs_affine_plain(rhs, c["JxW"], c["phi"], c["dphi0"])
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert all(o.dtype == torch.float32 for o in out + (Fe,))
+    assert all(rel(o, r) < F32_BAR for o, r in zip(out, ref))
+    assert rel(Fe, Fr) < F32_BAR and not Fe[2].any()
+    assert all(after[n] == before[n] + 1 for n in names)
+    assert after["gather_interp_affine_f64"] == before[
+        "gather_interp_affine_f64"]
+    with pytest.raises(TypeError):
+        kernels.gather_interp_affine(c["x"], c["conn_T"], c["phi"],
+                                     c["dphi0"].double())
+    with pytest.raises(TypeError):
+        kernels.rhs_affine(rhs, c["JxW"].double(), c["phi"],
+                           c["dphi0"].double())
+    with pytest.raises(TypeError):
+        kernels.gather_interp_affine(c["x"].half(), c["conn_T"], c["phi"],
+                                     c["dphi0"].half())
+
+
+GENERIC_TYPES = {"HEX8": "hex8", **NEW_TYPES}
+
+
+@pytest.mark.parametrize("elem_type", list(GENERIC_TYPES))
+def test_gather_interp_generic_f32_instances_match_plain(cuda, elem_type):
+    """K8 f32 at every GENERIC_KQ instance (HEX8, PYRAMID5, PRISM6, TET10,
+    QUAD4, QUAD8, QUAD9, HEX20, HEX27; at HEX20 and HEX27 the thread per
+    (element, q) path, also at its 8 species) within 1e-5 of its plain f32
+    version, counted under the f32 variant and the instance."""
+    for n_vars in ((V, kernels.MAX_V) if elem_type.startswith("HEX2")
+                   else (V,)):
+        c = _elem_case(cuda, elem_type, n_vars)
+        f32 = torch.float32
+        x, dphi = c["x"].to(f32), c["dphi"].to(f32)
+        inst = f"gather_interp_generic_f32:{GENERIC_TYPES[elem_type]}"
+        before = kernels.launch_counts()
+        out = kernels.gather_interp_generic(x, c["conn_T"], c["phi"], dphi)
+        ref = kernels.gather_interp_generic_plain(x, c["conn_T"], c["phi"],
+                                                  dphi)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert all(o.dtype == f32 and o.shape == r.shape
+                   for o, r in zip(out, ref))
+        assert all(rel(o, r) < F32_BAR for o, r in zip(out, ref))
+        assert after[inst] == before[inst] + 1
+        assert (after["gather_interp_generic_f32"]
+                == before["gather_interp_generic_f32"] + 1)
+
+
+@pytest.mark.parametrize("kind", ["TET4", "HEX8", "MIXED"])
+def test_f32_system_kernel_path_matches_plain_path(cuda, kind):
+    """3 PIHNA steps of an f32 system (precision "mixed", which f32 runs
+    as the plain solve) through the kernels and through the plain
+    versions from a common state, within 1e-5 per step; only f32
+    instances launched."""
+    b30 = ((0, 30.0),) * 3
+    mesh = {"TET4": lambda: box_tet_mesh(4, 4, 3, bounds=b30),
+            "HEX8": lambda: box_hex_mesh(4, 3, 3, bounds=b30),
+            "MIXED": lambda: box_mixed_mesh(6, 4, 4, bounds=b30)}[kind]()
+    make = MixedTransientRDCSystem if kind == "MIXED" else TransientRDCSystem
+    p = _pihna_live_params()
+    rng = np.random.default_rng(2)
+    u0 = np.abs(rng.random((mesh.n_nodes, 5))) * np.array(
+        [1., 100., 50., 500., 1e-10])
+    a, b = (make(mesh, 5, pihna_blocks, rtol=3e-11, precision="mixed",
+                 dtype=torch.float32, device=cuda, ops=ops)
+            for ops in (kernels.KERNEL_OPS, kernels.PLAIN_OPS))
+    kernels.reset_launch_counts()
+    sa = a.initial_state(u0)
+    for _ in range(3):
+        sb, _, _ = b.step(sa, params=p)
+        sa, _, res = a.step(sa, params=p)
+        assert sa["u"].dtype == torch.float32 and float(res) <= 1e-6
+        assert rel(sa["u"], sb["u"]) < F32_BAR
+    n = kernels.launch_counts()
+    want = {"TET4": kernels.TRANSIENT_F32_VARIANTS,
+            "HEX8": kernels.GENERIC_F32_VARIANTS,
+            "MIXED": kernels.TRANSIENT_F32_VARIANTS
+            + kernels.GENERIC_F32_VARIANTS}[kind]
+    assert all(n[k] > 0 for k in want), n
+    assert not any(n[k] for k in n if "f64" in k), n
