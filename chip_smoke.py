@@ -12,7 +12,8 @@ PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
 (TRI3, QUAD4, QUAD8, QUAD9), HEX20 and HEX27 meshes and the dense
 element-matrix path (phase 19), and the transient systems'
 dtype=float32 serving mode with ADPM's local parity at its shipped rtol
-(phase 20).
+(phase 20), and the multi-device halo system, 4 shards on the card, and
+`parallel/n_devices` in the PIHNA driver (phase 21).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -27,6 +28,7 @@ dtype=float32 serving mode with ADPM's local parity at its shipped rtol
     python3 chip_smoke.py --phases 0,1,18          # the solid on them
     python3 chip_smoke.py --phases 0,1,19          # 2D, HEX20/27, dense path
     python3 chip_smoke.py --phases 0,1,20          # f32 mode, ADPM parity
+    python3 chip_smoke.py --phases 0,1,21          # the multi-device smoke
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -324,6 +326,23 @@ Phases, one output line each (any failure raises, exit code != 0):
             f32 PIHNA steps on 20a's TRI3, PRISM6, TET10, QUAD4, QUAD8,
             QUAD9, HEX20 and HEX27 meshes: residuals <= 1e-6, the type's
             f32 instances launched and no f64 kernel
+  21 the multi-device halo system, D = 4 shards all on the card
+            (parallel.halo.HaloShardedSystem)  (a) K1, K2, K3 f64 and K4
+            f64 (over node_gather and over rev_gather, the reverse add)
+            at the largest shard of the PIHNA bench mesh, K8, K6 f64 and
+            K4 at the largest shard of box_hex_mesh(24), against their
+            plain versions, timed as in phase 2; (b) the qp-path halo
+            system on the bench mesh and state, 10 steps at rtol 3e-11,
+            against the single-device f64 system with the drivers'
+            settings: per-step relative L2 <= 1e-8, the plan (D, No_max,
+            Gtot, deltas, ghost share of the local slab, ghost bytes an
+            exchange), inner iterations of both, steps/s of both, the
+            halo steps' launches; (c) the same on HEX8 box_hex_mesh(24),
+            5 steps; (d) `-m pihna` on make_pihna_case(n=28), 20 steps,
+            one bisection AMR pass at step 10, at parallel/n_devices = 4
+            and without: CSV rows within 1e-8, the VTU's processor_ID the
+            plan's; phase 15's 12^3 resume case on 4 shards, resumed
+            from its step-6 checkpoint, ends on the uninterrupted row
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -4531,11 +4550,304 @@ def phase_f32(dev, also, oracle):
     return results, paths
 
 
+# ----------------------------------------------------------------------
+# phase 21: the multi-device halo system (D shards on one card)
+# ----------------------------------------------------------------------
+P21_D = 4
+P21_HEX_N = 24        # box_hex_mesh(24): 13,824 HEX8, 15,625 nodes
+P21_STEPS, P21_HEX_STEPS = 10, 5
+P21_DRV_STEPS, P21_DRV_AMR = 20, 10
+# the resume run: phase 15's 12^3 case (its bisected nodes are exact in
+# the Gmsh writer's 6 digits), AMR at step 4, a checkpoint at step 6
+P21_HALO = ("gather_interp_affine_f64", "rhs_affine_f64",
+            "apply_affine_f64", "restrict_f64")
+P21_HALO_HEX = ("gather_interp_generic_f64", "apply_generic_f64",
+                "restrict_f64")
+
+
+def _halo(mesh, dev, ops=K.KERNEL_OPS, rtol=3e-11):
+    from rdcfes_tpu_torch.parallel import HaloShardedSystem
+
+    return HaloShardedSystem(mesh, 5, P21_D, pihna_blocks, rtol=rtol,
+                             device=dev, ops=ops)
+
+
+def _one_device(mesh, dev):
+    """The port's single-device system with the drivers' settings (f64
+    BiCGStab, block-Jacobi every step, rtol 3e-11)."""
+    return TransientRDCSystem(mesh, 5, pihna_blocks, rtol=3e-11,
+                              precision="f64", precond_refresh=1,
+                              device=dev)
+
+
+def _shard_shim(h, s):
+    """What affine_cases and generic_cases read of a system, for shard s
+    of the halo system h: its local connectivity into the (V, Nloc) slab,
+    its geometry and its node_gather."""
+    from types import SimpleNamespace as NS
+
+    sh = h.shards[s]
+    Nloc = h.plan.No_max + h.plan.Gtot
+    return NS(n_vars=h.n_vars, geom=sh.geom, conn_T=sh.blk.conn_T,
+              phi=sh.blk.phi, node_gather=sh.node_gather,
+              mesh=NS(n_elems=sh.blk.conn_T.shape[1], n_nodes=Nloc))
+
+
+def _rev_case(h, s, W):
+    """K4 over shard s's rev_gather: the returned ghost partials (W, Gtot)
+    summed onto its owned slots (W, No_max), beside index_add_."""
+    sh = h.shards[s]
+    rg, No, G = sh.rev_gather, h.plan.No_max, h.plan.Gtot
+    gen = torch.Generator(device=sh.device).manual_seed(21)
+    flat = torch.rand((W, G), dtype=F64, device=sh.device, generator=gen)
+    # the owned slot each returned position adds onto (No: a pad position)
+    t = rg.long()
+    used = t < G
+    tgt = torch.full((G,), No, dtype=torch.long, device=sh.device)
+    tgt[t[used]] = torch.arange(No, device=sh.device).expand_as(t)[used]
+    live = tgt < No
+    idx = torch.where(live, tgt, 0)
+    src = flat * live
+    return dict(
+        kern=lambda: K.restrict(flat, rg),
+        plain=lambda: K.restrict_plain(flat, rg), tol=1e-13,
+        library=lambda: torch.zeros((W, No), dtype=F64, device=sh.device
+                                    ).index_add_(1, idx, src),
+        n_bytes=restrict_bytes(flat, rg, No),
+        flops=float(W * int((rg < G).sum())), dtype=F64)
+
+
+def _p21_kernels(dev, mesh, params, u0, hex_mesh, results, also):
+    """(a) K1, K2, K3 f64 and K4 f64 at the largest shard of the bench
+    mesh (K4 over its node_gather and its rev_gather), K8, K6 f64 and K4
+    at the largest shard of box_hex_mesh(24)."""
+    blocks_of = lambda uq, gq: pihna_blocks(uq, gq, {}, params)
+    for tag, m, state, names in (
+            ("tet4", mesh, u0, P21_HALO),
+            ("hex8", hex_mesh, bench_case(hex_mesh)[2], P21_HALO_HEX)):
+        h = _halo(m, dev)
+        s = int(np.argmax(h.plan.elem_counts))
+        ug = h.ghost_fill(h.scatter_nodal(state))[s]
+        shim = _shard_shim(h, s)
+        cases = (affine_cases(f"21a {tag}", shim, ug, blocks_of)
+                 if tag == "tet4" else
+                 generic_cases(f"21a {tag}", shim, ug, blocks_of))
+        cases = {(k if tag == "tet4" or "@" in k else f"{k}@{tag}"): c
+                 for k, c in cases.items() if k.partition("@")[0] in names}
+        cases[f"restrict_f64@{tag} rev_gather"] = _rev_case(h, s, 5)
+        cases[f"restrict_f64@{tag} rev_gather diagonal"] = _rev_case(h, s,
+                                                                     25)
+        say(f"21a {tag} shard", shard=s, E_s=shim.mesh.n_elems,
+            Nloc=shim.mesh.n_nodes, No_max=h.plan.No_max, Gtot=h.plan.Gtot,
+            Cr=tuple(h.shards[s].rev_gather.shape)[0])
+        run_cases("21a kernel", cases, {}, also, label="halo shard",
+                  first=results)
+        del h
+
+
+def _p21_plan(tag, h):
+    p = h.plan
+    Nloc = p.No_max + p.Gtot
+    say(f"{tag} plan", D=p.D, No_max=p.No_max, Gtot=p.Gtot,
+        deltas="/".join(map(str, p.deltas)),
+        seg_sizes="/".join(map(str, p.seg_sizes)),
+        ghost_share_of_Nloc=f"{p.Gtot / Nloc:.4f}",
+        elem_counts="/".join(map(str, p.elem_counts)),
+        owned_counts="/".join(map(str, p.owned_counts)),
+        ghost_payload_bytes_per_exchange=5 * 8 * int(p.D * sum(
+            p.seg_sizes)))
+
+
+def _p21_steps(tag, mesh, params, u0, steps, dev, variants):
+    """(b, c) `steps` steps of the halo system and of the single-device
+    system from the same state, each step's relative L2 <= 1e-8; steps/s
+    of each (the host reads of the comparison outside the clock)."""
+    h = _halo(mesh, dev)
+    one = _one_device(mesh, dev)
+    _p21_plan(tag, h)
+    a, b = h.initial_state(u0), one.initial_state(u0)
+    # a warm-up step each (first launches, plans), then the counts
+    h.step(a, params=params)
+    one.step(b, params=params)
+    worst, its_h, its_1, t_h, t_1 = 0.0, [], [], 0.0, 0.0
+    counts = {}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        a, ih, rh = h.step(a, params=params)
+        torch.cuda.synchronize()
+        t_h += time.perf_counter() - t0
+        for k, v in K.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        b, i1, _ = one.step(b, params=params)
+        torch.cuda.synchronize()
+        t_1 += time.perf_counter() - t0
+        ua, ub = h.gather(a["u"]), b["u"].cpu().numpy()
+        worst = max(worst, float(np.linalg.norm(ua - ub)
+                                 / np.linalg.norm(ub)))
+        require(float(rh) <= 3e-11, f"{tag}: residual {float(rh):.3e}")
+        its_h.append(ih)
+        its_1.append(i1)
+    require(np.isfinite(ua).all() and (ua >= 0).all(),
+            f"{tag}: state not finite and >= 0")
+    say(tag, steps=steps, worst_rel_l2=f"{worst:.3e}", bar=1e-8,
+        halo_steps_per_s=f"{steps / t_h:.4f}",
+        one_device_steps_per_s=f"{steps / t_1:.4f}",
+        halo_iters="/".join(map(str, its_h)),
+        one_device_iters="/".join(map(str, its_1)),
+        n_nodes=mesh.n_nodes, n_elems=mesh.n_elems)
+    say(f"{tag} launches", **{k: counts.get(k, 0) for k in variants})
+    require(worst <= 1e-8, f"{tag}: halo vs one device {worst:.3e}")
+    _require_launched(counts, variants, f"the halo {tag} step")
+    return counts
+
+
+def _drive_halo(d, dev):
+    """_drive(-m pihna) recording the last system each run_steps call of
+    the halo or the single-device system ran on."""
+    from rdcfes_tpu_torch.parallel import halo as halo_mod
+    from rdcfes_tpu_torch.systems import transient as transient_mod
+
+    seen = []
+    saved = [(c, c.run_steps) for c in (halo_mod.HaloShardedSystem,
+                                         transient_mod.TransientRDCSystem)]
+
+    def wrap(orig):
+        def recorded(self, state, n, *a, **kw):
+            out = orig(self, state, n, *a, **kw)
+            seen.append((self, out[0]))
+            return out
+        return recorded
+
+    for c, orig in saved:
+        c.run_steps = wrap(orig)
+    try:
+        wall, counts, out = _drive(d, ["-m", "pihna"], dev)
+    finally:
+        for c, orig in saved:
+            c.run_steps = orig
+    return wall, counts, out, seen
+
+
+def _p21_driver(dev):
+    """(d) `-m pihna` on make_pihna_case(n=28), P21_DRV_STEPS steps with
+    one bisection AMR pass at step P21_DRV_AMR, at parallel/n_devices = 4
+    and at 1: CSV rows within 1e-8, the VTU's processor_ID the halo
+    plan's; then a 4-shard run of phase 15's resume case (12^3, AMR at
+    step 4, a checkpoint at step 6) resumed from its checkpoint ends on
+    the uninterrupted run's CSV row."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+
+    par = f"parallel/n_devices = {P21_D}\n"
+    root = tempfile.mkdtemp(prefix="rdcfes_halo_")
+    try:
+        runs = {}
+        for tag, extra in (("4 shards", par), ("one device", "")):
+            d = cases.make_pihna_case(os.path.join(root, tag.split()[0]),
+                                      n=28, n_steps=P21_DRV_STEPS)
+            _amr_deck(d, P21_DRV_AMR, 1, "bisection", extra)
+            runs[tag] = (d,) + _drive_halo(d, dev)
+        d, wall, counts, out, seen = runs["4 shards"]
+        res = os.path.join(d, "PIHNA_simulation")
+        rows = [_transient_artifacts(os.path.join(r[0], "PIHNA_simulation"),
+                                     "Brain_Model", (0, 10, 20),
+                                     ("n", "c", "h", "v", "a"))
+                for r in runs.values()]
+        num = [np.array([[float(x) for x in ln.split(",")]
+                         for ln in r[1:]]) for r in rows]
+        scale = 1.0 + np.abs(num[1]).max()
+        err = float(np.abs(num[0] - num[1]).max())
+        require(np.allclose(num[0], num[1], rtol=1e-8, atol=1e-8 * scale),
+                f"21d: CSV rows differ by {err:.3e}")
+        h = seen[-1][0]
+        require(type(h).__name__ == "HaloShardedSystem" and h.plan.D == P21_D,
+                "21d: the 4-shard run did not step the halo system")
+        with open(os.path.join(res, "Brain_Model-20.vtu")) as f:
+            pid = re.search(r'Name="processor_ID"[^>]*>\n(.*?)\n', f.read(),
+                            re.S).group(1)
+        pid = np.array(pid.split(), dtype=np.int64)
+        require(np.array_equal(pid, h.processor_id),
+                "21d: the VTU's processor_ID is not the plan's")
+        amr = re.findall(r"AMR step (\d+): adapted to (\d+) elements", out)
+        require(len(amr) == 1 and h.mesh.n_elems == int(amr[0][1]),
+                "21d: one AMR pass onto the halo system's mesh")
+        # phase 15's resume case on 4 shards, resumed from its checkpoint
+        d = cases.make_pihna_case(os.path.join(root, "resume"),
+                                  n=AMR_RESUME_N, n_steps=AMR_RESUME_STEPS)
+        _amr_deck(d, AMR_RESUME_AT, 1, "bisection",
+                  f"checkpoint/step = {AMR_RESUME_CKPT}\n" + par)
+        wall_r, _, _, _ = _drive_halo(d, dev)
+        res = os.path.join(d, "PIHNA_simulation")
+        ck = os.path.join(root, "checkpoint")
+        os.makedirs(ck)
+        for name in ("checkpoint.npz", "checkpoint_mesh.msh"):
+            shutil.copy(os.path.join(res, name), ck)
+        full = open(os.path.join(res, "output.csv")).read().splitlines()
+        shutil.rmtree(res)
+        with open(os.path.join(d, "input.dat"), "a") as f:
+            f.write(f"checkpoint/resume = {ck}/checkpoint.npz\n")
+        wall2, _, out2, seen2 = _drive_halo(d, dev)
+        require("resumed on AMR mesh" in out2, "21d: not resumed on AMR mesh")
+        require(type(seen2[-1][0]).__name__ == "HaloShardedSystem",
+                "21d: the resumed run did not step the halo system")
+        last = open(os.path.join(res, "output.csv")).read().splitlines()
+        a_row = np.array(last[-1].split(","), dtype=float)
+        b_row = np.array(full[-1].split(","), dtype=float)
+        resumed_err = float(np.abs(a_row - b_row).max())
+        require(resumed_err <= 1e-12 * (1.0 + np.abs(b_row).max()),
+                f"21d: resumed row differs by {resumed_err:.3e}")
+        one = runs["one device"]
+        scopes = {tag: _perf_totals(r[3]) for tag, r in runs.items()}
+        say("21d pihna driver", steps=P21_DRV_STEPS,
+            seconds_4_shards=f"{wall:.4f}",
+            seconds_one_device=f"{one[1]:.4f}",
+            **{f"{k.replace(' ', '_')}_s_{tag.replace(' ', '_')}":
+               f"{t.get(k, 0.0):.4f}" for tag, t in scopes.items()
+               for k in ("system setup", "solve", "amr", "vtu output")},
+            amr_elements=amr[0][1], csv_max_abs_diff=f"{err:.3e}",
+            processor_ids=len(set(pid.tolist())),
+            resume_case_seconds=f"{wall_r:.4f}",
+            resumed_seconds=f"{wall2:.4f}",
+            resumed_row_max_abs_diff=f"{resumed_err:.3e}")
+        say("21d launches", **{k: counts[k] for k in P21_HALO})
+        _require_launched(counts, P21_HALO, "the 4-shard PIHNA driver")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_halo(dev, card, also):
+    """(a) the kernels at one shard's local shapes; (b) the qp-path halo
+    system on the PIHNA bench mesh and state against the single-device
+    system, 10 steps; (c) the same on HEX8 box_hex_mesh(24), 5 steps;
+    (d) the PIHNA driver at parallel/n_devices = 4 and at 1, with AMR and
+    a checkpoint resumed.  D = 4 shards, all on `dev`."""
+    say("21 card", card=repr(card), shards=P21_D, device=dev)
+    mesh, params, u0 = bench_case()
+    hex_mesh = box_hex_mesh(P21_HEX_N, P21_HEX_N, P21_HEX_N, bounds=BRAIN)
+    results, paths = {}, {}
+    _p21_kernels(dev, mesh, params, u0, hex_mesh, results, also)
+    paths["halo tet4"] = _p21_steps("21b tet4", mesh, params, u0,
+                                    P21_STEPS, dev, P21_HALO)
+    paths["halo hex8"] = _p21_steps("21c hex8", hex_mesh, params,
+                                    bench_case(hex_mesh)[2], P21_HEX_STEPS,
+                                    dev, P21_HALO_HEX)
+    paths["halo driver"] = _p21_driver(dev)
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18,19,20",
+                    "18,19,20,21",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4630,6 +4942,11 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
         p20_kern, p20_paths = phase_f32(dev, also, oracle[0])
         paths.update(p20_paths)
     lap("20")
+    p21_kern = {}
+    if 21 in phases:
+        p21_kern, p21_paths = phase_halo(dev, card, also)
+        paths.update(p21_paths)
+    lap("21")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -4645,7 +4962,8 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
         first = (kern.get(name) or solid_kern.get(name)
                  or gen_kern.get(name) or mix_kern.get(name)
                  or p17_kern.get(name) or p18_kern.get(name)
-                 or p19_kern.get(name) or p20_kern.get(name) or {})
+                 or p19_kern.get(name) or p20_kern.get(name)
+                 or p21_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

@@ -12,8 +12,12 @@ The tracts are an element field on the system's device; the advancing
 two events.  On a MixedMesh the tracts are sliced per block by
 systems.mixed.MixedTransientRDCSystem (mixed precision, as the
 reference's driver runs it), and the CSV's element integrals are taken
-block by block, concatenated in block order.  `parallel/n_devices` > 1
-raises NotImplementedError (ROADMAP queue 1 item 14).
+block by block, concatenated in block order.  `parallel/n_devices` =
+D > 1 runs a TET4 or HEX8 mesh on D shards (parallel.halo.
+HaloShardedSystem): the tracts go to the shards through
+shard_elem_field, the CSV's integrals read the gathered state, and the
+VTU gets each element's shard as processor_id; on a MixedMesh it raises
+NotImplementedError (ROADMAP queue 1 item 14b).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter, elemental_to_nodal
 from ..mesh import element_blocks, gmsh
 from ..models.adpm import ADPM_VARS, adpm_blocks
+from ..parallel import HaloShardedSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
@@ -128,7 +133,9 @@ def run(deck_path: str = "input.dat", device=None) -> str:
         ("TractY", elemental_to_nodal(mesh, tracts[:, 1])),
         ("TractZ", elemental_to_nodal(mesh, tracts[:, 2])),
     ]
-    tracts_field = torch.as_tensor(tracts, dtype=torch.float64, device=dev)
+    sharded = isinstance(system, HaloShardedSystem)
+    tracts_field = (system.shard_elem_field(tracts, axis=0) if sharded else
+                    torch.as_tensor(tracts, dtype=torch.float64, device=dev))
 
     # the CSV's own quadrature geometry, independent of the system's, one
     # entry per element block (a MixedMesh's in block order)
@@ -148,14 +155,16 @@ def run(deck_path: str = "input.dat", device=None) -> str:
         return torch.cat(outs, dim=1).T.cpu().numpy()
 
     def save(t: int, time_value: float):
-        u = state["u"].cpu().numpy()
+        u = system.gather(state["u"])
         with plog.scope("csv output"):
             adpm_row(csv, mesh, u, time_value, ranges,
-                     elem_averages(state["u"]))
+                     elem_averages(torch.as_tensor(u, device=dev)))
         with plog.scope("vtu output"):
             fields = [(name, u[:, i]) for i, name in enumerate(ADPM_VARS)]
             fields += tract_fields
-            paraview.update_pvd(fields, t)
+            paraview.update_pvd(
+                fields, t, processor_id=getattr(system, "processor_id",
+                                                None))
 
     ckpt_step = deck("checkpoint/step", 0)
     ckpt_resume = deck("checkpoint/resume", "")

@@ -18,9 +18,8 @@ from ..fem.amr import flag_by_mean_stddev, kelly_error_indicator
 from ..io.getpot import export_integers
 from ..mesh import (AdaptiveMesh, MixedConstrained, Tet10Adaptive,
                     adapt_flagged, gmsh, kelly_mixed, refine_flagged)
+from ..parallel import ITEM_14B, HaloShardedSystem
 from ..systems import MixedTransientRDCSystem, TransientRDCSystem
-
-_MULTI = "ROADMAP queue 1 item 14 (multi-device)"
 
 
 @contextmanager
@@ -95,11 +94,12 @@ class PerfLog:
 
 
 def require_one_device(deck) -> None:
-    """Deck key `parallel/n_devices` (the reference's multi-chip halo
-    systems): only 0 or 1 is ported."""
+    """Deck key `parallel/n_devices` of the solid and coupled HCC drivers
+    (the reference's multi-chip solid): only 0 or 1 is ported."""
     n_dev = int(deck("parallel/n_devices", 0))
     if n_dev > 1:
-        raise NotImplementedError(f"parallel/n_devices = {n_dev}: {_MULTI}")
+        raise NotImplementedError(f"parallel/n_devices = {n_dev}: "
+                                  f"{ITEM_14B}")
 
 
 class Remeshed(NamedTuple):
@@ -236,7 +236,7 @@ class Remesher:
 
 def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
                     clamp: Optional[Callable] = None, device=None,
-                    **kw) -> TransientRDCSystem:
+                    **kw):
     """The transient system a driver steps, with the reference drivers'
     settings: precision "f64", method "bicgstab", precond_refresh 1, and
     rtol from the deck key `solver/linear/tolerance` (default 3e-11, the
@@ -244,13 +244,30 @@ def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
     rdcfes_tpu/drivers/common.py:98-111).  A MixedMesh gets a
     MixedTransientRDCSystem with precision "mixed", as the reference's
     (rdcfes_tpu/drivers/common.py:110-130).  device None is the CUDA card.
-    `parallel/n_devices` > 1 raises NotImplementedError."""
-    require_one_device(deck)
+
+    `parallel/n_devices` = D > 1 gives the halo-exchange system on D
+    shards (parallel.halo.HaloShardedSystem, placed by
+    parallel.halo.shard_devices from `device`), with the deck's rtol, the
+    clamp and the hanging-node constraints: the reference's
+    (rdcfes_tpu/drivers/common.py:132-159).  Its constructor raises
+    NotImplementedError (ROADMAP queue 1 item 14b) on a MixedMesh, a
+    moving mesh or another element type than TET4 and HEX8.
+
+    Every system it returns answers initial_state, gather (a state entry
+    as the global (N, V) host array), gather_state and scatter_state: the
+    reference's get_u and put_state."""
+    n_dev = int(deck("parallel/n_devices", 0))
     kw.setdefault("rtol", float(deck("solver/linear/tolerance", 3e-11)))
-    kw.setdefault("method", "bicgstab")
-    kw.setdefault("precond_refresh", 1)
     if clamp is not None:
         kw["clamp"] = clamp
+    if n_dev > 1:
+        halo_kw = {k: kw[k] for k in ("rtol", "clamp", "constraints",
+                                      "maxiter", "ops", "physics",
+                                      "moving_mesh") if k in kw}
+        return HaloShardedSystem(mesh, n_vars, n_dev, physics_blocks,
+                                 device=device, **halo_kw)
+    kw.setdefault("method", "bicgstab")
+    kw.setdefault("precond_refresh", 1)
     if mesh.elem_type == "MIXED":
         kw["precision"] = "mixed"
         return MixedTransientRDCSystem(mesh, n_vars, physics_blocks,

@@ -33,7 +33,7 @@ full precision as `mesh_coords`, which the reference's resume ignores:
 the Gmsh file has 6 significant digits), `amr_done`, the fibres and a
 MixedMesh's hanging-node rows, and resumes on that mesh.
 
-Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14), which
+Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14b), which
 raises NotImplementedError before the first step.
 """
 

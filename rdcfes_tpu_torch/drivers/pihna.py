@@ -36,8 +36,13 @@ reference's driver does; a TET10 mesh through TransientRDCSystem's
 generic path.  The structure is an elemental field in the global
 (block-concatenated) element order.
 
-`parallel/n_devices` > 1 raises NotImplementedError before the first
-step (ROADMAP queue 1 item 14).
+`parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh on D shards
+(parallel.halo.HaloShardedSystem, drivers/common.make_rdc_system): the
+VTU gets each element's shard as processor_id, the state comes off the
+shards (gather_state) for the CSV, AMR and the checkpoint, and goes back
+(scatter_state) onto the system rebuilt on the adapted mesh or after a
+resume.  On a MixedMesh it raises NotImplementedError before the first
+step (ROADMAP queue 1 item 14b).
 """
 
 from __future__ import annotations
@@ -210,13 +215,15 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     rt_nodal = elemental_to_nodal(mesh, structure[:, 1])
 
     def save(t: int, time_value: float):
-        u = state["u"].cpu().numpy()
+        u = system.gather(state["u"])
         with plog.scope("csv output"):
             pihna_row(csv, mesh, u, time_value, {**params, **ranges})
         with plog.scope("vtu output"):
             fields = [(name, u[:, i]) for i, name in enumerate(PIHNA_VARS)]
             fields += [("HU", hu_nodal), ("RT", rt_nodal)]
-            paraview.update_pvd(fields, t)
+            paraview.update_pvd(
+                fields, t, processor_id=getattr(system, "processor_id",
+                                                None))
 
     if ckpt_resume:
         if resume_msg:

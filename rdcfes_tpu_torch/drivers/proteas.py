@@ -17,8 +17,11 @@ reference`, the C++ reference's phi_1(qp) * HU(local node 1)
 (src/proteas.C:479-482) on every block.  The steps between two events
 (an output or a checkpoint) go through one `run_steps` call, one step or
 many; the time of step k is dt * k.  It runs on TET4, HEX8, TET10 and
-mixed meshes; `parallel/n_devices` > 1 raises NotImplementedError
-(ROADMAP queue 1 item 14) before the first step.
+mixed meshes.  `parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh
+on D shards (parallel.halo.HaloShardedSystem): the RTD at the quadrature
+points goes to the shards through shard_elem_field, and the VTU gets each
+element's shard as processor_id; on a MixedMesh it raises
+NotImplementedError (ROADMAP queue 1 item 14b) before the first step.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..io.vtu import ParaviewWriter
 from ..mesh import gmsh
 from ..mesh.core import element_blocks
 from ..models.proteas import PROTEAS_VARS, proteas_blocks
+from ..parallel import HaloShardedSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
@@ -142,8 +146,11 @@ def run(deck_path: str = "input.dat", device=None) -> str:
         rtd = rtd_at_qp(mesh, aux, sampling)
         as_dev = lambda a: torch.as_tensor(a, dtype=torch.float64,
                                            device=dev)
-        fields = {"RTD": (tuple(map(as_dev, rtd)) if isinstance(rtd, tuple)
-                          else as_dev(rtd))}
+        if isinstance(system, HaloShardedSystem):
+            fields = {"RTD": system.shard_elem_field(rtd)}
+        else:
+            fields = {"RTD": (tuple(map(as_dev, rtd))
+                              if isinstance(rtd, tuple) else as_dev(rtd))}
 
     paraview = ParaviewWriter(mesh)
     # a resumed run in the same results dir appends instead of truncating
@@ -154,11 +161,12 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     csv = open(out_csv, "a" if resuming else "w")  # never written
 
     def save(t: int):
-        u = state["u"].cpu().numpy()
+        u = system.gather(state["u"])
         with plog.scope("vtu output"):
             out = [(name, u[:, i]) for i, name in enumerate(PROTEAS_VARS)]
             out += [("HU", aux[:, 0]), ("RTD", aux[:, 1])]
-            paraview.update_pvd(out, t)
+            paraview.update_pvd(
+                out, t, processor_id=getattr(system, "processor_id", None))
 
     start_step = 0
     if ckpt_resume:

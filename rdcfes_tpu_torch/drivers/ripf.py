@@ -28,8 +28,13 @@ misses (dt = 0.1: ten additions give 0.9999999999999999) it reads the
 previous day's dose there.  The field rebuild goes through the system's
 own kernels, once per element block: K1 on TET4, K8 on HEX8, PRISM6,
 PYRAMID5 and TET10; on a MixedMesh each field is a tuple of one entry
-per block.  `parallel/n_devices` > 1 raises NotImplementedError (ROADMAP
-queue 1 item 14) before the first step.
+per block.  `parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh on
+D shards (parallel.halo.HaloShardedSystem): the dose goes to the shards
+once (scatter_nodal), the field rebuild ghost-fills each shard's nodal
+TD and dose slab and runs the same kernels on the shard's elements, and
+the TD fields at a segment's end come from the gathered state; on a
+MixedMesh it raises NotImplementedError (ROADMAP queue 1 item 14b)
+before the first step.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..io.getpot import Deck
 from ..io.vtu import ParaviewWriter
 from ..mesh import gmsh
 from ..models.ripf import RIPF_VARS, ripf_blocks, rt_dose_schedule
+from ..parallel import HaloShardedSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
 from .common import (PerfLog, make_rdc_system, maybe_profile,
@@ -95,35 +101,48 @@ def load_params(deck: Deck) -> dict:
     return p
 
 
+def block_qp_fields(ops, blk, geom, nodal: torch.Tensor) -> dict:
+    """One element block's fields from nodal (cc TD, fb TD, total dose)
+    (3, N) on its device: their values at the quadrature points and the
+    unit gradient of the dose (zero where the gradient is), through the
+    block's gather + interpolation kernel (K1 on TET4, whose one gradient
+    per element is what interpolate_at_qp gives an affine element,
+    expanded over Q; K8 on the other types, per q)."""
+    if blk.affine:
+        vals, g1 = ops.gather_interp_affine(nodal, blk.conn_T, blk.phi,
+                                            geom.dphi)
+        g = g1[2][None]                                      # (1, 3, E)
+    else:
+        vals, gq = ops.gather_interp_generic(nodal, blk.conn_T, blk.phi,
+                                             geom.dphi)
+        g = gq[2]                                            # (Q, 3, E)
+    norm = torch.sqrt(torch.sum(g * g, dim=-2, keepdim=True))
+    unit = torch.where(norm > 0.0,
+                       g / torch.where(norm == 0.0, 1.0, norm), 0.0)
+    return {"cc_dtime": vals[0], "fb_dtime": vals[1], "RT": vals[2],
+            "RT_grad_unit": unit.expand(vals.shape[1], 3, vals.shape[2])}
+
+
 def qp_fields(system, nodal: torch.Tensor) -> dict:
-    """The model's fields from nodal (cc TD, fb TD, total dose) (3, N) on
-    the system's device: their values at the quadrature points and the
-    unit gradient of the dose (zero where the gradient is), through each
-    element block's gather + interpolation kernel (K1 on TET4, whose one
-    gradient per element is what interpolate_at_qp gives an affine
-    element, expanded over Q; K8 on the other types, per q).  On a
-    MixedMesh every field is a tuple of one entry per block."""
-    ops = system.ops
-    parts = []
-    for blk, geom in zip(system.blocks, system.geoms):
-        if blk.affine:
-            vals, g1 = ops.gather_interp_affine(nodal, blk.conn_T, blk.phi,
-                                                geom.dphi)
-            g = g1[2][None]                                  # (1, 3, E)
-        else:
-            vals, gq = ops.gather_interp_generic(nodal, blk.conn_T, blk.phi,
-                                                 geom.dphi)
-            g = gq[2]                                        # (Q, 3, E)
-        norm = torch.sqrt(torch.sum(g * g, dim=-2, keepdim=True))
-        unit = torch.where(norm > 0.0,
-                           g / torch.where(norm == 0.0, 1.0, norm), 0.0)
-        parts.append({"cc_dtime": vals[0], "fb_dtime": vals[1],
-                      "RT": vals[2],
-                      "RT_grad_unit": unit.expand(vals.shape[1], 3,
-                                                  vals.shape[2])})
+    """The model's fields from nodal (3, N) on the system's device, block
+    by block (block_qp_fields).  On a MixedMesh every field is a tuple of
+    one entry per block."""
+    parts = [block_qp_fields(system.ops, blk, geom, nodal)
+             for blk, geom in zip(system.blocks, system.geoms)]
     if system.mesh.elem_type != "MIXED":
         return parts[0]
     return {k: tuple(p[k] for p in parts) for k in parts[0]}
+
+
+def sharded_qp_fields(system, nodal) -> dict:
+    """The model's fields on the shards of a HaloShardedSystem from the
+    per-shard nodal slabs (3, No_max): each slab ghost-filled, then
+    block_qp_fields on the shard's elements.  Every field is a list of
+    one entry per shard."""
+    filled = system.ghost_fill(nodal)
+    parts = [block_qp_fields(system.ops, sh.blk, sh.geom, x)
+             for sh, x in zip(system.shards, filled)]
+    return {k: [p[k] for p in parts] for k in parts[0]}
 
 
 def run(deck_path: str = "input.dat", device=None) -> str:
@@ -184,8 +203,11 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                                  device=dev)
         state = system.initial_state(u0)
 
+    sharded = isinstance(system, HaloShardedSystem)
     rt_host = torch.as_tensor(rt)
-    rt_dev = torch.as_tensor(rt, device=dev)
+    # the nodal doses where the state lives: (N, 2), or (2, No_max) slabs
+    rt_dev = (system.scatter_nodal(rt) if sharded
+              else torch.as_tensor(rt, device=dev))
 
     def dose(time_value) -> np.ndarray:
         """The total dose (N,) at `time_value`, on the host."""
@@ -194,7 +216,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     # --- check_solution's state: TD fields and total dose ----------------
     # before the loop, as the reference (src/ripf.C:50-53)
-    td = (state["u"].cpu().numpy() - u0) / dt
+    td = (system.gather(state["u"]) - u0) / dt
     rt_total = None
 
     def resolve(t: int) -> None:
@@ -215,7 +237,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     csv = open(out_csv, "a" if resuming else "w")  # no header
 
     def save(t: int):
-        u = state["u"].cpu().numpy()
+        u = system.gather(state["u"])
         with plog.scope("csv output"):
             ripf_row(csv, mesh, u, dt * t, ranges)
         with plog.scope("vtu output"):
@@ -228,7 +250,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                 ("RT_dose/focus", rt[:, 1]),
                 ("RT_dose/total", rt_total),
             ]
-            paraview.update_pvd(out, t)
+            paraview.update_pvd(
+                out, t, processor_id=getattr(system, "processor_id", None))
 
     step_params = {k: v for k, v in params.items()
                    if not k.startswith("_") and k not in _RESOLVED}
@@ -265,6 +288,14 @@ def run(deck_path: str = "input.dat", device=None) -> str:
         nodal = torch.stack([td_d[:, 1], td_d[:, 2], rt_tot])
         return qp_fields(system, nodal), st["u_raw"]
 
+    def sharded_field_update(st, prev_raw2, tr):
+        """field_update on the shards' (V, No_max) slabs."""
+        nodal = [torch.stack([(u[1] - pr[1]) / dt, (u[2] - pr[2]) / dt,
+                              rt_dose_schedule(r[0], r[1], tr["RT_time"],
+                                               broad_frac, focus_frac)])
+                 for u, pr, r in zip(st["u"], prev_raw2, rt_dev)]
+        return sharded_qp_fields(system, nodal), st["u_raw"]
+
     def next_event(tc: int) -> int:
         nxt = n_steps if abort_t is None else min(n_steps, abort_t)
         if ckpt_step:
@@ -276,9 +307,10 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     # raw_{t-1}: the initial raw solution, or after a resume rebuilt from
     # the TD identity; then carried from segment to segment
-    aux = torch.as_tensor(u0 if not ckpt_resume
-                          else state["u"].cpu().numpy() - dt * td,
-                          device=dev)
+    aux = u0 if not ckpt_resume else system.gather(state["u"]) - dt * td
+    aux = (system.scatter_nodal(aux) if sharded
+           else torch.as_tensor(aux, device=dev))
+    update = sharded_field_update if sharded else field_update
     with maybe_profile():
         t = start_step
         while t < n_steps:
@@ -289,19 +321,19 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             with plog.scope("solve"):
                 state, _its, _res, aux = system.run_steps(
                     state, seg, params=step_params, scalar_traj=straj,
-                    field_update=field_update, field_aux=aux)
+                    field_update=update, field_aux=aux)
             for k in range(t + 1, t + seg + 1):
                 step_banner(k, n_steps, dt * k)
             t += seg
             # check_solution at the segment's end
-            td = (state["u"].cpu().numpy() - aux.cpu().numpy()) / dt
+            td = (system.gather(state["u"]) - system.gather(aux)) / dt
             resolve(t)
             if ckpt_step and t % ckpt_step == 0:
                 with plog.scope("checkpoint"):
                     save_checkpoint(os.path.join(DIR, "checkpoint.npz"),
                                     system.gather_state(state), t, dt * t,
                                     step_params, td=td,
-                                    prev_raw=state["u_raw"].cpu().numpy())
+                                    prev_raw=system.gather(state["u_raw"]))
             if t in otp:
                 save(t)
 

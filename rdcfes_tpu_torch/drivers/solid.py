@@ -31,7 +31,7 @@ the same split between its accelerator and the CPU); the deck keys
 override.  `solver/linear/fast_gather` is read and ignored: the TPU's
 Beneš-routed SpMV has no counterpart here.
 
-Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14), which
+Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14b), which
 raises NotImplementedError before the first load step.
 """
 

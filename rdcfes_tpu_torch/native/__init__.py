@@ -1,6 +1,6 @@
 """The native meshkit runtime: its build and its ctypes bindings (the
-parser and sparsity builder of rdcfes_tpu.native, without the NumPy
-fallback).
+parser, sparsity builder and RCB partitioner of rdcfes_tpu.native,
+without the NumPy fallback).
 
 `meshkit.cpp` is compiled at first use with the host g++:
 
@@ -14,7 +14,10 @@ with the compiler's output.  Nothing here runs at import time.
 `read_gmsh_native` gives the arrays of mesh/gmsh.py's NumPy parser for a
 single-type TET4, HEX8, HEX20 or HEX27 Gmsh 2.x file, or a 2D one of
 TRI3, QUAD4, QUAD8 or QUAD9 elements; `build_sparsity_native` those of
-fem/assembly's NumPy sparsity builder.
+fem/assembly's NumPy sparsity builder.  `partition_rcb` splits elements
+into shards by recursive coordinate bisection of their centroids, the
+reference's C++ routine (no NumPy version: the reference's one splits
+equal centroids in another order, so it is not the same partition).
 """
 
 from __future__ import annotations
@@ -99,6 +102,10 @@ def library() -> ctypes.CDLL:
     lib.meshkit_build_sparsity.restype = ctypes.c_int64
     lib.meshkit_free.argtypes = [ctypes.c_void_p]
     lib.meshkit_free.restype = None
+    lib.meshkit_partition_rcb.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int32,
+        i32p]
+    lib.meshkit_partition_rcb.restype = None
     return lib
 
 
@@ -168,3 +175,21 @@ def build_sparsity_native(connectivity: np.ndarray, n_nodes: int
         lib.meshkit_free(rows_p)
         lib.meshkit_free(cols_p)
     return rows, cols, slots, int(nnz)
+
+
+def partition_rcb(centers: np.ndarray, n_parts: int) -> np.ndarray:
+    """Element partition (E,) int32 in 0..n_parts-1 by recursive
+    coordinate bisection of the centroids centers (E, 3): each level
+    splits along the longest axis of the bounding box at the
+    n_left / n_parts quantile."""
+    centers = np.ascontiguousarray(centers, dtype=np.float64)
+    if centers.ndim != 2 or centers.shape[1] != 3:
+        raise ValueError(f"centers: shape {centers.shape}, expected (E, 3)")
+    if n_parts < 1:
+        raise ValueError(f"n_parts = {n_parts}, expected >= 1")
+    E = centers.shape[0]
+    part = np.empty(E, dtype=np.int32)
+    library().meshkit_partition_rcb(
+        centers.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), E,
+        int(n_parts), part.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return part

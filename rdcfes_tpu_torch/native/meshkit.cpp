@@ -1,5 +1,6 @@
 // meshkit: the native host-side mesh runtime of rdcfes_tpu_torch (a copy
-// of rdcfes_tpu/native/meshkit.cpp's parser and sparsity builder).
+// of rdcfes_tpu/native/meshkit.cpp's parser, sparsity builder and
+// recursive coordinate bisection).
 //
 // The C++ reference leaves host-side mesh work to libMesh (Gmsh parsing,
 // dof and sparsity construction).  Two of those operations sit on the
@@ -7,12 +8,13 @@
 //
 //   * Gmsh 2.x ASCII parsing (strtod streaming, no per-line Python);
 //   * the node-pair block-CSR sparsity and its per-(element, i, j) slot
-//     table.
+//     table;
+//   * recursive coordinate bisection (RCB) of the elements into the
+//     shards of a multi-device run (parallel/halo.py).
 //
 // A C ABI, called through ctypes (rdcfes_tpu_torch/native/__init__.py),
 // which builds this file with the host g++ at first use.  The reference's
-// Benes edge colouring (TPU routing) and RCB partitioning (multi-device,
-// ROADMAP queue 1 item 14) are not part of this copy.
+// Benes edge colouring (TPU routing) is not part of this copy.
 
 #include <algorithm>
 #include <cstdint>
@@ -252,6 +254,52 @@ int64_t meshkit_build_sparsity(const int32_t* conn, int64_t E, int32_t K,
     slots[kv.second] = (int32_t)slot;
   }
   return nnz;
+}
+
+// ---------------------------------------------------------------------------
+// Recursive coordinate bisection element partitioning
+// ---------------------------------------------------------------------------
+// centers [E, 3], n_parts must be a power of two times anything — we split
+// recursively along the longest axis into equal halves until n_parts blocks
+// exist.  part_out sized E.
+//
+// A verbatim copy of the reference's rcb: std::nth_element orders equal
+// centroids (a box mesh is full of them) by the standard library's own
+// rule, so only the same code gives the same partition.
+static void rcb(const double* centers, std::vector<int64_t>& ids, int lo_part,
+                int n_parts, int32_t* part_out) {
+  if (n_parts == 1 || ids.size() <= 1) {
+    for (auto e : ids) part_out[e] = lo_part;
+    return;
+  }
+  // longest axis of the bounding box
+  double mn[3] = {1e300, 1e300, 1e300}, mx[3] = {-1e300, -1e300, -1e300};
+  for (auto e : ids)
+    for (int d = 0; d < 3; ++d) {
+      double c = centers[e * 3 + d];
+      if (c < mn[d]) mn[d] = c;
+      if (c > mx[d]) mx[d] = c;
+    }
+  int axis = 0;
+  for (int d = 1; d < 3; ++d)
+    if (mx[d] - mn[d] > mx[axis] - mn[axis]) axis = d;
+  int left_parts = n_parts / 2;
+  size_t split = ids.size() * left_parts / n_parts;
+  std::nth_element(ids.begin(), ids.begin() + split, ids.end(),
+                   [&](int64_t a, int64_t b) {
+                     return centers[a * 3 + axis] < centers[b * 3 + axis];
+                   });
+  std::vector<int64_t> left(ids.begin(), ids.begin() + split);
+  std::vector<int64_t> right(ids.begin() + split, ids.end());
+  rcb(centers, left, lo_part, left_parts, part_out);
+  rcb(centers, right, lo_part + left_parts, n_parts - left_parts, part_out);
+}
+
+void meshkit_partition_rcb(const double* centers, int64_t E, int32_t n_parts,
+                           int32_t* part_out) {
+  std::vector<int64_t> ids(E);
+  for (int64_t e = 0; e < E; ++e) ids[e] = e;
+  rcb(centers, ids, 0, n_parts, part_out);
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ assembled values, back to f64; here the whole tangent stays f32, as the
 reference's comments intend.
 
 Not ported: the multi-device halo solve (`device_mesh=`, ROADMAP queue 1
-item 14), which raises NotImplementedError naming its item.
+item 14b), which raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ from ..solvers.newton import NewtonOptions, NewtonResult, NewtonSolver
 from ..utils.convert import material_tables
 from ..utils.device import cuda_device
 
-_MULTI = "ROADMAP queue 1 item 14 (multi-device)"
+_MULTI = "ROADMAP queue 1 item 14b (multi-device)"
 _ELEMENT_TYPES = ("TET4", "HEX8", "TET10", "MIXED")
 
 # B-matrix slot table: (axis v, voigt a) -> gradient component, for the

@@ -137,8 +137,10 @@ class ElementBlock:
     def __init__(self, elem_type: str, conn: np.ndarray, device):
         self.elem_type = elem_type
         self.affine = elem_type in _AFFINE_TYPES
-        self.conn_T = torch.as_tensor(np.ascontiguousarray(conn.T),
-                                      device=device)
+        # a copy in torch's own (aligned) memory: a view of a numpy array
+        # may start off the alignment of torch's vectorized CPU gathers
+        self.conn_T = torch.tensor(np.ascontiguousarray(conn.T),
+                                   device=device)
         self.phi = elements.tabulate(elem_type)[0]  # coordinate-free
 
     def geometry(self, coords: torch.Tensor,
@@ -439,6 +441,11 @@ class TransientRDCSystem:
 
     def gather_state(self, state: Dict) -> Dict[str, np.ndarray]:
         return state_to_numpy(state)
+
+    def gather(self, u: torch.Tensor) -> np.ndarray:
+        """A state entry (N, V) as a host array (what the multi-device
+        system's gather gives from its shards)."""
+        return u.detach().cpu().numpy()
 
     def scatter_state(self, gstate: Dict) -> Dict[str, torch.Tensor]:
         return state_from_numpy(gstate, self.device, self.dtype)

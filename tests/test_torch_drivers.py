@@ -171,6 +171,19 @@ def _run(case_dir, fn, writer_cls) -> Run:
                frames)
 
 
+def _same_frames(a: Run, b: Run) -> None:
+    """Two runs' frames equal at the multi-device bar of the reference's
+    tests/test_drivers_multichip.py: rtol 1e-8, atol 1e-8 (1 + max|b|)
+    per field."""
+    assert [t for t, _, _ in a.frames] == [t for t, _, _ in b.frames]
+    for (_, fa, _), (_, fb, _) in zip(a.frames, b.frames):
+        assert fa.keys() == fb.keys()
+        for k in fb:
+            np.testing.assert_allclose(
+                fa[k], fb[k], rtol=1e-8,
+                atol=1e-8 * (1.0 + np.abs(fb[k]).max()), err_msg=k)
+
+
 def _keep_each(save):
     """save_checkpoint that also keeps checkpoint-<step>.npz."""
     def keep(path, state, step, *a, **kw):
@@ -600,9 +613,12 @@ def _tiny_pihna_case(d, extra=""):
 ])
 def test_pihna_unported_raise_before_any_step(extra, tmp_path, monkeypatch,
                                               capsys):
-    """Several devices raise NotImplementedError before a step; AMR on a
-    MIXED mesh, which raised until it was ported, runs: its TET4 block
-    refines at step 2 against the HEX8 and PYRAMID5 blocks."""
+    """Several devices, which raised until they were ported, run: the
+    tiny case on 2 shards gives the one-device run's frames and each
+    element's shard in the VTU (held to the reference in tests/
+    test_torch_drivers_multichip.py); AMR on a MIXED mesh, which raised
+    until it was ported, runs: its TET4 block refines at step 2 against
+    the HEX8 and PYRAMID5 blocks."""
     if extra == "mixed mesh":
         _tiny_pihna_case(tmp_path, "refinement_step = 2\n"
                          "mesh/AMR/max_steps = 1\n")
@@ -617,9 +633,16 @@ def test_pihna_unported_raise_before_any_step(extra, tmp_path, monkeypatch,
         _tiny_pihna_case(tmp_path, extra)
     monkeypatch.chdir(tmp_path)
     if extra != "mixed mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            pihna.run("input.dat", device="cpu")
-        assert " ==== Step" not in capsys.readouterr().out
+        one = tmp_path / "one"
+        one.mkdir()
+        _tiny_pihna_case(one)
+        runs = [_run(d, lambda: pihna.run("input.dat", device="cpu"),
+                     vtu.ParaviewWriter) for d in (str(tmp_path), str(one))]
+        assert [t for t, _, _ in runs[0].frames] == [0, 1, 2, 3]
+        _same_frames(runs[0], runs[1])
+        pid = _arrays(os.path.join(runs[0].out, "output4paraview-3.vtu"))[
+            "processor_ID"]
+        assert set(np.array(pid.split(), dtype=int)) == {0, 1}
         return
     out = pihna.run("input.dat", device="cpu")
     text = capsys.readouterr().out
@@ -665,14 +688,26 @@ def test_pihna_amr_cases_run(extra, tmp_path, monkeypatch, capsys):
 
 
 def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):
+    """ADPM on several devices, which raised until it was ported, runs
+    (its one HEX8 element on shard 0, shards 1-3 empty) to the one-device
+    run's frames; the solid on several devices raises NotImplementedError
+    (item 14b) before a step."""
     monkeypatch.chdir(tmp_path)
     mesh = box_hex_mesh(1, 1, 1)
-    _write_case(str(tmp_path), mesh, ADPM_DECK + "parallel/n_devices = 4\n",
-                np.ones((mesh.n_nodes, 3)), np.ones((mesh.n_elems, 3)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        adpm.run("input.dat", device="cpu")
+    u0 = 1.0 + 0.1 * np.arange(mesh.n_nodes * 3).reshape(-1, 3) / 24
+    runs = []
+    for d, extra in ((tmp_path / "four", "parallel/n_devices = 4\n"),
+                     (tmp_path / "one", "")):
+        d.mkdir()
+        _write_case(str(d), mesh, ADPM_DECK + extra, u0,
+                    np.ones((mesh.n_elems, 3)))
+        runs.append(_run(str(d), lambda: adpm.run("input.dat",
+                                                  device="cpu"),
+                         vtu.ParaviewWriter))
+    assert len(runs[0].frames) > 1
+    _same_frames(runs[0], runs[1])
     _write_case(str(tmp_path), mesh, SOLID_DECK + "parallel/n_devices = 2\n")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         solid.run("input.dat", device="cpu")
     assert " ==== Step" not in capsys.readouterr().out
     # remeshing runs (held to the reference in tests/test_torch_solid_ext

@@ -53,7 +53,8 @@ from rdcfes_tpu_torch.io import vtu
 from rdcfes_tpu_torch.io.getpot import Deck
 
 from tests.test_torch_drivers import (_arrays, _check_files, _check_species,
-                                      _run, _summary_lines, _warnings)
+                                      _run, _same_frames, _summary_lines,
+                                      _warnings)
 from tests.torch_helpers import quick_compile
 
 PROTEAS_DECK = """
@@ -367,9 +368,11 @@ def test_ripf_zero_dose_raises(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("what", ["parallel", "mixed mesh"])
 def test_unported_raise_before_any_step(driver, what, tmp_path,
                                         monkeypatch, capsys):
-    """Several devices raise NotImplementedError before a step; a MIXED
-    mesh, which raised until it was ported, runs the deck to its end
-    with finite species."""
+    """Several devices, which raised until they were ported, run the deck
+    to its end with the frames of the one-device run (the halo system on
+    2 shards; held to the reference in tests/
+    test_torch_drivers_multichip.py); a MIXED mesh, which raised until it
+    was ported, runs the deck to its end with finite species."""
     extra = "parallel/n_devices = 2\n" if what == "parallel" else ""
     if driver == "proteas":
         _proteas_case(str(tmp_path), PROTEAS_DECK + extra)
@@ -394,9 +397,23 @@ def test_unported_raise_before_any_step(driver, what, tmp_path,
     monkeypatch.chdir(tmp_path)
     mod = {"proteas": proteas, "ripf": ripf}[driver]
     if what == "parallel":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            mod.run("input.dat", device="cpu")
-        assert " ==== Step" not in capsys.readouterr().out
+        one = tmp_path / "one"
+        one.mkdir()
+        if driver == "proteas":
+            _proteas_case(str(one))
+        else:
+            _ripf_case(str(one))
+        runs = [_run(d, lambda: mod.run("input.dat", device="cpu"),
+                     vtu.ParaviewWriter) for d in (str(tmp_path), str(one))]
+        n = {"proteas": 2, "ripf": 6}[driver]
+        for r in runs:
+            assert r.stdout.count(" ==== Step") == n
+        assert len(runs[0].frames) > 1
+        _same_frames(runs[0], runs[1])
+        vtus = sorted(f for f in os.listdir(runs[0].out)
+                      if f.endswith(".vtu"))
+        pid = _arrays(os.path.join(runs[0].out, vtus[-1]))["processor_ID"]
+        assert set(np.array(pid.split(), dtype=int)) == {0, 1}
         return
     out = _run(str(tmp_path), lambda: mod.run("input.dat", device="cpu"),
                vtu.ParaviewWriter)

@@ -18,7 +18,9 @@ at 1 to 8 species on a mesh whose element count is odd, K4 at widths 1 to 25, an
 and HEX8 ELL structures and on widths and block shapes outside them, two
 launches bit-equal and one on a side stream, also on the solid's TET10
 and mixed structures; a solid load step on a MixedMesh, on TET10 and
-with hanging nodes through K4/K5 against the plain versions.
+with hanging nodes through K4/K5 against the plain versions; the
+multi-device halo system on 3 shards of the card (TET4, HEX8) through
+the kernels against the plain versions and the single-device system.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -985,3 +987,60 @@ def test_f32_system_kernel_path_matches_plain_path(cuda, kind):
             + kernels.GENERIC_F32_VARIANTS}[kind]
     assert all(n[k] > 0 for k in want), n
     assert not any(n[k] for k in n if "f64" in k), n
+
+
+@pytest.mark.parametrize("kind", ["TET4", "HEX8"])
+def test_halo_kernel_path_matches_plain_path(cuda, kind):
+    """The multi-device halo system on 3 shards of the card (every shard
+    on cuda:0 with one card): 3 steps through the kernels against 3
+    through the plain versions within 1e-10, and against the
+    single-device system within 1e-8; K4 launched for both the
+    restriction and the reverse add."""
+    from rdcfes_tpu_torch.parallel import HaloShardedSystem
+
+    mesh = box_tet_mesh(6, 6, 6) if kind == "TET4" else box_hex_mesh(5, 5,
+                                                                       5)
+    Kk = 2.39e5
+    p = default_params()
+    p.update(dt=0.1, cells_min_capacity=1.0, cells_max_capacity=Kk,
+             cells_max_capacity_exponent=3.0, cytokines_max_capacity=1e-8,
+             necrosis_c=500 / Kk, necrosis_h=200 / Kk, necrosis_v=300 / Kk,
+             produce_c=-2.5, switch_c2h=1.0, switch_h2c=1.82,
+             switch_h2n=0.5, diffuse_c=0.5, taxis_c=2e-5, diffuse_h=1.0,
+             diffuse_v=0.2, produce_v=10.0, secrete_a_c=2.77e-13,
+             secrete_a_h=5.22e-10, decay_a=5678.4)
+    p = {k: float(v) for k, v in p.items()}
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(1)
+    u0 = np.zeros((mesh.n_nodes, 5))
+    u0[:, 1] = 2000 * np.exp(-r2 / 3)
+    u0[:, 2] = 500 * np.exp(-r2 / 2.5)
+    u0[:, 3] = 7200 * np.exp(-r2 / 20)
+    u0[:, 4] = 1e-10
+    hk = HaloShardedSystem(mesh, 5, 3, pihna_blocks, rtol=1e-12,
+                           device=cuda)
+    hp = HaloShardedSystem(mesh, 5, 3, pihna_blocks, rtol=1e-12,
+                           device=cuda, ops=kernels.PLAIN_OPS)
+    one = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=1e-12, device=cuda)
+    assert all(sh.device.type == "cuda" for sh in hk.shards)
+    assert {sh.device.index for sh in hk.shards} == set(
+        range(min(3, torch.cuda.device_count())))
+    a, b, c = hk.initial_state(u0), hp.initial_state(u0), one.initial_state(
+        u0)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        a, _, _ = hk.step(a, params=p)
+        b, _, _ = hp.step(b, params=p)
+        c, _, _ = one.step(c, params=p)
+        ua = torch.as_tensor(hk.gather(a["u"]))
+        assert rel(ua, torch.as_tensor(hp.gather(b["u"]))) <= 1e-10
+        assert rel(ua, c["u"]) <= 1e-8
+    counts = kernels.launch_counts()
+    names = (("gather_interp_affine_f64", "rhs_affine_f64",
+              "apply_affine_f64") if kind == "TET4" else
+             ("gather_interp_generic_f64", "apply_generic_f64"))
+    assert all(counts[n] > 0 for n in names + ("restrict_f64",))
+    # K4 over one shard's rev_gather against its plain version
+    sh = hk.shards[0]
+    flat = torch.rand((5, hk.plan.Gtot), dtype=torch.float64, device=cuda)
+    assert rel(kernels.restrict(flat, sh.rev_gather),
+               kernels.restrict_plain(flat, sh.rev_gather)) <= 1e-13

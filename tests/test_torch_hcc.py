@@ -378,7 +378,7 @@ def test_unported_hcc_paths_raise(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     run = lambda: coupled_hcc.run("input.dat", device="cpu")
     _case(str(tmp_path), "parallel/n_devices = 2\n")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         run()
     _case(str(tmp_path), "")
     deck = (tmp_path / "input.dat").read_text()

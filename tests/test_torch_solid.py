@@ -415,12 +415,12 @@ def test_assembly_matches_numpy_oracle():
 
 
 def test_unported_solid_options_raise(case):
-    """Only the multi-device solve (item 14) is refused; a MixedMesh and
+    """Only the multi-device solve (item 14b) is refused; a MixedMesh and
     hanging-node constraints build (their solves are held to the
     reference in tests/test_torch_solid_ext.py); element types the
     reference refuses and unknown precisions raise ValueError."""
     tm, mats = case["tm"], case["mats"]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         solid.SolidSystem(tm, mats, BCS, device="cpu", device_mesh=object())
     mixed = solid.SolidSystem(mesh_from_reference(jax_box_mixed_mesh(3, 2, 2)),
                               mats, BCS, device="cpu")

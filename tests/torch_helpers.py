@@ -159,3 +159,31 @@ def reference_assembled_step(jsys, u, fields, params):
     values, b = jsys.assemble(jnp.asarray(np.asarray(u).T), fields, params)
     return assembled_solve(values, b, jsys.sp.rows, jsys.sp.cols,
                            jsys.mesh.n_nodes)
+
+
+@contextlib.contextmanager
+def reference_native_rcb(directory):
+    """rdcfes_tpu.native loading the reference's own meshkit.cpp, built
+    with the host g++ into `directory`, inside the block: its HaloPlan
+    then partitions with the C++ RCB, as the port's does (without the
+    library the reference falls back to a NumPy RCB that splits equal
+    centroids in another order)."""
+    import os
+    import shutil
+    import subprocess
+
+    import rdcfes_tpu.native as jnative
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native RCB cannot be built")
+    lib = os.path.join(str(directory), "libmeshkit.so")
+    src = os.path.join(os.path.dirname(jnative.__file__), "meshkit.cpp")
+    subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-std=c++17", "-o", lib,
+                    src], check=True, capture_output=True)
+    old = jnative._LIB_PATH, jnative._lib
+    jnative._LIB_PATH, jnative._lib = lib, None
+    try:
+        yield
+    finally:
+        jnative._LIB_PATH, jnative._lib = old
