@@ -13,7 +13,9 @@ PROTEAS, RIPF, ExodusII export and AMR on mixed and TET10 meshes (phase
 element-matrix path (phase 19), and the transient systems'
 dtype=float32 serving mode with ADPM's local parity at its shipped rtol
 (phase 20), and the multi-device halo system, 4 shards on the card, and
-`parallel/n_devices` in the PIHNA driver (phase 21).
+`parallel/n_devices` in the PIHNA driver (phase 21), and the halo system
+on TET10, QUAD4 and MixedMesh, with the mixed PIHNA (AMR) and ADPM
+drivers on 4 shards (phase 22).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -29,6 +31,7 @@ dtype=float32 serving mode with ADPM's local parity at its shipped rtol
     python3 chip_smoke.py --phases 0,1,19          # 2D, HEX20/27, dense path
     python3 chip_smoke.py --phases 0,1,20          # f32 mode, ADPM parity
     python3 chip_smoke.py --phases 0,1,21          # the multi-device smoke
+    python3 chip_smoke.py --phases 0,1,22          # halo: more types, mixed
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -338,11 +341,34 @@ Phases, one output line each (any failure raises, exit code != 0):
             Gtot, deltas, ghost share of the local slab, ghost bytes an
             exchange), inner iterations of both, steps/s of both, the
             halo steps' launches; (c) the same on HEX8 box_hex_mesh(24),
-            5 steps; (d) `-m pihna` on make_pihna_case(n=28), 20 steps,
-            one bisection AMR pass at step 10, at parallel/n_devices = 4
+            5 steps; (d) `-m pihna` on make_pihna_case(n=28), 10 steps,
+            one bisection AMR pass at step 5, at parallel/n_devices = 4
             and without: CSV rows within 1e-8, the VTU's processor_ID the
             plan's; phase 15's 12^3 resume case on 4 shards, resumed
             from its step-6 checkpoint, ends on the uninterrupted row
+  22 the halo system on the other element types and on MixedMesh, D = 4
+            shards all on the card  (a) K8, K6 f64 and K4 f64 (over
+            node_gather and rev_gather) at the largest shard of TET10
+            box_tet_mesh(28) order 2 and of QUAD4 box_quad_mesh(512);
+            at the largest shard of the mixed case's mesh that holds all
+            three blocks, K1, K2, K3 f64 at its TET4 block, K8 and K6 f64
+            at its HEX8 and PYRAMID5 blocks, K4 f64 over its one table
+            over the blocks and over its rev_gather; each against its
+            plain version, timed as in phase 2; (b) the qp-path halo
+            system on TET10 28^3 and QUAD4 512^2, 5 steps each at rtol
+            3e-11, against the single-device f64 system: per-step
+            relative L2 <= 1e-8, inner iterations within 2 of each
+            other, steps/s of both, the halo steps' launches; (c) the
+            same on the mixed case's mesh (box_mixed_mesh(28), brain
+            bounds), 10 steps, against MixedTransientRDCSystem in f64;
+            (d) `-m pihna` on make_pihna_case(n=28, mixed=True), 20
+            steps, one 1:8 AMR pass of its TET4 block at step 10 (hanging
+            nodes on the plan), at parallel/n_devices = 4 and without:
+            CSV rows within 1e-8, the VTU's processor_ID the plan's;
+            (e) `-m adpm` on make_adpm_case(n=28, mixed=True) at the
+            taxis amplitude 50, 2 steps, an output each, at 4 shards and
+            without: the final species and the CSV's time and
+            concentrations within 1e-8, processor_ID the plan's
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -4556,7 +4582,9 @@ def phase_f32(dev, also, oracle):
 P21_D = 4
 P21_HEX_N = 24        # box_hex_mesh(24): 13,824 HEX8, 15,625 nodes
 P21_STEPS, P21_HEX_STEPS = 10, 5
-P21_DRV_STEPS, P21_DRV_AMR = 20, 10
+# 21d's depth: 10 steps with the bisection pass at 5 (20 at 10 until
+# phase 22's mixed driver pair took its place in the time limit)
+P21_DRV_STEPS, P21_DRV_AMR = 10, 5
 # the resume run: phase 15's 12^3 case (its bisected nodes are exact in
 # the Gmsh writer's 6 digits), AMR at step 4, a checkpoint at step 6
 P21_HALO = ("gather_interp_affine_f64", "rhs_affine_f64",
@@ -4582,15 +4610,16 @@ def _one_device(mesh, dev):
 
 def _shard_shim(h, s):
     """What affine_cases and generic_cases read of a system, for shard s
-    of the halo system h: its local connectivity into the (V, Nloc) slab,
-    its geometry and its node_gather."""
+    of the single-type halo system h: its one block's local connectivity
+    into the (V, Nloc) slab, its geometry and the shard's node_gather."""
     from types import SimpleNamespace as NS
 
     sh = h.shards[s]
+    (_, blk, g), = sh.parts
     Nloc = h.plan.No_max + h.plan.Gtot
-    return NS(n_vars=h.n_vars, geom=sh.geom, conn_T=sh.blk.conn_T,
-              phi=sh.blk.phi, node_gather=sh.node_gather,
-              mesh=NS(n_elems=sh.blk.conn_T.shape[1], n_nodes=Nloc))
+    return NS(n_vars=h.n_vars, geom=g, conn_T=blk.conn_T, phi=blk.phi,
+              node_gather=sh.node_gather,
+              mesh=NS(n_elems=blk.conn_T.shape[1], n_nodes=Nloc))
 
 
 def _rev_case(h, s, W):
@@ -4658,12 +4687,15 @@ def _p21_plan(tag, h):
             p.seg_sizes)))
 
 
-def _p21_steps(tag, mesh, params, u0, steps, dev, variants):
-    """(b, c) `steps` steps of the halo system and of the single-device
-    system from the same state, each step's relative L2 <= 1e-8; steps/s
-    of each (the host reads of the comparison outside the clock)."""
-    h = _halo(mesh, dev)
-    one = _one_device(mesh, dev)
+def _p21_steps(tag, mesh, params, u0, steps, dev, variants,
+               one_device=_one_device, iter_gap=None, h=None):
+    """(b, c) `steps` steps of the halo system (h, or one built here)
+    and of the single-device system from the same state, each step's
+    relative L2 <= 1e-8 (and, with iter_gap, their inner iterations
+    within iter_gap); steps/s of each (the host reads of the comparison
+    outside the clock)."""
+    h = _halo(mesh, dev) if h is None else h
+    one = one_device(mesh, dev)
     _p21_plan(tag, h)
     a, b = h.initial_state(u0), one.initial_state(u0)
     # a warm-up step each (first launches, plans), then the counts
@@ -4700,34 +4732,42 @@ def _p21_steps(tag, mesh, params, u0, steps, dev, variants):
         n_nodes=mesh.n_nodes, n_elems=mesh.n_elems)
     say(f"{tag} launches", **{k: counts.get(k, 0) for k in variants})
     require(worst <= 1e-8, f"{tag}: halo vs one device {worst:.3e}")
+    if iter_gap is not None:
+        gap = max(abs(int(a) - int(b)) for a, b in zip(its_h, its_1))
+        require(gap <= iter_gap, f"{tag}: inner iterations differ by {gap}")
     _require_launched(counts, variants, f"the halo {tag} step")
     return counts
 
 
-def _drive_halo(d, dev):
-    """_drive(-m pihna) recording the last system each run_steps call of
-    the halo or the single-device system ran on."""
+def _drive_halo(d, dev, argv=("-m", "pihna")):
+    """_drive(argv) recording each step and run_steps call of the halo or
+    the single-device system: (the system, the state, the inner
+    iterations, the residuals)."""
     from rdcfes_tpu_torch.parallel import halo as halo_mod
     from rdcfes_tpu_torch.systems import transient as transient_mod
 
     seen = []
-    saved = [(c, c.run_steps) for c in (halo_mod.HaloShardedSystem,
-                                         transient_mod.TransientRDCSystem)]
+    saved = [(c, m, getattr(c, m)) for c in (
+        halo_mod.HaloShardedSystem, transient_mod.TransientRDCSystem)
+        for m in ("step", "run_steps")]
 
     def wrap(orig):
-        def recorded(self, state, n, *a, **kw):
-            out = orig(self, state, n, *a, **kw)
-            seen.append((self, out[0]))
+        def recorded(self, state, *a, **kw):
+            out = orig(self, state, *a, **kw)
+            its, ress = out[1], out[2]
+            seen.append((self, out[0],
+                         its.tolist() if torch.is_tensor(its) else [its],
+                         [float(r) for r in ress.reshape(-1)]))
             return out
         return recorded
 
-    for c, orig in saved:
-        c.run_steps = wrap(orig)
+    for c, m, orig in saved:
+        setattr(c, m, wrap(orig))
     try:
-        wall, counts, out = _drive(d, ["-m", "pihna"], dev)
+        wall, counts, out = _drive(d, list(argv), dev)
     finally:
-        for c, orig in saved:
-            c.run_steps = orig
+        for c, m, orig in saved:
+            setattr(c, m, orig)
     return wall, counts, out, seen
 
 
@@ -4757,7 +4797,8 @@ def _p21_driver(dev):
         d, wall, counts, out, seen = runs["4 shards"]
         res = os.path.join(d, "PIHNA_simulation")
         rows = [_transient_artifacts(os.path.join(r[0], "PIHNA_simulation"),
-                                     "Brain_Model", (0, 10, 20),
+                                     "Brain_Model",
+                                     tuple(range(0, P21_DRV_STEPS + 1, 10)),
                                      ("n", "c", "h", "v", "a"))
                 for r in runs.values()]
         num = [np.array([[float(x) for x in ln.split(",")]
@@ -4769,7 +4810,8 @@ def _p21_driver(dev):
         h = seen[-1][0]
         require(type(h).__name__ == "HaloShardedSystem" and h.plan.D == P21_D,
                 "21d: the 4-shard run did not step the halo system")
-        with open(os.path.join(res, "Brain_Model-20.vtu")) as f:
+        with open(os.path.join(res, f"Brain_Model-{P21_DRV_STEPS}.vtu")
+                  ) as f:
             pid = re.search(r'Name="processor_ID"[^>]*>\n(.*?)\n', f.read(),
                             re.S).group(1)
         pid = np.array(pid.split(), dtype=np.int64)
@@ -4843,11 +4885,316 @@ def phase_halo(dev, card, also):
     return results, paths
 
 
+# ----------------------------------------------------------------------
+# phase 22: the halo system on TET10, QUAD4 and MixedMesh (D shards on
+# one card), and the mixed PIHNA and ADPM drivers on 4 shards
+# ----------------------------------------------------------------------
+P22_T10_N, P22_QUAD_N, P22_STEPS, P22_MIX_STEPS = 28, 512, 5, 10
+# 22e's depth: on the mixed n = 28 case at amplitude 50 a one-device f64
+# and a one-device mixed-precision run, both at rtol 1e-12, part by
+# 4e-10 of the scale at step 2, 1.4e-7 at step 3 and 7.4e-2 at step 20
+# (`python3 -m rdcfes_tpu_torch.parallel.gap adpm` on an H100): past
+# step 2 no two solves meet the 1e-8 bar
+P22_DRV_STEPS, P22_DRV_AMR, P22_ADPM_STEPS = 20, 10, 2
+# both runs of a driver pair solve to 1e-12: the single-device mixed
+# system refines in mixed precision past its rtol while the halo step's
+# f64 BiCGStab stops at it, and at 3e-11 that gap in the small species
+# can cross a CSV threshold (the reference's own mixed RIPF at 8 devices
+# shows it)
+P22_DRV_TOL = "solver/linear/tolerance = 1e-12\n"
+P22_T10 = ("gather_interp_generic_f64:tet10", "apply_generic_f64:tet10",
+           "restrict_f64")
+P22_QUAD = ("gather_interp_generic_f64:quad4", "apply_generic_f64:quad4",
+            "restrict_f64")
+P22_MIX = P21_HALO + tuple(f"{v}:{e}" for v in ("gather_interp_generic_f64",
+                                                "apply_generic_f64")
+                           for e in ("hex8", "pyramid5"))
+
+
+def _one_device_mixed(mesh, dev):
+    """MixedTransientRDCSystem in f64 with the drivers' other settings."""
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    return MixedTransientRDCSystem(mesh, 5, pihna_blocks, rtol=3e-11,
+                                   precision="f64", precond_refresh=1,
+                                   device=dev)
+
+
+def _p22_shard_cases(tag, h, s, ug, blocks_of, results, also):
+    """K8, K6 f64 and K4 f64 (node_gather, rev_gather) at shard s of the
+    single-type generic halo system h."""
+    elem = tag.split()[-1]
+    shim = _shard_shim(h, s)
+    cases = {k if k.startswith("restrict") else f"{k}:{elem}": c
+             for k, c in generic_cases(f"22a {tag}", shim, ug, blocks_of,
+                                       with_restrict=False).items()
+             if not k.startswith("apply_generic_f32")}
+    V = h.n_vars
+    (_, blk, g), = h.shards[s].parts
+    u_qp, gq = K.gather_interp_generic_plain(ug, blk.conn_T, blk.phi, g.dphi)
+    wfb = blocks_of(u_qp, gq)
+    del u_qp, gq
+    cases["restrict_f64@" + elem] = restrict_case(
+        block_rhs(wfb, blk.phi, g.JxW, g.dphi).reshape(V, -1), shim)
+    cases["restrict_f64@" + elem + " diagonal"] = restrict_case(
+        block_diag(wfb, blk.phi, g.JxW, g.dphi).reshape(V * V, -1), shim)
+    del wfb
+    cases[f"restrict_f64@{elem} rev_gather"] = _rev_case(h, s, V)
+    say(f"22a {tag} shard", shard=s, E_s=shim.mesh.n_elems,
+        Nloc=shim.mesh.n_nodes, No_max=h.plan.No_max, Gtot=h.plan.Gtot,
+        C=int(h.shards[s].node_gather.shape[0]),
+        Cr=int(h.shards[s].rev_gather.shape[0]))
+    run_cases("22a kernel", cases, {}, also, label="halo shard",
+              first=results)
+
+
+def _p22_mixed_shard_cases(h, params, u0, results, also):
+    """At the largest shard of the mixed halo system h that holds all
+    three blocks: K1, K2, K3 f64 at its TET4 block, K8 and K6 f64 at its
+    HEX8 and PYRAMID5 blocks, K4 f64 over its one table over the blocks
+    (W = V and the diagonal's V V) and over its rev_gather."""
+    blocks_of = lambda uq, gq: pihna_blocks(uq, gq, {}, params)
+    V = h.n_vars
+    Nloc = h.plan.No_max + h.plan.Gtot
+    full = [s for s, sh in enumerate(h.shards) if len(sh.parts) == 3]
+    require(bool(full), "22a: no shard holds all three blocks")
+    s = max(full, key=lambda i: int(h.plan.elem_counts[i]))
+    sh = h.shards[s]
+    ug = h.ghost_fill(h.scatter_nodal(u0))[s]
+    flats, diags = [], []
+    for _, blk, g in sh.parts:
+        elem = blk.elem_type.lower()
+        shim = _block_shim(blk, g, V, Nloc)
+        if blk.affine:
+            cases = {k: c for k, c in affine_cases(
+                "22a mixed shard tet4", shim, ug, blocks_of).items()
+                if k in P21_HALO[:3]}
+            u_qp, gx1 = K.gather_interp_affine_plain(ug, blk.conn_T, blk.phi,
+                                                     g.dphi)
+            gq = gx1[:, None].expand(V, u_qp.shape[1], 3, gx1.shape[-1])
+        else:
+            cases = {(k if elem == "hex8" else f"{k}:{elem}"): c
+                     for k, c in generic_cases(
+                         f"22a mixed shard {elem}", shim, ug, blocks_of,
+                         with_restrict=False).items()
+                     if not k.startswith("apply_generic_f32")}
+            u_qp, gq = K.gather_interp_generic_plain(ug, blk.conn_T, blk.phi,
+                                                     g.dphi)
+        run_cases("22a kernel", cases, {}, also,
+                  label=f"halo mixed shard {elem}", first=results)
+        wfb = blocks_of(u_qp, gq)
+        flats.append(blk.rhs(K.PLAIN_OPS, wfb, g).reshape(V, -1))
+        diags.append((block_diag_affine(wfb, blk.phi, g.JxW, g.dphi[None])
+                      if blk.affine else block_diag(wfb, blk.phi, g.JxW,
+                                                    g.dphi)
+                      ).reshape(V * V, -1))
+        del wfb, u_qp, gq
+    conns = [blk.conn_T for _, blk, _ in sh.parts]
+    cases = _restrict_concat("halo mixed shard", torch.cat(flats, 1),
+                             sh.node_gather, conns)
+    cases.update({k + " diagonal": c for k, c in _restrict_concat(
+        "halo mixed shard", torch.cat(diags, 1), sh.node_gather,
+        conns).items()})
+    cases["restrict_f64@halo mixed shard rev_gather"] = _rev_case(h, s, V)
+    say("22a mixed shard", shard=s, Nloc=Nloc, No_max=h.plan.No_max,
+        Gtot=h.plan.Gtot, C=int(sh.node_gather.shape[0]),
+        Cr=int(sh.rev_gather.shape[0]),
+        **{blk.elem_type: blk.conn_T.shape[1] for _, blk, _ in sh.parts})
+    run_cases("22a kernel", cases, {}, also, first=results)
+
+
+def _p22_driver_pair(root, tag, make, argv, dev, steps, outputs, species,
+                     res_dir, edit, want, csv_cols=None, species_bar=False):
+    """A driver case at parallel/n_devices = 4 and at 1 (`edit` applied to
+    both decks): the CSV rows (or their columns csv_cols) within 1e-8
+    (rtol, and atol 1e-8 (1 + max)), the 4-shard run on the halo system
+    (its processor_ID in the last VTU), the kernels of `want` launched on
+    it; each species' largest gap between the two runs' final states over
+    1 + its largest value (with species_bar, each <= 1e-8), and each
+    run's largest inner iterations and residual, printed.  Returns
+    (counts of the 4-shard run, the runs)."""
+    import os
+    import re
+
+    runs = {}
+    for name, extra in (("4 shards", f"parallel/n_devices = {P21_D}\n"),
+                        ("one device", "")):
+        d = make(os.path.join(root, f"{tag}-{name.split()[0]}"))
+        path = os.path.join(d, "input.dat")
+        text = edit(open(path).read())
+        with open(path, "w") as f:
+            f.write(text + P22_DRV_TOL + extra)
+        runs[name] = (d,) + _drive_halo(d, dev, argv)
+
+    def results_dir(d):
+        return os.path.join(d, res_dir) if res_dir else os.path.join(
+            d, next(e for e in os.listdir(d)
+                    if os.path.isdir(os.path.join(d, e))))
+
+    d, wall, counts, out, seen = runs["4 shards"]
+    res = results_dir(d)
+    base = next(f for f in os.listdir(res) if f.endswith(".pvd"))[:-4]
+    rows = [_transient_artifacts(results_dir(r[0]), base, outputs, species)
+            for r in runs.values()]
+    # each species' largest gap over 1 + its largest value (the
+    # multi-device bar's measure: rtol and atol 1e-8 (1 + max)), on the
+    # final states at full precision (the VTU holds 6 digits)
+    finals = [r[4][-1][0].gather(r[4][-1][1]["u"]) for r in runs.values()]
+    gaps = {k: float(np.abs(finals[0][:, i] - finals[1][:, i]).max()
+                     / (1.0 + np.abs(finals[1][:, i]).max()))
+            for i, k in enumerate(species)}
+    num = [np.array([[float(x) for x in ln.split(",")] for ln in r[1:]])
+           for r in rows]
+    cols = slice(None) if csv_cols is None else csv_cols
+    scale = 1.0 + np.abs(num[1][:, cols]).max()
+    err = float(np.abs(num[0][:, cols] - num[1][:, cols]).max())
+    all_err = float(np.abs(num[0] - num[1]).max())
+    h = seen[-1][0]
+    with open(os.path.join(res, f"{base}-{outputs[-1]}.vtu")) as f:
+        pid = re.search(r'Name="processor_ID"[^>]*>\n(.*?)\n', f.read(),
+                        re.S).group(1)
+    pid = np.array(pid.split(), dtype=np.int64)
+    one = runs["one device"]
+    scopes = {name: _perf_totals(r[3]) for name, r in runs.items()}
+    solves = {name.replace(" ", "_"): (
+        max(i for c in r[4] for i in c[2]),
+        f"{max(x for c in r[4] for x in c[3]):.3e}")
+        for name, r in runs.items()}
+    say(f"22 {tag}", steps=steps, seconds_4_shards=f"{wall:.4f}",
+        seconds_one_device=f"{one[1]:.4f}",
+        **{f"{k.replace(' ', '_')}_s_{name.replace(' ', '_')}":
+           f"{t.get(k, 0.0):.4f}" for name, t in scopes.items()
+           for k in ("system setup", "solve", "amr", "vtu output")},
+        **{f"max_iters_{n}": v[0] for n, v in solves.items()},
+        **{f"max_residual_{n}": v[1] for n, v in solves.items()},
+        n_elems=h.mesh.n_elems, csv_max_abs_diff=f"{err:.3e}",
+        csv_all_columns_max_abs_diff=f"{all_err:.3e}",
+        **{f"gap_{k}": f"{v:.3e}" for k, v in gaps.items()},
+        processor_ids=len(set(pid.tolist())))
+    say(f"22 {tag} launches", **{k: counts[k] for k in want})
+    require(np.allclose(num[0][:, cols], num[1][:, cols], rtol=1e-8,
+                        atol=1e-8 * scale),
+            f"22 {tag}: CSV rows differ by {err:.3e}")
+    require(not species_bar or max(gaps.values()) <= 1e-8,
+            f"22 {tag}: species gaps {gaps}")
+    require(type(h).__name__ == "HaloShardedSystem" and h.plan.D == P21_D
+            and h.mesh.elem_type == "MIXED",
+            f"22 {tag}: the 4-shard run did not step the mixed halo system")
+    require(np.array_equal(pid, h.processor_id),
+            f"22 {tag}: the VTU's processor_ID is not the plan's")
+    _require_launched(counts, want, f"the 4-shard {tag} driver")
+    return counts, runs
+
+
+def _p22_drivers(dev):
+    """(d) the mixed PIHNA driver with one 1:8 AMR pass (its CSV rows
+    held; its species printed: the case parts one-device f64 from
+    one-device mixed precision by 7e-3 of the scale in 20 steps); (e)
+    the mixed ADPM driver at the taxis amplitude 50, 2 steps; each at 4
+    shards and at 1."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from rdcfes_tpu_torch import cases
+
+    root = tempfile.mkdtemp(prefix="rdcfes_halo_mixed_")
+    paths = {}
+    try:
+        def pihna_edit(text):
+            require("refinement_step = 10000" in text
+                    and "mesh/AMR/max_steps = 1" in text,
+                    "PIHNA case deck changed")
+            return text.replace("refinement_step = 10000",
+                                f"refinement_step = {P22_DRV_AMR}")
+
+        counts, runs = _p22_driver_pair(
+            root, "mixed pihna", lambda d: cases.make_pihna_case(
+                d, n=MIX_N, n_steps=P22_DRV_STEPS, mixed=True),
+            ["-m", "pihna"], dev, P22_DRV_STEPS,
+            (0, 10, 20), PIHNA_SPECIES, "PIHNA_simulation", pihna_edit,
+            P22_MIX)
+        out = runs["4 shards"][3]
+        amr = re.findall(r"AMR step (\d+): adapted to (\d+) elements "
+                         r"\((\d+) hanging nodes\)", out)
+        h = runs["4 shards"][4][-1][0]
+        require(len(amr) == 1 and h.mesh.n_elems == int(amr[0][1])
+                and h.plan.has_cons,
+                "22d: one 1:8 pass, hanging nodes on the plan")
+        say("22d amr", at=amr[0][0], elements=amr[0][1], hanging=amr[0][2],
+            Gtot=h.plan.Gtot, No_max=h.plan.No_max)
+        paths["halo mixed pihna driver"] = counts
+
+        def adpm_edit(text):
+            require(text.count("0.999999e+3") == 2
+                    and "output_step = 20" in text, "ADPM case deck changed")
+            return text.replace("0.999999e+3", "50.0").replace(
+                "output_step = 20", "output_step = 1")
+
+        # the CSV's time and concentrations (1 + 2 per parcellation); its
+        # volumes sum the elements whose corners lie in [1e-12, 1e12],
+        # and the seed's tails cross 1e-12: any two solves that stop at
+        # different points move elements across it
+        counts, _ = _p22_driver_pair(
+            root, "mixed adpm", lambda d: cases.make_adpm_case(
+                d, n=MIX_N, n_steps=P22_ADPM_STEPS, mixed=True),
+            ["-m", "adpm"], dev, P22_ADPM_STEPS,
+            tuple(range(P22_ADPM_STEPS + 1)), ("PrP", "A_b", "Tau"), None,
+            adpm_edit, P22_MIX, csv_cols=slice(0, 5), species_bar=True)
+        paths["halo mixed adpm driver"] = counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
+def phase_halo_ext(dev, card, also):
+    """(a) the kernels at a shard of TET10, QUAD4 and the mixed mesh;
+    (b) the halo system on TET10 28^3 and QUAD4 512^2 against the
+    single-device system, 5 steps each; (c) on the mixed case's mesh
+    against MixedTransientRDCSystem in f64, 10 steps; (d, e) the mixed
+    PIHNA (AMR) and ADPM drivers at 4 shards and at 1.  D = 4 shards, all
+    on `dev`."""
+    from rdcfes_tpu_torch.mesh import (box_mixed_mesh, box_quad_mesh,
+                                       tet4_to_tet10)
+
+    say("22 card", card=repr(card), shards=P21_D, device=dev)
+    results, paths = {}, {}
+    t10 = tet4_to_tet10(box_tet_mesh(P22_T10_N, P22_T10_N, P22_T10_N,
+                                     bounds=BRAIN))
+    quad = box_quad_mesh(P22_QUAD_N, P22_QUAD_N,
+                         bounds=((0.0, 150.0), (0.0, 180.0)))
+    mixed = box_mixed_mesh(MIX_N, MIX_N, MIX_N, bounds=BRAIN)
+    for tag, mesh, variants in (("tet10", t10, P22_T10),
+                                ("quad4", quad, P22_QUAD)):
+        _, params, u0 = bench_case(mesh)
+        blocks_of = lambda uq, gq, p=params: pihna_blocks(uq, gq, {}, p)
+        h = _halo(mesh, dev)
+        s = int(np.argmax(h.plan.elem_counts))
+        ug = h.ghost_fill(h.scatter_nodal(u0))[s]
+        _p22_shard_cases(f"halo {tag}", h, s, ug, blocks_of, results, also)
+        del ug
+        paths[f"halo {tag}"] = _p21_steps(f"22b {tag}", mesh, params, u0,
+                                          P22_STEPS, dev, variants,
+                                          iter_gap=2, h=h)
+        del h
+    _, params, u0 = bench_case(mixed)
+    h = _halo(mixed, dev)
+    _p22_mixed_shard_cases(h, params, u0, results, also)
+    paths["halo mixed"] = _p21_steps("22c mixed", mixed, params, u0,
+                                     P22_MIX_STEPS, dev, P22_MIX,
+                                     one_device=_one_device_mixed,
+                                     iter_gap=2, h=h)
+    del h
+    paths.update(_p22_drivers(dev))
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18,19,20,21",
+                    "18,19,20,21,22",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4947,6 +5294,11 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
         p21_kern, p21_paths = phase_halo(dev, card, also)
         paths.update(p21_paths)
     lap("21")
+    p22_kern = {}
+    if 22 in phases:
+        p22_kern, p22_paths = phase_halo_ext(dev, card, also)
+        paths.update(p22_paths)
+    lap("22")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -4963,7 +5315,7 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
                  or gen_kern.get(name) or mix_kern.get(name)
                  or p17_kern.get(name) or p18_kern.get(name)
                  or p19_kern.get(name) or p20_kern.get(name)
-                 or p21_kern.get(name) or {})
+                 or p21_kern.get(name) or p22_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

@@ -13,11 +13,11 @@ two events.  On a MixedMesh the tracts are sliced per block by
 systems.mixed.MixedTransientRDCSystem (mixed precision, as the
 reference's driver runs it), and the CSV's element integrals are taken
 block by block, concatenated in block order.  `parallel/n_devices` =
-D > 1 runs a TET4 or HEX8 mesh on D shards (parallel.halo.
+D > 1 runs the mesh, single-type or mixed, on D shards (parallel.halo.
 HaloShardedSystem): the tracts go to the shards through
-shard_elem_field, the CSV's integrals read the gathered state, and the
-VTU gets each element's shard as processor_id; on a MixedMesh it raises
-NotImplementedError (ROADMAP queue 1 item 14b).
+shard_elem_field (on a MixedMesh per shard and block), the CSV's
+integrals read the gathered state, and the VTU gets each element's shard
+as processor_id.
 """
 
 from __future__ import annotations

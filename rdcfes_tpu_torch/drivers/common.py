@@ -248,10 +248,10 @@ def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
     `parallel/n_devices` = D > 1 gives the halo-exchange system on D
     shards (parallel.halo.HaloShardedSystem, placed by
     parallel.halo.shard_devices from `device`), with the deck's rtol, the
-    clamp and the hanging-node constraints: the reference's
-    (rdcfes_tpu/drivers/common.py:132-159).  Its constructor raises
-    NotImplementedError (ROADMAP queue 1 item 14b) on a MixedMesh, a
-    moving mesh or another element type than TET4 and HEX8.
+    clamp and the hanging-node constraints, on a single-type mesh or a
+    MixedMesh: the reference's (rdcfes_tpu/drivers/common.py:109-159).
+    Its constructor raises NotImplementedError (ROADMAP queue 1 item 14b)
+    on a moving mesh.
 
     Every system it returns answers initial_state, gather (a state entry
     as the global (N, V) host array), gather_state and scatter_state: the

@@ -36,13 +36,12 @@ reference's driver does; a TET10 mesh through TransientRDCSystem's
 generic path.  The structure is an elemental field in the global
 (block-concatenated) element order.
 
-`parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh on D shards
-(parallel.halo.HaloShardedSystem, drivers/common.make_rdc_system): the
-VTU gets each element's shard as processor_id, the state comes off the
-shards (gather_state) for the CSV, AMR and the checkpoint, and goes back
-(scatter_state) onto the system rebuilt on the adapted mesh or after a
-resume.  On a MixedMesh it raises NotImplementedError before the first
-step (ROADMAP queue 1 item 14b).
+`parallel/n_devices` = D > 1 runs the mesh, single-type or mixed, on D
+shards (parallel.halo.HaloShardedSystem, drivers/common.make_rdc_system):
+the VTU gets each element's shard as processor_id, the state comes off
+the shards (gather_state) for the CSV, AMR and the checkpoint, and goes
+back (scatter_state) onto the system rebuilt on the adapted mesh (with a
+MixedMesh's hanging-node constraints) or after a resume.
 """
 
 from __future__ import annotations

@@ -17,11 +17,10 @@ reference`, the C++ reference's phi_1(qp) * HU(local node 1)
 (src/proteas.C:479-482) on every block.  The steps between two events
 (an output or a checkpoint) go through one `run_steps` call, one step or
 many; the time of step k is dt * k.  It runs on TET4, HEX8, TET10 and
-mixed meshes.  `parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh
-on D shards (parallel.halo.HaloShardedSystem): the RTD at the quadrature
-points goes to the shards through shard_elem_field, and the VTU gets each
-element's shard as processor_id; on a MixedMesh it raises
-NotImplementedError (ROADMAP queue 1 item 14b) before the first step.
+mixed meshes.  `parallel/n_devices` = D > 1 runs the mesh on D shards
+(parallel.halo.HaloShardedSystem): the RTD at the quadrature points goes
+to the shards through shard_elem_field (on a MixedMesh per shard and
+block), and the VTU gets each element's shard as processor_id.
 """
 
 from __future__ import annotations

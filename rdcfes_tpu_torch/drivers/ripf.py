@@ -28,13 +28,12 @@ misses (dt = 0.1: ten additions give 0.9999999999999999) it reads the
 previous day's dose there.  The field rebuild goes through the system's
 own kernels, once per element block: K1 on TET4, K8 on HEX8, PRISM6,
 PYRAMID5 and TET10; on a MixedMesh each field is a tuple of one entry
-per block.  `parallel/n_devices` = D > 1 runs a TET4 or HEX8 mesh on
-D shards (parallel.halo.HaloShardedSystem): the dose goes to the shards
-once (scatter_nodal), the field rebuild ghost-fills each shard's nodal
-TD and dose slab and runs the same kernels on the shard's elements, and
-the TD fields at a segment's end come from the gathered state; on a
-MixedMesh it raises NotImplementedError (ROADMAP queue 1 item 14b)
-before the first step.
+per block.  `parallel/n_devices` = D > 1 runs the mesh, single-type or
+mixed, on D shards (parallel.halo.HaloShardedSystem): the dose goes to
+the shards once (scatter_nodal), the field rebuild ghost-fills each
+shard's nodal TD and dose slab and runs the same kernels on each of the
+shard's element blocks, and the TD fields at a segment's end come from
+the gathered state.
 """
 
 from __future__ import annotations
@@ -137,12 +136,18 @@ def qp_fields(system, nodal: torch.Tensor) -> dict:
 def sharded_qp_fields(system, nodal) -> dict:
     """The model's fields on the shards of a HaloShardedSystem from the
     per-shard nodal slabs (3, No_max): each slab ghost-filled, then
-    block_qp_fields on the shard's elements.  Every field is a list of
-    one entry per shard."""
-    filled = system.ghost_fill(nodal)
-    parts = [block_qp_fields(system.ops, sh.blk, sh.geom, x)
-             for sh, x in zip(system.shards, filled)]
-    return {k: [p[k] for p in parts] for k in parts[0]}
+    block_qp_fields on each of the shard's element blocks.  Every field is
+    a list of one entry per shard, each a tuple of one entry per block of
+    the mesh (None where the shard holds none of its elements)."""
+    out = {}
+    for sh, x in zip(system.shards, system.ghost_fill(nodal)):
+        parts = {bi: block_qp_fields(system.ops, blk, geom, x)
+                 for bi, blk, geom in sh.parts}
+        for k in ("cc_dtime", "fb_dtime", "RT", "RT_grad_unit"):
+            out.setdefault(k, []).append(tuple(
+                parts[bi][k] if bi in parts else None
+                for bi in range(system.n_blocks)))
+    return out
 
 
 def run(deck_path: str = "input.dat", device=None) -> str:

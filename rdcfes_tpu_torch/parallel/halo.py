@@ -1,6 +1,6 @@
 """The multi-device transient system: node-partitioned Krylov with a halo
-exchange (the port of rdcfes_tpu/parallel/halo.py on single-type meshes;
-the reference app's libMesh ghost sync and PETSc VecScatter under every
+exchange (the port of rdcfes_tpu/parallel/halo.py on fixed meshes; the
+reference app's libMesh ghost sync and PETSc VecScatter under every
 solve, src/pihna.C:80).
 
 Layout, built once on the host (HaloPlan, the reference's tables):
@@ -17,6 +17,12 @@ Layout, built once on the host (HaloPlan, the reference's tables):
     after every element apply (VecScatter reverse, ADD_VALUES);
   * dot products are local sums plus a sum over the shards.
 
+A MixedMesh gets one node-side plan over the K_max-padded concatenation
+of its blocks (build_mixed_plan, the reference's): padding repeats each
+element's corner 0, which adds no node to any shard, and the element
+tables are then split back per block.  A shard may hold no element of a
+block, or none at all.
+
 The reference runs the shards as one shard_map program over D devices.
 Here they run in one process, one after the other, through a ShardGroup:
 a list of D torch devices (repeats allowed).  An exchange is a `.to()`
@@ -29,17 +35,21 @@ is the placement rule: the CPU gives every shard the CPU; a CUDA device
 gives shard s the card (index + s) mod torch.cuda.device_count(); None is
 the card (utils.device.cuda_device: never the CPU).
 
-Each shard's element work is the single-device system's ElementBlock on
-the shard's local connectivity into its (V, No_max + Gtot) slab: on
-TET4 K1 (gather + interpolation), K2 (right-hand side), and K3 (f64
-apply) in every matvec; on HEX8 K8 and K6.  K4 restricts the corner
-values onto the local slab through the plan's node_gather, and again
-sums the returned ghost partials onto their owners through rev_gather.
-The dense path (`physics=` without blocks) applies each shard's element
-matrices by one batched product.  With hanging-node constraints the
-plan's closure puts both masters of a visible hanging node in the shard,
-so C and C^T act shard-locally (fem/constraints.Constraints on local
-slots) before the reverse add.
+Each shard's element work is the single-device system's ElementBlock, one
+per element type the shard holds, on the shard's local connectivity into
+its (V, No_max + Gtot) slab: on TET4 and TRI3 K1 (gather +
+interpolation), K2 (right-hand side) and K3 (f64 apply) in every matvec;
+on the other types K8 and K6.  One K4 launch restricts the corner values
+of the shard's blocks, concatenated in block order, onto the local slab
+(as MixedTransientRDCSystem does on one device; the reference sums one
+restriction per block), and K4 again sums the returned ghost partials
+onto their owners through rev_gather.  A block a shard does not hold
+launches nothing there.  The dense path (`physics=` without blocks)
+applies each block's element matrices by one batched product.  With
+hanging-node constraints (TET4 1:8, or a MixedMesh's TET4 block against
+the others) the plan's closure puts both masters of a visible hanging
+node in the shard, so C and C^T act shard-locally
+(fem/constraints.Constraints on local slots) before the reverse add.
 
 The step is the reference's halo step, not the single-device system's:
 f64 left-preconditioned BiCGStab from x0 = 2u - u_old, block-Jacobi
@@ -48,32 +58,30 @@ breakdown freezes and stopping rule.  Each shard's elements are kept
 unpadded (the reference pads them to Eb for its SPMD program; the tables
 of HaloPlan keep that padding, and the system drops it).
 
-Not ported here (ROADMAP queue 1 item 14b): MIXED meshes
-(build_mixed_plan), the moving mesh (`coords=`), the other single element
-types (TET10, HEX20/27, the 2D ones), and the solid's multi-device
-system.
+Not ported here (ROADMAP queue 1 item 14b): the moving mesh (`coords=`)
+and the solid's multi-device system.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..fem.assembly import block_node_gather
 from ..fem.constraints import Constraints
 from ..fem.kernels import KERNEL_OPS, Ops
-from ..mesh.core import Mesh
 from ..native import partition_rcb
 from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
                               apply_block_jacobi, small_block_inverse)
-from ..systems.transient import (ElementBlock, Geometry, TransientRDCSystem,
-                                 clamp_nonnegative)
+from ..systems.transient import (_ELEMENT_TYPES, ElementBlock, Geometry,
+                                 TransientRDCSystem, clamp_nonnegative)
 from ..utils.device import cuda_device
 
 ITEM_14B = "ROADMAP queue 1 item 14b (multi-device)"
-_ELEMENT_TYPES = ("TET4", "HEX8")
 
 
 @dataclass
@@ -107,8 +115,10 @@ class HaloPlan:
     hang_mask: Optional[np.ndarray] = None   # (D, No_max)
 
     @staticmethod
-    def build(mesh: Mesh, D: int,
+    def build(mesh, D: int,
               constraints: Optional[np.ndarray] = None) -> "HaloPlan":
+        """The plan of `mesh` (anything with connectivity (E, K), n_nodes
+        and coords) on D shards."""
         conn = np.asarray(mesh.connectivity)
         E, K = conn.shape
         N = mesh.n_nodes
@@ -291,6 +301,62 @@ def _restriction_tables(conn_local: np.ndarray, elem_counts: np.ndarray,
     return node_gather
 
 
+def build_mixed_plan(mesh, D: int,
+                     constraints: Optional[np.ndarray] = None
+                     ) -> Tuple[HaloPlan, List[dict]]:
+    """(HaloPlan, per-block tables) of a MixedMesh on D shards (the
+    reference's build_mixed_plan, table for table).
+
+    The node-side plan is built once over the K_max-padded concatenation
+    of the blocks' connectivities (padding repeats each element's corner
+    0, so no shard sees another node); the hanging-node rows ride it as
+    on a single-type mesh.  Each block's element tables are then split
+    back out: per block its elem_type, counts (D,), conn_local (D, K, Eb)
+    (the rows of the plan's conn_local; Eb its largest shard count, at
+    least 1), conn_sorted (the renumbered connectivity of its elements in
+    shard order) and sorted_concat_idx (their positions in the plan's
+    shard-sorted element order).  The reference's per-block restriction
+    tables are not built: a shard's one K4 table over its blocks is
+    (HaloShardedSystem._make_shards)."""
+    blocks = mesh.blocks
+    Kmax = max(b.connectivity.shape[1] for b in blocks)
+    conns, block_of = [], []
+    for bi, b in enumerate(blocks):
+        c = b.connectivity.astype(np.int64)
+        if c.shape[1] < Kmax:
+            c = np.concatenate(
+                [c, np.repeat(c[:, :1], Kmax - c.shape[1], axis=1)], axis=1)
+        conns.append(c)
+        block_of.append(np.full(len(c), bi, dtype=np.int64))
+    conn_pad = np.concatenate(conns, axis=0)
+    block_of = np.concatenate(block_of)
+    plan = HaloPlan.build(SimpleNamespace(
+        connectivity=conn_pad, n_nodes=mesh.n_nodes, coords=mesh.coords),
+        D, constraints=constraints)
+
+    block_sorted = block_of[plan.elem_order]
+    e_starts = np.concatenate([[0], np.cumsum(plan.elem_counts)])
+    per_block = []
+    for bi, b in enumerate(blocks):
+        Kb = b.connectivity.shape[1]
+        sel = [np.nonzero(block_sorted[e_starts[s]:e_starts[s + 1]]
+                          == bi)[0] for s in range(D)]
+        counts = np.array([len(x) for x in sel])
+        Eb = max(int(counts.max()), 1)
+        conn_local = np.zeros((D, Kb, Eb), dtype=np.int32)
+        for s in range(D):
+            conn_local[s, :, : len(sel[s])] = plan.conn_local[s][:Kb, sel[s]]
+        order = np.concatenate([e_starts[s] + sel[s] for s in range(D)])
+        per_block.append({
+            "elem_type": b.elem_type, "counts": counts,
+            "conn_local": conn_local,
+            "conn_sorted": plan.node_rank[
+                conn_pad[plan.elem_order[order]]][:, :Kb],
+            "sorted_concat_idx": order,
+        })
+    return plan, per_block
+
+
 # ----------------------------------------------------------------------
 # shards in one process
 # ----------------------------------------------------------------------
@@ -346,19 +412,22 @@ class ShardGroup:
 
 
 class Shard:
-    """One shard's tables on its device: the ElementBlock over its local
-    connectivity (K, E_s) into its (V, Nloc) slab, the geometry of its
-    elements, the K4 tables (node_gather with pad K * E_s, rev_gather
-    with pad Gtot), the send tables per delta, the owned-slot mask and
-    its hanging-node rows."""
+    """One shard's tables on its device: `parts`, one (block index,
+    ElementBlock, Geometry) per element block the shard holds elements
+    of (the ElementBlock over its local connectivity (K, E_sb) into the
+    (V, Nloc) slab), the K4 tables (node_gather over the parts' corner
+    values concatenated in block order, None when the shard holds no
+    element; rev_gather with pad Gtot), the send tables per delta, the
+    owned-slot masks and its hanging-node rows."""
 
-    def __init__(self, device, blk: ElementBlock, geom: Geometry,
-                 node_gather: torch.Tensor, rev_gather: torch.Tensor,
-                 send: List[torch.Tensor], mask: torch.Tensor,
-                 it_mask: torch.Tensor, cons: Optional[Constraints]):
+    def __init__(self, device, parts: List[Tuple[int, ElementBlock,
+                                                  Geometry]],
+                 node_gather: Optional[torch.Tensor],
+                 rev_gather: torch.Tensor, send: List[torch.Tensor],
+                 mask: torch.Tensor, it_mask: torch.Tensor,
+                 cons: Optional[Constraints]):
         self.device = device
-        self.blk = blk
-        self.geom = geom
+        self.parts = parts
         self.node_gather = node_gather
         self.rev_gather = rev_gather
         self.send = send
@@ -368,12 +437,15 @@ class Shard:
 
 
 class HaloShardedSystem:
-    """The transient RDC system on D shards (TET4 or HEX8 mesh): the
-    reference's HaloShardedSystem.  State entries are lists of D
-    (V, No_max) slabs, one per shard on its device; `gather` rebuilds the
-    global (N, V) array in the original node order.
+    """The transient RDC system on D shards: the reference's
+    HaloShardedSystem.  State entries are lists of D (V, No_max) slabs,
+    one per shard on its device; `gather` rebuilds the global (N, V)
+    array in the original node order.
 
-    mesh            : single-type TET4 or HEX8 Mesh
+    mesh            : a single-type Mesh of any type TransientRDCSystem
+                      takes (TET4, HEX8, TET10, HEX20, HEX27, TRI3,
+                      QUAD4, QUAD8, QUAD9), or a MixedMesh (TET4, HEX8,
+                      PRISM6, PYRAMID5 blocks)
     n_vars          : number of coupled nodal variables V
     n_shards        : D
     physics_blocks  : the qp path's WeakFormBlocks callable, or None
@@ -384,11 +456,12 @@ class HaloShardedSystem:
     device          : the placement (shard_devices): None the card
     ops             : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS
 
-    `fields` of step/run_steps: per-shard lists from shard_elem_field, or
+    `fields` of step/run_steps: per-shard lists from shard_elem_field
+    (on a MixedMesh each entry a tuple of one tensor per block), or
     plain numbers.  `step` takes the qp path when physics_blocks is given
     and every param is a plain number, the dense path otherwise."""
 
-    def __init__(self, mesh: Mesh, n_vars: int, n_shards: int,
+    def __init__(self, mesh, n_vars: int, n_shards: int,
                  physics_blocks: Optional[Callable] = None,
                  clamp: Callable = clamp_nonnegative,
                  rtol: float = DEFAULT_RTOL,
@@ -396,16 +469,13 @@ class HaloShardedSystem:
                  constraints: Optional[np.ndarray] = None,
                  moving_mesh: bool = False, device=None,
                  ops: Ops = KERNEL_OPS, physics: Optional[Callable] = None):
-        if mesh.elem_type == "MIXED":
-            raise NotImplementedError(f"a MixedMesh on several devices: "
-                                      f"{ITEM_14B}")
         if moving_mesh:
             raise NotImplementedError(f"the moving mesh on several "
                                       f"devices: {ITEM_14B}")
-        if mesh.elem_type not in _ELEMENT_TYPES:
-            raise NotImplementedError(f"{mesh.elem_type} meshes on several "
-                                      f"devices (TET4 and HEX8 run): "
-                                      f"{ITEM_14B}")
+        mixed = mesh.elem_type == "MIXED"
+        if not mixed and mesh.elem_type not in _ELEMENT_TYPES:
+            raise ValueError(f"{mesh.elem_type} meshes in "
+                             f"HaloShardedSystem")
         if physics_blocks is None and physics is None:
             raise ValueError("a transient system needs physics_blocks or "
                              "physics=")
@@ -419,39 +489,58 @@ class HaloShardedSystem:
         self.ops = ops
         self.group = ShardGroup(shard_devices(n_shards, device))
         self.device = self.group.devices[0]
-        self.plan = plan = HaloPlan.build(mesh, n_shards,
-                                          constraints=constraints)
-        self.shards = self._make_shards(plan)
+        if mixed:
+            self.plan, per_block = build_mixed_plan(mesh, n_shards,
+                                                    constraints=constraints)
+            starts = np.cumsum([0] + [b.n_elems for b in mesh.blocks])
+            # (elem_type, renumbered conn in shard order, counts (D,),
+            # conn_local (D, K, Eb), block-local element ids in shard
+            # order) per block
+            self._layout = [
+                (pb["elem_type"], pb["conn_sorted"], pb["counts"],
+                 pb["conn_local"], self.plan.elem_order[
+                     pb["sorted_concat_idx"]] - starts[bi])
+                for bi, pb in enumerate(per_block)]
+        else:
+            self.plan = plan = HaloPlan.build(mesh, n_shards,
+                                              constraints=constraints)
+            self._layout = [(mesh.elem_type, plan.node_rank[
+                np.asarray(mesh.connectivity)][plan.elem_order],
+                plan.elem_counts, plan.conn_local, plan.elem_order)]
+        self.shards = self._make_shards(self.plan)
+
+    @property
+    def n_blocks(self) -> int:
+        """The element blocks (one on a single-type mesh)."""
+        return len(self._layout)
 
     def _make_shards(self, plan: HaloPlan) -> List[Shard]:
-        """Each shard's tables, its geometry sliced from the one built on
-        the renumbered, shard-ordered mesh (unpadded: pad elements would
-        have a degenerate Jacobian)."""
-        mesh = self.mesh
-        K = mesh.nodes_per_elem
+        """Each shard's tables; each block's geometry sliced from the one
+        built on the renumbered mesh, its elements in shard order
+        (unpadded: pad elements would have a degenerate Jacobian)."""
         Nloc = plan.No_max + plan.Gtot
-        coords_new = torch.as_tensor(mesh.coords[plan.node_order],
-                                     dtype=torch.float64)
-        conn_sorted = plan.node_rank[np.asarray(mesh.connectivity)][
-            plan.elem_order]
-        g_all = ElementBlock(mesh.elem_type, conn_sorted,
-                             "cpu").geometry(coords_new)
-        starts = np.concatenate([[0], np.cumsum(plan.elem_counts)])
+        coords_new = torch.as_tensor(self.mesh.coords[plan.node_order],
+                                     dtype=torch.float64, device=self.device)
+        g_all = [ElementBlock(t, conn, self.device).geometry(coords_new)
+                 for t, conn, _, _, _ in self._layout]
         shards = []
         for s, dev in enumerate(self.group.devices):
-            a, b = int(starts[s]), int(starts[s + 1])
-            E_s = b - a
-            conn = plan.conn_local[s][:, :E_s]
-            blk = ElementBlock(mesh.elem_type, conn.T, dev)
-            geom = Geometry(*(t[..., a:b].contiguous().to(dev)
-                              for t in g_all))
-            # the plan's flat index k * Eb + e (pad K * Eb) -> k * E_s + e
-            # (pad K * E_s), the layout of this shard's unpadded corners
-            ng = plan.node_gather[s].astype(np.int64)
-            k, e = np.divmod(ng, plan.Eb)
-            ng = np.where(ng == K * plan.Eb, K * E_s, k * E_s + e)
             as_t = lambda x, dt=None: torch.tensor(
                 np.ascontiguousarray(x), dtype=dt, device=dev)
+            parts, conns = [], []
+            for bi, (etype, _, counts, conn_local, _) in enumerate(
+                    self._layout):
+                n = int(counts[s])
+                if n == 0:
+                    continue  # no element of this block: nothing to launch
+                a = int(counts[:s].sum())
+                conn = conn_local[s][:, :n].T
+                conns.append(conn)
+                parts.append((bi, ElementBlock(etype, conn, dev), Geometry(
+                    *(t[..., a:a + n].contiguous().to(dev)
+                      for t in g_all[bi]))))
+            node_gather = (as_t(block_node_gather(conns, Nloc)) if conns
+                           else None)
             mask = np.zeros(plan.No_max)
             mask[: plan.owned_counts[s]] = 1.0
             cons = None
@@ -463,8 +552,7 @@ class HaloShardedSystem:
                     cons = Constraints(rows, dev)
                 it_mask = mask * plan.hang_mask[s]
             shards.append(Shard(
-                dev, blk, geom, as_t(ng.astype(np.int32)),
-                as_t(plan.rev_gather[s]),
+                dev, parts, node_gather, as_t(plan.rev_gather[s]),
                 [as_t(t[s], torch.int64) for t in plan.send_idx],
                 as_t(mask, torch.float64), as_t(it_mask, torch.float64),
                 cons))
@@ -510,27 +598,54 @@ class HaloShardedSystem:
     def scatter_state(self, gstate: Dict) -> Dict[str, List[torch.Tensor]]:
         return {k: self.scatter_nodal(v) for k, v in gstate.items()}
 
-    def shard_elem_field(self, arr, axis: int = -1) -> List[torch.Tensor]:
-        """An elemental field (its element axis `axis`, original element
-        order) -> D per-shard tensors, each shard's elements in its order
-        along the same axis (the reference's shard_elem_field without its
-        zero padding)."""
-        plan = self.plan
-        a = np.moveaxis(np.asarray(arr), axis, -1)
-        if a.shape[-1] != plan.n_elems:
-            raise ValueError(f"axis {axis} has {a.shape[-1]} entries, "
-                             f"expected {plan.n_elems} elements")
-        perm = a[..., plan.elem_order]
-        starts = np.concatenate([[0], np.cumsum(plan.elem_counts)])
-        dt = torch.float64 if np.issubdtype(a.dtype, np.floating) else None
-        return [torch.as_tensor(np.ascontiguousarray(np.moveaxis(
-            perm[..., starts[s]:starts[s + 1]], -1, axis)), dtype=dt,
-            device=dev) for s, dev in enumerate(self.group.devices)]
+    def shard_elem_field(self, arr, axis: int = -1) -> List:
+        """An elemental field -> D per-shard entries, each shard's elements
+        in its order along the same axis (the reference's shard_elem_field
+        without its zero padding).
+
+        On a single-type mesh `arr` has its element axis `axis` in the
+        original element order, and each entry is a tensor.  On a
+        MixedMesh `arr` is either one array whose axis `axis` runs over
+        the block-concatenated element order (ADPM's tracts, axis 0), or
+        a tuple or list of one array per block with its elements on axis
+        `axis` (PROTEAS's dose at each block's quadrature points); each
+        entry is then a tuple of one tensor per block (empty where the
+        shard holds none of the block's elements)."""
+        mixed = self.mesh.elem_type == "MIXED"
+        if isinstance(arr, (tuple, list)):
+            if not mixed or len(arr) != self.n_blocks:
+                raise ValueError(f"a per-block field takes one array per "
+                                 f"block of a MixedMesh "
+                                 f"({self.n_blocks} here)")
+            per_block = [np.moveaxis(np.asarray(a), axis, -1) for a in arr]
+        else:
+            a = np.moveaxis(np.asarray(arr), axis, -1)
+            if a.shape[-1] != self.plan.n_elems:
+                raise ValueError(f"axis {axis} has {a.shape[-1]} entries, "
+                                 f"expected {self.plan.n_elems} elements")
+            starts = np.cumsum([0] + [len(l[4]) for l in self._layout])
+            per_block = [a[..., lo:hi]
+                         for lo, hi in zip(starts[:-1], starts[1:])]
+        out = [[] for _ in self.group.devices]
+        for a, (_, _, counts, _, ids) in zip(per_block, self._layout):
+            if a.shape[-1] != len(ids):
+                raise ValueError(f"a block field has {a.shape[-1]} "
+                                 f"elements, expected {len(ids)}")
+            perm = a[..., ids]
+            dt = (torch.float64 if np.issubdtype(a.dtype, np.floating)
+                  else None)
+            off = np.concatenate([[0], np.cumsum(counts)])
+            for s, dev in enumerate(self.group.devices):
+                out[s].append(torch.as_tensor(np.ascontiguousarray(
+                    np.moveaxis(perm[..., off[s]:off[s + 1]], -1, axis)),
+                    dtype=dt, device=dev))
+        return [tuple(o) if mixed else o[0] for o in out]
 
     @property
     def processor_id(self) -> np.ndarray:
-        """(E,) owning shard of each element, original element order (the
-        VTU's processor_id, reference paraview.h:113-117)."""
+        """(E,) owning shard of each element, original (on a MixedMesh
+        block-concatenated) element order (the VTU's processor_id,
+        reference paraview.h:113-117)."""
         plan = self.plan
         out = np.empty(plan.n_elems, dtype=np.int32)
         out[plan.elem_order] = np.repeat(np.arange(plan.D),
@@ -579,41 +694,62 @@ class HaloShardedSystem:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _shard_fields(self, s: int, fields: Dict) -> Dict:
-        """Shard s's fields: entry s of a per-shard list, anything else
-        (a number) as it is."""
-        return {k: (v[s] if isinstance(v, (list, tuple)) else v)
-                for k, v in fields.items()}
+    def _block_fields(self, s: int, bi: int, fields: Dict) -> Dict:
+        """The fields of block bi on shard s: entry s of a per-shard list,
+        then entry bi of a per-block tuple; anything else (a number) as
+        it is."""
+        out = {}
+        for k, v in fields.items():
+            if isinstance(v, list):
+                v = v[s]
+            out[k] = v[bi] if isinstance(v, tuple) else v
+        return out
+
+    def _restrict(self, sh: Shard, parts: List[torch.Tensor],
+                  W: int) -> torch.Tensor:
+        """K4 of a shard's per-block corner values (W, ..., K_b, E_b),
+        concatenated in block order, onto its local (W, Nloc) slab; zeros
+        on a shard that holds no element."""
+        if not parts:
+            return torch.zeros((W, self.plan.No_max + self.plan.Gtot),
+                               dtype=torch.float64, device=sh.device)
+        flat = [p.reshape(W, -1) for p in parts]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+        return self.ops.restrict(flat, sh.node_gather)
 
     def _qp_element_stage(self, ug, fields, params):
-        """The qp path's element work on every shard: K1/K8 gather and
-        interpolation, the blocks, K2 (or block_rhs) and K4 onto the
-        local slab.  Returns (local b, local diagonal blocks, the
-        operator's local apply)."""
+        """The qp path's element work on every shard and block: K1/K8
+        gather and interpolation, the blocks, K2 (or block_rhs), and one
+        K4 onto the local slab.  Returns (local b, local diagonal blocks,
+        the operator's local apply)."""
         V, ops = self.n_vars, self.ops
         bl, dl, stacks = [], [], []
         for s, sh in enumerate(self.shards):
-            blk, g = sh.blk, sh.geom
-            u_qp, grad_qp = blk.interp(ops, ug[s], g)
-            wfb = self.physics_blocks(u_qp, grad_qp,
-                                      self._shard_fields(s, fields),
-                                      params).cast(torch.float64)
-            bl.append(ops.restrict(blk.rhs(ops, wfb, g).reshape(V, -1),
-                                   sh.node_gather))
-            dl.append(ops.restrict(blk.diag(wfb, g).reshape(V * V, -1),
-                                   sh.node_gather))
-            stacks.append(blk.stacks(wfb, g.JxW))
+            rhs, diag, st = [], [], []
+            for bi, blk, g in sh.parts:
+                u_qp, grad_qp = blk.interp(ops, ug[s], g)
+                wfb = self.physics_blocks(
+                    u_qp, grad_qp, self._block_fields(s, bi, fields),
+                    params).cast(torch.float64)
+                rhs.append(blk.rhs(ops, wfb, g))
+                diag.append(blk.diag(wfb, g))
+                st.append(blk.stacks(wfb, g.JxW))
+            bl.append(self._restrict(sh, rhs, V))
+            dl.append(self._restrict(sh, diag, V * V))
+            stacks.append(st)
 
         def local_apply(s: int, xg: torch.Tensor) -> torch.Tensor:
             sh = self.shards[s]
-            ye = sh.blk.apply(ops, xg, stacks[s], sh.geom.JxW, sh.geom.dphi)
-            return ops.restrict(ye.reshape(V, -1), sh.node_gather)
+            return self._restrict(sh, [
+                blk.apply(ops, xg, st, g.JxW, g.dphi)
+                for (_, blk, g), st in zip(sh.parts, stacks[s])], V)
 
         return bl, dl, local_apply
 
     def _dense_element_stage(self, ug, fields, params):
-        """The dense path's element work on every shard: Fe, Ke and the
-        diagonal blocks of the WeakForm, one batched product a matvec."""
+        """The dense path's element work on every shard and block: Fe, Ke
+        and the diagonal blocks of the WeakForm, one batched product a
+        block and matvec."""
         if self.physics is None:
             raise ValueError("the dense path needs physics= (a WeakForm "
                              "callable); the qp path needs plain-scalar "
@@ -621,20 +757,21 @@ class HaloShardedSystem:
         V, ops = self.n_vars, self.ops
         bl, dl, KeBs = [], [], []
         for s, sh in enumerate(self.shards):
-            blk, g = sh.blk, sh.geom
-            u_qp, grad_qp = blk.interp(ops, ug[s], g)
-            wf = self.physics(u_qp, grad_qp, self._shard_fields(s, fields),
-                              params)
-            Fe, Ke, diag_e = blk.element_kernels(wf, g)
-            bl.append(ops.restrict(Fe.reshape(V, -1), sh.node_gather))
-            dl.append(ops.restrict(diag_e.reshape(V * V, -1),
-                                   sh.node_gather))
-            KeBs.append(ElementBlock.batched(Ke))
+            kern = []
+            for bi, blk, g in sh.parts:
+                u_qp, grad_qp = blk.interp(ops, ug[s], g)
+                wf = self.physics(u_qp, grad_qp,
+                                  self._block_fields(s, bi, fields), params)
+                kern.append(blk.element_kernels(wf, g))
+            bl.append(self._restrict(sh, [Fe for Fe, _, _ in kern], V))
+            dl.append(self._restrict(sh, [d for _, _, d in kern], V * V))
+            KeBs.append([ElementBlock.batched(Ke) for _, Ke, _ in kern])
 
         def local_apply(s: int, xg: torch.Tensor) -> torch.Tensor:
             sh = self.shards[s]
-            ye = sh.blk.dense_apply(KeBs[s], xg)
-            return ops.restrict(ye.reshape(V, -1), sh.node_gather)
+            return self._restrict(sh, [
+                blk.dense_apply(KB, xg)
+                for (_, blk, _), KB in zip(sh.parts, KeBs[s])], V)
 
         return bl, dl, local_apply
 
@@ -718,16 +855,17 @@ class HaloShardedSystem:
                   scalar_traj: Optional[Dict] = None,
                   field_update: Optional[Callable] = None, field_aux=None,
                   field_args=()):
-        """n qp steps (the reference's run_steps(n, segment=n) on a fixed
-        mesh).  Returns (state, iterations (n,) int64 on the CPU,
-        residuals (n,) on shard 0's device), plus the final field_update
-        carry when field_update is given.
+        """n qp steps, one `step` after the other (the reference's
+        run_steps(n, segment=n) on a fixed mesh; on a MixedMesh the
+        reference steps one at a time too).  Returns (state, iterations
+        (n,) int64 on the CPU, residuals (n,) on shard 0's device), plus
+        the final field_update carry when field_update is given.
 
         `scalar_traj` maps a scalar-field name to its (n,) per-step
         values; `field_update(state, aux, tr, *field_args) -> (fields,
         new_aux)` runs before each step on the sharded state (RIPF's
         fields from the carried solution; the fields it returns are
-        per-shard lists)."""
+        per-shard lists, on a MixedMesh of per-block tuples)."""
         if coords is not None:
             raise NotImplementedError(f"coords= (the moving mesh) on "
                                       f"several devices: {ITEM_14B}")

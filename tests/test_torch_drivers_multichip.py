@@ -6,15 +6,24 @@ rdcfes_tpu_torch/parallel/halo.py, every shard on the CPU here):
   `solver/linear/tolerance = 1e-14`: CSV rows within 1e-10 relative, the
   VTU species within 1e-10 relative L2 per field and frame, processor_ID
   equal (both packages partition with the same C++ RCB);
-* ADPM, PROTEAS and RIPF on their generated cases, PIHNA on a HEX8 mesh,
-  PIHNA with a bisection AMR pass, and a checkpoint written after that
-  pass and resumed: each multi-device run against the port's own
-  single-device run at the reference's multi-device bar (rtol 1e-8,
-  atol 1e-8 (1 + max|field|), tests/test_drivers_multichip.py; the
-  single-device drivers are held to the reference elsewhere), and the
-  resumed run's last CSV row equal to the uninterrupted run's;
-* the solid and coupled HCC drivers, and a MixedMesh, with several
-  devices raise NotImplementedError naming item 14b before a step."""
+* ADPM on make_adpm_case(n=3) at 4 shards in both packages
+  (ROADMAP queue 3, 3.1): the first solve's operator is the reference's
+  (its block-Jacobi inverse, preconditioned right-hand side and warm
+  start bit for bit, the first iteration's dot partials at round-off),
+  and in both its BiCGStab recurrence runs into the same near-breakdown
+  (rho within 1e-9 of round-off before iteration 100);
+* ADPM, PROTEAS and RIPF on their generated cases, PIHNA on a HEX8
+  mesh, PIHNA with a bisection AMR pass, and a checkpoint written after
+  that pass and resumed: each multi-device run
+  against the port's own single-device run at the reference's
+  multi-device bar (rtol 1e-8, atol 1e-8 (1 + max|field|),
+  tests/test_drivers_multichip.py; the single-device drivers are held to
+  the reference elsewhere), and the resumed run's last CSV row equal to
+  the uninterrupted run's;
+* the coupled HCC driver with several devices raises NotImplementedError
+  naming item 14b before a step (the solid's: tests/
+  test_torch_drivers.py).  The drivers on a MixedMesh: tests/
+  test_torch_halo_drivers_mixed.py."""
 
 import os
 import shutil
@@ -22,6 +31,12 @@ import shutil
 import numpy as np
 import pytest
 
+import jax
+import jax.numpy as jnp
+from jax import lax
+
+import rdcfes_tpu.parallel.halo as jhalo
+from rdcfes_tpu.drivers import adpm as jadpm
 from rdcfes_tpu.drivers import pihna as jpihna
 from rdcfes_tpu.io import vtu as jvtu
 
@@ -29,6 +44,7 @@ from rdcfes_tpu_torch import cases
 from rdcfes_tpu_torch.drivers import adpm, pihna, proteas, ripf
 from rdcfes_tpu_torch.io import vtu
 from rdcfes_tpu_torch.mesh import box_hex_mesh, gmsh
+from rdcfes_tpu_torch.parallel import halo as phalo
 
 from tests.test_torch_drivers import _arrays, _run, _same_frames
 from tests.torch_helpers import quick_compile, reference_native_rcb, rel_l2
@@ -112,9 +128,11 @@ def test_drivers_match_one_device(driver, tmp_path):
                  (("output_time_points = ' 10 30 60 90 120 '",
                    "output_time_points = ' 2 4 '"),)),
     }[driver]
-    # ADPM on 3 shards: on 4, its symmetric case's first solve meets an
-    # exact BiCGStab breakdown (rho = 0 at iteration 88), which the
-    # reference's recurrence freezes, as the single-device solve does not
+    # ADPM on 3 shards: on 4 the first solve's recurrence, the
+    # reference's, runs into a near-breakdown that the port's rounding
+    # turns into rho = 0 at iteration 88 (a freeze) and the reference's
+    # does not; test_adpm_four_shards_near_breakdown_in_both_packages
+    # holds the 4-shard solve to the reference's
     D = 3 if driver == "adpm" else 4
     multi, one = _pair(tmp_path, make, fn, D, edits, **kw)
     assert multi.stdout.count(" ==== Step") == 4
@@ -186,19 +204,144 @@ def test_pihna_amr_and_checkpoint_resume(tmp_path):
 
 
 def test_unported_multi_device_paths_raise(tmp_path, monkeypatch, capsys):
-    """A MixedMesh on several devices raises NotImplementedError naming
-    item 14b before a step (the solid's and HCC's: tests/
-    test_torch_drivers.py, tests/test_torch_hcc.py)."""
+    """The coupled HCC driver on several devices raises
+    NotImplementedError naming item 14b before a step (the moving mesh's
+    system: tests/test_torch_halo.py::test_unported_raise; the solid's:
+    tests/test_torch_drivers.py).  A MixedMesh on several devices, which
+    raised until it was ported, runs: tests/
+    test_torch_halo_drivers_mixed.py::test_mixed_drivers_match_one_device,
+    ::test_pihna_mixed_driver_matches_reference and
+    ::test_pihna_mixed_amr_and_checkpoint_resume."""
     from rdcfes_tpu_torch.drivers import coupled_hcc
 
-    d = _case(cases.make_pihna_case, str(tmp_path / "m"), PIHNA_EDITS,
-              PAR.format(2), n=3, n_steps=2, mixed=True)
-    monkeypatch.chdir(d)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        pihna.run("input.dat", device="cpu")
     d = _case(cases.make_hcc_case, str(tmp_path / "h"), (), PAR.format(2),
               n=2, n_steps=2, n_loading=1)
     monkeypatch.chdir(d)
     with pytest.raises(NotImplementedError, match="item 14b"):
         coupled_hcc.run("input.dat", device="cpu")
     assert " ==== Step" not in capsys.readouterr().out
+
+
+# ----------------------------------------------------------------------
+# fault 3.1: ADPM on 4 shards, both packages
+# ----------------------------------------------------------------------
+def _solves(events):
+    """A shard's recorded events split into solves: the leading non-dot
+    events (dinv, b, x0) and the dot partials after them, in order."""
+    out = []
+    for tag, v in events:
+        if tag != "dot":
+            if not out or out[-1]["dots"]:
+                out.append({"dots": []})
+            out[-1][tag] = v
+        else:
+            out[-1]["dots"].append(float(v))
+    return out
+
+
+def _rho_ratios(solves):
+    """|rho1| over the sum of its shards' |partials| at each iteration of
+    the first solve (dots: b.b, r.r, then rho1, rtv, tt, t.st, r.r per
+    iteration)."""
+    assert len({len(sv[0]["dots"]) for sv in solves}) == 1
+    rho = np.array([sv[0]["dots"] for sv in solves])[:, 2::5]
+    total = rho[0].copy()
+    for part in rho[1:]:
+        total = total + part  # in shard order, as both packages sum
+    return np.abs(total) / np.abs(rho).sum(axis=0)
+
+
+def test_adpm_four_shards_near_breakdown_in_both_packages(tmp_path,
+                                                          monkeypatch):
+    """Fault 3.1 settled: on make_adpm_case(n=3) at 4 shards the port's
+    first halo solve is the reference's (two steps here: the first solve
+    is the 4-step case's).  Its block-Jacobi
+    inverse, preconditioned right-hand side and warm start equal the
+    reference's 4-device values bit for bit (the measured gap: 0), and
+    the first iteration's seven dot partials on every shard lie within
+    1e-13 relative (2.6e-14 measured).  The recurrence then parts at
+    round-off and, in both packages, rho = (rhat, r) cancels: it falls
+    below 1e-9 of its partials' sum of magnitudes before iteration 100
+    (the port's at 29, exactly 0 at 88, where the breakdown freeze
+    stops it; the reference's at 43, 3e-11 at 88, and it converges in
+    333).  The recurrence and its freeze are the reference's
+    (rdcfes_tpu/parallel/halo.py:1459-1498); the two runs part by the
+    luck of their rounding, not by their operators."""
+    D = 4
+    edits = (("output_step = 20", "output_step = 2"),)
+    dirs = [_case(cases.make_adpm_case, str(tmp_path / t), edits,
+                  PAR.format(D), n=3, n_steps=2) for t in ("ref", "port")]
+    ref = {s: [] for s in range(D)}
+
+    def rec(tag):
+        def put(i, v):
+            ref[int(i)].append((tag, np.asarray(v).copy()))
+        return put
+
+    j_bicg, j_inv = jhalo._bicgstab_dist, jhalo.small_block_inverse
+
+    def bicg(matvec, b, x0, msk, pdot, rtol, maxiter):
+        i = lax.axis_index("d")
+        jax.debug.callback(rec("b"), i, b)
+        jax.debug.callback(rec("x0"), i, x0)
+
+        def pdot_rec(a, c):
+            v = jnp.vdot(a, c)
+            jax.debug.callback(rec("dot"), i, v)
+            return lax.psum(v, "d")
+        return j_bicg(matvec, b, x0, msk, pdot_rec, rtol, maxiter)
+
+    def inv(diag, pivot=False):
+        out = j_inv(diag, pivot=pivot)
+        jax.debug.callback(rec("dinv"), lax.axis_index("d"), out)
+        return out
+
+    monkeypatch.setattr(jhalo, "_bicgstab_dist", bicg)
+    monkeypatch.setattr(jhalo, "small_block_inverse", inv)
+    with reference_native_rcb(tmp_path), quick_compile():
+        _run(dirs[0], lambda: jadpm.run("input.dat"), jvtu.ParaviewWriter)
+
+    port = {s: [] for s in range(D)}
+    p_bicg, p_inv = phalo._bicgstab_dist, phalo.small_block_inverse
+    n_inv = [0]
+
+    class Recorded:
+        def __init__(self, group):
+            self.group, self.devices = group, group.devices
+
+        def psum(self, vals):
+            for s, v in enumerate(vals):
+                port[s].append(("dot", v.item()))
+            return self.group.psum(vals)
+
+    def pbicg(matvec, b, x0, msk, group, rtol, maxiter):
+        for s in range(D):
+            port[s] += [("b", b[s].numpy().copy()),
+                        ("x0", x0[s].numpy().copy())]
+        return p_bicg(matvec, b, x0, msk, Recorded(group), rtol, maxiter)
+
+    def pinv(dg, pivot=False):
+        out = p_inv(dg, pivot=pivot)
+        port[n_inv[0] % D].append(("dinv", out.numpy().copy()))
+        n_inv[0] += 1
+        return out
+
+    monkeypatch.setattr(phalo, "_bicgstab_dist", pbicg)
+    monkeypatch.setattr(phalo, "small_block_inverse", pinv)
+    _run(dirs[1], lambda: adpm.run("input.dat", device="cpu"),
+         vtu.ParaviewWriter)
+
+    rs = [_solves(ref[s]) for s in range(D)]
+    ps = [_solves(port[s]) for s in range(D)]
+    for r, p in zip(rs, ps):
+        assert len(r) == len(p) == 2  # one solve a step
+        for k in ("dinv", "b", "x0"):
+            np.testing.assert_allclose(
+                p[0][k], r[0][k], rtol=0,
+                atol=1e-14 * np.abs(r[0][k]).max(), err_msg=k)
+        np.testing.assert_allclose(p[0]["dots"][:7], r[0]["dots"][:7],
+                                   rtol=1e-13, atol=0)
+    for solves in (rs, ps):
+        ratio = _rho_ratios(solves)
+        assert ratio[0] == 1.0
+        assert (ratio[:100] < 1e-9).any()

@@ -989,17 +989,21 @@ def test_f32_system_kernel_path_matches_plain_path(cuda, kind):
     assert not any(n[k] for k in n if "f64" in k), n
 
 
-@pytest.mark.parametrize("kind", ["TET4", "HEX8"])
+@pytest.mark.parametrize("kind", ["TET4", "HEX8", "TET10", "QUAD4",
+                                  "MIXED"])
 def test_halo_kernel_path_matches_plain_path(cuda, kind):
     """The multi-device halo system on 3 shards of the card (every shard
     on cuda:0 with one card): 3 steps through the kernels against 3
     through the plain versions within 1e-10, and against the
-    single-device system within 1e-8; K4 launched for both the
+    single-device system (f64) within 1e-8; K4 launched for both the
     restriction and the reverse add."""
     from rdcfes_tpu_torch.parallel import HaloShardedSystem
 
-    mesh = box_tet_mesh(6, 6, 6) if kind == "TET4" else box_hex_mesh(5, 5,
-                                                                       5)
+    mesh = {"TET4": lambda: box_tet_mesh(6, 6, 6),
+            "HEX8": lambda: box_hex_mesh(5, 5, 5),
+            "TET10": lambda: tet4_to_tet10(box_tet_mesh(4, 4, 4)),
+            "QUAD4": lambda: box_quad_mesh(12, 12),
+            "MIXED": lambda: box_mixed_mesh(6, 4, 4)}[kind]()
     Kk = 2.39e5
     p = default_params()
     p.update(dt=0.1, cells_min_capacity=1.0, cells_max_capacity=Kk,
@@ -1020,7 +1024,9 @@ def test_halo_kernel_path_matches_plain_path(cuda, kind):
                            device=cuda)
     hp = HaloShardedSystem(mesh, 5, 3, pihna_blocks, rtol=1e-12,
                            device=cuda, ops=kernels.PLAIN_OPS)
-    one = TransientRDCSystem(mesh, 5, pihna_blocks, rtol=1e-12, device=cuda)
+    one = (MixedTransientRDCSystem if kind == "MIXED" else
+           TransientRDCSystem)(mesh, 5, pihna_blocks, rtol=1e-12,
+                               device=cuda)
     assert all(sh.device.type == "cuda" for sh in hk.shards)
     assert {sh.device.index for sh in hk.shards} == set(
         range(min(3, torch.cuda.device_count())))
@@ -1035,10 +1041,14 @@ def test_halo_kernel_path_matches_plain_path(cuda, kind):
         assert rel(ua, torch.as_tensor(hp.gather(b["u"]))) <= 1e-10
         assert rel(ua, c["u"]) <= 1e-8
     counts = kernels.launch_counts()
-    names = (("gather_interp_affine_f64", "rhs_affine_f64",
-              "apply_affine_f64") if kind == "TET4" else
-             ("gather_interp_generic_f64", "apply_generic_f64"))
-    assert all(counts[n] > 0 for n in names + ("restrict_f64",))
+    affine = ("gather_interp_affine_f64", "rhs_affine_f64",
+              "apply_affine_f64")
+    generic = lambda e: (f"gather_interp_generic_f64:{e}",
+                         f"apply_generic_f64:{e}")
+    names = {"TET4": affine, "HEX8": generic("hex8"),
+             "TET10": generic("tet10"), "QUAD4": generic("quad4"),
+             "MIXED": affine + generic("hex8") + generic("pyramid5")}[kind]
+    assert all(counts[n] > 0 for n in names + ("restrict_f64",)), counts
     # K4 over one shard's rev_gather against its plain version
     sh = hk.shards[0]
     flat = torch.rand((5, hk.plan.Gtot), dtype=torch.float64, device=cuda)

@@ -14,7 +14,8 @@ system, on the CPU (`device="cpu"`: every shard on the CPU):
   over 5 steps on TET4 (qp and dense), HEX8 (qp) and a TET4 mesh with
   hanging nodes; run_steps against per-step step within 1e-11;
 * the placement rule of the shards, the exchanges of ShardGroup, and
-  what still raises (MIXED meshes, coords=: ROADMAP queue 1 item 14b).
+  what still raises (the moving mesh, coords=: ROADMAP queue 1 item
+  14b).
 
 Both packages partition through the same C++ RCB: the reference's
 NumPy fallback splits equal centroids in another order, so the module
@@ -267,11 +268,12 @@ def test_shard_group_collectives():
 
 
 def test_unported_raise():
-    """MIXED meshes and the moving mesh (coords=) raise NotImplementedError
-    naming item 14b, before any step."""
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        HaloShardedSystem(box_mixed_mesh(3, 1, 1), 5, 2, pihna_blocks,
-                          device="cpu")
+    """The moving mesh (moving_mesh=True, coords=) raises
+    NotImplementedError naming item 14b, before any step.  MIXED meshes,
+    which raised until they were ported, build (tests/
+    test_torch_halo_ext.py holds them)."""
+    assert HaloShardedSystem(box_mixed_mesh(3, 1, 1), 5, 2, pihna_blocks,
+                             device="cpu").n_blocks == 3
     with pytest.raises(NotImplementedError, match="item 14b"):
         HaloShardedSystem(box_tet_mesh(2, 2, 2), 5, 2, pihna_blocks,
                           device="cpu", moving_mesh=True)
