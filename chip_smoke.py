@@ -15,7 +15,8 @@ dtype=float32 serving mode with ADPM's local parity at its shipped rtol
 (phase 20), and the multi-device halo system, 4 shards on the card, and
 `parallel/n_devices` in the PIHNA driver (phase 21), and the halo system
 on TET10, QUAD4 and MixedMesh, with the mixed PIHNA (AMR) and ADPM
-drivers on 4 shards (phase 22).
+drivers on 4 shards (phase 22), and the moving mesh and the solid's halo
+Newton on 4 shards, with the HCC and solid drivers there (phase 23).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -32,6 +33,7 @@ drivers on 4 shards (phase 22).
     python3 chip_smoke.py --phases 0,1,20          # f32 mode, ADPM parity
     python3 chip_smoke.py --phases 0,1,21          # the multi-device smoke
     python3 chip_smoke.py --phases 0,1,22          # halo: more types, mixed
+    python3 chip_smoke.py --phases 0,1,23          # moving halo, halo solid
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -369,6 +371,30 @@ Phases, one output line each (any failure raises, exit code != 0):
             taxis amplitude 50, 2 steps, an output each, at 4 shards and
             without: the final species and the CSV's time and
             concentrations within 1e-8, processor_ID the plan's
+  23 the moving mesh and the solid's halo Newton on D = 4 shards of the
+      card: (a) K4 f64 at the largest shard of the solid bench mesh
+      (box_hex_mesh(48), 110,592 HEX8) over its node_gather at W = 3
+      and 9, over its face group's fgather and over its rev_gather
+      (W = 3 and 9), each against its plain version (1.2e-15) beside
+      index_add_, and the shard's batched Ke product (torch.bmm, a
+      library call, timed, not a kernel row); (b) HaloSolidSystem
+      against the single-device SolidSystem, both with the f64 tangent
+      and f64 BiCGStab, one load step run_solver(x0, 0.5) at penalty
+      1e6: the positions' relative L2 (<= 1e-8), Newton and inner
+      iterations and s a load step of both, the plan; (c) the moving
+      halo system against the single-device moving system, 5 HCC steps
+      each at rtol 3e-11 at smoothly moved positions, on
+      make_hcc_case(n=28)'s TET4 mesh and on the mixed case's mesh:
+      each step's relative L2 (<= 1e-8), inner iterations and steps/s
+      of both; (d) `-c hcc` on make_hcc_case(n=28), 10 steps and one
+      load step, and `-s` on phase 13's solid deck, 2 load steps, at
+      parallel/n_devices = 4 and without, both with the f64 tangent,
+      f64 Krylov and full Newton steps to a relative residual of 1e-8
+      (HCC) or 1e-12 (solid; the decks' step rules off): the last frame's
+      c, u_z and VM
+      as the drivers hand them to the VTU writer within 1e-8 (rtol and
+      atol 1e-8 (1 + max), the reference's _run_both), the halo systems
+      stepped, the solve and newton scopes of both
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -3332,6 +3358,9 @@ def phase_mixed_drivers(dev, also):
 # 119,953 nodes; tet4_to_tet10(box_tet_mesh(24)): 82,944 TET10, 117,649
 # nodes: the solid at the HEX8 bench's node count
 P18_MIX_N, P18_T10_N = 48, 24
+# 18c's mixed `-s` remeshing run on box_mixed_mesh(32) (48 until phase 23
+# came: the depth the script's time limit leaves, PERF.md §4)
+P18_MIX_RUN_N = 32
 P18_TET_N, P18_HEX_N = 28, 24
 P18_CONS_N, P18_RESUME_N = 28, 12
 # 10 HCC steps remeshed at step 5: the depth the script's time limit
@@ -3710,9 +3739,11 @@ def phase_solid_ext(dev, also):
     _p18_moving_rdc(dev, mesh, cons)
     root = tempfile.mkdtemp(prefix="rdcfes_p18_")
     try:
-        counts, S, x, _ = _p18_solid_run(root, "mixed", P18_MIX_N, dev)
+        counts, S, x, _ = _p18_solid_run(root, "mixed", P18_MIX_RUN_N,
+                                         dev)
         paths["solid mixed remesh"] = counts
-        _p18_kernels(f"mixed {P18_MIX_N} adapted", S, x, 1.0, also, first)
+        _p18_kernels(f"mixed {P18_MIX_RUN_N} adapted", S, x, 1.0, also,
+                     first)
         del S, x
         torch.cuda.empty_cache()
         for kind, n in (("tet10", P18_T10_N), ("tet4", P18_TET_N),
@@ -4622,7 +4653,7 @@ def _shard_shim(h, s):
               mesh=NS(n_elems=blk.conn_T.shape[1], n_nodes=Nloc))
 
 
-def _rev_case(h, s, W):
+def _rev_case(h, s, W, tol=1e-13):
     """K4 over shard s's rev_gather: the returned ghost partials (W, Gtot)
     summed onto its owned slots (W, No_max), beside index_add_."""
     sh = h.shards[s]
@@ -4639,7 +4670,7 @@ def _rev_case(h, s, W):
     src = flat * live
     return dict(
         kern=lambda: K.restrict(flat, rg),
-        plain=lambda: K.restrict_plain(flat, rg), tol=1e-13,
+        plain=lambda: K.restrict_plain(flat, rg), tol=tol,
         library=lambda: torch.zeros((W, No), dtype=F64, device=sh.device
                                     ).index_add_(1, idx, src),
         n_bytes=restrict_bytes(flat, rg, No),
@@ -4674,7 +4705,7 @@ def _p21_kernels(dev, mesh, params, u0, hex_mesh, results, also):
         del h
 
 
-def _p21_plan(tag, h):
+def _p21_plan(tag, h, W=5):
     p = h.plan
     Nloc = p.No_max + p.Gtot
     say(f"{tag} plan", D=p.D, No_max=p.No_max, Gtot=p.Gtot,
@@ -4683,7 +4714,7 @@ def _p21_plan(tag, h):
         ghost_share_of_Nloc=f"{p.Gtot / Nloc:.4f}",
         elem_counts="/".join(map(str, p.elem_counts)),
         owned_counts="/".join(map(str, p.owned_counts)),
-        ghost_payload_bytes_per_exchange=5 * 8 * int(p.D * sum(
+        ghost_payload_bytes_per_exchange=W * 8 * int(p.D * sum(
             p.seg_sizes)))
 
 
@@ -5189,12 +5220,351 @@ def phase_halo_ext(dev, card, also):
     paths.update(_p22_drivers(dev))
     return results, paths
 
+# ----------------------------------------------------------------------
+# phase 23: the moving mesh on 4 shards and the solid's halo Newton
+# ----------------------------------------------------------------------
+P23_HCC_N, P23_STEPS, P23_DRV_STEPS = 28, 5, 10
+# the f64 pair of a driver: the tangent and the Krylov in f64 in both
+# runs, and (P23_NEWTON) full Newton steps (the halo Newton carries no
+# modified Newton) stopped by the residual rule alone: the decks' step
+# rules (1e-3 HCC, 1e-6 solid) stop where the two runs' inexact linear
+# solves still part by ~1e-5 of u_z (HCC n = 28) and VM (solid 48^3),
+# and the solid's VM, a gradient on h = 1/48 times E = 1e3, needs its
+# residual at 1e-12 (one Newton iteration more, ~1e-14; the f64 floor is
+# ~2e-15 on 16^3): the same deck in both runs
+P23_F64_DECK = ("solver/nonlinear/tangent_precision = f64\n"
+                "solver/linear/precision = f64\n")
+P23_NEWTON = {"hcc": (("relative_step_tolerance = 1.e-3",
+                       "relative_step_tolerance = 1.e-12"),
+                      ("relative_residual_tolerance = 1.e-6",
+                       "relative_residual_tolerance = 1.e-8")),
+              "solid": (("relative_step_tolerance = 1e-6",
+                         "relative_step_tolerance = 1e-12"),
+                        ("relative_residual_tolerance = 1e-6",
+                         "relative_residual_tolerance = 1e-12"),
+                        ("reuse_tangent = true", "reuse_tangent = false"))}
+P23_OPTS = NewtonOptions(max_nonlinear_iterations=20,
+                         relative_residual_tolerance=1e-8,
+                         linear_precision="f64")
+P23_MOVING = {"tet4": P21_HALO, "mixed": P22_MIX}
+
+
+def _k4_case(flat, table, n_out, tol=1.2e-15):
+    """K4 over `table` (C, n_out) on flat (W, M), beside index_add_ onto
+    the targets the table inverts."""
+    W, dt, dev = flat.shape[0], flat.dtype, flat.device
+    targets = _flat_targets(table, flat.shape[1])
+    return dict(
+        kern=lambda: K.restrict(flat, table),
+        plain=lambda: K.restrict_plain(flat, table), tol=tol,
+        library=lambda: torch.zeros((W, n_out), dtype=dt, device=dev
+                                    ).index_add_(1, targets, flat),
+        n_bytes=restrict_bytes(flat, table, n_out),
+        flops=float(W * int((table < flat.shape[1]).sum())), dtype=dt)
+
+
+def _p23_solid_kernels(S4, x, results, also):
+    """(a) K4 f64 at the largest shard of the halo solid S4 at positions
+    x (N, 3): over its node_gather (the residual, W = 3; the diagonal
+    blocks, W = 9), over its face group's fgather (W = 3) and over its
+    rev_gather (W = 3, 9); and the shard's batched Ke product."""
+    from rdcfes_tpu_torch.systems.transient import ElementBlock
+
+    h = S4._halo
+    s = int(np.argmax(h.plan.elem_counts))
+    sh = h.shards[s]
+    xg = h.ghost_fill(h.scatter_nodal(x.cpu().numpy()))[s]
+    pt = h._pt(SOLID_PT, sh)
+    (Fe, Ke), = h._elements(sh, xg, pt, True)
+    K_ = Ke.shape[2]
+    Nloc = h.plan.No_max + h.plan.Gtot
+    diag = torch.stack([Ke[:, :, i, i, :] for i in range(K_)], dim=2)
+    cases = {
+        "restrict_f64@solid shard residual": _k4_case(
+            Fe.reshape(3, -1).contiguous(), sh.node_gather, Nloc),
+        "restrict_f64@solid shard diagonal": _k4_case(
+            diag.reshape(9, -1).contiguous(), sh.node_gather, Nloc),
+    }
+    for fg in sh.faces:
+        Rf, _ = h._face_terms(fg, xg, pt)
+        cases[f"restrict_f64@solid shard faces {fg['face_type']}"] = \
+            _k4_case(Rf.reshape(3, -1).contiguous(), fg["fgather"], Nloc)
+    for W, what in ((3, ""), (9, " diagonal")):
+        cases[f"restrict_f64@solid shard rev_gather{what}"] = _rev_case(
+            h, s, W, tol=1.2e-15)
+    say("23a solid shard", shard=s, E_s=Fe.shape[-1], Nloc=Nloc,
+        No_max=h.plan.No_max, Gtot=h.plan.Gtot,
+        faces=sum(fg["conn"].shape[0] for fg in sh.faces),
+        C=sh.node_gather.shape[0], Cr=sh.rev_gather.shape[0])
+    run_cases("23a kernel", cases, {}, also, label="", first=results)
+    # the shard matvec's batched element product: a library call
+    blk = sh.blocks[0]["block"]
+    KeB = ElementBlock.batched(Ke)
+    del Fe, Ke, diag
+    u = torch.rand((3, Nloc), dtype=F64, device=sh.device)
+    E = KeB.shape[0]
+    ms = cuda_ms(lambda: blk.dense_apply(KeB, u))
+    say("23a Ke product", call="torch.bmm (E, 3K, 3K) x (E, 3K, 1)", E=E,
+        ms=f"{ms:.4f}", **bound(nbytes(KeB) + 2 * 3 * K_ * E * 8,
+                                2.0 * E * (3 * K_) ** 2, F64))
+
+
+def _p23_solid(dev, results, also):
+    """(a) at the halo solid's largest shard, then (b) one load step of
+    the halo solid against the single-device one."""
+    mesh = box_hex_mesh(SOLID_N, SOLID_N, SOLID_N)
+    kw = dict(materials=SOLID_MATERIALS, bcs=SOLID_BCS, penalty=1.0e6,
+              newton=P23_OPTS, tangent_precision="f64", device=dev)
+    t0 = time.perf_counter()
+    S4 = SolidSystem(mesh, device_mesh=P21_D, **kw)
+    setup4 = time.perf_counter() - t0
+    rng = np.random.default_rng(23)
+    x = S4.initial_positions() + torch.as_tensor(
+        0.05 / SOLID_N * rng.standard_normal((mesh.n_nodes, 3)), dtype=F64,
+        device=dev)
+    _p23_solid_kernels(S4, x, results, also)
+    del x
+    S1 = SolidSystem(mesh, **kw)
+    x0 = S1.initial_positions()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r1 = S1.run_solver(x0, SOLID_PT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter() - t0
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r4 = S4.run_solver(x0, SOLID_PT)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter() - t0
+    counts = K.launch_counts()
+    rel = rel_l2(r4.x, r1.x.cpu().numpy())
+    p = S4._halo.plan
+    say("23b solid", n_elems=mesh.n_elems, n_nodes=mesh.n_nodes,
+        rel_l2=f"{rel:.3e}", bar=1e-8, newton_4_shards=r4.iters,
+        newton_one_device=r1.iters, inner_4_shards=r4.linear_iters,
+        inner_one_device=r1.linear_iters,
+        s_load_step_4_shards=f"{t4:.4f}",
+        s_load_step_one_device=f"{t1:.4f}",
+        setup_s_4_shards=f"{setup4:.4f}", converged=(r1.converged,
+                                                     r4.converged))
+    _p21_plan("23b solid", S4._halo, W=3)
+    say("23b solid launches", **{k: counts.get(k, 0) for k in
+                                 ("restrict_f64", "ell_matvec_f64",
+                                  "ell_matvec_f32", "restrict_f32")})
+    require(r1.converged and r4.converged, "23b: a load step diverged")
+    require(rel <= 1e-8, f"23b: halo solid vs one device {rel:.3e}")
+    require(not any(counts.get(k, 0) for k in ("ell_matvec_f64",
+                                               "ell_matvec_f32")),
+            "23b: K5 launched by the halo Newton")
+    _require_launched(counts, ("restrict_f64",), "the halo Newton")
+    return counts
+
+
+def _p23_hcc_case(root, name, mixed=False):
+    """make_hcc_case(n=28) (TET4) or its mixed case in root/name: (dir,
+    mesh, u0)."""
+    import os
+
+    from rdcfes_tpu_torch import cases
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    d = cases.make_hcc_case(os.path.join(root, name), n=P23_HCC_N,
+                            n_steps=P23_DRV_STEPS, n_loading=1, mixed=mixed)
+    mesh = gmsh.read(os.path.join(d, "HCC_Model.msh"))
+    u0 = np.loadtxt(os.path.join(d, "HCC_Initial_Nodal_Field.dat"))
+    return d, mesh, u0
+
+
+def _p23_moving(dev, root):
+    """(c) the moving halo system against the single-device moving system
+    on the HCC case's TET4 mesh and the mixed case's mesh: P23_STEPS
+    steps each at a smooth displacement, after a warm-up step."""
+    from rdcfes_tpu_torch.models.hcc import hcc_blocks
+    from rdcfes_tpu_torch.parallel import HaloShardedSystem
+    from rdcfes_tpu_torch.systems import MixedTransientRDCSystem
+
+    paths = {}
+    for tag in ("tet4", "mixed"):
+        _, mesh, u0 = _p23_hcc_case(root, f"moving_{tag}", tag == "mixed")
+        size = float(np.ptp(mesh.coords))
+        x = torch.as_tensor(size * _moved(mesh.coords / size, 23, 0.02),
+                            dtype=F64, device=dev)
+        kw = dict(rtol=3e-11, moving_mesh=True, device=dev)
+        h = HaloShardedSystem(mesh, 3, P21_D, hcc_blocks, **kw)
+        one = (MixedTransientRDCSystem if tag == "mixed" else
+               TransientRDCSystem)(mesh, 3, hcc_blocks, precision="f64",
+                                   **kw)
+        a, b = h.initial_state(u0), one.initial_state(u0)
+        h.step(a, params=HCC_LIVE, coords=x)
+        one.step(b, params=HCC_LIVE, coords=x)
+        worst, rels, its_h, its_1, t_h, t_1 = 0.0, [], [], [], 0.0, 0.0
+        counts = {}
+        for _ in range(P23_STEPS):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            a, ih, rh = h.step(a, params=HCC_LIVE, coords=x)
+            torch.cuda.synchronize()
+            t_h += time.perf_counter() - t0
+            for k, v in K.launch_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            t0 = time.perf_counter()
+            b, i1, _ = one.step(b, params=HCC_LIVE, coords=x)
+            torch.cuda.synchronize()
+            t_1 += time.perf_counter() - t0
+            ua, ub = h.gather(a["u"]), b["u"].cpu().numpy()
+            r = float(np.linalg.norm(ua - ub) / np.linalg.norm(ub))
+            rels.append(f"{r:.3e}")
+            worst = max(worst, r)
+            its_h.append(int(ih))
+            its_1.append(int(i1))
+            require(float(rh) <= 3e-11, f"23c {tag}: residual {float(rh)}")
+        require(np.isfinite(ua).all(), f"23c {tag}: state not finite")
+        say(f"23c moving {tag}", steps=P23_STEPS, n_nodes=mesh.n_nodes,
+            n_elems=mesh.n_elems, rel_l2="/".join(rels), bar=1e-8,
+            halo_steps_per_s=f"{P23_STEPS / t_h:.4f}",
+            one_device_steps_per_s=f"{P23_STEPS / t_1:.4f}",
+            halo_iters="/".join(map(str, its_h)),
+            one_device_iters="/".join(map(str, its_1)))
+        _p21_plan(f"23c moving {tag}", h, W=3)
+        say(f"23c moving {tag} launches",
+            **{k: counts.get(k, 0) for k in P23_MOVING[tag]})
+        require(worst <= 1e-8, f"23c {tag}: halo vs one device {worst:.3e}")
+        _require_launched(counts, P23_MOVING[tag],
+                          f"the moving halo {tag} step")
+        paths[f"moving halo {tag}"] = counts
+        del h, one, a, b
+    return paths
+
+
+def _p23_driver_pair(root, tag, argv, make_case, fields, dev):
+    """A driver at parallel/n_devices = 4 and without: the last frame's
+    `fields` as handed to the VTU writer, within 1e-8; the halo systems'
+    calls in the 4-shard run; both runs' scopes.  Returns the 4-shard
+    run's launches."""
+    import os
+    import re
+
+    from rdcfes_tpu_torch.io.vtu import ParaviewWriter
+    from rdcfes_tpu_torch.parallel import HaloShardedSystem, HaloSolidSystem
+
+    runs = {}
+    saved = [(c, m, getattr(c, m)) for c, m in (
+        (ParaviewWriter, "update_pvd"), (HaloShardedSystem, "run_steps"),
+        (HaloSolidSystem, "run_solver"))]
+    for run, extra in (("4 shards", f"parallel/n_devices = {P21_D}\n"),
+                       ("one device", "")):
+        d = make_case(os.path.join(root, f"{tag} {run.split()[0]}"))
+        path = os.path.join(d, "input.dat")
+        deck = open(path).read()
+        for old, new in P23_NEWTON[tag]:
+            require(old in deck, f"23d {tag}: no {old!r} in the deck")
+            deck = deck.replace(old, new)
+        with open(path, "w") as f:
+            f.write(deck + P23_F64_DECK + extra)
+        frames, calls = [], {}
+
+        def record(orig, name):
+            def rec(self, *a, **kw):
+                if name == "update_pvd":
+                    frames.append({n: np.array(v, dtype=np.float64)
+                                   for n, v in a[0]})
+                else:
+                    calls[name] = calls.get(name, 0) + 1
+                return orig(self, *a, **kw)
+            return rec
+
+        for c, m, orig in saved:
+            setattr(c, m, record(orig, m))
+        try:
+            wall, counts, out = _drive(d, list(argv), dev)
+        finally:
+            for c, m, orig in saved:
+                setattr(c, m, orig)
+        runs[run] = (wall, counts, out, frames[-1], calls)
+    a, b = runs["4 shards"][3], runs["one device"][3]
+    errs = {}
+    for k in fields:
+        scale = 1.0 + float(np.abs(b[k]).max())
+        errs[k] = float(np.abs(a[k] - b[k]).max())
+        require(np.allclose(a[k], b[k], rtol=1e-8, atol=1e-8 * scale),
+                f"23d {tag}: {k} differs by {errs[k]:.3e}")
+    calls = runs["4 shards"][4]
+    require(calls.get("run_solver", 0) > 0 and (
+        tag == "solid" or calls.get("run_steps", 0) > 0),
+        f"23d {tag}: the 4-shard run did not go through the halo systems")
+    require(runs["one device"][4] == {},
+            f"23d {tag}: the one-device run went through a halo system")
+    scopes = ("rds solve", "solid solve") if tag == "hcc" else (
+        "newton solve",)
+    say(f"23d {tag} driver", **{
+        f"seconds_{r.split()[0]}": f"{v[0]:.4f}" for r, v in runs.items()},
+        **{f"{k.replace(' ', '_')}_s_{r.split()[0]}":
+           f"{_perf_totals(v[2]).get(k, 0.0):.4f}"
+           for r, v in runs.items() for k in scopes},
+        **{f"{k}_max_abs_diff": f"{e:.3e}" for k, e in errs.items()},
+        halo_calls="/".join(f"{k}={v}" for k, v in sorted(calls.items())),
+        newton="/".join(f"{r.split()[0]}:" + ",".join(
+            re.findall(r"Newton: (\d+) iterations", v[2]))
+            for r, v in runs.items()))
+    return runs["4 shards"][1]
+
+
+def _p23_drivers(dev, root):
+    """(d) `-c hcc` on make_hcc_case(n=28), P23_DRV_STEPS steps and one
+    load step, and `-s` on phase 13's solid deck, 2 load steps, each at
+    4 shards and on one device."""
+    import os
+
+    from rdcfes_tpu_torch.mesh import gmsh
+
+    def solid_case(d):
+        os.makedirs(d)
+        gmsh.write(box_hex_mesh(SOLID_N, SOLID_N, SOLID_N),
+                   os.path.join(d, "input.msh"))
+        with open(os.path.join(d, "input.dat"), "w") as f:
+            f.write(DRV_SOLID_DECK)
+        return d
+
+    paths = {"hcc halo driver": _p23_driver_pair(
+        root, "hcc", ("-c", "hcc"),
+        lambda d: _p23_hcc_case(os.path.dirname(d),
+                                os.path.basename(d))[0],
+        ("c", "u_z", "VM"), dev)}
+    paths["solid halo driver"] = _p23_driver_pair(
+        root, "solid", ("-s",), solid_case, ("u_z", "VM"), dev)
+    _require_launched(paths["hcc halo driver"], P21_HALO + ("restrict_f64",),
+                      "the 4-shard HCC driver")
+    return paths
+
+
+def phase_halo_solid(dev, card, also):
+    """(a, b) the solid's halo Newton on the solid bench mesh, (c) the
+    moving halo system on the HCC meshes, (d) the HCC and solid drivers
+    at 4 shards and on one device.  D = 4 shards, all on `dev`."""
+    import shutil
+    import tempfile
+
+    say("23 card", card=repr(card), shards=P21_D, device=dev)
+    results, paths = {}, {}
+    t0 = time.perf_counter()
+    paths["halo solid"] = _p23_solid(dev, results, also)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="rdcfes_p23_")
+    try:
+        paths.update(_p23_moving(dev, root))
+        paths.update(_p23_drivers(dev, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("23 done", seconds=f"{time.perf_counter() - t0:.4f}")
+    return results, paths
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18,19,20,21,22",
+                    "18,19,20,21,22,23",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5299,6 +5669,11 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
         p22_kern, p22_paths = phase_halo_ext(dev, card, also)
         paths.update(p22_paths)
     lap("22")
+    p23_kern = {}
+    if 23 in phases:
+        p23_kern, p23_paths = phase_halo_solid(dev, card, also)
+        paths.update(p23_paths)
+    lap("23")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -5315,7 +5690,8 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
                  or gen_kern.get(name) or mix_kern.get(name)
                  or p17_kern.get(name) or p18_kern.get(name)
                  or p19_kern.get(name) or p20_kern.get(name)
-                 or p21_kern.get(name) or p22_kern.get(name) or {})
+                 or p21_kern.get(name) or p22_kern.get(name)
+                 or p23_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

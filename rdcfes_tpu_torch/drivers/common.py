@@ -18,7 +18,7 @@ from ..fem.amr import flag_by_mean_stddev, kelly_error_indicator
 from ..io.getpot import export_integers
 from ..mesh import (AdaptiveMesh, MixedConstrained, Tet10Adaptive,
                     adapt_flagged, gmsh, kelly_mixed, refine_flagged)
-from ..parallel import ITEM_14B, HaloShardedSystem
+from ..parallel import HaloShardedSystem
 from ..systems import MixedTransientRDCSystem, TransientRDCSystem
 
 
@@ -93,13 +93,14 @@ class PerfLog:
         print(f" {'TOTAL':<28}{'':>8}{total:>12.4f}", file=out)
 
 
-def require_one_device(deck) -> None:
-    """Deck key `parallel/n_devices` of the solid and coupled HCC drivers
-    (the reference's multi-chip solid): only 0 or 1 is ported."""
+def make_solid_device_mesh(deck) -> Optional[int]:
+    """The solid's `device_mesh` from the deck key `parallel/n_devices`:
+    its shard count D when D > 1 (SolidSystem then runs the halo Newton,
+    parallel/solid_halo.py, on D shards), else None (the reference's
+    make_solid_device_mesh, rdcfes_tpu/drivers/common.py:171-189, which
+    builds a DeviceMesh of D devices)."""
     n_dev = int(deck("parallel/n_devices", 0))
-    if n_dev > 1:
-        raise NotImplementedError(f"parallel/n_devices = {n_dev}: "
-                                  f"{ITEM_14B}")
+    return n_dev if n_dev > 1 else None
 
 
 class Remeshed(NamedTuple):
@@ -250,8 +251,8 @@ def make_rdc_system(mesh, n_vars: int, physics_blocks: Callable, deck, *,
     parallel.halo.shard_devices from `device`), with the deck's rtol, the
     clamp and the hanging-node constraints, on a single-type mesh or a
     MixedMesh: the reference's (rdcfes_tpu/drivers/common.py:109-159).
-    Its constructor raises NotImplementedError (ROADMAP queue 1 item 14b)
-    on a moving mesh.
+    With `moving_mesh=True` it runs the moving mesh on the D shards
+    (coords= in step and run_steps), as the coupled HCC driver asks.
 
     Every system it returns answers initial_state, gather (a state entry
     as the global (N, V) host array), gather_state and scatter_state: the

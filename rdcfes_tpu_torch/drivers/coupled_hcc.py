@@ -33,8 +33,13 @@ full precision as `mesh_coords`, which the reference's resume ignores:
 the Gmsh file has 6 significant digits), `amr_done`, the fibres and a
 MixedMesh's hanging-node rows, and resumes on that mesh.
 
-Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14b), which
-raises NotImplementedError before the first step.
+`parallel/n_devices` = D > 1 runs both halves on D shards: the transport
+through the moving mesh of parallel.halo.HaloShardedSystem (each shard's
+geometry from its ghost-filled positions, built once a segment) and the
+solid through the halo Newton (parallel/solid_halo.py, f64).  Systems
+with hanging nodes (a resumed remeshed MixedMesh) run the solid on one
+device, and a MixedMesh at D > 1 is not remeshed: the driver prints the
+reference's notice and goes on on the fixed mesh.
 """
 
 from __future__ import annotations
@@ -51,8 +56,8 @@ from ..mesh import gmsh
 from ..models.hcc import HCC_VARS, hcc_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
-from .common import (PerfLog, make_rdc_system, maybe_profile,
-                     require_one_device, step_banner)
+from .common import (PerfLog, make_rdc_system, make_solid_device_mesh,
+                     maybe_profile, step_banner)
 from .solid import load_fibres, load_remesher, make_solid
 
 
@@ -82,7 +87,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     dev = cuda_device() if device is None else torch.device(device)
     plog = PerfLog("coupled_hcc")
     deck = Deck(deck_path)
-    require_one_device(deck)
+    n_shards = make_solid_device_mesh(deck)
 
     input_gmsh = deck("input_GMSH", "input.msh")
     input_nodal = deck("input_nodal", "input.nodal")
@@ -133,7 +138,8 @@ def run(deck_path: str = "input.dat", device=None) -> str:
 
     def build(mesh, fibres):
         """Both systems on `mesh`, with the remesher's hanging nodes: the
-        RDC transport on the moving mesh and the solid."""
+        RDC transport on the moving mesh and the solid, on the deck's
+        shards (the solid on one device with hanging nodes)."""
         cons = remesher.constraints
         return (make_rdc_system(mesh, 3, hcc_blocks, deck, device=dev,
                                 moving_mesh=True, constraints=cons),
@@ -152,7 +158,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     fibre_cur = fibres.copy()
 
     def save(t: int):
-        u = state["u"].cpu().numpy()
+        u = rds.gather(state["u"])
         xs = x.cpu().numpy()
         disp = solid.displacement(x).cpu().numpy()
         with plog.scope("vtu output"):
@@ -226,7 +232,12 @@ def run(deck_path: str = "input.dat", device=None) -> str:
                     p_elem = p_j.cpu().numpy()
                     vm_elem = vm_j.cpu().numpy()
                     fibre_cur = fc_j.cpu().numpy()
-            if t in rtp and amr_done < amr_max_steps:
+            if (t in rtp and amr_done < amr_max_steps
+                    and mesh.elem_type == "MIXED" and n_shards is not None):
+                # the reference's notice: no hanging nodes on D shards
+                print(f"remeshing step {t}: mixed-element remeshing is "
+                      "single-chip only; continuing on the fixed mesh")
+            elif t in rtp and amr_done < amr_max_steps:
                 amr_done += 1
                 with plog.scope("remeshing"):
                     gstate = rds.gather_state(state)

@@ -31,8 +31,12 @@ the same split between its accelerator and the CPU); the deck keys
 override.  `solver/linear/fast_gather` is read and ignored: the TPU's
 Beneš-routed SpMV has no counterpart here.
 
-Not ported: `parallel/n_devices` > 1 (ROADMAP queue 1 item 14b), which
-raises NotImplementedError before the first load step.
+`parallel/n_devices` = D > 1 runs each load step on D shards through the
+halo Newton (SolidSystem(device_mesh=D), parallel/solid_halo.py), in f64
+whatever the tangent precision (SolidSystem prints the reference's
+notice).  A system with hanging nodes runs on one device (the resumed
+remeshed MixedMesh), and a MixedMesh at D > 1 is not remeshed: the
+driver prints the reference's notice and goes on on the fixed mesh.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ from ..solvers.newton import NewtonOptions
 from ..systems import SolidSystem
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.device import cuda_device
-from .common import PerfLog, Remesher, require_one_device, step_banner
+from .common import (PerfLog, Remesher, make_solid_device_mesh,
+                     step_banner)
 
 
 def load_newton_options(deck: Deck, device) -> NewtonOptions:
@@ -130,13 +135,17 @@ def load_fibres(deck: Deck, mesh) -> np.ndarray:
 def make_solid(deck: Deck, mesh, fibres: np.ndarray, device,
                constraints: Optional[np.ndarray] = None) -> SolidSystem:
     """The SolidSystem of a deck on `mesh` (the drivers build it again
-    after every remeshing)."""
+    after every remeshing): on `parallel/n_devices` shards
+    (make_solid_device_mesh) unless it has hanging-node constraints,
+    which run on one device, as the reference's resume does."""
+    has_cons = constraints is not None and len(constraints)
     return SolidSystem(
         mesh, materials=load_materials(deck), bcs=load_bcs(deck),
         penalty=deck("BCs/displacement_penalty", 1.0e5), fibres=fibres,
         newton=load_newton_options(deck, device),
         tangent_precision=load_tangent_precision(deck, device),
-        constraints=constraints, device=device)
+        constraints=constraints, device=device,
+        device_mesh=None if has_cons else make_solid_device_mesh(deck))
 
 
 def load_remesher(deck: Deck, tet10_bisection: bool) -> Remesher:
@@ -162,7 +171,7 @@ def run(deck_path: str = "input.dat", device=None) -> str:
     dev = cuda_device() if device is None else torch.device(device)
     plog = PerfLog("solid")
     deck = Deck(deck_path)
-    require_one_device(deck)
+    n_shards = make_solid_device_mesh(deck)
 
     input_gmsh = deck("input_GMSH", "input.msh")
     DIR = provenance.prepare_results_dir(
@@ -257,7 +266,14 @@ def run(deck_path: str = "input.dat", device=None) -> str:
             p_elem = p_j.cpu().numpy()
             vm_elem = vm_j.cpu().numpy()
             fibre_cur = fc_j.cpu().numpy()
-        if l in rtp and amr_done < amr_max_steps:
+        if (l in rtp and amr_done < amr_max_steps
+                and mesh.elem_type == "MIXED" and n_shards is not None):
+            # the halo Newton takes no hanging nodes: the reference's
+            # notice, and the fixed mesh
+            print(f"remeshing step {l}: mixed-element solid remeshing is "
+                  "single-chip only; continuing on the fixed mesh",
+                  file=sys.stderr)
+        elif l in rtp and amr_done < amr_max_steps:
             amr_done += 1
             with plog.scope("remeshing"):
                 ind = np.stack([elemental_to_nodal(mesh, p_elem),

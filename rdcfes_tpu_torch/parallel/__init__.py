@@ -1,8 +1,10 @@
-"""Multi-device runs: the halo-exchange transient system (shards in one
-process, parallel/halo.py) and its smoke run (parallel/dryrun.py)."""
+"""Multi-device runs: the halo-exchange transient system and the solid's
+halo Newton (shards in one process, parallel/halo.py and
+parallel/solid_halo.py), and the transient system's smoke run
+(parallel/dryrun.py)."""
 
-from .halo import (ITEM_14B, HaloPlan, HaloShardedSystem, ShardGroup,
-                   shard_devices)
+from .halo import HaloPlan, HaloShardedSystem, ShardGroup, shard_devices
+from .solid_halo import HaloSolidSystem
 
-__all__ = ["ITEM_14B", "HaloPlan", "HaloShardedSystem", "ShardGroup",
+__all__ = ["HaloPlan", "HaloShardedSystem", "HaloSolidSystem", "ShardGroup",
            "shard_devices"]

@@ -58,15 +58,25 @@ breakdown freezes and stopping rule.  Each shard's elements are kept
 unpadded (the reference pads them to Eb for its SPMD program; the tables
 of HaloPlan keep that padding, and the system drops it).
 
-Not ported here (ROADMAP queue 1 item 14b): the moving mesh (`coords=`)
-and the solid's multi-device system.
+The moving mesh (`moving_mesh=True`, `coords=` in `step` and
+`run_steps`; the coupled HCC driver's transport on the deformed
+configuration): the positions (N, 3) are scattered to (3, No_max) slabs
+(`scatter_coords`, cached by the identity of the array it was given),
+ghost-filled, and each shard builds its blocks' Geometry from its own
+(Nloc, 3) slab through its local connectivity, so a shard holds
+O(N/D + boundary) positions and reads the same bits as one device.
+`step(coords=)` builds it every call, `run_steps(coords=)` once per call.
+
+HaloExchange (ghost_fill, reverse_add, scatter_nodal, gather) is shared
+with the solid's halo Newton (parallel/solid_halo.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -80,8 +90,6 @@ from ..solvers.krylov import (DEFAULT_MAXITER, DEFAULT_RTOL, _dot,
 from ..systems.transient import (_ELEMENT_TYPES, ElementBlock, Geometry,
                                  TransientRDCSystem, clamp_nonnegative)
 from ..utils.device import cuda_device
-
-ITEM_14B = "ROADMAP queue 1 item 14b (multi-device)"
 
 
 @dataclass
@@ -357,6 +365,48 @@ def build_mixed_plan(mesh, D: int,
     return plan, per_block
 
 
+class BlockLayout(NamedTuple):
+    """One element block's place in a plan: its type, its renumbered
+    connectivity in shard order (E_b, K), its element count per shard
+    (D,), its local connectivity (D, K, Eb) and its block-local element
+    ids in shard order (E_b,)."""
+
+    elem_type: str
+    conn_sorted: np.ndarray
+    counts: np.ndarray
+    conn_local: np.ndarray
+    ids: np.ndarray
+
+    def shard_conn(self, s: int) -> np.ndarray:
+        """Shard s's local connectivity (E_s, K), unpadded."""
+        return self.conn_local[s][:, : int(self.counts[s])].T
+
+    def shard_ids(self, s: int) -> np.ndarray:
+        """The block-local ids of shard s's elements, in its order."""
+        a = int(self.counts[:s].sum())
+        return self.ids[a:a + int(self.counts[s])]
+
+
+def plan_blocks(mesh, D: int, constraints: Optional[np.ndarray] = None
+                ) -> Tuple[HaloPlan, List[BlockLayout]]:
+    """The plan of a single-type Mesh (one block) or a MixedMesh
+    (build_mixed_plan, one block per type) on D shards, and each block's
+    BlockLayout."""
+    if mesh.elem_type == "MIXED":
+        plan, per_block = build_mixed_plan(mesh, D, constraints=constraints)
+        starts = np.cumsum([0] + [b.n_elems for b in mesh.blocks])
+        return plan, [BlockLayout(
+            pb["elem_type"], pb["conn_sorted"], pb["counts"],
+            pb["conn_local"],
+            plan.elem_order[pb["sorted_concat_idx"]] - starts[bi])
+            for bi, pb in enumerate(per_block)]
+    plan = HaloPlan.build(mesh, D, constraints=constraints)
+    return plan, [BlockLayout(
+        mesh.elem_type,
+        plan.node_rank[np.asarray(mesh.connectivity)][plan.elem_order],
+        plan.elem_counts, plan.conn_local, plan.elem_order)]
+
+
 # ----------------------------------------------------------------------
 # shards in one process
 # ----------------------------------------------------------------------
@@ -415,7 +465,7 @@ class Shard:
     """One shard's tables on its device: `parts`, one (block index,
     ElementBlock, Geometry) per element block the shard holds elements
     of (the ElementBlock over its local connectivity (K, E_sb) into the
-    (V, Nloc) slab), the K4 tables (node_gather over the parts' corner
+    (V, Nloc) slab; the Geometry None on a moving mesh), the K4 tables (node_gather over the parts' corner
     values concatenated in block order, None when the shard holds no
     element; rev_gather with pad Gtot), the send tables per delta, the
     owned-slot masks and its hanging-node rows."""
@@ -436,131 +486,16 @@ class Shard:
         self.cons = cons
 
 
-class HaloShardedSystem:
-    """The transient RDC system on D shards: the reference's
-    HaloShardedSystem.  State entries are lists of D (V, No_max) slabs,
-    one per shard on its device; `gather` rebuilds the global (N, V)
-    array in the original node order.
+class HaloExchange:
+    """The host transfers and the exchanges of a system on a HaloPlan's
+    shards.  A subclass sets `plan`, `group`, `ops` and `shards` (each
+    with `send`, its per-delta send slots, and `rev_gather`, its K4
+    reverse-add table)."""
 
-    mesh            : a single-type Mesh of any type TransientRDCSystem
-                      takes (TET4, HEX8, TET10, HEX20, HEX27, TRI3,
-                      QUAD4, QUAD8, QUAD9), or a MixedMesh (TET4, HEX8,
-                      PRISM6, PYRAMID5 blocks)
-    n_vars          : number of coupled nodal variables V
-    n_shards        : D
-    physics_blocks  : the qp path's WeakFormBlocks callable, or None
-    physics         : the dense path's WeakForm callable (keyword)
-    clamp, rtol, maxiter : as TransientRDCSystem (the reference's halo
-                      step solves in f64 with BiCGStab)
-    constraints     : (H, 3) hanging-node rows [h, a, b] in original ids
-    device          : the placement (shard_devices): None the card
-    ops             : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS
+    plan: HaloPlan
+    group: "ShardGroup"
+    ops: Ops
 
-    `fields` of step/run_steps: per-shard lists from shard_elem_field
-    (on a MixedMesh each entry a tuple of one tensor per block), or
-    plain numbers.  `step` takes the qp path when physics_blocks is given
-    and every param is a plain number, the dense path otherwise."""
-
-    def __init__(self, mesh, n_vars: int, n_shards: int,
-                 physics_blocks: Optional[Callable] = None,
-                 clamp: Callable = clamp_nonnegative,
-                 rtol: float = DEFAULT_RTOL,
-                 maxiter: int = DEFAULT_MAXITER,
-                 constraints: Optional[np.ndarray] = None,
-                 moving_mesh: bool = False, device=None,
-                 ops: Ops = KERNEL_OPS, physics: Optional[Callable] = None):
-        if moving_mesh:
-            raise NotImplementedError(f"the moving mesh on several "
-                                      f"devices: {ITEM_14B}")
-        mixed = mesh.elem_type == "MIXED"
-        if not mixed and mesh.elem_type not in _ELEMENT_TYPES:
-            raise ValueError(f"{mesh.elem_type} meshes in "
-                             f"HaloShardedSystem")
-        if physics_blocks is None and physics is None:
-            raise ValueError("a transient system needs physics_blocks or "
-                             "physics=")
-        self.mesh = mesh
-        self.n_vars = n_vars
-        self.physics_blocks = physics_blocks
-        self.physics = physics
-        self.clamp = clamp
-        self.rtol = rtol
-        self.maxiter = maxiter
-        self.ops = ops
-        self.group = ShardGroup(shard_devices(n_shards, device))
-        self.device = self.group.devices[0]
-        if mixed:
-            self.plan, per_block = build_mixed_plan(mesh, n_shards,
-                                                    constraints=constraints)
-            starts = np.cumsum([0] + [b.n_elems for b in mesh.blocks])
-            # (elem_type, renumbered conn in shard order, counts (D,),
-            # conn_local (D, K, Eb), block-local element ids in shard
-            # order) per block
-            self._layout = [
-                (pb["elem_type"], pb["conn_sorted"], pb["counts"],
-                 pb["conn_local"], self.plan.elem_order[
-                     pb["sorted_concat_idx"]] - starts[bi])
-                for bi, pb in enumerate(per_block)]
-        else:
-            self.plan = plan = HaloPlan.build(mesh, n_shards,
-                                              constraints=constraints)
-            self._layout = [(mesh.elem_type, plan.node_rank[
-                np.asarray(mesh.connectivity)][plan.elem_order],
-                plan.elem_counts, plan.conn_local, plan.elem_order)]
-        self.shards = self._make_shards(self.plan)
-
-    @property
-    def n_blocks(self) -> int:
-        """The element blocks (one on a single-type mesh)."""
-        return len(self._layout)
-
-    def _make_shards(self, plan: HaloPlan) -> List[Shard]:
-        """Each shard's tables; each block's geometry sliced from the one
-        built on the renumbered mesh, its elements in shard order
-        (unpadded: pad elements would have a degenerate Jacobian)."""
-        Nloc = plan.No_max + plan.Gtot
-        coords_new = torch.as_tensor(self.mesh.coords[plan.node_order],
-                                     dtype=torch.float64, device=self.device)
-        g_all = [ElementBlock(t, conn, self.device).geometry(coords_new)
-                 for t, conn, _, _, _ in self._layout]
-        shards = []
-        for s, dev in enumerate(self.group.devices):
-            as_t = lambda x, dt=None: torch.tensor(
-                np.ascontiguousarray(x), dtype=dt, device=dev)
-            parts, conns = [], []
-            for bi, (etype, _, counts, conn_local, _) in enumerate(
-                    self._layout):
-                n = int(counts[s])
-                if n == 0:
-                    continue  # no element of this block: nothing to launch
-                a = int(counts[:s].sum())
-                conn = conn_local[s][:, :n].T
-                conns.append(conn)
-                parts.append((bi, ElementBlock(etype, conn, dev), Geometry(
-                    *(t[..., a:a + n].contiguous().to(dev)
-                      for t in g_all[bi]))))
-            node_gather = (as_t(block_node_gather(conns, Nloc)) if conns
-                           else None)
-            mask = np.zeros(plan.No_max)
-            mask[: plan.owned_counts[s]] = 1.0
-            cons = None
-            it_mask = mask
-            if plan.has_cons:
-                rows = plan.cons_all[s].T
-                rows = rows[rows[:, 0] < Nloc]  # drop the pad rows
-                if len(rows):
-                    cons = Constraints(rows, dev)
-                it_mask = mask * plan.hang_mask[s]
-            shards.append(Shard(
-                dev, parts, node_gather, as_t(plan.rev_gather[s]),
-                [as_t(t[s], torch.int64) for t in plan.send_idx],
-                as_t(mask, torch.float64), as_t(it_mask, torch.float64),
-                cons))
-        return shards
-
-    # ------------------------------------------------------------------
-    # host <-> shards
-    # ------------------------------------------------------------------
     def scatter_nodal(self, arr) -> List[torch.Tensor]:
         """(N, W) global, original node order -> D slabs (W, No_max)."""
         plan = self.plan
@@ -584,6 +519,165 @@ class HaloShardedSystem:
         out[plan.node_order] = full
         return out
 
+    def ghost_fill(self, x: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """D slabs (W, No_max) -> (W, No_max + Gtot) with the ghosts
+        filled, one exchange per offset class (VecScatter forward)."""
+        parts = [[xs] for xs in x]
+        for di, d in enumerate(self.plan.deltas):
+            bufs = [xs[:, sh.send[di]] for xs, sh in zip(x, self.shards)]
+            for s, r in enumerate(self.group.ppermute(bufs, d)):
+                parts[s].append(r)
+        return [torch.cat(p, dim=1) if len(p) > 1 else p[0] for p in parts]
+
+    def reverse_add(self, y_all: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Local sums (W, No_max + Gtot) -> owned (W, No_max): each ghost
+        segment goes back to its owner (offset -d), where K4 sums the
+        returned partials through rev_gather (VecScatter reverse, ADD)."""
+        plan = self.plan
+        No = plan.No_max
+        if not plan.deltas:
+            return [ya[:, :No] for ya in y_all]
+        back: List[List[torch.Tensor]] = [[] for _ in y_all]
+        off = No
+        for d, S in zip(plan.deltas, plan.seg_sizes):
+            segs = [ya[:, off:off + S] for ya in y_all]
+            for s, r in enumerate(self.group.ppermute(segs, -d)):
+                back[s].append(r)
+            off += S
+        return [ya[:, :No] + self.ops.restrict(torch.cat(bk, dim=1),
+                                                sh.rev_gather)
+                for ya, bk, sh in zip(y_all, back, self.shards)]
+
+    def _restrict_onto(self, table: Optional[torch.Tensor],
+                       parts: List[torch.Tensor], W: int,
+                       device) -> torch.Tensor:
+        """K4 of per-block values (W, ..., K_b, E_b), flattened and
+        concatenated in block order, through `table` onto a (W, Nloc)
+        slab; zeros where there is nothing to restrict."""
+        if not parts:
+            return torch.zeros((W, self.plan.No_max + self.plan.Gtot),
+                               dtype=torch.float64, device=device)
+        flat = [p.reshape(W, -1) for p in parts]
+        flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+        return self.ops.restrict(flat, table)
+
+
+class HaloShardedSystem(HaloExchange):
+    """The transient RDC system on D shards: the reference's
+    HaloShardedSystem.  State entries are lists of D (V, No_max) slabs,
+    one per shard on its device; `gather` rebuilds the global (N, V)
+    array in the original node order.
+
+    mesh            : a single-type Mesh of any type TransientRDCSystem
+                      takes (TET4, HEX8, TET10, HEX20, HEX27, TRI3,
+                      QUAD4, QUAD8, QUAD9), or a MixedMesh (TET4, HEX8,
+                      PRISM6, PYRAMID5 blocks)
+    n_vars          : number of coupled nodal variables V
+    n_shards        : D
+    physics_blocks  : the qp path's WeakFormBlocks callable, or None
+    physics         : the dense path's WeakForm callable (keyword)
+    clamp, rtol, maxiter : as TransientRDCSystem (the reference's halo
+                      step solves in f64 with BiCGStab)
+    constraints     : (H, 3) hanging-node rows [h, a, b] in original ids
+    moving_mesh     : the geometry follows the `coords` (N, 3) that step
+                      and run_steps are given (required then)
+    device          : the placement (shard_devices): None the card
+    ops             : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS
+
+    `fields` of step/run_steps: per-shard lists from shard_elem_field
+    (on a MixedMesh each entry a tuple of one tensor per block), or
+    plain numbers.  `step` takes the qp path when physics_blocks is given
+    and every param is a plain number, the dense path otherwise."""
+
+    def __init__(self, mesh, n_vars: int, n_shards: int,
+                 physics_blocks: Optional[Callable] = None,
+                 clamp: Callable = clamp_nonnegative,
+                 rtol: float = DEFAULT_RTOL,
+                 maxiter: int = DEFAULT_MAXITER,
+                 constraints: Optional[np.ndarray] = None,
+                 moving_mesh: bool = False, device=None,
+                 ops: Ops = KERNEL_OPS, physics: Optional[Callable] = None):
+        mixed = mesh.elem_type == "MIXED"
+        if not mixed and mesh.elem_type not in _ELEMENT_TYPES:
+            raise ValueError(f"{mesh.elem_type} meshes in "
+                             f"HaloShardedSystem")
+        if physics_blocks is None and physics is None:
+            raise ValueError("a transient system needs physics_blocks or "
+                             "physics=")
+        self.mesh = mesh
+        self.n_vars = n_vars
+        self.physics_blocks = physics_blocks
+        self.physics = physics
+        self.clamp = clamp
+        self.rtol = rtol
+        self.maxiter = maxiter
+        self.ops = ops
+        self.group = ShardGroup(shard_devices(n_shards, device))
+        self.device = self.group.devices[0]
+        self.moving_mesh = bool(moving_mesh)
+        self._coords_cache = None  # (the coords scattered, their slabs)
+        self.plan, self._layout = plan_blocks(mesh, n_shards, constraints)
+        self.shards = self._make_shards(self.plan)
+
+    @property
+    def n_blocks(self) -> int:
+        """The element blocks (one on a single-type mesh)."""
+        return len(self._layout)
+
+    def _make_shards(self, plan: HaloPlan) -> List[Shard]:
+        """Each shard's tables; on a fixed mesh each block's geometry
+        sliced from the one built on the renumbered mesh, its elements in
+        shard order (unpadded: pad elements would have a degenerate
+        Jacobian).  A moving mesh's parts carry no geometry: step and
+        run_steps build it from their coords."""
+        Nloc = plan.No_max + plan.Gtot
+        g_all = None
+        if not self.moving_mesh:
+            coords_new = torch.as_tensor(
+                self.mesh.coords[plan.node_order], dtype=torch.float64,
+                device=self.device)
+            g_all = [ElementBlock(b.elem_type, b.conn_sorted,
+                                  self.device).geometry(coords_new)
+                     for b in self._layout]
+        shards = []
+        for s, dev in enumerate(self.group.devices):
+            as_t = lambda x, dt=None: torch.tensor(
+                np.ascontiguousarray(x), dtype=dt, device=dev)
+            parts, conns = [], []
+            for bi, b in enumerate(self._layout):
+                n = int(b.counts[s])
+                if n == 0:
+                    continue  # no element of this block: nothing to launch
+                a = int(b.counts[:s].sum())
+                conn = b.shard_conn(s)
+                conns.append(conn)
+                g = None if g_all is None else Geometry(
+                    *(t[..., a:a + n].contiguous().to(dev)
+                      for t in g_all[bi]))
+                parts.append((bi, ElementBlock(b.elem_type, conn, dev), g))
+            node_gather = (as_t(block_node_gather(conns, Nloc)) if conns
+                           else None)
+            mask = np.zeros(plan.No_max)
+            mask[: plan.owned_counts[s]] = 1.0
+            cons = None
+            it_mask = mask
+            if plan.has_cons:
+                rows = plan.cons_all[s].T
+                rows = rows[rows[:, 0] < Nloc]  # drop the pad rows
+                if len(rows):
+                    cons = Constraints(rows, dev)
+                it_mask = mask * plan.hang_mask[s]
+            shards.append(Shard(
+                dev, parts, node_gather, as_t(plan.rev_gather[s]),
+                [as_t(t[s], torch.int64) for t in plan.send_idx],
+                as_t(mask, torch.float64), as_t(it_mask, torch.float64),
+                cons))
+        return shards
+
+    # ------------------------------------------------------------------
+    # host <-> shards
+    # ------------------------------------------------------------------
     def initial_state(self, u0) -> Dict[str, List[torch.Tensor]]:
         u0 = np.asarray(u0, dtype=np.float64)
         if u0.shape != (self.mesh.n_nodes, self.n_vars):
@@ -623,7 +717,7 @@ class HaloShardedSystem:
             if a.shape[-1] != self.plan.n_elems:
                 raise ValueError(f"axis {axis} has {a.shape[-1]} entries, "
                                  f"expected {self.plan.n_elems} elements")
-            starts = np.cumsum([0] + [len(l[4]) for l in self._layout])
+            starts = np.cumsum([0] + [len(b.ids) for b in self._layout])
             per_block = [a[..., lo:hi]
                          for lo, hi in zip(starts[:-1], starts[1:])]
         out = [[] for _ in self.group.devices]
@@ -652,39 +746,6 @@ class HaloShardedSystem:
                                          plan.elem_counts)
         return out
 
-    # ------------------------------------------------------------------
-    # exchanges
-    # ------------------------------------------------------------------
-    def ghost_fill(self, x: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """D slabs (W, No_max) -> (W, No_max + Gtot) with the ghosts
-        filled, one exchange per offset class (VecScatter forward)."""
-        parts = [[xs] for xs in x]
-        for di, d in enumerate(self.plan.deltas):
-            bufs = [xs[:, sh.send[di]] for xs, sh in zip(x, self.shards)]
-            for s, r in enumerate(self.group.ppermute(bufs, d)):
-                parts[s].append(r)
-        return [torch.cat(p, dim=1) if len(p) > 1 else p[0] for p in parts]
-
-    def reverse_add(self, y_all: Sequence[torch.Tensor]
-                    ) -> List[torch.Tensor]:
-        """Local sums (W, No_max + Gtot) -> owned (W, No_max): each ghost
-        segment goes back to its owner (offset -d), where K4 sums the
-        returned partials through rev_gather (VecScatter reverse, ADD)."""
-        plan = self.plan
-        No = plan.No_max
-        if not plan.deltas:
-            return [ya[:, :No] for ya in y_all]
-        back: List[List[torch.Tensor]] = [[] for _ in y_all]
-        off = No
-        for d, S in zip(plan.deltas, plan.seg_sizes):
-            segs = [ya[:, off:off + S] for ya in y_all]
-            for s, r in enumerate(self.group.ppermute(segs, -d)):
-                back[s].append(r)
-            off += S
-        return [ya[:, :No] + self.ops.restrict(torch.cat(bk, dim=1),
-                                                sh.rev_gather)
-                for ya, bk, sh in zip(y_all, back, self.shards)]
-
     def _fold(self, sh: Shard, y: torch.Tensor, w: float) -> torch.Tensor:
         """C^T on a shard's local partial sums: w y_h onto both masters,
         y_h = 0 (w = 0.5 for vectors, 0.25 for the block-Jacobi's own-row
@@ -710,14 +771,18 @@ class HaloShardedSystem:
         """K4 of a shard's per-block corner values (W, ..., K_b, E_b),
         concatenated in block order, onto its local (W, Nloc) slab; zeros
         on a shard that holds no element."""
-        if not parts:
-            return torch.zeros((W, self.plan.No_max + self.plan.Gtot),
-                               dtype=torch.float64, device=sh.device)
-        flat = [p.reshape(W, -1) for p in parts]
-        flat = flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
-        return self.ops.restrict(flat, sh.node_gather)
+        return self._restrict_onto(sh.node_gather, parts, W, sh.device)
 
-    def _qp_element_stage(self, ug, fields, params):
+    def _parts(self, s: int, geoms) -> List[Tuple[int, ElementBlock,
+                                                  Geometry]]:
+        """Shard s's (block index, ElementBlock, Geometry) triples, with
+        the geometries of `geoms[s]` when a moving step built them."""
+        parts = self.shards[s].parts
+        if geoms is None:
+            return parts
+        return [(bi, blk, g) for (bi, blk, _), g in zip(parts, geoms[s])]
+
+    def _qp_element_stage(self, ug, fields, params, geoms=None):
         """The qp path's element work on every shard and block: K1/K8
         gather and interpolation, the blocks, K2 (or block_rhs), and one
         K4 onto the local slab.  Returns (local b, local diagonal blocks,
@@ -726,7 +791,7 @@ class HaloShardedSystem:
         bl, dl, stacks = [], [], []
         for s, sh in enumerate(self.shards):
             rhs, diag, st = [], [], []
-            for bi, blk, g in sh.parts:
+            for bi, blk, g in self._parts(s, geoms):
                 u_qp, grad_qp = blk.interp(ops, ug[s], g)
                 wfb = self.physics_blocks(
                     u_qp, grad_qp, self._block_fields(s, bi, fields),
@@ -742,11 +807,12 @@ class HaloShardedSystem:
             sh = self.shards[s]
             return self._restrict(sh, [
                 blk.apply(ops, xg, st, g.JxW, g.dphi)
-                for (_, blk, g), st in zip(sh.parts, stacks[s])], V)
+                for (_, blk, g), st in zip(self._parts(s, geoms),
+                                           stacks[s])], V)
 
         return bl, dl, local_apply
 
-    def _dense_element_stage(self, ug, fields, params):
+    def _dense_element_stage(self, ug, fields, params, geoms=None):
         """The dense path's element work on every shard and block: Fe, Ke
         and the diagonal blocks of the WeakForm, one batched product a
         block and matvec."""
@@ -758,7 +824,7 @@ class HaloShardedSystem:
         bl, dl, KeBs = [], [], []
         for s, sh in enumerate(self.shards):
             kern = []
-            for bi, blk, g in sh.parts:
+            for bi, blk, g in self._parts(s, geoms):
                 u_qp, grad_qp = blk.interp(ops, ug[s], g)
                 wf = self.physics(u_qp, grad_qp,
                                   self._block_fields(s, bi, fields), params)
@@ -775,15 +841,17 @@ class HaloShardedSystem:
 
         return bl, dl, local_apply
 
-    def _step_body(self, state, fields, params, qp: bool):
+    def _step_body(self, state, fields, params, qp: bool, geoms=None):
         """One halo step (the reference's _step_shard_qp_fn step_shard and
-        _step_shard with _linear_stage_blocks).  Returns (new_state,
-        iterations, residual)."""
+        _step_shard with _linear_stage_blocks; with `geoms`, the moving
+        mesh's _step_shard_moving and _step_shard_moving_mixed, served on
+        the qp path when it can be).  Returns (new_state, iterations,
+        residual)."""
         V, No = self.n_vars, self.plan.No_max
         shards, group = self.shards, self.group
         stage = self._qp_element_stage if qp else self._dense_element_stage
         bl, dl, local_apply = stage(self.ghost_fill(state["u"]), fields,
-                                    params)
+                                    params, geoms)
         b = self.reverse_add([self._fold(sh, x, 0.5)
                               for sh, x in zip(shards, bl)])
         diag = self.reverse_add([self._fold(sh, x, 0.25)
@@ -834,20 +902,57 @@ class HaloShardedSystem:
                      "u_older": state["u_old"], "u_raw": u_raw}
         return new_state, iters, res
 
+    # ------------------------------------------------------------------
+    # the moving mesh
+    # ------------------------------------------------------------------
+    def scatter_coords(self, coords) -> List[torch.Tensor]:
+        """Node positions (N, 3) (an array or a tensor) -> D (3, No_max)
+        slabs, cached by the identity of `coords` (the coupled driver
+        moves the mesh only at its loading points; the cache holds the
+        object, so its identity is not reused)."""
+        cached = self._coords_cache
+        if cached is not None and cached[0] is coords:
+            return cached[1]
+        host = (coords.detach().cpu().numpy() if torch.is_tensor(coords)
+                else np.asarray(coords))
+        slabs = self.scatter_nodal(host)
+        self._coords_cache = (coords, slabs)
+        return slabs
+
+    def moving_geometry(self, coords) -> List[List[Geometry]]:
+        """Per shard, its blocks' Geometry at the positions `coords`:
+        scatter_coords, ghost_fill, then each block's geometry from the
+        shard's own (Nloc, 3) slab through its local connectivity."""
+        xg = self.ghost_fill(self.scatter_coords(coords))
+        return [[blk.geometry(xg[s].T.contiguous()) for _, blk, _ in
+                 sh.parts] for s, sh in enumerate(self.shards)]
+
+    def _step_geoms(self, coords):
+        """The geometries of a step or run_steps call: built from coords
+        when given (on any mesh, as the reference's halo step), None (the
+        fixed geometry) otherwise; a moving mesh needs coords."""
+        if coords is not None:
+            return self.moving_geometry(coords)
+        if self.moving_mesh:
+            raise ValueError("a moving_mesh system needs the current "
+                             "coords")
+        return None
+
     def step(self, state: Dict, fields: Optional[Dict] = None,
              params: Optional[Dict] = None, coords=None,
              scalars: Optional[Dict] = None):
         """Advance one step.  Returns (new_state, iterations, residual).
         The qp path when the system has physics_blocks and every param is
-        a plain number, else the dense path (the reference's dispatch)."""
-        if coords is not None:
-            raise NotImplementedError(f"coords= (the moving mesh) on "
-                                      f"several devices: {ITEM_14B}")
+        a plain number, else the dense path (the reference's dispatch).
+        `coords` (N, 3): the positions the geometry is built from, on
+        every call (the moving mesh)."""
+        geoms = self._step_geoms(coords)
         fields = {**(fields or {}), **(scalars or {})}
         p = TransientRDCSystem._plain_params(params)
         if self.physics_blocks is not None and p is not None:
-            return self._step_body(state, fields, p, qp=True)
-        return self._step_body(state, fields, dict(params or {}), qp=False)
+            return self._step_body(state, fields, p, qp=True, geoms=geoms)
+        return self._step_body(state, fields, dict(params or {}), qp=False,
+                               geoms=geoms)
 
     def run_steps(self, state: Dict, n: int, fields: Optional[Dict] = None,
                   params: Optional[Dict] = None,
@@ -865,10 +970,11 @@ class HaloShardedSystem:
         values; `field_update(state, aux, tr, *field_args) -> (fields,
         new_aux)` runs before each step on the sharded state (RIPF's
         fields from the carried solution; the fields it returns are
-        per-shard lists, on a MixedMesh of per-block tuples)."""
-        if coords is not None:
-            raise NotImplementedError(f"coords= (the moving mesh) on "
-                                      f"several devices: {ITEM_14B}")
+        per-shard lists, on a MixedMesh of per-block tuples).
+
+        `coords` (N, 3): the positions of the moving mesh, whose geometry
+        is built once for the n steps (the reference builds it once a
+        segment, and every step on a MixedMesh: the same numbers)."""
         if self.physics_blocks is None:
             raise ValueError("run_steps needs physics_blocks (the qp "
                              "path), as the reference's does")
@@ -882,6 +988,7 @@ class HaloShardedSystem:
             if v.shape != (n,):
                 raise ValueError(f"scalar_traj[{k!r}] must have shape "
                                  f"({n},), got {v.shape}")
+        geoms = self._step_geoms(coords)
         fields = {**(fields or {}), **(scalars or {})}
         aux = field_aux
         its, ress = [], []
@@ -891,7 +998,8 @@ class HaloShardedSystem:
             if field_update is not None:
                 fu, aux = field_update(state, aux, tr, *field_args)
                 f = {**f, **fu}
-            state, it, res = self._step_body(state, f, p, qp=True)
+            state, it, res = self._step_body(state, f, p, qp=True,
+                                             geoms=geoms)
             its.append(it)
             ress.append(res)
         ress = (torch.stack(ress) if ress else

@@ -40,8 +40,12 @@ f64 quadrature weights promote JxW, and with it the contraction and the
 assembled values, back to f64; here the whole tangent stays f32, as the
 reference's comments intend.
 
-Not ported: the multi-device halo solve (`device_mesh=`, ROADMAP queue 1
-item 14b), which raises NotImplementedError naming its item.
+`device_mesh=D` (or a parallel.halo.ShardGroup) runs the load step on D
+shards through the halo Newton (parallel/solid_halo.HaloSolidSystem:
+element tangents local to their shard, a distributed BiCGStab), in f64:
+an f32 tangent prints the reference's notice and stays f64, hanging-node
+constraints raise ValueError, as the reference's do; post_process stays
+on one device.
 """
 
 from __future__ import annotations
@@ -63,7 +67,6 @@ from ..solvers.newton import NewtonOptions, NewtonResult, NewtonSolver
 from ..utils.convert import material_tables
 from ..utils.device import cuda_device
 
-_MULTI = "ROADMAP queue 1 item 14b (multi-device)"
 _ELEMENT_TYPES = ("TET4", "HEX8", "TET10", "MIXED")
 
 # B-matrix slot table: (axis v, voigt a) -> gradient component, for the
@@ -156,6 +159,9 @@ class SolidSystem:
     constraints       : (H, 3) hanging-node rows [h, a, b] (x_h = (x_a +
                         x_b) / 2), or None
     tangent_precision : "f64" or "f32" (see the module docstring)
+    device_mesh       : None (one device), a shard count D, placed by
+                        parallel.halo.shard_devices(D, device), or a
+                        parallel.halo.ShardGroup: the halo Newton
     device            : where the tables and positions live; None (the
                         default) is the CUDA card, and raises without one
     ops               : fem.kernels.KERNEL_OPS (default) or PLAIN_OPS
@@ -168,13 +174,23 @@ class SolidSystem:
                  constraints: Optional[np.ndarray] = None,
                  tangent_precision: str = "f64", device=None,
                  ops: Ops = KERNEL_OPS):
-        if device_mesh is not None:
-            raise NotImplementedError(f"device_mesh: {_MULTI}")
         if mesh.elem_type not in _ELEMENT_TYPES:
             raise ValueError(f"solid mechanics supports TET4/HEX8/TET10/"
                              f"MIXED element types, got {mesh.elem_type}")
         if tangent_precision not in ("f64", "f32"):
             raise ValueError(f"tangent_precision {tangent_precision!r}")
+        if device_mesh is not None:
+            if constraints is not None and len(constraints):
+                raise ValueError(
+                    "hanging-node constraints in the solid Newton path are "
+                    "single-chip only (COMPONENTS.md); run with "
+                    "parallel/n_devices = 1")
+            if tangent_precision != "f64":
+                # the reference's notice (rdcfes_tpu/systems/solid.py:
+                # 165-172): the halo Newton carries the f64 tangent only
+                print("solid: tangent_precision=f32 is single-chip only; "
+                      "multi-chip run keeps the f64 tangent", flush=True)
+                tangent_precision = "f64"
         self.mesh = mesh
         self.newton = newton
         self.penalty = float(penalty)
@@ -265,6 +281,18 @@ class SolidSystem:
                 })
         self._newton = NewtonSolver(self.sp, newton, constraints=constraints,
                                     device=dev, ops=ops)
+        self._halo = None
+        if device_mesh is not None:
+            from ..parallel.halo import ShardGroup, shard_devices
+            from ..parallel.solid_halo import HaloSolidSystem
+
+            group = (device_mesh if isinstance(device_mesh, ShardGroup)
+                     else ShardGroup(shard_devices(int(device_mesh), device)))
+            self._halo = HaloSolidSystem(
+                mesh, *(tabs[k] for k in ("young", "poisson", "fibre_k",
+                                          "rates", "fibres")),
+                bcs=bcs, penalty=self.penalty, newton=newton, group=group,
+                device=dev, ops=ops)
 
     # ------------------------------------------------------------------
     def initial_positions(self) -> torch.Tensor:
@@ -376,7 +404,10 @@ class SolidSystem:
     def run_solver(self, x, pseudo_time: float) -> NewtonResult:
         """One load step: Newton-solve equilibrium at pseudo_time from
         positions x (N, 3) (reference run_solver, src/solid_system.C:
-        373-392).  The result's x is (N, 3)."""
+        373-392).  The result's x is (N, 3).  With device_mesh, the halo
+        Newton on its shards."""
+        if self._halo is not None:
+            return self._halo.run_solver(x, pseudo_time)
         x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
         pt = float(pseudo_time)
         res = self._newton.solve(

@@ -24,8 +24,8 @@ tolerance, and the deck's fast necrosis growth amplifies the gap past
 * the reference's step-2 PIHNA checkpoint, resumed in the port's driver,
   ends within 1e-10 relative L2 of the port's uninterrupted run.
 
-What the port does not run raises NotImplementedError before the first
-step, and an entry point without a card raises RuntimeError."""
+Several devices run the ADPM and solid decks to the one-device runs'
+frames, and an entry point without a card raises RuntimeError."""
 
 import io
 import os
@@ -688,28 +688,25 @@ def test_pihna_amr_cases_run(extra, tmp_path, monkeypatch, capsys):
 
 
 def test_adpm_and_solid_unported_raise(tmp_path, monkeypatch, capsys):
-    """ADPM on several devices, which raised until it was ported, runs
-    (its one HEX8 element on shard 0, shards 1-3 empty) to the one-device
-    run's frames; the solid on several devices raises NotImplementedError
-    (item 14b) before a step."""
+    """ADPM and the solid on several devices, which raised until they
+    were ported, run (the one HEX8 element on shard 0, the other shards
+    empty) to the one-device runs' frames."""
     monkeypatch.chdir(tmp_path)
     mesh = box_hex_mesh(1, 1, 1)
     u0 = 1.0 + 0.1 * np.arange(mesh.n_nodes * 3).reshape(-1, 3) / 24
-    runs = []
-    for d, extra in ((tmp_path / "four", "parallel/n_devices = 4\n"),
-                     (tmp_path / "one", "")):
-        d.mkdir()
-        _write_case(str(d), mesh, ADPM_DECK + extra, u0,
-                    np.ones((mesh.n_elems, 3)))
-        runs.append(_run(str(d), lambda: adpm.run("input.dat",
-                                                  device="cpu"),
-                         vtu.ParaviewWriter))
-    assert len(runs[0].frames) > 1
-    _same_frames(runs[0], runs[1])
-    _write_case(str(tmp_path), mesh, SOLID_DECK + "parallel/n_devices = 2\n")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        solid.run("input.dat", device="cpu")
-    assert " ==== Step" not in capsys.readouterr().out
+    for deck, fn, args in ((ADPM_DECK, adpm.run,
+                            (u0, np.ones((mesh.n_elems, 3)))),
+                           (SOLID_DECK, solid.run, ())):
+        runs = []
+        for d, extra in ((tmp_path / f"four_{fn.__module__}",
+                          "parallel/n_devices = 4\n"),
+                         (tmp_path / f"one_{fn.__module__}", "")):
+            d.mkdir()
+            _write_case(str(d), mesh, deck + extra, *args)
+            runs.append(_run(str(d), lambda: fn("input.dat", device="cpu"),
+                             vtu.ParaviewWriter))
+        assert len(runs[0].frames) > 1
+        _same_frames(runs[0], runs[1])
     # remeshing runs (held to the reference in tests/test_torch_solid_ext
     # .py); two elements share their one interior face, so their Kelly
     # indicators are equal and none is flagged

@@ -20,10 +20,11 @@ rdcfes_tpu_torch/parallel/halo.py, every shard on the CPU here):
   tests/test_drivers_multichip.py; the single-device drivers are held to
   the reference elsewhere), and the resumed run's last CSV row equal to
   the uninterrupted run's;
-* the coupled HCC driver with several devices raises NotImplementedError
-  naming item 14b before a step (the solid's: tests/
-  test_torch_drivers.py).  The drivers on a MixedMesh: tests/
-  test_torch_halo_drivers_mixed.py."""
+* the coupled HCC driver on make_hcc_case(n=2) at 2 shards (the moving
+  mesh's transport and the solid's halo Newton) against its one-device
+  run at the same bar (the solid driver's: tests/test_torch_drivers.py
+  and tests/test_torch_solid_halo.py).  The drivers on a MixedMesh:
+  tests/test_torch_halo_drivers_mixed.py."""
 
 import os
 import shutil
@@ -203,23 +204,19 @@ def test_pihna_amr_and_checkpoint_resume(tmp_path):
     assert last[-1] == full[-1]
 
 
-def test_unported_multi_device_paths_raise(tmp_path, monkeypatch, capsys):
-    """The coupled HCC driver on several devices raises
-    NotImplementedError naming item 14b before a step (the moving mesh's
-    system: tests/test_torch_halo.py::test_unported_raise; the solid's:
-    tests/test_torch_drivers.py).  A MixedMesh on several devices, which
-    raised until it was ported, runs: tests/
-    test_torch_halo_drivers_mixed.py::test_mixed_drivers_match_one_device,
-    ::test_pihna_mixed_driver_matches_reference and
-    ::test_pihna_mixed_amr_and_checkpoint_resume."""
+def test_unported_multi_device_paths_raise(tmp_path):
+    """The coupled HCC driver on several devices, which raised until it
+    was ported, runs: make_hcc_case(n=2) at 2 shards gives the one-device
+    run's frames (the RDC state through the moving halo system, the
+    positions through the halo Newton)."""
     from rdcfes_tpu_torch.drivers import coupled_hcc
 
-    d = _case(cases.make_hcc_case, str(tmp_path / "h"), (), PAR.format(2),
-              n=2, n_steps=2, n_loading=1)
-    monkeypatch.chdir(d)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        coupled_hcc.run("input.dat", device="cpu")
-    assert " ==== Step" not in capsys.readouterr().out
+    multi, one = _pair(tmp_path, cases.make_hcc_case, coupled_hcc.run, 2,
+                       n=2, n_steps=2, n_loading=1)
+    assert multi.stdout.count(" ==== Step") == 2
+    assert "   Newton: " in multi.stdout
+    assert len(one.frames) == 3
+    _same_frames(multi, one)
 
 
 # ----------------------------------------------------------------------

@@ -28,9 +28,8 @@ and the models carry the gap past the bars below.  The port runs with
   within 1e-10 relative L2 of the uninterrupted run.
 
 Range errors of RIPF's deck raise ValueError, a zero dose RuntimeError;
-several devices raise NotImplementedError before the first step, a
-MIXED mesh runs to the end, and an entry point without a card raises
-RuntimeError."""
+several devices and a MIXED mesh run to the end, and an entry point
+without a card raises RuntimeError."""
 
 import os
 import shutil

@@ -20,7 +20,10 @@ launches bit-equal and one on a side stream, also on the solid's TET10
 and mixed structures; a solid load step on a MixedMesh, on TET10 and
 with hanging nodes through K4/K5 against the plain versions; the
 multi-device halo system on 3 shards of the card (TET4, HEX8) through
-the kernels against the plain versions and the single-device system.
+the kernels against the plain versions and the single-device system;
+the moving mesh on 4 shards (TET4, HEX8, MIXED) and the solid's halo
+Newton on 4 shards (HEX8, MIXED) the same way, with every instance's
+launch count checked against the steps' own count.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -1054,3 +1057,120 @@ def test_halo_kernel_path_matches_plain_path(cuda, kind):
     flat = torch.rand((5, hk.plan.Gtot), dtype=torch.float64, device=cuda)
     assert rel(kernels.restrict(flat, sh.rev_gather),
                kernels.restrict_plain(flat, sh.rev_gather)) <= 1e-13
+
+
+def _hcc_moving_case(mesh):
+    """(plain-float HCC params, u0 (N, 3), moved coords (N, 3))."""
+    from rdcfes_tpu_torch.models.hcc import default_params as hcc_defaults
+
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(axis=1)
+    s = float(np.ptp(mesh.coords))
+    u0 = np.zeros((mesh.n_nodes, 3))
+    u0[:, 0] = 1.0
+    u0[:, 1] = 0.3 * np.exp(-r2 / (0.05 * s * s))
+    u0[:, 2] = 0.1 * np.exp(-r2 / (0.08 * s * s))
+    p = hcc_defaults()
+    p.update(dt=0.05, diffuse_c=1e-3 * s * s, produce_c=0.2,
+             cells_max_capacity=1.0)
+    coords = mesh.coords + 0.03 * s * np.sin(mesh.coords * 3.0 / s)
+    return {k: float(v) for k, v in p.items()}, u0, coords
+
+
+@pytest.mark.parametrize("kind", ["TET4", "HEX8", "MIXED"])
+def test_moving_halo_kernel_path_matches_plain_path(cuda, kind):
+    """The moving mesh on 4 shards of the card: 3 HCC steps at moved
+    coords through the kernels against 3 through the plain versions
+    within 1e-10, and against the single-device moving system within
+    1e-8; each instance's launches are the step's own count: per step
+    and shard holding a block, one K1/K8 and (TET4) one K2 launch, one
+    K3/K6 per matvec (1 + 2 per BiCGStab iteration), and K4 four times
+    (b, the diagonal, their reverse adds) plus twice per matvec."""
+    from rdcfes_tpu_torch.models.hcc import hcc_blocks
+    from rdcfes_tpu_torch.parallel import HaloShardedSystem
+
+    mesh = {"TET4": lambda: box_tet_mesh(8, 8, 8),
+            "HEX8": lambda: box_hex_mesh(6, 6, 6),
+            "MIXED": lambda: box_mixed_mesh(6, 4, 4)}[kind]()
+    p, u0, coords = _hcc_moving_case(mesh)
+    D = 4
+    kw = dict(rtol=1e-12, moving_mesh=True, device=cuda)
+    hk = HaloShardedSystem(mesh, 3, D, hcc_blocks, **kw)
+    hp = HaloShardedSystem(mesh, 3, D, hcc_blocks, ops=kernels.PLAIN_OPS,
+                           **kw)
+    one = (MixedTransientRDCSystem if kind == "MIXED" else
+           TransientRDCSystem)(mesh, 3, hcc_blocks, **kw)
+    xt = torch.as_tensor(coords, device=cuda)
+    a, b, c = (s.initial_state(u0) for s in (hk, hp, one))
+    its = []
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        a, it, _ = hk.step(a, params=p, coords=xt)
+        its.append(int(it))
+    counts = kernels.launch_counts()
+    for _ in range(3):
+        b, _, _ = hp.step(b, params=p, coords=xt)
+        c, _, _ = one.step(c, params=p, coords=xt)
+    ua = torch.as_tensor(hk.gather(a["u"]))
+    assert rel(ua, torch.as_tensor(hp.gather(b["u"]))) <= 1e-10
+    assert rel(ua, c["u"]) <= 1e-8
+    mv = sum(1 + 2 * i for i in its)
+    held = {}  # instance -> shards holding a block of it
+    for sh in hk.shards:
+        for _, blk, _ in sh.parts:
+            name = (["gather_interp_affine_f64", "rhs_affine_f64"],
+                    "apply_affine_f64") if blk.affine else (
+                [f"gather_interp_generic_f64:{blk.elem_type.lower()}"],
+                f"apply_generic_f64:{blk.elem_type.lower()}")
+            for n in name[0]:
+                held[n] = held.get(n, 0) + 3
+            held[name[1]] = held.get(name[1], 0) + mv
+    busy = sum(1 for sh in hk.shards if sh.parts)
+    held["restrict_f64"] = 4 * 3 * busy + 2 * mv * busy
+    assert {k: counts.get(k, 0) for k in held} == held, counts
+
+
+@pytest.mark.parametrize("kind", ["HEX8", "MIXED"])
+def test_solid_halo_kernel_path_matches_plain_path(cuda, kind):
+    """The solid's halo Newton on 4 shards of the card: one load step
+    through K4 against the plain versions within 1e-10, and against the
+    single-device f64 solve within 1e-8 (MIXED 1e-6); K5 is not on the
+    path, and K4's launches are the Newton's own count (per assembly and
+    shard one launch for the residual and one for the diagonal over the
+    elements and over each face group it holds, per matvec and trial one
+    plus one a face group, and a reverse add each on every shard)."""
+    mesh = {"HEX8": lambda: box_hex_mesh(6, 6, 6),
+            "MIXED": lambda: box_mixed_mesh(6, 4, 4)}[kind]()
+    kw = dict(materials={0: {"young": 1.0e3, "poisson": 0.3}},
+              bcs={0: (0.0, 0.0, 0.0), 5: (np.nan, np.nan, -0.05)},
+              penalty=1.0e6, device=cuda,
+              newton=NewtonOptions(max_nonlinear_iterations=20,
+                                   relative_residual_tolerance=1e-8))
+    D = 4
+    sk = SolidSystem(mesh, device_mesh=D, **kw)
+    sp = SolidSystem(mesh, device_mesh=D, ops=kernels.PLAIN_OPS, **kw)
+    one = SolidSystem(mesh, ops=kernels.PLAIN_OPS, **kw)
+    calls = {"assemble": 0, "residual_norm": 0}
+    halo = sk._halo
+    for name in calls:
+        orig = getattr(halo, name)
+        setattr(halo, name, lambda *a, _o=orig, _n=name: (
+            calls.__setitem__(_n, calls[_n] + 1), _o(*a))[1])
+    kernels.reset_launch_counts()
+    rk = sk.run_solver(sk.initial_positions(), 0.5)
+    counts = kernels.launch_counts()
+    rp = sp.run_solver(sp.initial_positions(), 0.5)
+    r1 = one.run_solver(one.initial_positions(), 0.5)
+    assert rk.converged and rp.converged and r1.converged
+    assert rk.iters == rp.iters
+    assert rel(rk.x, rp.x) <= 1e-10
+    assert rel(rk.x, r1.x) <= (1e-6 if kind == "MIXED" else 1e-8)
+    assert not any(counts.get(k, 0) for k in counts if "ell_matvec" in k)
+    per = [(1 if sh.node_gather is not None else 0) + len(sh.faces)
+           for sh in halo.shards]
+    assemble = 2 * sum(per) + 2 * D
+    apply = sum(per) + D
+    mv = rk.iters + 2 * rk.linear_iters  # one r0 product per solve
+    want = (calls["assemble"] * assemble
+            + (mv + calls["residual_norm"]) * apply)
+    assert calls["assemble"] == rk.iters + 1
+    assert counts.get("restrict_f64", 0) == want, counts

@@ -14,8 +14,8 @@ system, on the CPU (`device="cpu"`: every shard on the CPU):
   over 5 steps on TET4 (qp and dense), HEX8 (qp) and a TET4 mesh with
   hanging nodes; run_steps against per-step step within 1e-11;
 * the placement rule of the shards, the exchanges of ShardGroup, and
-  what still raises (the moving mesh, coords=: ROADMAP queue 1 item
-  14b).
+  the moving mesh (coords=) on 2 shards against the single-device
+  moving system (every type: tests/test_torch_halo_moving.py).
 
 Both packages partition through the same C++ RCB: the reference's
 NumPy fallback splits equal centroids in another order, so the module
@@ -268,20 +268,26 @@ def test_shard_group_collectives():
 
 
 def test_unported_raise():
-    """The moving mesh (moving_mesh=True, coords=) raises
-    NotImplementedError naming item 14b, before any step.  MIXED meshes,
-    which raised until they were ported, build (tests/
-    test_torch_halo_ext.py holds them)."""
+    """The moving mesh, which raised until it was ported, runs:
+    moving_mesh=True with coords= in step and run_steps on 2 shards
+    matches the single-device moving system within 1e-8, and a moving
+    system stepped without coords raises ValueError, as the
+    single-device one does.  MIXED meshes, which raised until they were
+    ported, build (tests/test_torch_halo_ext.py holds them)."""
     assert HaloShardedSystem(box_mixed_mesh(3, 1, 1), 5, 2, pihna_blocks,
                              device="cpu").n_blocks == 3
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        HaloShardedSystem(box_tet_mesh(2, 2, 2), 5, 2, pihna_blocks,
-                          device="cpu", moving_mesh=True)
     mesh = box_tet_mesh(2, 2, 2)
     p, u0 = pihna_case(mesh)
-    h = HaloShardedSystem(mesh, 5, 2, pihna_blocks, device="cpu")
+    coords = mesh.coords + 0.05 * np.sin(mesh.coords)
+    h = HaloShardedSystem(mesh, 5, 2, pihna_blocks, device="cpu",
+                          moving_mesh=True)
+    one = TransientRDCSystem(mesh, 5, pihna_blocks, device="cpu",
+                             moving_mesh=True)
     st = h.initial_state(u0)
-    for call in (lambda: h.step(st, params=p, coords=mesh.coords),
-                 lambda: h.run_steps(st, 2, params=p, coords=mesh.coords)):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            call()
+    want = one.step(one.initial_state(u0), params=p,
+                    coords=torch.as_tensor(coords))[0]["u"].numpy()
+    for out in (h.step(st, params=p, coords=coords),
+                h.run_steps(st, 1, params=p, coords=coords)):
+        assert rel_l2(h.gather(out[0]["u"]), want) <= 1e-8
+    with pytest.raises(ValueError, match="coords"):
+        h.step(st, params=p)

@@ -26,8 +26,9 @@ mesh of TransientRDCSystem, the case and the driver.
   every step) end where the two-step ones end; the step-2 checkpoints of
   both packages resume in the port to the uninterrupted run;
 * make_hcc_case's files byte-equal to the reference's (the Makefile
-  launches rdcfes_tpu_torch.cli), and what is not ported raises before
-  the first step.
+  launches rdcfes_tpu_torch.cli); the driver at `parallel/n_devices = 3`
+  ends where the one-device run ends (the same bars); and what the
+  reference refuses raises before the first step.
 """
 
 import os
@@ -369,17 +370,24 @@ def test_hcc_checkpoint_resumes_in_the_port(hcc_runs, package, tmp_path):
     _check_frames(port.frames[-1:], resumed.frames, _u_scale(port))
 
 
-def test_unported_hcc_paths_raise(tmp_path, monkeypatch, capsys):
-    """Several devices raise NotImplementedError before the first step;
-    a step count that the loading steps do not divide, ValueError; and
+def test_unported_hcc_paths_raise(hcc_runs, tmp_path, monkeypatch,
+                                  capsys):
+    """Several devices, which raised until they were ported, run: the
+    case on 3 shards (the moving halo transport and the halo Newton) ends
+    where the port's one-device run ends (the same bars); a step count
+    that the loading steps do not divide raises ValueError; and
     remeshing a TET10 mesh reaches the uniform refinement, which raises
     ValueError there, as the reference's does.  Remeshing, its
     checkpoint and a MIXED mesh run (tests/test_torch_hcc_ext.py)."""
+    _, port = hcc_runs
+    multi = _run(_case(str(tmp_path / "multi"),
+                       TEST_DECK + "parallel/n_devices = 3\n"),
+                 lambda: coupled_hcc.run("input.dat", device="cpu"),
+                 vtu.ParaviewWriter)
+    assert _summary_lines(multi.stdout) == _summary_lines(port.stdout)
+    _check_frames(port.frames, multi.frames, _u_scale(port))
     monkeypatch.chdir(tmp_path)
     run = lambda: coupled_hcc.run("input.dat", device="cpu")
-    _case(str(tmp_path), "parallel/n_devices = 2\n")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        run()
     _case(str(tmp_path), "")
     deck = (tmp_path / "input.dat").read_text()
     (tmp_path / "input.dat").write_text(

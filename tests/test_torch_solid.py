@@ -415,13 +415,20 @@ def test_assembly_matches_numpy_oracle():
 
 
 def test_unported_solid_options_raise(case):
-    """Only the multi-device solve (item 14b) is refused; a MixedMesh and
-    hanging-node constraints build (their solves are held to the
-    reference in tests/test_torch_solid_ext.py); element types the
-    reference refuses and unknown precisions raise ValueError."""
+    """The multi-device solve, which raised until it was ported, builds
+    the halo Newton on its shards (its solves are held in tests/
+    test_torch_solid_halo.py), and refuses hanging-node constraints with
+    ValueError, as the reference's does; a MixedMesh and hanging-node
+    constraints build (their solves are held to the reference in tests/
+    test_torch_solid_ext.py); element types the reference refuses and
+    unknown precisions raise ValueError."""
     tm, mats = case["tm"], case["mats"]
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        solid.SolidSystem(tm, mats, BCS, device="cpu", device_mesh=object())
+    halo = solid.SolidSystem(tm, mats, BCS, device="cpu",
+                             device_mesh=2)._halo
+    assert halo.plan.D == 2 and halo.face_types == ["QUAD4"]
+    with pytest.raises(ValueError, match="single-chip only"):
+        solid.SolidSystem(tm, mats, BCS, device="cpu", device_mesh=2,
+                          constraints=np.array([[0, 1, 2]]))
     mixed = solid.SolidSystem(mesh_from_reference(jax_box_mixed_mesh(3, 2, 2)),
                               mats, BCS, device="cpu")
     assert [g["face_type"] for g in mixed.bc_groups] == ["QUAD4", "TRI3"]
