@@ -41,7 +41,8 @@ Phases, one output line each (any failure raises, exit code != 0):
   1 build   compile csrc/*.cu with nvcc (sm_90a), one process per source,
             and beside them native/meshkit.cpp with the host g++, seconds
             taken; ptxas's registers, shared memory and spills of every
-            kernel instance
+            kernel instance (K8's HEX20 / HEX27 tile instances also their
+            dynamic shared memory at 5 and 8 species)
   2 kernels each transient kernel against its plain PyTorch version on
             the bench mesh and initial state (f64 within 1e-13, f32 within
             1e-5, relative to the largest plain value), K4 also at the
@@ -290,8 +291,13 @@ Phases, one output line each (any failure raises, exit code != 0):
             blocks at each mesh's bench state, and K4 at their tables
             (f32, f64, the block-Jacobi diagonal), against their plain
             versions (f64 within 1e-13, f32 within 1e-5), timed as in
-            phase 2; K4 at the dense path's W = 25 over the slot table of
-            box_tet_mesh(28), index_add_ beside it; (b) 3 PIHNA steps on
+            phase 2, each K8 row's share of its bound printed; K8 f64 and
+            f32 at HEX20 and HEX27 also on the tile-edge mesh of
+            tests/test_torch_gpu.py (box_hex_mesh(5, 5, 3) raised: 75
+            elements, three 32-element tiles, the last ragged; elements
+            shuffled, nodes jittered) at 1, 5 and 8 species; K4 at the
+            dense path's W = 25 over the slot table of box_tet_mesh(28),
+            index_add_ beside it; (b) 3 PIHNA steps on
             each of the six meshes, mixed precision at rtol 1e-12, kernels
             vs plain versions from a common state, per-step relative L2
             within 1e-10, every instance of the type launched; (c) `-m
@@ -711,11 +717,12 @@ def _ptxas_table(log: str):
 def _demangle(sym: str) -> str:
     """'...20apply_generic_kernelIdLi5ELi8ELi8EE...' ->
     'apply_generic_kernel<d,5,8,8>' (kernels are named after their
-    source: csrc/<stem>.cu holds <stem>_kernel)."""
+    source: csrc/<stem>.cu holds <stem>_kernel or <stem>_<part>_kernel)."""
     import re
 
     stems = "|".join(p.stem for p in _build.CSRC.glob("*.cu"))
-    m = re.search(rf"((?:{stems})_kernel)(?:I([fd])((?:Li\d+E)*))?", sym)
+    m = re.search(rf"((?:{stems})(?:_[a-z]+)?_kernel)"
+                  r"(?:I([fd])((?:Li\d+E)*))?", sym)
     if not m:
         return sym
     args = [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3) or "")
@@ -735,7 +742,25 @@ def phase_build():
         meshkit=mk.path.name)
     for name, regs, smem, st, ld in rows:
         print(f"    ptxas: {name} registers={regs} smem={smem} "
-              f"spill_stores={st} spill_loads={ld}", flush=True)
+              f"spill_stores={st} spill_loads={ld}{_tile_smem(name)}",
+              flush=True)
+
+
+def _tile_smem(name: str) -> str:
+    """K8's tile instances take their shared memory at launch: the
+    corners (V, K, 32) and phi (Q, K) of csrc/gather_interp_generic.cu's
+    tile_smem, here at 5 species and at K.MAX_V."""
+    import re
+
+    m = re.fullmatch(r"gather_interp_generic_tile_kernel<([fd]),(\d+),"
+                     r"(\d+),\d+>", name)
+    if not m:
+        return ""
+    size = 8 if m.group(1) == "d" else 4
+    Kc, Q = int(m.group(2)), int(m.group(3))
+    smem = lambda V: (V * Kc * 32 + Q * Kc) * size
+    return (f" dynamic_smem_v5={smem(5)} "
+            f"dynamic_smem_v{K.MAX_V}={smem(K.MAX_V)}")
 
 
 def cuda_ms(fn, runs: int = 20) -> float:
@@ -3785,6 +3810,8 @@ def phase_solid_ext(dev, also):
 P19_TRI_N, P19_QUAD_N, P19_QUAD2_N, P19_HEX_N = 512, 512, 256, 24
 P19_PATH_STEPS, P19_DRV_STEPS, P19_DENSE_STEPS = 3, 20, 10
 P19_DENSE_N = 28  # the dense path on box_tet_mesh(28, 28, 28)
+# K8's tile-edge mesh: 75 elements, three 32-element tiles, the last ragged
+P19_EDGE_BOX, P19_EDGE_E = (5, 5, 3), 75
 P19_TYPES = {"TRI3": "tri3", "QUAD4": "quad4", "QUAD8": "quad8",
              "QUAD9": "quad9", "HEX20": "hex20", "HEX27": "hex27"}
 _P19_HEX_EDGES = [(0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (2, 3),
@@ -3846,12 +3873,47 @@ def _p19_mesh(elem_type):
                                  bounds=BRAIN), elem_type)
 
 
+def _tile_edge_cases(elem_type, tag, dev):
+    """K8 f64 and f32 at elem_type on the tile-edge mesh (P19_EDGE_BOX
+    raised to elem_type, its elements shuffled, its nodes jittered, as
+    tests/test_torch_gpu.py's) at 1, 5 and K.MAX_V species, against the
+    plain versions."""
+    from rdcfes_tpu_torch.fem.geometry import geometry_factors
+
+    m = _elevate(box_hex_mesh(*P19_EDGE_BOX), elem_type)
+    rng = np.random.default_rng(18)
+    conn = m.connectivity[rng.permutation(m.n_elems)]
+    coords = m.coords + 0.02 * rng.standard_normal(m.coords.shape)
+    phi, _, dphi = geometry_factors(torch.as_tensor(coords, device=dev),
+                                    torch.as_tensor(conn, device=dev),
+                                    elem_type)
+    conn_T = torch.as_tensor(np.ascontiguousarray(conn.T), device=dev)
+    (Q, Kc), E = phi.shape, conn.shape[0]
+    require(E == P19_EDGE_E, f"tile-edge mesh: {E} elements")
+    cases = {}
+    for dt, name, tol in ((F64, "f64", 1e-13), (F32, "f32", P20_F32_TOL)):
+        dp = dphi.to(dt).contiguous()
+        for V in (1, 5, K.MAX_V):
+            u = torch.as_tensor(rng.standard_normal((V, len(coords))),
+                                dtype=dt, device=dev)
+            out = K.gather_interp_generic_plain(u, conn_T, phi, dp)
+            cases[f"gather_interp_generic_{name}:{tag}@tile edge V={V}"] = (
+                dict(kern=lambda u=u, dp=dp: K.gather_interp_generic(
+                         u, conn_T, phi, dp),
+                     plain=lambda u=u, dp=dp: K.gather_interp_generic_plain(
+                         u, conn_T, phi, dp),
+                     tol=tol, n_bytes=nbytes(u, conn_T, dp, *out),
+                     flops=2.0 * 4 * V * Q * Kc * E, dtype=dt))
+    return cases
+
+
 def _p19_kernels(dev, results, also):
     """(a) K1-K3 at TRI3 and K8 / K6 at QUAD4, QUAD8, QUAD9, HEX20 and
     HEX27 against their plain versions with PIHNA's bench blocks at each
-    mesh's bench state, K4 at the new tables (f32, f64 and the
-    block-Jacobi diagonal); K4 at the dense path's W = 25 over the slot
-    table of box_tet_mesh(28)."""
+    mesh's bench state (each K8 row's share of its bound printed; K8 at
+    HEX20 and HEX27 also on the tile-edge mesh), K4 at the new tables
+    (f32, f64 and the block-Jacobi diagonal); K4 at the dense path's W =
+    25 over the slot table of box_tet_mesh(28)."""
     from rdcfes_tpu_torch.fem.assembly import build_sparsity, invert_scatter
 
     for elem_type, tag in P19_TYPES.items():
@@ -3885,7 +3947,18 @@ def _p19_kernels(dev, results, also):
             cases[f"restrict_f32@{tag}"] = restrict_case(flat32, s)
             cases[f"restrict_f64@{tag}"] = restrict_case(flat64, s)
             cases[f"restrict_f64@{tag} diagonal"] = restrict_case(diag64, s)
+            if elem_type in ("HEX20", "HEX27"):
+                cases.update(_tile_edge_cases(elem_type, tag, dev))
         run_cases(f"19a {tag} kernel", cases, results, also)
+        for key in cases:
+            variant, _, sub = key.partition("@")
+            if variant.startswith("gather_interp_generic"):
+                r = results[variant] if not sub else also[variant][sub]
+                say("19a bound", name=key,
+                    E=P19_EDGE_E if sub else mesh.n_elems,
+                    ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                    pct_of_bound=f"{100.0 * r['bound_ms'] / r['ms']:.1f}",
+                    plain_ms=f"{r['plain_ms']:.4f}")
         say(f"19a {tag} shapes", E=mesh.n_elems, N=mesh.n_nodes,
             K=s.conn_T.shape[0], Q=s.geom.JxW.shape[0],
             C=s.node_gather.shape[0])

@@ -13,7 +13,9 @@ instances of K1 and K2 (TET4, TRI3) and of K8 (every element type) within
 plain versions, only f32 instances launched; the K1-K3
 instances of TRI3 and the K6 and K8 instances of QUAD4, QUAD8, QUAD9,
 HEX20 and HEX27, PIHNA steps on TRI3, QUAD9 and HEX27 and a dense-path
-step and `assemble` through the kernels against the plain versions; K6
+step and `assemble` through the kernels against the plain versions; K8's
+HEX20 and HEX27 instances over three element tiles, the last ragged, on
+shuffled elements at 1, 5 and 8 species (f64 within 1e-13, f32 1e-5); K6
 at 1 to 8 species on a mesh whose element count is odd, K4 at widths 1 to 25, and both on a side stream; K5 on the TET4
 and HEX8 ELL structures and on widths and block shapes outside them, two
 launches bit-equal and one on a side stream, also on the solid's TET10
@@ -670,6 +672,61 @@ def test_gather_interp_generic_new_instances_match_plain(cuda, elem_type):
     torch.cuda.synchronize()
     assert all(rel(o, r) < 1e-13 for o, r in zip(out, ref))
     assert kernels.launch_counts()[inst] == before + 1
+
+
+TILE_E = 32  # csrc/gather_interp_generic.cu kTileE: elements a K8 tile
+
+
+def _tile_edge_case(dev, elem_type):
+    """box_hex_mesh(5, 5, 3) raised to elem_type: 75 elements, three of
+    K8's tiles with a ragged last one; the elements shuffled, so node ids
+    are not monotone in e; the nodes jittered."""
+    m = box_hex_mesh(5, 5, 3)
+    coords, conn = elevate_hex(m.coords, m.connectivity,
+                               elem_type == "HEX27")
+    rng = np.random.default_rng(18)
+    conn = conn[rng.permutation(len(conn))]
+    coords = coords + 0.02 * rng.standard_normal(coords.shape)
+    phi, _, dphi = geometry_factors(torch.as_tensor(coords, device=dev),
+                                    torch.as_tensor(conn, device=dev),
+                                    elem_type)
+    conn_T = torch.as_tensor(np.ascontiguousarray(conn.T), device=dev)
+    return phi, dphi.contiguous(), conn_T, len(coords), rng
+
+
+@pytest.mark.parametrize("elem_type", ["HEX20", "HEX27"])
+@pytest.mark.parametrize("n_vars", [1, V, kernels.MAX_V])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_gather_interp_generic_tile_edges_match_plain(cuda, elem_type,
+                                                      n_vars, dtype, tol):
+    """K8's HEX20 / HEX27 instances (a block a tile of elements, all q)
+    over three tiles, the last ragged, on shuffled elements, at 1, 5 and
+    8 species, f64 within 1e-13 and f32 within 1e-5 of the plain version;
+    one launch counted under the variant and under the instance."""
+    phi, dphi, conn_T, N, rng = _tile_edge_case(cuda, elem_type)
+    E = conn_T.shape[1]
+    assert E > 2 * TILE_E and E % TILE_E
+    order = conn_T.min(0).values
+    assert not bool((order[1:] >= order[:-1]).all())
+    x = torch.as_tensor(rng.standard_normal((n_vars, N)), dtype=dtype,
+                        device=cuda)
+    dphi = dphi.to(dtype)
+    variant = ("gather_interp_generic_"
+               + ("f32" if dtype == torch.float32 else "f64"))
+    inst = f"{variant}:{elem_type.lower()}"
+    before = kernels.launch_counts()
+    out = kernels.gather_interp_generic(x, conn_T, phi, dphi)
+    ref = kernels.gather_interp_generic_plain(x, conn_T, phi, dphi)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    Q = phi.shape[0]
+    assert out[0].shape == (n_vars, Q, E)
+    assert out[1].shape == (n_vars, Q, 3, E)
+    assert all(o.dtype == dtype and rel(o, r) < tol
+               for o, r in zip(out, ref))
+    assert after[inst] == before[inst] + 1
+    assert after[variant] == before[variant] + 1
 
 
 @pytest.mark.parametrize("mesh_kind", ["mixed", "tet10"])

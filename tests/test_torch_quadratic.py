@@ -6,7 +6,10 @@ Tolerances: element tables, meshes, Gmsh text and VTU bytes equal;
 geometry and face geometry within 1e-13 of the largest value (the same
 unrolled sums, f64 reassociation only); EDGE3 sides, which the
 reference's face_geometry_factors does not take, against the exact
-perimeter and outward normals at 1e-13; one PIHNA step on the qp path
+perimeter and outward normals at 1e-13; K8's plain version at HEX20 and
+HEX27 within 1e-13 of the reference's interpolate_ue of the gathered
+corners (the same sums over k in the same order, broadcast against term
+by term); one PIHNA step on the qp path
 (PLAIN_OPS, f64, rtol 1e-14) within 1e-10 relative L2 of the reference's
 direct solution: on QUAD9 its eager `assemble`, on one HEX27 its eager
 qp-path operator (tests/torch_helpers.reference_direct_step: the eager
@@ -21,6 +24,7 @@ import torch
 
 import jax.numpy as jnp
 
+from rdcfes_tpu.fem import assembly as jasm
 from rdcfes_tpu.fem import elements as jel
 from rdcfes_tpu.fem import geometry as jgeo
 from rdcfes_tpu.io import vtu as jvtu
@@ -32,7 +36,7 @@ from rdcfes_tpu.mesh import gmsh as jgmsh
 from rdcfes_tpu.models import pihna as jpihna
 from rdcfes_tpu.systems import TransientRDCSystem as JaxSystem
 
-from rdcfes_tpu_torch.fem import elements, geometry
+from rdcfes_tpu_torch.fem import elements, geometry, kernels
 from rdcfes_tpu_torch.fem.kernels import PLAIN_OPS
 from rdcfes_tpu_torch.io import vtu
 from rdcfes_tpu_torch.mesh import core, gmsh
@@ -152,6 +156,34 @@ def test_gmsh_and_vtu_match(t, tmp_path):
     vtu.write_vtu(str(tmp_path / "b.vtu"), m, fields)
     with open(tmp_path / "a.vtu") as a, open(tmp_path / "b.vtu") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("t", ("HEX20", "HEX27"))
+def test_gather_interp_generic_plain_matches_reference(t):
+    """K8's plain version (the corner gather through conn_T, then
+    interpolate_ue) at HEX20 (20, 27) and HEX27 (27, 27), 5 species,
+    within 1e-13 of the reference's interpolate_ue of the gathered
+    corners, on box_hex_mesh(3, 1, 1) raised to t with jittered nodes (so
+    dphi differs per q and element); on CPU tensors the wrapper is its
+    plain version and launches nothing."""
+    jm = _ref_mesh(t, nx=3, jitter=0.03, seed=18)
+    x, conn = jm.coords, jm.connectivity
+    phi, _, dphi = geometry.geometry_factors(torch.as_tensor(x),
+                                             torch.as_tensor(conn), t)
+    u = np.random.default_rng(18).standard_normal((5, len(x)))
+    ref = jasm.interpolate_ue(jnp.asarray(u[:, conn.T]), phi,
+                              jnp.asarray(dphi.numpy()))
+    conn_T = torch.as_tensor(np.ascontiguousarray(conn.T))
+    args = (torch.as_tensor(u), conn_T, phi, dphi)
+    out = kernels.gather_interp_generic_plain(*args)
+    Q, E = phi.shape[0], len(conn)
+    assert out[0].shape == (5, Q, E) and out[1].shape == (5, Q, 3, E)
+    for o, r in zip(out, ref):
+        assert rel(o, r) < TOL
+    before = kernels.launch_counts()
+    for o, w in zip(out, kernels.gather_interp_generic(*args)):
+        assert torch.equal(o, w)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("t", ("QUAD9", "HEX27"))
