@@ -16,7 +16,9 @@ dtype=float32 serving mode with ADPM's local parity at its shipped rtol
 `parallel/n_devices` in the PIHNA driver (phase 21), and the halo system
 on TET10, QUAD4 and MixedMesh, with the mixed PIHNA (AMR) and ADPM
 drivers on 4 shards (phase 22), and the moving mesh and the solid's halo
-Newton on 4 shards, with the HCC and solid drivers there (phase 23).
+Newton on 4 shards, with the HCC and solid drivers there (phase 23), and
+the replicated-iterate system on 4 shards with the block-CSR helpers
+(phase 24).
 
     python3 chip_smoke.py                          # every phase
     python3 chip_smoke.py --phases 0,1,2           # device, build, kernels
@@ -34,6 +36,7 @@ Newton on 4 shards, with the HCC and solid drivers there (phase 23).
     python3 chip_smoke.py --phases 0,1,21          # the multi-device smoke
     python3 chip_smoke.py --phases 0,1,22          # halo: more types, mixed
     python3 chip_smoke.py --phases 0,1,23          # moving halo, halo solid
+    python3 chip_smoke.py --phases 0,1,24          # sharded system, bcsr
 
 Phases, one output line each (any failure raises, exit code != 0):
   0 device  the CUDA device (never the CPU) and nvidia-smi's name and
@@ -271,11 +274,11 @@ Phases, one output line each (any failure raises, exit code != 0):
             process_mesh` in process on the mixed and the TET10 PROTEAS
             case meshes, the ExodusII file read back with scipy (one block
             per element type, their element total, the node count); `-m
-            pihna` with AMR on make_pihna_case(n=28, mixed=True)
+            pihna` with AMR on make_pihna_case(n=20, mixed=True)
             (refinement_step 10, two adaptations, 30 steps, an output
             every 10) and on
-            make_pihna_case(n=28, order=2) (refinement_step 10, one
-            bisection, 20 steps, before the runaway of 16b): elements and
+            make_pihna_case(n=28, order=2) (refinement_step 5, one
+            bisection, 10 steps, before the runaway of 16b): elements and
             hanging nodes after each adaptation, the amr scope's seconds,
             the last frame's cells the refined mesh's, on the mixed mesh
             u_h = (u_a + u_b) / 2 within 1e-12; each run's wall time,
@@ -401,6 +404,23 @@ Phases, one output line each (any failure raises, exit code != 0):
       as the drivers hand them to the VTU writer within 1e-8 (rtol and
       atol 1e-8 (1 + max), the reference's _run_both), the halo systems
       stepped, the solve and newton scopes of both
+  24 the replicated-iterate system (parallel.sharding.
+      ShardedTransientSystem), D = 4 shards all on the card: (a) at
+      shard 0 of the PIHNA bench mesh (32,928 of its 131,712 TET4) K1
+      and K4 f64 over the shard's (C, N) table for the right-hand side,
+      the block-Jacobi diagonal and a matvec's element products, and K8
+      and K4 the same at shard 0 of box_hex_mesh(24) (3,456 HEX8), each
+      against its plain version, timed as in phase 2, index_add_ beside
+      K4; (b) 3 PIHNA steps (the dense physics, f64, rtol 1e-12) on the
+      bench mesh and state against the single-device dense f64 system:
+      step 1 within 3e-8 of each species' scale, every step within
+      1e-4, every residual < 1e-10, K1 and K4 launched over these steps
+      alone, steps/s of both; (c) on the bench mesh's node-pair
+      sparsity with one step's PIHNA operator: K4 over the rows' table
+      against its plain version (index_add_ beside it), bcsr_matvec
+      within 1e-13 of its plain version, solve_bcsr (BiCGStab, block
+      Jacobi, rtol 1e-12) within 1e-10 relative L2 of the plain solve,
+      its residual <= 1e-10
 
 A kernel row's bound is the larger of the bytes its function needs over
 the HBM rate and its operations over the peak rate of their type; K4's
@@ -2971,15 +2991,17 @@ def phase_mixed(dev, also):
 # ----------------------------------------------------------------------
 P17_PROTEAS_N, P17_PROTEAS_STEPS = 28, 20
 # RIPF 30 steps and the mixed AMR run 30 steps with AMR at 10 and 20,
-# an output every 10: the depth the script's time limit leaves (PERF.md
-# §4); the second adaptation refines a MixedMesh that already has hanging
-# nodes and is the one that can coarsen.  TET10 AMR at step 10 of the 20
-# steps before its runaway (phase 16)
+# an output every 10, on make_pihna_case(n=20, mixed=True) (n = 28 until
+# phase 24 came): the depth the script's time limit leaves (PERF.md §4);
+# the second adaptation refines a MixedMesh that already has hanging
+# nodes and is the one that can coarsen.  TET10 AMR at step 5 of 10 (at
+# 10 of 20 until phase 24 came), before its runaway (phase 16)
 P17_RIPF_N, P17_RIPF_STEPS = 24, 30
 RIPF_OUTPUTS = (0, 10, 30)  # the case deck's points up to P17_RIPF_STEPS
+P17_MIX_AMR_N = 20
 P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY, P17_MIX_AMR_PASSES = 30, 10, 2
 P17_MIX_AMR_OUTPUT = 10
-P17_T10_AMR_STEPS, P17_T10_AMR_EVERY = 20, 10
+P17_T10_AMR_STEPS, P17_T10_AMR_EVERY = 10, 5
 PROTEAS_SPECIES = ("hos", "tum", "nec", "vsc", "oed")
 PIHNA_SPECIES = ("n", "c", "h", "v", "a")
 T10_ABSENT = ("apply_generic_f32:tet10", "apply_affine_f64")
@@ -3231,9 +3253,10 @@ def _p17_export(root, msh, kind):
 
 
 def _p17_amr(root, kind, dev, also, first):
-    """`-m pihna` with AMR: on the mixed case (30 steps, the TET4 block
-    refined 1:8 with hanging nodes at steps 10 and 20) or on the TET10
-    case (20 steps, one skeleton bisection at step 10).  The run's checks
+    """`-m pihna` with AMR: on the mixed case at n = 20 (30 steps, the
+    TET4 block refined 1:8 with hanging nodes at steps 10 and 20) or on
+    the TET10 case at n = 28 (10 steps, one skeleton bisection at step
+    5).  The run's checks
     (_drive_mixed), the elements and hanging nodes after each adaptation,
     the mesh of the last frame; then the kernels at the shapes of the
     mesh after the first adaptation, with the state at the end of the
@@ -3248,8 +3271,9 @@ def _p17_amr(root, kind, dev, also, first):
     if kind == "mixed":
         steps, every, passes = (P17_MIX_AMR_STEPS, P17_MIX_AMR_EVERY,
                                 P17_MIX_AMR_PASSES)
-        d = cases.make_pihna_case(os.path.join(root, "amr_mixed"), n=MIX_N,
-                                  n_steps=steps, mixed=True)
+        d = cases.make_pihna_case(os.path.join(root, "amr_mixed"),
+                                  n=P17_MIX_AMR_N, n_steps=steps,
+                                  mixed=True)
         _amr_deck(d, every, passes, "1to8")
         path = os.path.join(d, "input.dat")
         text = open(path).read()
@@ -3264,7 +3288,7 @@ def _p17_amr(root, kind, dev, also, first):
                                   n_steps=steps, order=2)
         _amr_deck(d, every, passes, "bisection")
         want, absent = T10_INSTANCES + ("restrict_f64",), T10_ABSENT
-        every_out = 10
+        every_out = 10  # the case deck's output_step
     tag = f"{kind} pihna amr"
     outputs = list(range(0, steps + 1, every_out))
     counts, out, rdir, calls = _drive_mixed(
@@ -5633,11 +5657,204 @@ def phase_halo_solid(dev, card, also):
     return results, paths
 
 
+# ----------------------------------------------------------------------
+# phase 24: the replicated-iterate system (parallel.sharding), D shards
+# on one card, and the block-CSR helpers
+# ----------------------------------------------------------------------
+P24_D, P24_STEPS, P24_HEX_N, P24_RTOL = 4, 3, 24, 1e-12
+
+
+def _p24_system(mesh, dev, ops=K.KERNEL_OPS):
+    from rdcfes_tpu_torch.models.pihna import pihna_physics
+    from rdcfes_tpu_torch.parallel import ShardedTransientSystem
+
+    return ShardedTransientSystem(mesh, 5, pihna_physics, P24_D,
+                                  rtol=P24_RTOL, device=dev, ops=ops)
+
+
+def _p24_kernels(tag, S, u0, params, results, also):
+    """(a) at shard 0 of S (Eb real elements, the most any shard holds):
+    the gather (K1 on TET4, K8 on HEX8) of the replicated state, and K4
+    over the shard's (C, N) table for the right-hand side, the
+    block-Jacobi diagonal and a matvec's element products, each against
+    its plain version, index_add_ beside K4."""
+    from types import SimpleNamespace as NS
+
+    sh = S.shards[0]
+    blk, g = sh.blk, sh.geom
+    V, N = S.n_vars, S.mesh.n_nodes
+    Kc, Eb = blk.conn_T.shape
+    Q = g.JxW.shape[0]
+    u = S.initial_state(u0).T.contiguous()
+    args = (u, blk.conn_T, blk.phi, g.dphi)
+    if blk.affine:
+        name, kern, plain = ("gather_interp_affine_f64",
+                             K.gather_interp_affine,
+                             K.gather_interp_affine_plain)
+        flops = 2.0 * V * Kc * Eb * (Q + 3)
+    else:
+        name, kern, plain = (f"gather_interp_generic_f64@{tag}",
+                             K.gather_interp_generic,
+                             K.gather_interp_generic_plain)
+        flops = 2.0 * 4 * V * Q * Kc * Eb
+    cases = {name: dict(kern=lambda: kern(*args), plain=lambda: plain(*args),
+                        tol=1e-13, n_bytes=nbytes(*args[:2], g.dphi,
+                                                  *plain(*args)),
+                        flops=flops)}
+    Fe, Ke, diag_e = S.element_kernels(0, u, {}, params)
+    ye = blk.dense_apply(blk.batched(Ke), u)  # the operator on u
+    del Ke
+    shim = NS(node_gather=sh.node_gather, conn_T=blk.conn_T,
+              mesh=NS(n_nodes=N))
+    for what, flat, W in (("rhs", Fe, V), ("diagonal", diag_e, V * V),
+                          ("matvec", ye, V)):
+        cases[f"restrict_f64@{tag} {what}"] = restrict_case(
+            flat.reshape(W, -1).contiguous(), shim)
+    say(f"24a {tag} shard", shard=0, D=S.n_shards, Eb=Eb,
+        E=S.mesh.n_elems, N=N, K=Kc, Q=Q, C=sh.node_gather.shape[0])
+    run_cases("24a kernel", cases, {}, also, label="sharded", first=results)
+
+
+def _p24_steps(mesh, params, u0, dev, card):
+    """(b) P24_STEPS steps of ShardedTransientSystem (PIHNA, f64, rtol
+    1e-12) against the single-device dense f64 system from the same
+    state: step 1 within 3e-8 of each species' scale, every step within
+    1e-4, every residual < 1e-10, K1 and K4 launched over the sharded
+    steps alone; steps/s of both.  Returns (the sharded steps' launches,
+    the single-device system)."""
+    from rdcfes_tpu_torch.models.pihna import pihna_physics
+
+    S = _p24_system(mesh, dev)
+    one = TransientRDCSystem(mesh, 5, physics=pihna_physics,
+                             precision="f64", rtol=P24_RTOL,
+                             precond_refresh=1, device=dev)
+    u, st = S.initial_state(u0), one.initial_state(u0)
+    counts, gaps, its, its1, ress = {}, [], [], [], []
+    t_s = t_1 = 0.0
+    for i in range(P24_STEPS):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        u, it, res = S.step(u, params=params)
+        torch.cuda.synchronize()
+        t_s += time.perf_counter() - t0
+        for k, v in K.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        t0 = time.perf_counter()
+        st, it1, _ = one.step(st, params=params)
+        torch.cuda.synchronize()
+        t_1 += time.perf_counter() - t0
+        a, b = u.cpu().numpy(), st["u"].cpu().numpy()
+        gaps.append(max(float(np.abs(a[:, v] - b[:, v]).max()
+                              / max(np.abs(b[:, v]).max(), 1e-300))
+                        for v in range(5)))
+        its.append(it)
+        its1.append(int(it1))
+        ress.append(float(res))
+        require(ress[-1] < 1e-10, f"24b step {i + 1}: residual "
+                f"{ress[-1]:.3e}")
+    require(np.isfinite(a).all() and (a >= 0).all(),
+            "24b: state not finite and >= 0")
+    say("24b sharded", card=repr(card), D=P24_D, steps=P24_STEPS,
+        worst_species_gap="/".join(f"{x:.3e}" for x in gaps),
+        bars="3e-8 (step 1), 1e-4", residuals="/".join(
+            f"{x:.3e}" for x in ress),
+        sharded_iters="/".join(map(str, its)),
+        one_device_iters="/".join(map(str, its1)),
+        sharded_steps_per_s=f"{P24_STEPS / t_s:.4f}",
+        one_device_steps_per_s=f"{P24_STEPS / t_1:.4f}",
+        n_nodes=mesh.n_nodes, n_elems=mesh.n_elems, Eb=S.Eb)
+    say("24b launches", **{k: counts.get(k, 0) for k in
+                           ("gather_interp_affine_f64", "restrict_f64")})
+    require(gaps[0] <= 3e-8, f"24b step 1: {gaps[0]:.3e} of a species' "
+            f"scale from one device")
+    require(max(gaps) <= 1e-4, f"24b: {max(gaps):.3e} of a species' "
+            f"scale from one device")
+    _require_launched(counts, ("gather_interp_affine_f64", "restrict_f64"),
+                      "the sharded steps")
+    return counts, one
+
+
+def _p24_bcsr(dev, one, params, u0, results, also):
+    """(c) the block-CSR helpers on the bench mesh's node-pair sparsity,
+    with the PIHNA operator and right-hand side of one step
+    (TransientRDCSystem.assemble): K4 over the rows' table against its
+    plain version (index_add_ beside it), bcsr_matvec through K4
+    against the plain matvec (1e-13), solve_bcsr (BiCGStab, block
+    Jacobi, rtol 1e-12) through K4 against the plain solve (relative L2
+    1e-10, residual <= 1e-10), each solve timed after a warm-up one.
+    Returns the timed kernel solve's launches."""
+    from rdcfes_tpu_torch.fem.assembly import scatter_table
+    from rdcfes_tpu_torch.fem.bcsr import bcsr_matvec
+    from rdcfes_tpu_torch.solvers.krylov import solve_bcsr
+
+    u_T = torch.as_tensor(u0.T, device=dev)
+    values, b = one.assemble(u_T, {}, params)
+    sp = one.sp
+    V, N = b.shape
+    cols = torch.as_tensor(sp.cols, device=dev).long()
+    rows = torch.as_tensor(sp.rows, device=dev).long()
+    prod = torch.einsum("vws,ws->vs", values, u_T[:, cols]).contiguous()
+    table = scatter_table(sp.rows, N, dev)
+    run_cases("24c kernel", {"restrict_f64@bcsr rows": dict(
+        kern=lambda: K.restrict(prod, table),
+        plain=lambda: K.restrict_plain(prod, table), tol=1e-13,
+        library=lambda: torch.zeros((V, N), dtype=F64, device=dev
+                                    ).index_add_(1, rows, prod),
+        n_bytes=restrict_bytes(prod, table, N), flops=float(V * sp.nnz))},
+        {}, also, label="sharded", first=results)
+    y = bcsr_matvec(values, sp.rows, cols, u_T, N)
+    mv_err = _err(y, bcsr_matvec(values, sp.rows, cols, u_T, N,
+                                 ops=K.PLAIN_OPS))[1]
+
+    def solve(ops):
+        """A warm-up solve, then one timed: (result, seconds, launches)."""
+        solve_bcsr(values, sp, b, rtol=1e-12, ops=ops)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = solve_bcsr(values, sp, b, rtol=1e-12, ops=ops)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, K.launch_counts()
+
+    rk, t_k, counts = solve(K.KERNEL_OPS)
+    rp, t_p, _ = solve(K.PLAIN_OPS)
+    gap = rel_l2(rk.x, rp.x)
+    say("24c bcsr", nnz=sp.nnz, C=table.shape[0], matvec_rel_err=
+        f"{mv_err:.3e}", iters=rk.iters, plain_iters=rp.iters,
+        residual=f"{float(rk.residual):.3e}", rel_l2_to_plain=f"{gap:.3e}",
+        solve_s=f"{t_k:.4f}", plain_solve_s=f"{t_p:.4f}",
+        restrict_launches=counts.get("restrict_f64", 0))
+    require(mv_err <= 1e-13, f"24c: bcsr_matvec {mv_err:.3e} from plain")
+    require(float(rk.residual) <= 1e-10,
+            f"24c: solve_bcsr residual {float(rk.residual):.3e}")
+    require(gap <= 1e-10, f"24c: solve_bcsr {gap:.3e} from the plain solve")
+    _require_launched(counts, ("restrict_f64",), "solve_bcsr")
+    return counts
+
+
+def phase_sharded(dev, card, also):
+    """(a) the kernels at shard 0 of the PIHNA bench mesh and of HEX8
+    box_hex_mesh(24); (b) the sharded system against the single-device
+    dense system, 3 steps; (c) bcsr_matvec and solve_bcsr on the bench
+    mesh's sparsity.  D = 4 shards, all on `dev`."""
+    say("24 card", card=repr(card), shards=P24_D, device=dev)
+    mesh, params, u0 = bench_case()
+    hex_mesh = box_hex_mesh(P24_HEX_N, P24_HEX_N, P24_HEX_N, bounds=BRAIN)
+    results, paths = {}, {}
+    _p24_kernels("tet4", _p24_system(mesh, dev), u0, params, results, also)
+    _p24_kernels("hex8", _p24_system(hex_mesh, dev),
+                 bench_case(hex_mesh)[2], params, results, also)
+    paths["sharded"], one = _p24_steps(mesh, params, u0, dev, card)
+    paths["sharded bcsr"] = _p24_bcsr(dev, one, params, u0, results, also)
+    return results, paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
-                    "18,19,20,21,22,23",
+                    "18,19,20,21,22,23,24",
                     help="comma-separated phases to run (default: all)")
     phases = {int(x) for x in ap.parse_args(argv).phases.split(",")}
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5747,6 +5964,11 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
         p23_kern, p23_paths = phase_halo_solid(dev, card, also)
         paths.update(p23_paths)
     lap("23")
+    p24_kern = {}
+    if 24 in phases:
+        p24_kern, p24_paths = phase_sharded(dev, card, also)
+        paths.update(p24_paths)
+    lap("24")
     say("walls", **walls, total=round(sum(walls.values()), 1))
     rows = []
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -5764,7 +5986,7 @@ def _run(phases, dev, card, walls, t_lap, oracle) -> int:
                  or p17_kern.get(name) or p18_kern.get(name)
                  or p19_kern.get(name) or p20_kern.get(name)
                  or p21_kern.get(name) or p22_kern.get(name)
-                 or p23_kern.get(name) or {})
+                 or p23_kern.get(name) or p24_kern.get(name) or {})
         row.update({k: first.get(k) for k in keys})
         row.update({k: first[k] for k in k5_keys if k in first})
         if name in kern and name in solid_kern:

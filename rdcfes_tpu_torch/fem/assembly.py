@@ -15,6 +15,11 @@ affine element), `restrict` (the gather-sum through a padded table), and the sol
 `assemble_matrix_gather` / `assemble_vector_gather`, which are `restrict`
 on the flattened element matrices / vectors.  The CUDA kernels of
 fem/kernels.py compute the same functions; these are their plain versions.
+
+`assemble_matrix` / `assemble_vector` are the reference's scatter-add
+forms, (Ke, slot ids) and (Fe, node ids): each call inverts their
+scatter into a K4 table (`scatter_table`), so each sum runs as an
+ordered gather-sum, K4 on the card, never atomics.
 """
 
 from __future__ import annotations
@@ -139,6 +144,21 @@ def ell_structure(sp: NodePairSparsity) -> Tuple[np.ndarray, np.ndarray]:
     return ell_cols, ell_slot
 
 
+def gather_tables(sp: NodePairSparsity, connectivity: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The scatter maps of assembly inverted into padded gather tables
+    (the reference's gather_tables, the same arrays): slot_gather (C,
+    nnz) int32 into the flat (i, j, e)-ordered element-matrix buffer, pad
+    K*K*E, and node_gather (C2, n_nodes) int32 into the flat (k,
+    e)-ordered element-vector buffer, pad K*E."""
+    conn = np.asarray(connectivity)
+    slot_gather = invert_scatter(sp.slots_flat_cf().astype(np.int64),
+                                 sp.nnz)
+    node_gather = invert_scatter(conn.T.reshape(-1).astype(np.int64),
+                                 sp.n_nodes)
+    return slot_gather, node_gather
+
+
 def block_node_gather(connectivities, n_nodes: int) -> np.ndarray:
     """node_gather (C, n_nodes) of several element blocks over one node
     set: the flat source buffer is the blocks' (k, e)-ordered corner
@@ -165,6 +185,24 @@ def invert_scatter(targets: np.ndarray, n_bins: int) -> np.ndarray:
     pos = np.arange(len(targets)) - starts[sorted_t]
     table[pos, sorted_t] = order
     return table.astype(np.int32)
+
+
+def scatter_table(targets, n_bins: int, device) -> torch.Tensor:
+    """invert_scatter(targets, n_bins) as an int32 tensor on `device`: the
+    K4 table of a scatter-add onto n_bins bins from a flat source whose
+    entry i goes to bin targets[i] (an array or a tensor)."""
+    host = (targets.detach().cpu().numpy() if torch.is_tensor(targets)
+            else np.asarray(targets))
+    return torch.as_tensor(invert_scatter(host.reshape(-1), n_bins),
+                           device=device)
+
+
+def k4_restrict(ops=None):
+    """ops.restrict, fem.kernels.KERNEL_OPS's by default: K4 on the card,
+    the plain `restrict` on the CPU."""
+    if ops is None:
+        from .kernels import KERNEL_OPS as ops  # kernels imports this module
+    return ops.restrict
 
 
 def interpolate_ue(ue: torch.Tensor, phi: np.ndarray, dphi: torch.Tensor
@@ -252,3 +290,22 @@ def assemble_vector_gather(Fe: torch.Tensor, node_gather: torch.Tensor,
     flat (V, M) concatenation over element blocks, through node_gather
     (C, N) (pad K*E, or M)."""
     return restrict_op(Fe.reshape(Fe.shape[0], -1), node_gather)
+
+
+def assemble_matrix(Ke: torch.Tensor, slots_flat_cf, nnz: int,
+                    ops=None) -> torch.Tensor:
+    """Block values (V, W, nnz) from element matrices Ke (V, W, K, K, E)
+    and the slot table slots_flat_cf (K*K*E,) of sp.slots_flat_cf() (the
+    reference's scatter-add assemble_matrix, as an ordered gather-sum)."""
+    return assemble_matrix_gather(
+        Ke, scatter_table(slots_flat_cf, nnz, Ke.device), k4_restrict(ops))
+
+
+def assemble_vector(Fe: torch.Tensor, conn_flat_cf, n_nodes: int,
+                    ops=None) -> torch.Tensor:
+    """Nodal rhs (V, n_nodes) from element vectors Fe (V, K, E) and
+    conn_flat_cf (K*E,) = connectivity.T.reshape(-1) (the reference's
+    scatter-add assemble_vector, as an ordered gather-sum)."""
+    return assemble_vector_gather(
+        Fe, scatter_table(conn_flat_cf, n_nodes, Fe.device),
+        k4_restrict(ops))

@@ -1,6 +1,12 @@
 """Block-sparse operators in channel-first layout (torch port of
 rdcfes_tpu.fem.bcsr).
 
+`bcsr_matvec` is the CSR matvec outside the Krylov loops: the per-slot
+products gathered onto their rows by an ordered gather-sum (K4 on the
+card) through the rows' inverted scatter table, where the reference
+scatter-adds; `bcsr_matvec_gather` takes that table made once, as
+solvers.krylov.solve_bcsr does for its loop.
+
 Block values (V, W, nnz) over the node-pair sparsity are re-laid into
 ELLPACK (V, W, L, N) once per linear solve; the SpMV inside the Krylov loop
 is then a gather of x through the column table and a reduction over (w, l)
@@ -12,6 +18,28 @@ existed because gathers were slow on the TPU.
 from __future__ import annotations
 
 import torch
+
+from .assembly import k4_restrict, scatter_table
+
+
+def bcsr_matvec(values: torch.Tensor, rows, cols, x: torch.Tensor,
+                n_nodes: int, ops=None) -> torch.Tensor:
+    """y = A @ x with A in channel-first block CSR: values (V, W, nnz),
+    rows / cols (nnz,) (arrays or tensors), x (W, n_nodes) -> y (V,
+    n_nodes).  y[v, n] sums the slots of row n in slot order, through
+    the rows' table made here (fem.assembly.scatter_table)."""
+    return bcsr_matvec_gather(values, cols, x,
+                              scatter_table(rows, n_nodes, x.device), ops)
+
+
+def bcsr_matvec_gather(values: torch.Tensor, cols, x: torch.Tensor,
+                       row_gather: torch.Tensor, ops=None) -> torch.Tensor:
+    """bcsr_matvec with the rows' table row_gather (C, n_nodes) made once
+    by the caller: ops.restrict (fem.kernels.KERNEL_OPS by default) sums
+    the per-slot products onto their rows."""
+    cols = torch.as_tensor(cols, device=x.device).long()  # no copy if so
+    prod = torch.einsum("vws,ws->vs", values, x[:, cols])
+    return k4_restrict(ops)(prod.contiguous(), row_gather)
 
 
 def extract_diagonal_blocks(values: torch.Tensor,

@@ -32,6 +32,13 @@ _FACE_TYPES = ("TRI3", "TRI6", "QUAD4", "QUAD8", "QUAD9")
 _EDGE_TYPES = ("EDGE2", "EDGE3")
 
 
+def _inv3x3(J: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched 3x3 inverse and determinant, J (..., 3, 3) (the reference's
+    _inv3x3), through _inv3x3_cf on one element."""
+    inv, det = _inv3x3_cf(J[..., None])
+    return inv[..., 0], det[..., 0]
+
+
 def _inv3x3_cf(J: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Channel-first 3x3 inverse: J (..., 3, 3, E) -> (inv, det (..., E))."""
     a = J[..., 0, 0, :]; b = J[..., 0, 1, :]; c = J[..., 0, 2, :]

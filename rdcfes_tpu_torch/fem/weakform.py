@@ -13,11 +13,12 @@ Per quadrature point, every RDC model contributes
 `WeakForm` stacks the five coefficient fields densely (any field may be
 None); `element_vectors` and `element_matrices` build Fe (V, K, E) and
 Ke (V, W, K, K, E) from it, the dense path of systems/transient.py
-(plain torch, as the reference leaves them to XLA).  `WeakFormBlocks`
-keeps each block as a tensor or the Python float 0.0 ("structurally
-absent"), so a deck that turns an operator off drops its blocks from
-every loop below and from the kernels' live-block lists; `to_dense`
-gives its WeakForm.
+(plain torch, as the reference leaves them to XLA);
+`block_element_matrices` builds the same Ke from a WeakFormBlocks.
+`WeakFormBlocks` keeps each block as a tensor or the Python float 0.0
+("structurally absent"), so a deck that turns an operator off drops its
+blocks from every loop below and from the kernels' live-block lists;
+`to_dense` gives its WeakForm.
 The Krylov matvec applies the blocks straight from the coefficients:
 (A x)_i = sum_q JxW [phi_qi C.x_qp + dphi_qi . (D x_qp + E gx_qp)].
 
@@ -418,5 +419,48 @@ def block_diag_affine(wfb: WeakFormBlocks, phi, JxW, dphi) -> torch.Tensor:
                 acc = _accum(terms)
                 cols.append(zero if acc is None else acc)
             row.append(torch.stack(cols, dim=0))
+        out_rows.append(torch.stack(row, dim=0))
+    return torch.stack(out_rows, dim=0)
+
+
+def block_element_matrices(wfb: WeakFormBlocks, phi, JxW, dphi,
+                           grad_const: bool = False) -> torch.Tensor:
+    """Ke (V, W, K, K, E) from the block coefficients: element_matrices'
+    terms on each live (v, w) block alone, a dead block a zero block (the
+    reference's block_element_matrices: the Ke of element_matrices on
+    wfb.to_dense(), without contracting the dead blocks)."""
+    ph = _phi_tensor(phi, JxW)
+    K = ph.shape[1]
+    pp = ph[:, :, None] * ph[:, None, :]  # (Q, K, K)
+    zero = JxW.new_zeros((K, K, JxW.shape[-1]))
+    dphi0 = dphi[0] if grad_const else None  # (K, 3, E)
+    gg = None  # the gradient products, made at the first live E block
+    out_rows = []
+    for v in range(wfb.n_vars):
+        row = []
+        for w in range(wfb.n_vars):
+            c, d, e = wfb.C[v][w], wfb.D[v][w], wfb.E[v][w]
+            terms = []
+            if not _is_zero(c):
+                terms.append(torch.einsum("qe,qij->ije", c * JxW, pp))
+            if not _is_zero(d):
+                Dq = d * JxW[:, None, :]  # (Q, 3, E)
+                if grad_const:
+                    Dphi = torch.einsum("qde,qj->jde", Dq, ph)
+                    terms.append(torch.einsum("jde,ide->ije", Dphi, dphi0))
+                else:
+                    t1 = torch.einsum("qde,qide->qie", Dq, dphi)
+                    terms.append(torch.einsum("qie,qj->ije", t1, ph))
+            if not _is_zero(e):
+                if gg is None:
+                    gg = (torch.einsum("ide,jde->ije", dphi0, dphi0)
+                          if grad_const else
+                          torch.einsum("qide,qjde->qije", dphi, dphi))
+                if grad_const:
+                    terms.append((e * JxW).sum(dim=0) * gg)
+                else:
+                    terms.append(torch.einsum("qe,qije->ije", e * JxW, gg))
+            acc = _accum(terms)
+            row.append(zero if acc is None else acc)
         out_rows.append(torch.stack(row, dim=0))
     return torch.stack(out_rows, dim=0)

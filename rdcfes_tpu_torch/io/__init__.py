@@ -1,6 +1,9 @@
-"""Deck, initial-condition, results-directory, VTU/PVD and CSV IO of the
-drivers (host code; arrays in and out are NumPy)."""
+"""Deck, initial-condition, results-directory, VTU/PVD, CSV and ExodusII
+IO of the drivers (host code; arrays in and out are NumPy)."""
 
-from . import csv_metrics, dat, provenance  # noqa: F401
-from .getpot import Deck, export_integers  # noqa: F401
-from .vtu import ParaviewWriter  # noqa: F401
+from . import csv_metrics, dat, exodus, provenance
+from .getpot import Deck, export_integers
+from .vtu import ParaviewWriter
+
+__all__ = ["Deck", "export_integers", "dat", "ParaviewWriter", "csv_metrics",
+           "exodus", "provenance"]

@@ -1,5 +1,5 @@
-"""Batched finite-strain hyperelastic constitutive model, channel-first
-(torch port of the `_cf` half of rdcfes_tpu.models.hyperelastic).
+"""Batched finite-strain hyperelastic constitutive model (torch port of
+rdcfes_tpu.models.hyperelastic).
 
 Compressible Neo-Hookean strain energy with a fibre (I4) reinforcement term
 and a multiplicative growth decomposition F = Fe Fp, Fp = diag(lambda(t))
@@ -9,17 +9,129 @@ and a multiplicative growth decomposition F = Fe Fp, Fp = diag(lambda(t))
 Cauchy stress pushed forward with the total F and J = det F, and the
 spatial tangent in 6x6 Voigt ordering (00, 11, 22, 01, 12, 02).
 
-Every 3x3 / 6x6 tensor is a nested list of (..., E) tensors (the big axes
-minor), and the arithmetic keeps the reference's operation order, so f64
-results agree to round-off.  Material parameters are per-element tensors.
+The solid path's `stress_and_tangent_cf` keeps every 3x3 / 6x6 tensor
+as a nested list of (..., E) tensors (the big axes minor), and its
+arithmetic keeps the reference's operation order, so f64 results agree
+to round-off.  `stress_and_tangent` (with `kinematics` and the
+per-element `SolidMaterial` record) is the reference's batched form on
+(..., 3, 3) tensors, the same law through einsums and the fourth-order
+tangent contracted in full.  Material parameters are per-element
+tensors.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Tuple
+
 import torch
+
+from ..fem.geometry import _inv3x3
 
 # Voigt index pairs in the reference's ordering (src/hyperelastic.h:14-21)
 VOIGT = ((0, 0), (1, 1), (2, 2), (0, 1), (1, 2), (0, 2))
+
+
+class SolidMaterial(NamedTuple):
+    """Per-element material constants (from the subdomain/material table)."""
+
+    young: torch.Tensor            # (E,)
+    poisson: torch.Tensor          # (E,)
+    fibre_stiffness: torch.Tensor  # (E,)
+    stretch_rate: torch.Tensor     # (E, 3) VolumetricStretchRatio/rate_*
+
+
+def kinematics(grad_X: torch.Tensor, lam: torch.Tensor):
+    """(F, Fe, Fp_inv, J) from the inverse-map gradient grad_X (..., 3, 3),
+    grad_X[d, r] = dX0_d / dx_r on the current configuration
+    (src/solid_system.C:221-229), and the growth stretches lam (..., 3),
+    Fp = diag(lam)."""
+    F, _ = _inv3x3(grad_X)  # deformation gradient = (dX/dx)^-1
+    J = _det3(F)
+    Fp_inv = 1.0 / lam  # diagonal
+    Fe = F * Fp_inv[..., None, :]  # F @ diag(1/lam)
+    return F, Fe, Fp_inv, J
+
+
+def _det3(M):
+    return (
+        M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2]
+                        - M[..., 1, 2] * M[..., 2, 1])
+        - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2]
+                          - M[..., 1, 2] * M[..., 2, 0])
+        + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1]
+                          - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def stress_and_tangent(grad_X: torch.Tensor, lam: torch.Tensor,
+                       eta: torch.Tensor, young: torch.Tensor,
+                       poisson: torch.Tensor, fibre_k: torch.Tensor,
+                       want_tangent: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                  torch.Tensor]:
+    """Cauchy stress (..., 3, 3), Voigt tangent (..., 6, 6) (None without
+    want_tangent) and F (..., 3, 3), batched over the leading axes.
+
+    eta (..., 3): the fibre direction in the reference configuration,
+    used only where fibre_k > 0 (normalized, src/hyperelastic.h:46);
+    young, poisson, fibre_k (...)."""
+    mu = 0.5 * young / (1.0 + poisson)
+    lame = young * poisson / ((1.0 + poisson) * (1.0 - 2.0 * poisson))
+    koppa = fibre_k / 2.0
+
+    F, Fe, Fp_inv, J = kinematics(grad_X, lam)
+
+    # fibre unit vector, active only when fibre stiffness is positive
+    eta_norm = torch.linalg.vector_norm(eta, dim=-1, keepdim=True)
+    A = torch.where((fibre_k > 0.0)[..., None],
+                    eta / torch.where(eta_norm == 0.0, 1.0, eta_norm), 0.0)
+
+    Ce = torch.einsum("...ki,...kj->...ij", Fe, Fe)
+    CeInv, _ = _inv3x3(Ce)
+    Je = _det3(Fe)
+    J_r = 1.0 / J
+
+    dWdI1 = mu / 2.0
+    dWdJe = -mu / Je + 0.5 * lame * Je - 0.5 * lame / Je
+    dWdI4 = -koppa
+    d2WdJe2 = mu / Je**2 + 0.5 * lame + 0.5 * lame / Je**2
+
+    eye = torch.eye(3, dtype=Ce.dtype, device=Ce.device).expand(Ce.shape)
+    dJedCe = 0.5 * Je[..., None, None] * CeInv
+    AA = A[..., :, None] * A[..., None, :]
+
+    S = (2.0 * dWdI1[..., None, None] * eye
+         + 2.0 * dWdJe[..., None, None] * dJedCe
+         + 2.0 * dWdI4[..., None, None] * AA)
+    # push-forward with the total F and J (reference behavior)
+    sigma = (torch.einsum("...iI,...jJ,...IJ->...ij", F, F, S)
+             * J_r[..., None, None])
+
+    if not want_tangent:
+        return sigma, None, F
+
+    # dS/dCe = 4 dWdJe d2Je/dCe2 + 4 d2WdJe2 dJedCe (x) dJedCe
+    Je4 = 0.25 * Je[..., None, None, None, None]
+    CiCi = CeInv[..., :, :, None, None] * CeInv[..., None, None, :, :]
+    Cik_jl = CeInv[..., :, None, :, None] * CeInv[..., None, :, None, :]
+    Cil_jk = CeInv[..., :, None, None, :] * CeInv[..., None, :, :, None]
+    d2Je = Je4 * (CiCi - Cik_jl - Cil_jk)
+    dSdCe = (4.0 * dWdJe[..., None, None, None, None] * d2Je
+             + 4.0 * d2WdJe2[..., None, None, None, None]
+             * dJedCe[..., :, :, None, None] * dJedCe[..., None, None, :, :])
+    # the growth pullback: dCe/dC through the diagonal Fp_inv, a scaling
+    # of the last two indices and a symmetrization
+    w = Fp_inv  # (..., 3)
+    scaled = dSdCe * w[..., None, None, :, None] * w[..., None, None, None, :]
+    dSdC = 0.5 * (scaled + scaled.transpose(-1, -2))
+    # spatial tangent: (1/J) F F F F : dSdC
+    FS = torch.einsum("...iI,...jJ,...IJkl->...ijkl", F, F, dSdC)
+    tsm = (torch.einsum("...kK,...lL,...ijKL->...ijkl", F, F, FS)
+           * J_r[..., None, None, None, None])
+    # condense to 6x6 Voigt
+    tangent = torch.stack([
+        torch.stack([tsm[..., i, j, k, l] for (k, l) in VOIGT], dim=-1)
+        for (i, j) in VOIGT], dim=-2)
+    return sigma, tangent, F
 
 
 # Tangent derivation (as the reference): with Ci = Ce^-1,

@@ -109,6 +109,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (the reference's
+    available(), whose library is built ahead of time)."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 _GMSH_VOL = {4: ("TET4", 4), 5: ("HEX8", 8), 17: ("HEX20", 20),
              12: ("HEX27", 27), 2: ("TRI3", 3), 3: ("QUAD4", 4),
              16: ("QUAD8", 8), 10: ("QUAD9", 9)}

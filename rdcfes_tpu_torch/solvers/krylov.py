@@ -18,7 +18,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ..fem.bcsr import extract_diagonal_blocks
+from ..fem.assembly import NodePairSparsity, scatter_table
+from ..fem.bcsr import bcsr_matvec_gather, extract_diagonal_blocks
 
 DEFAULT_RTOL = 1e-12
 DEFAULT_MAXITER = 5000
@@ -254,3 +255,40 @@ def gmres(matvec: Callable, b: torch.Tensor,
         total += m
     residual = torch.as_tensor(res / safe_bnorm, dtype=dt, device=b.device)
     return SolveResult(x=x, iters=total, residual=residual)
+
+
+# ----------------------------------------------------------------------
+# high-level entry: solve a block-CSR system
+# ----------------------------------------------------------------------
+_METHODS = {"bicgstab": bicgstab, "cg": cg, "gmres": gmres}
+
+
+def solve_bcsr(values: torch.Tensor, sp: NodePairSparsity, b: torch.Tensor,
+               x0: Optional[torch.Tensor] = None, method: str = "bicgstab",
+               rtol: float = DEFAULT_RTOL, maxiter: int = DEFAULT_MAXITER,
+               precondition: bool = True, rows=None, cols=None,
+               diag_slots=None, ops=None) -> SolveResult:
+    """Solve A x = b, A the block values (V, V, nnz) over `sp`, b (V, N),
+    by `method` (bicgstab, cg, gmres) with the block-Jacobi inverse of
+    A's diagonal blocks as M (precondition=True) or none (the reference's
+    solve_bcsr).  rows / cols / diag_slots default to sp's; the rows'
+    table is made once here, and every matvec is fem.bcsr.
+    bcsr_matvec_gather over it with `ops` (fem.kernels.KERNEL_OPS by
+    default)."""
+    dev = values.device
+    row_gather = scatter_table(sp.rows if rows is None else rows,
+                               sp.n_nodes, dev)
+    cols = torch.as_tensor(sp.cols if cols is None else cols,
+                           device=dev).long()
+    matvec = lambda x: bcsr_matvec_gather(values, cols, x, row_gather,
+                                          ops=ops)
+    if precondition:
+        diag_slots = torch.as_tensor(
+            sp.diag_slots if diag_slots is None else diag_slots,
+            device=dev).long()
+        Dinv = block_jacobi_inverse(values, diag_slots)
+        M = lambda r: apply_block_jacobi(Dinv, r)
+    else:
+        M = _identity
+    return _METHODS[method](matvec, b, x0=x0, M=M, rtol=rtol,
+                            maxiter=maxiter)

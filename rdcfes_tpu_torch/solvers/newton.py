@@ -279,3 +279,14 @@ class NewtonSolver:
         return NewtonResult(x=x, iters=k, residual_norm=rnorm,
                             initial_residual_norm=r0, converged=converged,
                             linear_iters=lin_total)
+
+
+def newton_solve(assemble, x0: torch.Tensor, sp: NodePairSparsity,
+                 opts: NewtonOptions = NewtonOptions(), rows=None,
+                 cols=None, diag_slots=None, device=None,
+                 ops: Ops = KERNEL_OPS) -> NewtonResult:
+    """One-shot convenience wrapper around NewtonSolver (the reference's
+    newton_solve, whose rows / cols / diag_slots go unused, as here):
+    NewtonSolver(sp, opts, device=device, ops=ops).solve(assemble, x0)."""
+    return NewtonSolver(sp, opts, device=device, ops=ops).solve(assemble,
+                                                                x0)

@@ -1,5 +1,8 @@
 """Time-stepping and load-stepping systems."""
 
-from .mixed import MixedTransientRDCSystem  # noqa: F401
-from .solid import SolidSystem  # noqa: F401
-from .transient import TransientRDCSystem, clamp_nonnegative  # noqa: F401
+from .mixed import MixedTransientRDCSystem
+from .solid import SolidBC, SolidSystem
+from .transient import TransientRDCSystem, clamp_nonnegative
+
+__all__ = ["TransientRDCSystem", "MixedTransientRDCSystem",
+           "clamp_nonnegative", "SolidSystem", "SolidBC"]

@@ -50,6 +50,7 @@ on one device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -68,6 +69,17 @@ from ..utils.convert import material_tables
 from ..utils.device import cuda_device
 
 _ELEMENT_TYPES = ("TET4", "HEX8", "TET10", "MIXED")
+
+
+@dataclass
+class SolidBC:
+    """One penalty Dirichlet boundary set: displacement per axis, NaN =
+    free (the reference's SolidBC; SolidSystem takes the same data as its
+    `bcs` dict, {boundary_id: displacement})."""
+
+    boundary_id: int
+    displacement: Tuple[float, float, float]
+
 
 # B-matrix slot table: (axis v, voigt a) -> gradient component, for the
 # Voigt ordering (00, 11, 22, 01, 12, 02)

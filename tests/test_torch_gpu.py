@@ -25,7 +25,9 @@ multi-device halo system on 3 shards of the card (TET4, HEX8) through
 the kernels against the plain versions and the single-device system;
 the moving mesh on 4 shards (TET4, HEX8, MIXED) and the solid's halo
 Newton on 4 shards (HEX8, MIXED) the same way, with every instance's
-launch count checked against the steps' own count.
+launch count checked against the steps' own count; the replicated-iterate
+system (parallel.sharding) on 3 shards and the block-CSR helpers
+(bcsr_matvec, assemble_matrix / assemble_vector, solve_bcsr) through K4.
 
 Every test needs a CUDA device and skips without one.  The file imports no
 JAX, so on a machine without it run it as
@@ -1231,3 +1233,84 @@ def test_solid_halo_kernel_path_matches_plain_path(cuda, kind):
             + (mv + calls["residual_norm"]) * apply)
     assert calls["assemble"] == rk.iters + 1
     assert counts.get("restrict_f64", 0) == want, counts
+
+
+@pytest.mark.parametrize("kind", ["TET4", "HEX8", "QUAD4"])
+def test_sharded_kernel_path_matches_plain_path(cuda, kind):
+    """The replicated-iterate system (parallel.sharding) on 3 shards of
+    the card: 2 dense PIHNA steps through the kernels (K1 or K8, K4)
+    against 2 through the plain versions within 1e-10, and against the
+    single-device dense system (f64) within 1e-8 a step; the gather and
+    K4 launched."""
+    from rdcfes_tpu_torch.parallel import ShardedTransientSystem
+
+    mesh = {"TET4": lambda: box_tet_mesh(6, 6, 6),
+            "HEX8": lambda: box_hex_mesh(5, 5, 5),
+            "QUAD4": lambda: box_quad_mesh(12, 12)}[kind]()
+    p = {k: float(v) for k, v in _pihna_live_params().items()}
+    r2 = ((mesh.coords - mesh.coords.mean(0)) ** 2).sum(1)
+    u0 = np.zeros((mesh.n_nodes, 5))
+    u0[:, 1] = 2000 * np.exp(-r2 / 3)
+    u0[:, 3] = 7200 * np.exp(-r2 / 20)
+    u0[:, 4] = 1e-10
+    sk = ShardedTransientSystem(mesh, 5, pihna_physics, 3, device=cuda)
+    sp = ShardedTransientSystem(mesh, 5, pihna_physics, 3, device=cuda,
+                                ops=kernels.PLAIN_OPS)
+    one = TransientRDCSystem(mesh, 5, physics=pihna_physics, rtol=1e-12,
+                             precision="f64", device=cuda)
+    assert {sh.device.index for sh in sk.shards} == set(
+        range(min(3, torch.cuda.device_count())))
+    a, b, c = sk.initial_state(u0), sp.initial_state(u0), one.initial_state(
+        u0)
+    gather = {"TET4": "gather_interp_affine_f64:tet4",
+              "HEX8": "gather_interp_generic_f64:hex8",
+              "QUAD4": "gather_interp_generic_f64:quad4"}[kind]
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        a, its, ra = sk.step(a, params=p)
+        counts = kernels.launch_counts()
+        # one gather a shard; K4 for b, the diagonal and 2 matvecs an
+        # iteration, on every shard
+        assert counts[gather] == 3, counts
+        assert counts["restrict_f64"] == 3 * (2 + 2 * its + 1), counts
+        b, _, _ = sp.step(b, params=p)
+        c, _, _ = one.step(c, params=p)
+        assert float(ra) <= 1e-12
+        assert rel(a, b) <= 1e-10 and rel(a, c["u"]) <= 1e-8
+
+
+def test_bcsr_and_scatter_assembly_on_the_card(cuda):
+    """bcsr_matvec, assemble_matrix and assemble_vector through K4 against
+    the plain versions (1e-13), and solve_bcsr through them against the
+    plain solve (1e-10); K4 launched, the CUDA tensors never sent to a
+    plain version."""
+    from rdcfes_tpu_torch.solvers.krylov import solve_bcsr
+
+    mesh = box_tet_mesh(6, 6, 6)
+    N, E = mesh.n_nodes, mesh.n_elems
+    sp = assembly.build_sparsity(mesh.connectivity, N)
+    rng = np.random.default_rng(19)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    values, x = t(rng.standard_normal((2, 3, sp.nnz))), t(
+        rng.standard_normal((3, N)))
+    Ke, Fe = t(rng.standard_normal((2, 3, 4, 4, E))), t(
+        rng.standard_normal((2, 4, E)))
+    slots, conn = sp.slots_flat_cf(), mesh.connectivity.T.reshape(-1)
+    kernels.reset_launch_counts()
+    for fn in (lambda o: bcsr.bcsr_matvec(values, sp.rows, sp.cols, x, N,
+                                          ops=o),
+               lambda o: assembly.assemble_matrix(Ke, slots, sp.nnz, ops=o),
+               lambda o: assembly.assemble_vector(Fe, conn, N, ops=o)):
+        out = fn(None)
+        assert out.is_cuda and rel(out, fn(kernels.PLAIN_OPS)) <= 1e-13
+    assert kernels.launch_counts()["restrict_f64"] == 3
+    # an SPD system: element blocks R R^T + I assembled
+    R = rng.standard_normal((E, 8, 8)) * 0.3
+    Me = R @ R.transpose(0, 2, 1) + np.eye(8)[None]
+    A = assembly.assemble_matrix(
+        t(Me.reshape(E, 2, 4, 2, 4).transpose(1, 3, 2, 4, 0)), slots, sp.nnz)
+    b = t(rng.standard_normal((2, N)))
+    got = solve_bcsr(A, sp, b, rtol=1e-12)
+    want = solve_bcsr(A, sp, b, rtol=1e-12, ops=kernels.PLAIN_OPS)
+    assert float(got.residual) <= 1e-12
+    assert rel(got.x, want.x) <= 1e-10
